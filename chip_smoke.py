@@ -1,10 +1,13 @@
 """Smoke run of the PyTorch/CUDA engine (polars_ols_tpu_torch) on one GPU.
 
-Builds the hand-written CUDA kernels from this checkout, checks each one
-against its plain PyTorch version on the card, drives the grouped-OLS main
-path once at full width through the public API (8,000,000 rows x 5 features
-x 10,000 groups, f64: the workload of bench.py), checks the results against
-numpy, and times it.
+Builds the hand-written CUDA kernels from this checkout (one nvcc per
+source, all at once), runs the probe kernel's entry point, checks each
+kernel against its plain PyTorch version on the card, drives the
+grouped-OLS main path and the static fits (the five null policies, WLS,
+residuals, explicit lu / qr / svd) once at full width through the public
+API (8,000,000 rows x 5 features x 10,000 groups, f64: the workload of
+bench.py, with ~1 % nulls per column in half of the groups and a weight
+column), checks the results against numpy, and times them.
 
 Run from the repository root with no arguments:
 
@@ -22,6 +25,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -31,6 +35,10 @@ N_GROUPS = 10_000
 N_CHECK_GROUPS = 200
 TIMING_REPS = 5
 KERNEL_REPS = 20
+NULL_RATE = 0.02  # per column in the odd-numbered groups (~1 % overall); row 0 valid
+POLICIES = ("ignore", "zero", "drop", "drop_zero", "drop_y_zero_x")
+COEF_TOL = dict(rtol=1e-9, atol=1e-11)
+PRED_TOL = dict(rtol=1e-8, atol=1e-10)
 
 
 def _cuda_ms(fn, torch) -> float:
@@ -94,13 +102,93 @@ def _random_blocks(rng, n_blocks, R, C, torch):
     )
 
 
-def _groupwise_lstsq(X, y, gids, groups):
-    """(rows, beta) of numpy lstsq for each listed group id."""
+def _group_rows(gids, groups):
+    """[(g, rows)] for each listed group id, rows in row order."""
     order = np.argsort(gids, kind="stable")
     bounds = np.searchsorted(gids[order], [groups, np.asarray(groups) + 1])
-    for g, lo, hi in zip(groups, bounds[0], bounds[1]):
-        rows = order[lo:hi]
-        yield g, rows, np.linalg.lstsq(X[rows], y[rows], rcond=None)[0]
+    return [(g, order[lo:hi]) for g, lo, hi in zip(groups, bounds[0], bounds[1])]
+
+
+def _groupwise_lstsq(X, y, gids, groups):
+    """(rows, beta) of numpy lstsq for each listed group id."""
+    for g, rows in _group_rows(gids, groups):
+        yield g, rows, _lstsq(X[rows], y[rows])
+
+
+def _lstsq(X, y):
+    return np.linalg.lstsq(X, y, rcond=None)[0]
+
+
+def _check_probe(grid_probe, torch):
+    """Both forms of the probe kernel against x * 2 on the card: doubling an
+    f32 is exact, so bit equality. Returns the gridded form's (err, ms,
+    plain_ms)."""
+    rows, cols, tile = grid_probe.PROBE_ROWS, grid_probe.PROBE_COLS, grid_probe.PROBE_TILE_ROWS
+    x = torch.arange(rows * cols, dtype=torch.float32, device="cuda").reshape(rows, cols)
+    for form, args in (("ungridded", (x[:tile], None)), ("gridded", (x, tile))):
+        out = grid_probe.scale_copy(*args)
+        ref = grid_probe.scale_copy_ref(args[0])
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            raise AssertionError(f"probe kernel ({form}) differs from x * 2")
+        err = float((out - ref).abs().max())
+        ms, plain_ms = _abba_ms(
+            lambda: grid_probe.scale_copy_ref(args[0]),
+            lambda: grid_probe.scale_copy(*args),
+            torch,
+        )
+        print(
+            f"kernel probe {form}: {tuple(args[0].shape)} f32 in {rows // (args[1] or rows)} "
+            f"block(s) max_abs_err={err!r} (bit-equal) kernel_ms={ms!r} plain_ms={plain_ms!r}"
+        )
+    return err, ms, plain_ms
+
+
+def _policy_expected(policy, X, y, vx, vy):
+    """numpy reference of one group under a static null policy: (beta,
+    predictions of every row, rows whose prediction is not null). 'ignore'
+    fits nulls as NaN values: a NaN feature leaves the group without
+    coefficients (the eigh fallback's NaN), a NaN target only leaves its
+    non-finite solution zeroed (the Cholesky path's ``where(isfinite)``)."""
+    k = X.shape[1]
+    every = np.ones(len(y), dtype=bool)
+    xz, yz = np.where(vx, X, 0.0), np.where(vy, y, 0.0)
+    if policy == "ignore":
+        if not vx.all():
+            beta = np.full(k, np.nan)
+        elif not vy.all():
+            beta = np.zeros(k)
+        else:
+            beta = _lstsq(X, y)
+        return beta, np.where(vx, X, np.nan) @ beta, every
+    if policy == "zero":
+        beta = _lstsq(xz, yz)
+        return beta, xz @ beta, every
+    fit = vy if policy == "drop_y_zero_x" else vy & vx.all(axis=1)
+    beta = _lstsq(xz[fit], yz[fit])
+    return beta, xz @ beta, (fit if policy == "drop" else every)
+
+
+def _picked(s, sel):
+    """Rows ``sel`` (a device index) of a Series or struct column on the
+    host, nulls as NaN."""
+    vals = s.values.index_select(0, sel).cpu().numpy()
+    if s.validity is not None:
+        vals = np.where(s.validity.index_select(0, sel).cpu().numpy(), vals, np.nan)
+    return vals
+
+
+def _timed_median(fn, torch) -> float:
+    """Median host seconds of TIMING_REPS calls after one warm call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(TIMING_REPS):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times))
 
 
 def main() -> int:
@@ -114,7 +202,7 @@ def main() -> int:
     from polars_ols_tpu_torch import CONFIG, col
     from polars_ols_tpu_torch.engine import fit, groups
     from polars_ols_tpu_torch.engine.native import native_loaded
-    from polars_ols_tpu_torch.ops import kernels, moments
+    from polars_ols_tpu_torch.ops import grid_probe, kernels, moments
 
     CONFIG.device = "cuda"
     smi = subprocess.run(
@@ -128,26 +216,51 @@ def main() -> int:
         f"torch={torch.__version__} cuda={torch.version.cuda}"
     )
 
-    # 2. build
+    # 2. build: one nvcc per source, all at once
+    sources = ("moments", "grid_probe")
     t0 = time.perf_counter()
-    kernels.build("moments")
-    print(f"build: csrc/moments.cu in {time.perf_counter() - t0:.3f} s")
-    for line in kernels.build_log.get("moments", "").splitlines():
-        if "ptxas info" in line and ("Used" in line or "spill" in line):
-            print(f"build: {line.strip()}")
+    with ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(kernels.build, sources))
+    print(f"build: csrc/{{{','.join(sources)}}}.cu in {time.perf_counter() - t0:.3f} s")
+    for name in sources:
+        for line in kernels.build_log.get(name, "").splitlines():
+            if "ptxas info" in line and ("Used" in line or "spill" in line):
+                print(f"build {name}: {line.strip()}")
 
-    # 3. kernel against plain version, at the main path's shapes first
+    # 3. the probe's own entry point (its path), then each kernel against
+    # its plain version, at the main path's shapes first
+    grid_probe.scale_copy_launches = 0
+    grid_probe.run_probe(torch.device("cuda"))
+    torch.cuda.synchronize()
+    probe_launches = grid_probe.scale_copy_launches
+    if probe_launches != 2:
+        raise AssertionError(f"probe kernel launched {probe_launches} times for 2 forms")
+    probe_err, probe_ms, probe_plain_ms = _check_probe(grid_probe, torch)
+
     rng = np.random.default_rng(0)
     x = rng.normal(size=(N_ROWS, N_FEATURES))
     y = x.sum(axis=1) + rng.normal(size=N_ROWS) * 0.1
     g = rng.integers(N_GROUPS, size=N_ROWS).astype(float)
-    df = pt.DataFrame(
-        {"y": y, **{f"x{i + 1}": x[:, i] for i in range(N_FEATURES)}, "group": g}
-    )
+    # the static fits' additions, from their own stream: a weight column and
+    # nulls per column (y, x1..x5) in the odd-numbered groups, so that the
+    # even-numbered ones are compared as numbers under every policy
+    # ('ignore' leaves a group with a null without finite coefficients)
+    rng_s = np.random.default_rng(1)
+    w = rng_s.random(N_ROWS) + 0.1
+    valid = rng_s.random((N_ROWS, 1 + N_FEATURES)) >= NULL_RATE
+    valid[g.astype(np.int64) % 2 == 0] = True
+    valid[0] = True
+    dev = torch.device("cuda")
+    names = ["y"] + [f"x{i + 1}" for i in range(N_FEATURES)]
+    up = {n: torch.as_tensor(v, dtype=torch.float64, device=dev)
+          for n, v in zip(names + ["w"], [y, *x.T, w])}
+    # the null-masked columns share the uploaded values
+    nulled = {f"{n}n": pt.Series(f"{n}n", up[n], valid[:, j]) for j, n in enumerate(names)}
+    df = pt.DataFrame({**up, "group": g, **nulled})
     features = [col(f"x{i + 1}") for i in range(N_FEATURES)]
     layout = groups.layout_for_columns([df["group"]])
-    vals = fit._stack_cached(df["y"], [df[f"x{i + 1}"] for i in range(N_FEATURES)])
-    Zp, wp = fit._blocks_cached(layout, vals)
+    vals, _ = fit._stack_cached(df["y"], [df[f"x{i + 1}"] for i in range(N_FEATURES)])
+    Zp, wp, _ = fit._blocks_cached(layout, vals, None, "ignore")
     r_cap = Zp.shape[1]
     main_err, main_ms, main_plain_ms = _check_kernel(
         "main-path", Zp, wp, layout.device_block_offsets(r_cap),
@@ -162,7 +275,7 @@ def main() -> int:
         moments, torch,
     )
 
-    # 4. the slice at full width, through the public API
+    # 4. the main path at full width, through the public API
     expr = col("y").least_squares.ols(*features).over("group")
     coef_expr = col("y").least_squares.ols(*features, mode="coefficients").over("group")
     moments.moments_kernel_launches = 0
@@ -189,8 +302,8 @@ def main() -> int:
     np.testing.assert_array_equal(preds_lazy, preds_mat)
     checked = rng.choice(N_GROUPS, size=N_CHECK_GROUPS, replace=False)
     for _, rows, beta in _groupwise_lstsq(x, y, g.astype(np.int64), checked):
-        np.testing.assert_allclose(coefs[rows[0]], beta, rtol=1e-9, atol=1e-11)
-        np.testing.assert_allclose(preds_mat[rows], x[rows] @ beta, rtol=1e-8, atol=1e-10)
+        np.testing.assert_allclose(coefs[rows[0]], beta, **COEF_TOL)
+        np.testing.assert_allclose(preds_mat[rows], x[rows] @ beta, **PRED_TOL)
     print(
         f"slice: {N_ROWS} rows x {N_FEATURES} features x {layout.num_groups} groups, "
         f"moment kernel launches={launches}, native layout helpers loaded, "
@@ -223,33 +336,142 @@ def main() -> int:
         for _, rows, beta in _groupwise_lstsq(X_, ys, gs, np.arange(25)):
             np.testing.assert_allclose(preds[rows], X_[rows] @ beta, rtol=rtol, atol=atol)
             if label == "rank-deficient":
-                np.testing.assert_allclose(cs[rows[0]], beta, rtol=1e-8, atol=1e-10)
+                np.testing.assert_allclose(cs[rows[0]], beta, **COEF_TOL)
         print(f"slice: {label} case matches numpy lstsq (rtol {rtol}, atol {atol})")
 
-    # 5. steady-state timing, median of TIMING_REPS after one warm call
+    # 5. the static fits at full width: every query through the public API
+    # under .over("group"), first-query seconds on the host clock
+    xn = [f"x{i + 1}n" for i in range(N_FEATURES)]
+    xv = [f"x{i + 1}" for i in range(N_FEATURES)]
+
+    def ols(target, feats, **kw):
+        return col(target).least_squares.ols(*feats, **kw).over("group")
+
+    queries = {}  # label -> (expr, output column)
+    for policy in POLICIES:
+        queries[policy] = (ols("yn", xn, null_policy=policy), "yn")
+        queries[f"{policy}/coef"] = (
+            ols("yn", xn, null_policy=policy, mode="coefficients"), "coefficients"
+        )
+    queries["wls"] = (col("y").least_squares.wls(*xv, sample_weights="w").over("group"), "y")
+    queries["wls/coef"] = (ols("y", xv, sample_weights="w", mode="coefficients"), "coefficients")
+    queries["drop/residuals"] = (ols("yn", xn, null_policy="drop", mode="residuals"), "yn")
+    for method in ("lu", "qr", "svd"):
+        queries[method] = (ols("y", xv, solve_method=method), "y")
+        queries[f"{method}/coef"] = (ols("y", xv, solve_method=method, mode="coefficients"), "coefficients")
+    moment_queries = [q for q in queries if not q.startswith("svd")]
+
+    moments.moments_kernel_launches = 0
+    out, first_s = {}, {}
+    for label, (q, column) in queries.items():
+        t0 = time.perf_counter()
+        out[label] = df.select(q)[column]
+        torch.cuda.synchronize()
+        first_s[label] = time.perf_counter() - t0
+    static_launches = moments.moments_kernel_launches
+    if static_launches < len(moment_queries):
+        raise AssertionError(
+            f"moment kernel launched {static_launches} times for "
+            f"{len(moment_queries)} moment-path queries"
+        )
+
+    # nulls exactly where each policy puts them, over every row
+    fit_drop = torch.as_tensor(valid[:, 0] & valid[:, 1:].all(axis=1), device=dev)
+    for label, s in out.items():
+        policy = label.split("/")[0]
+        if label.endswith("/coef"):
+            if policy != "ignore" and not bool(s.validity.all()):
+                raise AssertionError(f"{label}: null coefficients")
+        elif policy == "drop":  # predictions and residuals
+            if s.validity is None or not torch.equal(s.validity, fit_drop):
+                raise AssertionError(f"{label}: nulls are not the dropped rows")
+        elif s.validity is not None:
+            raise AssertionError(f"{label}: predictions carry nulls")
+
+    # values against numpy on the sampled groups
+    group_rows = _group_rows(g.astype(np.int64), checked)
+    sel_np = np.concatenate([rows for _, rows in group_rows])
+    sel = torch.as_tensor(sel_np, device=dev)
+    host = {label: _picked(s, sel) for label, s in out.items()}
+    sq = np.sqrt(w)
+    at = 0
+    n_clean = n_nulled = 0
+    for _, rows in group_rows:
+        here = slice(at, at + len(rows))
+        at += len(rows)
+        Xg, yg, vx, vy = x[rows], y[rows], valid[rows, 1:], valid[rows, 0]
+        n_clean += bool(vx.all() and vy.all())
+        n_nulled += not (vx.all() and vy.all())
+        for policy in POLICIES:
+            beta, preds, shown = _policy_expected(policy, Xg, yg, vx, vy)
+            np.testing.assert_allclose(host[f"{policy}/coef"][here][0], beta, **COEF_TOL)
+            np.testing.assert_allclose(host[policy][here][shown], preds[shown], **PRED_TOL)
+            if policy == "drop":
+                np.testing.assert_allclose(
+                    host["drop/residuals"][here][shown], (yg - preds)[shown], **PRED_TOL
+                )
+        beta = _lstsq(Xg * sq[rows, None], yg * sq[rows])
+        np.testing.assert_allclose(host["wls/coef"][here][0], beta, **COEF_TOL)
+        np.testing.assert_allclose(host["wls"][here], Xg @ beta, **PRED_TOL)
+        beta = _lstsq(Xg, yg)  # full rank: the minimum-norm solution too
+        for method in ("lu", "qr", "svd"):
+            np.testing.assert_allclose(host[f"{method}/coef"][here][0], beta, **COEF_TOL)
+            np.testing.assert_allclose(host[method][here], Xg @ beta, **PRED_TOL)
+    if n_clean == 0 or n_nulled == 0:
+        raise AssertionError(
+            f"sampled groups: {n_clean} without nulls, {n_nulled} with: both kinds are needed"
+        )
+    print(
+        f"static: {len(queries)} queries ({', '.join(queries)}) at {N_ROWS} rows, "
+        f"moment kernel launches={static_launches} for {len(moment_queries)} moment-path "
+        f"queries, nulls where each policy puts them, {N_CHECK_GROUPS} groups match numpy "
+        f"({n_clean} without nulls, finite under 'ignore'; {n_nulled} with)"
+    )
+    print("static first-query s: " + json.dumps({k: round(v, 4) for k, v in first_s.items()}))
+    vals_n, valid_n = fit._stack_cached(df["yn"], [df[c] for c in xn])
+    Zd, wd, _ = fit._blocks_cached(layout, vals_n, valid_n, "drop")
+    _check_kernel(
+        "drop-policy", Zd, wd, layout.device_block_offsets(r_cap), layout.num_groups,
+        moments, torch,
+    )
+
+    # 6. steady-state timing, median of TIMING_REPS after one warm call
     for label, lazy in (("materialized", False), ("lazy", True)):
         CONFIG.lazy_row_order = lazy
-        df.select(expr)
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(TIMING_REPS):
-            t0 = time.perf_counter()
-            df.select(expr)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        med = float(np.median(times))
+        med = _timed_median(lambda: df.select(expr), torch)
         print(f"timing {label}: median {med * 1e3!r} ms, {N_ROWS / med!r} rows/s ({smi})")
+    CONFIG.lazy_row_order = False
+    for label in ("drop", "wls", "svd"):
+        q = queries[label][0]
+        med = _timed_median(lambda: df.select(q), torch)
+        print(
+            f"timing {label} (materialized): median {med * 1e3!r} ms, "
+            f"{N_ROWS / med!r} rows/s, first query {first_s[label]!r} s ({smi})"
+        )
 
-    print(json.dumps({"kernels": [{
-        "name": "grouped_moments",
-        "route": "cuda",
-        "source": "polars_ols_tpu_torch/csrc/moments.cu",
-        "replaces": "polars_ols_tpu/ops/pallas_moments.py:78",
-        "launches": launches,
-        "max_abs_err": main_err,
-        "ms": main_ms,
-        "plain_ms": main_plain_ms,
-    }]}))
+    print(json.dumps({"kernels": [
+        {
+            "name": "grouped_moments",
+            "route": "cuda",
+            "source": "polars_ols_tpu_torch/csrc/moments.cu",
+            "replaces": "polars_ols_tpu/ops/pallas_moments.py:78",
+            "launches": launches + static_launches,
+            "launches_by_path": {"main": launches, "static": static_launches},
+            "max_abs_err": main_err,
+            "ms": main_ms,
+            "plain_ms": main_plain_ms,
+        },
+        {
+            "name": "scale_copy",
+            "route": "cuda",
+            "source": "polars_ols_tpu_torch/csrc/grid_probe.cu",
+            "replaces": "experiments/pallas_grid_probe.py:19",
+            "launches": probe_launches,
+            "max_abs_err": probe_err,
+            "ms": probe_ms,
+            "plain_ms": probe_plain_ms,
+        },
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

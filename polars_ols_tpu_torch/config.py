@@ -44,6 +44,10 @@ class Config:
 
 CONFIG = Config()
 
+# the weight given to rows whose sample weight is null (the reference's
+# `_EPSILON`, polars_ols/least_squares.py:63)
+EPSILON: float = 1.0e-12
+
 
 def device() -> torch.device:
     """The configured device, checked: a CUDA device without a GPU raises

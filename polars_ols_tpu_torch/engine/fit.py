@@ -1,15 +1,22 @@
-"""Least-squares evaluation engine: the grouped static-fit main path.
+"""Least-squares evaluation engine: the static fits.
 
-A grouped OLS / ridge query runs as: the cached ``[N, 1+K]`` column stack
--> one gather into split-padded blocks ``Zp [S, R, 1+K]`` (cached per
-layout) -> per-group moments from the hand-written CUDA kernel
-(ops/moments.py) -> batched Cholesky with eigh fallback and, for
-ill-conditioned batches, CSNE refinement -> block-wise predictions ->
+A static fit runs as: the cached ``[N, 1+K]`` column stack (values and
+validity, target first; scaled by sqrt(w) for WLS) -> the null policy
+(ops/masking.py) and one row gather into a batched layout (cached per
+layout, columns and policy) -> the solve -> predictions in that layout ->
 row order, deferred (``BlockPermuted``) or materialized.
 
-Only the fully valid, unweighted, single-target ``chol`` path is ported.
-Everything else raises ``NotImplementedError`` naming its ROADMAP queue
-item; nothing falls back silently.
+- ``chol`` / ``lu`` / ``qr``: the split-padded blocks ``Zp [S, R, 1+K]``,
+  per-group moments from the hand-written CUDA kernel (ops/moments.py),
+  then a batched Cholesky with eigh fallback and conditioning-gated CSNE
+  refinement (``qr``: always refined; ``lu``: partial-pivot LU, never
+  refined).
+- ``svd``: the fully padded ``[G, R, K]`` layout, Householder reduction
+  and one batched SVD of the K x K factors (minimum norm, numpy lstsq's
+  cutoff), for any number of groups.
+
+What is not ported raises ``NotImplementedError`` naming its ROADMAP
+queue item; nothing falls back silently.
 """
 
 from __future__ import annotations
@@ -18,15 +25,20 @@ from typing import List
 
 import torch
 
-from ..config import CONFIG, F64, device
+from ..config import CONFIG, EPSILON, F64, device
 from ..ops.direct import grouped_moments, resolve_solve_method
-from ..ops.linalg import MAX_K, psd_solver, solve_psd_cond
+from ..ops.linalg import MAX_K, psd_solver, solve_lu, solve_psd, solve_psd_cond, svd_lstsq
+from ..ops.masking import prepare_problem, zero_filled
 from ..series import BlockPermuted, Series, StructSeries
 from .groups import bucket_size, single_layout
 
 # cond(XtX) beyond which one f64 Cholesky solve of the squared system loses
 # lstsq-grade accuracy; flagged batches take the CSNE refinement branch
 _COND_REFINE = 1.0e6
+
+# policies whose predictions cover every row, formed from the zero-filled
+# features rather than from the fit's (masked) rows
+_ROW_PREDICT_POLICIES = ("drop_zero", "drop_y_zero_x")
 
 _STACK_CACHE_LIMIT = 8
 
@@ -39,7 +51,7 @@ def _not_ported(what: str, item: int):
 
 
 # --------------------------------------------------------------------------- #
-# layout and partition caches
+# column stacks and layout caches
 # --------------------------------------------------------------------------- #
 def _split_layout(layout):
     # same bucketed block width as the JAX engine, so both engines build
@@ -62,10 +74,23 @@ def _put(cache: dict, key, value) -> None:
     cache[key] = value
 
 
-def _stack_cached(target, feat_series) -> torch.Tensor:
-    """[N, 1+K] f64 value stack, target first, memoized on the target
-    Series: repeated queries re-evaluate to the same Series objects and
-    skip the device-side stack."""
+def _lru(store: dict, kind: str, key, build):
+    """``store[key]``, built on a miss, in an LRU of 2 entries of ``kind``
+    (the layout's device caches: steady-state queries reuse them)."""
+    if key not in store:
+        value = build()
+        keys = [k for k in store if isinstance(k, tuple) and k[0] == kind]
+        if len(keys) >= 2:
+            del store[keys[0]]
+        store[key] = value
+    store[key] = store.pop(key)  # most recently used
+    return store[key]
+
+
+def _stack_cached(target, feat_series):
+    """([N, 1+K] f64 values, [N, 1+K] bool validity or None when every
+    column is fully valid), target first, memoized on the target Series:
+    repeated queries re-evaluate to the same Series objects."""
     key = ("stack",) + tuple(id(s) for s in feat_series)
     cache = _cache_of(target)
     if key in cache:
@@ -74,8 +99,35 @@ def _stack_cached(target, feat_series) -> torch.Tensor:
     vals = torch.stack(
         [torch.as_tensor(s.values, dtype=F64, device=device()) for s in cols], dim=1
     )
-    _put(cache, key, (vals, tuple(feat_series)))  # hold refs: keys use id()s
-    return vals
+    valid = None
+    if any(s.validity is not None for s in cols):
+        valid = torch.stack([s.valid_mask() for s in cols], dim=1)
+    _put(cache, key, ((vals, valid), tuple(feat_series)))  # hold refs: keys use id()s
+    return vals, valid
+
+
+def _weight_vectors(w_vals: torch.Tensor, w_valid: torch.Tensor):
+    """sqrt(w) and 1/sqrt(w); null weights become EPSILON (reference
+    least_squares.py:190-196)."""
+    sq = torch.where(w_valid, torch.sqrt(w_vals), EPSILON)
+    return sq, 1.0 / sq
+
+
+def _weighted_stack_cached(target, feat_series, weights):
+    """(values * sqrt(w), validity, 1/sqrt(w)): WLS as one scaling of the
+    whole [N, 1+K] stack, intercept column included (the reference scales
+    each column expression-side), memoized beside the unweighted stack."""
+    vals, valid = _stack_cached(target, feat_series)
+    key = ("wstack", id(vals), id(weights))
+    cache = _cache_of(target)
+    if key in cache:
+        return cache[key][0]
+    sq, inv = _weight_vectors(
+        torch.as_tensor(weights.values, dtype=F64, device=device()), weights.valid_mask()
+    )
+    out = (vals * sq[:, None], valid, inv)
+    _put(cache, key, (out, (vals, weights)))  # hold refs: the key uses id()s
+    return out
 
 
 def _const_series(target, n: int) -> Series:
@@ -87,49 +139,68 @@ def _const_series(target, n: int) -> Series:
     return cache[key]
 
 
-def _build_blocks(vals, gather, pmask, S: int, R: int):
-    """Materialize the split-padded partition of a fully valid stack: one
-    row gather. Returns (Zp [S, R, 1+K] target in slot 0, wp [S, R])."""
-    Zp = vals.index_select(0, gather).reshape(S, R, vals.shape[1])
-    return Zp, pmask
+def _problem(vals, valid, policy: str):
+    """(y [N], X [N, K], fit_mask [N] or None, predict_valid [N] or None)
+    of a stack under a null policy; fully valid stacks pass through."""
+    if valid is None:
+        return vals[:, 0], vals[:, 1:], None, None
+    p = prepare_problem(policy, vals[:, 0], valid[:, 0], vals[:, 1:], valid[:, 1:])
+    return p.y, p.X, p.fit_mask, p.predict_valid
 
 
-def _blocks_cached(layout, vals):
-    """Materialized-partition cache, an LRU of 2 per layout: steady-state
-    queries reuse the device-resident blocks."""
-    g, pmask, _, S = _split_layout(layout)
-    R = pmask.shape[1]
-    key = ("blocks", id(vals), R)
-    if key not in layout._dev:
-        Zp, wp = _build_blocks(vals, g, pmask, S, R)
-        block_keys = [k for k in layout._dev if isinstance(k, tuple) and k[0] == "blocks"]
-        if len(block_keys) >= 2:
-            del layout._dev[block_keys[0]]
-        layout._dev[key] = (Zp, wp, vals)  # hold vals: the key uses its id
-    entry = layout._dev.pop(key)
-    layout._dev[key] = entry  # most recently used
-    return entry[0], entry[1]
+def _gather_layout(vals, valid, policy: str, gather, pmask):
+    """Policy pass, then one row gather of ``[y | X]`` (and of the bool
+    fit mask) into a padded layout ``pmask.shape``: (Zp [B, R, 1+K] target
+    in slot 0, wp [B, R] fit mask, predict_valid [N] or None). Padding
+    slots gather row 0 and are masked out."""
+    y, X, fit_mask, predict_valid = _problem(vals, valid, policy)
+    B, R = pmask.shape
+    Z = vals if fit_mask is None else torch.cat([y[:, None], X], dim=1)
+    Zp = Z.index_select(0, gather).reshape(B, R, Z.shape[1])
+    wp = pmask if fit_mask is None else pmask & fit_mask.index_select(0, gather).reshape(B, R)
+    return Zp, wp, predict_valid
+
+
+def _cache_key(kind: str, vals, valid, policy: str, R: int):
+    # the policy matters only with nulls: fully valid stacks share one entry
+    return (kind, id(vals), id(valid), policy if valid is not None else None, R)
+
+
+def _blocks_cached(layout, vals, valid, policy: str):
+    """The split-padded partition (Zp [S, R, 1+K], wp [S, R],
+    predict_valid) of the moment path, cached per (columns, layout,
+    policy). The entry holds vals and valid: the key uses their ids."""
+    g, pmask, _, _ = _split_layout(layout)
+    key = _cache_key("blocks", vals, valid, policy, pmask.shape[1])
+    entry = _lru(
+        layout._dev, "blocks", key,
+        lambda: _gather_layout(vals, valid, policy, g, pmask) + (vals, valid),
+    )
+    return entry[:3]
+
+
+def _padded_cached(layout, vals, valid, policy: str):
+    """The fully padded layout (Zp [G, R, 1+K], wp [G, R], predict_valid)
+    of the SVD path, cached like ``_blocks_cached``."""
+    gather, pmask, R = layout.device_padded()
+    key = _cache_key("padded", vals, valid, policy, R)
+    entry = _lru(
+        layout._dev, "padded", key,
+        lambda: _gather_layout(vals, valid, policy, gather, pmask) + (vals, valid),
+    )
+    return entry[:3]
 
 
 # --------------------------------------------------------------------------- #
-# fit kernels
+# solves
 # --------------------------------------------------------------------------- #
 def _block_preds(Xp, beta_blocks):
-    """Block predictions [S, R] as K multiply-adds of [S, R] planes."""
+    """Block predictions [B, R] as K multiply-adds of [B, R] planes."""
     K = Xp.shape[-1]
     acc = Xp[..., 0] * beta_blocks[:, None, 0]
     for k in range(1, K):
         acc = acc + Xp[..., k] * beta_blocks[:, None, k]
     return acc
-
-
-def _unpad_preds(preds_blocks, unpad_idx, contiguous: bool = False):
-    """Row-order gather of block predictions. With a single group the split
-    layout is row-sequential, so the gather is a slice (``contiguous``)."""
-    flat = preds_blocks.reshape(-1)
-    if contiguous:
-        return flat[: unpad_idx.shape[0]]
-    return flat.index_select(0, unpad_idx)
 
 
 def _csne_refine_blocks(A, beta, Xp, yp, wp, block_group, block_offsets, alpha):
@@ -138,58 +209,71 @@ def _csne_refine_blocks(A, beta, Xp, yp, wp, block_group, block_offsets, alpha):
     (from the rows, in f64) and ``b += A^{-1}(X'r - alpha b)`` restore
     QR-grade forward error for cond(X) up to ~1e7 and recover lanes whose
     Cholesky failed into the eigh fallback. X'r is summed per group over
-    the group's contiguous blocks in block order (deterministic)."""
+    the group's contiguous blocks in block order (deterministic). Rows
+    outside ``wp`` are selected away, not multiplied by zero, so a NaN in
+    a padding slot never reaches a group."""
     solve = psd_solver(A)  # factor A once; the sweeps reuse it
-    wf = wp.to(F64)
     for _ in range(4):
         bb = beta.index_select(0, block_group)
-        resid = (yp - _block_preds(Xp, bb)) * wf
-        Xtr = torch.segment_reduce(
-            (Xp * resid[..., None]).sum(dim=1), "sum", offsets=block_offsets, axis=0
-        )
+        resid = torch.where(wp, yp - _block_preds(Xp, bb), 0.0)
+        Xr = torch.where(wp[..., None], Xp * resid[..., None], 0.0)
+        Xtr = torch.segment_reduce(Xr.sum(dim=1), "sum", offsets=block_offsets, axis=0)
         beta = beta + solve(Xtr - alpha * beta)
     return beta
 
 
-def _solve_dispatch(XtX, Xty, alpha: float, refine):
-    """Ridge-shifted Cholesky solve with conditioning-gated CSNE refinement
-    (``refine`` = (Xp, yp, wp, block_group, block_offsets))."""
+def _solve_dispatch(XtX, Xty, alpha: float, method: str, refine):
+    """The per-group solve of the moment path (``refine`` = (Xp, yp, wp,
+    block_group, block_offsets), the rows of the CSNE sweeps):
+
+    - 'chol': Cholesky, CSNE sweeps when cond(XtX) > 1e6;
+    - 'qr': Cholesky with unconditional CSNE sweeps (QR-grade forward
+      error for cond(X) up to ~1e7; reference col-piv QR,
+      src/least_squares.rs:193-205);
+    - 'lu': partial-pivot LU, no sweeps (src/least_squares.rs:264-273).
+
+    Host syncs: the Cholesky or LU fallback (``ok.all()``) and the
+    refinement choice for 'chol'."""
     K = XtX.shape[-1]
     A = XtX + alpha * torch.eye(K, dtype=F64, device=XtX.device)
+    if method == "lu":
+        return solve_lu(A, Xty)
+    if method == "qr":
+        return _csne_refine_blocks(A, solve_psd(A, Xty), *refine, alpha)
     beta, cond_est = solve_psd_cond(A, Xty)
-    # host sync: the refinement branch is chosen on the host
     if float(cond_est.max()) > _COND_REFINE:
         beta = _csne_refine_blocks(A, beta, *refine, alpha)
     return beta
 
 
-def _blocks_fit_kernel(
-    Zp,  # [S, R, 1+K] target in slot 0
-    wp,  # [S, R]
-    block_offsets,  # [G+1]
-    block_group,  # [S]
-    unpad_idx,  # [N] row-order gather out of the flat [S*R] layout
-    gids,  # [N]
-    num_groups: int,
-    alpha: float,
-    want: str,  # "beta" | "rows" | "preds" | "preds_flat"
-):
-    """Grouped fit on the materialized partition: kernel moments, batched
-    Cholesky, then predictions computed block-wise (beta indexed by block,
-    [S, K]) and put in row order with one [N] gather (or left block-ordered
-    for a deferred permutation under ``preds_flat``)."""
+def _fit_moments(layout, vals, valid, policy: str, alpha: float, method: str):
+    """Per-group beta [G, K] on the split-padded blocks; returns (beta,
+    Xp, block_group, unpad, predict_valid): the blocks' features, their
+    group ids and the row-order gather [N] out of the flat block layout
+    (None for one group, whose layout is row-sequential)."""
+    _, pmask, block_group, _ = _split_layout(layout)
+    r_cap = pmask.shape[1]
+    Zp, wp, predict_valid = _blocks_cached(layout, vals, valid, policy)
+    offsets = layout.device_block_offsets(r_cap)
     yp, Xp = Zp[..., 0], Zp[..., 1:]
-    XtX, Xty, _ = grouped_moments(Zp, wp, block_offsets, num_groups)
-    refine = (Xp, yp, wp, block_group, block_offsets)
-    beta = _solve_dispatch(XtX, Xty, alpha, refine)
-    if want == "beta":
-        return beta
-    if want == "rows":
-        return beta.index_select(0, gids)
-    preds_blocks = _block_preds(Xp, beta.index_select(0, block_group))
-    if want == "preds_flat":
-        return preds_blocks.reshape(-1)
-    return _unpad_preds(preds_blocks, unpad_idx, contiguous=num_groups == 1)
+    XtX, Xty, _ = grouped_moments(Zp, wp, offsets, layout.num_groups)
+    beta = _solve_dispatch(XtX, Xty, alpha, method, (Xp, yp, wp, block_group, offsets))
+    unpad = layout.device_split_unpad(r_cap) if layout.num_groups > 1 else None
+    return beta, Xp, block_group, unpad, predict_valid
+
+
+def _fit_svd(layout, vals, valid, policy: str, alpha: float, rcond):
+    """Per-group minimum-norm beta [G, K] on the fully padded layout
+    (``svd_lstsq``: Householder reduction, one batched SVD of the K x K
+    factors). Returns what ``_fit_moments`` returns (block i is group i)."""
+    Zp, wp, predict_valid = _padded_cached(layout, vals, valid, policy)
+    G, R = wp.shape
+    yp, Xp = Zp[..., 0], Zp[..., 1:]
+    n_valid = wp.sum(dim=1, dtype=F64)
+    Xm = torch.where(wp[..., None], Xp, 0.0)
+    ym = torch.where(wp, yp, 0.0)
+    beta = svd_lstsq(Xm, ym, alpha, rcond, n_valid)
+    return beta, Xp, None, layout.device_unpad(R) if G > 1 else None, predict_valid
 
 
 def _coef_struct(beta: torch.Tensor, names: List[str]) -> StructSeries:
@@ -218,44 +302,63 @@ def evaluate_least_squares(
     mode: str,
     layout_in,
     add_intercept: bool = False,
+    weights: Series | None = None,
 ):
     """A static least-squares fit of ``target`` on ``feat_series`` per
-    group of ``layout_in`` (one group when None): predictions as a Series,
-    or coefficients as a struct column (one row per group without
-    ``.over()``, one per row with it)."""
+    group of ``layout_in`` (one group when None), under the kwargs' null
+    policy and solve method, weighted by ``weights`` when given:
+    predictions as a Series (unscaled for WLS), or coefficients as a
+    struct column (one row per group without ``.over()``, one per row
+    with it)."""
     if mode == "statistics":
         raise _not_ported("mode='statistics'", 5)
     n = len(target)
     if add_intercept:
         feat_series = list(feat_series) + [_const_series(target, n)]
-    if any(s.validity is not None for s in [target, *feat_series]):
-        raise _not_ported("null masks and null policies", 4)
     k = len(feat_series)
     layout = layout_in if layout_in is not None else single_layout(n)
     G = layout.num_groups
     method = _resolve_method(layout, kwargs, k)
-    if method != "chol":
-        raise _not_ported(
-            f"solve_method {method!r}", 6 if method.startswith("cd") else 4
-        )
+    if method.startswith("cd"):
+        raise _not_ported(f"solve_method {method!r}", 6)
     if k > MAX_K:
-        raise _not_ported(f"K={k} > {MAX_K} features", 4)
+        raise _not_ported(f"K={k} > {MAX_K} features", 12)
 
-    vals = _stack_cached(target, feat_series)
-    names = [s.name for s in feat_series]
+    inv_w = None
+    if weights is None:
+        vals, valid = _stack_cached(target, feat_series)
+    else:
+        vals, valid, inv_w = _weighted_stack_cached(target, feat_series, weights)
+    policy = kwargs.null_policy
     alpha = float(kwargs.alpha or 0.0)
-    _, pmask, block_group, _ = _split_layout(layout)
-    r_cap = pmask.shape[1]
-    Zp, wp = _blocks_cached(layout, vals)
-    unpad = layout.device_split_unpad(r_cap)
-    tail = (layout.device_block_offsets(r_cap), block_group, unpad, layout.device_gids())
+    row_preds = valid is not None and policy in _ROW_PREDICT_POLICIES
+    if method in ("chol", "lu", "qr"):
+        beta, Xp, block_group, unpad, predict_valid = _fit_moments(
+            layout, vals, valid, policy, alpha, method
+        )
+    else:
+        beta, Xp, block_group, unpad, predict_valid = _fit_svd(
+            layout, vals, valid, policy, alpha, kwargs.rcond
+        )
 
-    def fit(want: str):
-        return _blocks_fit_kernel(Zp, wp, *tail, G, alpha, want)
-
+    names = [s.name for s in feat_series]
     if mode == "coefficients":
-        return _coef_struct(fit("beta" if layout_in is None else "rows"), names)
-    if CONFIG.lazy_row_order and G > 1:
-        # block-ordered output with a deferred row-order permutation
-        return Series(target.name, BlockPermuted(fit("preds_flat"), unpad))
-    return Series(target.name, fit("preds"))
+        rows = beta if layout_in is None else beta.index_select(0, layout.device_gids())
+        return _coef_struct(rows, names)
+    if row_preds:
+        # X_predict of the drop family: the zero-filled features of every
+        # row, against each row's group coefficients
+        X_pred = zero_filled(vals[:, 1:], valid[:, 1:])
+        rows = beta if G == 1 else beta.index_select(0, layout.device_gids())
+        preds = (X_pred * rows).sum(dim=1)
+    else:
+        bb = beta if block_group is None else beta.index_select(0, block_group)
+        flat = _block_preds(Xp, bb).reshape(-1)
+        if CONFIG.lazy_row_order and G > 1 and inv_w is None:
+            # block-ordered output with a deferred row-order permutation
+            return Series(target.name, BlockPermuted(flat, unpad), predict_valid)
+        # one group: the layout is row-sequential, so row order is a slice
+        preds = flat[:n] if G == 1 else flat.index_select(0, unpad)
+    if inv_w is not None:
+        preds = preds * inv_w
+    return Series(target.name, preds, predict_valid)

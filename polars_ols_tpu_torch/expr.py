@@ -1,15 +1,18 @@
-"""Expression AST and evaluator (the main-path subset).
+"""Expression AST and evaluator (the static-fit subset).
 
 Column references (exact names and ``^regex$`` patterns), aliases, the
-``.over()`` window context and the least-squares node, which dispatches
-into the batched engine (engine/fit.py). Under ``.over()`` group ids flow
-into the engine as a batch axis instead of a solver call per group.
+``.over()`` window context, subtraction of two expressions (residuals) and
+the least-squares node, which dispatches into the batched engine
+(engine/fit.py). Under ``.over()`` group ids flow into the engine as a
+batch axis instead of a solver call per group.
 """
 
 from __future__ import annotations
 
 import re
 from typing import List, Optional, Union
+
+from .series import Series
 
 ExprOrStr = Union["Expr", str]
 
@@ -22,6 +25,14 @@ class Expr:
 
     def over(self, *keys: ExprOrStr) -> "Expr":
         return OverExpr(self, [k if isinstance(k, str) else k.output_name for k in keys])
+
+    def __sub__(self, other: "Expr") -> "Expr":
+        if not isinstance(other, Expr):
+            raise TypeError(
+                f"only an expression can be subtracted, got {type(other).__name__} "
+                "(literals are ROADMAP.md Queue 1 item 10)"
+            )
+        return SubExpr(self, other)
 
     @property
     def output_name(self) -> Optional[str]:
@@ -96,6 +107,21 @@ class OverExpr(Expr):
         return self.inner.evaluate(df, layout)
 
 
+class SubExpr(Expr):
+    """``left - right``, elementwise, null where either side is null."""
+
+    def __init__(self, left: Expr, right: Expr):
+        self.left = left
+        self.right = right
+
+    @property
+    def output_name(self) -> Optional[str]:
+        return self.left.output_name or self.right.output_name
+
+    def evaluate(self, df, groups=None):
+        return sub_series(self.left.evaluate(df, groups), self.right.evaluate(df, groups))
+
+
 class LeastSquaresExpr(Expr):
     """The least-squares node, dispatching into the batched engine."""
 
@@ -106,12 +132,14 @@ class LeastSquaresExpr(Expr):
         kwargs,
         mode: str,
         add_intercept: bool = False,
+        weights: Optional[Expr] = None,
     ):
         self.target = target
         self.features = features
         self.kwargs = kwargs
         self.mode = mode
         self.add_intercept = add_intercept  # engine-side 'const' column
+        self.weights = weights  # engine-side WLS scaling
 
     @property
     def output_name(self) -> Optional[str]:
@@ -127,6 +155,7 @@ class LeastSquaresExpr(Expr):
             feats.extend(f.expand(df))
         target = self.target.evaluate(df, groups)
         feat_series = [f.evaluate(df, groups) for f in feats]
+        weights = None if self.weights is None else self.weights.evaluate(df, groups)
         return evaluate_least_squares(
             target,
             feat_series,
@@ -134,7 +163,20 @@ class LeastSquaresExpr(Expr):
             self.mode,
             groups,
             add_intercept=self.add_intercept,
+            weights=weights,
         )
+
+
+def sub_series(left: Series, right: Series) -> Series:
+    """``left - right`` of two float Series of one length, named after
+    ``left``; the validity is the AND of both (None when both are fully
+    valid)."""
+    if len(left) != len(right):
+        raise ValueError(f"cannot subtract series of lengths {len(left)} and {len(right)}")
+    validity = None
+    if left.validity is not None or right.validity is not None:
+        validity = left.valid_mask() & right.valid_mask()
+    return Series(left.name, left.values - right.values, validity)
 
 
 def col(name: str) -> ColExpr:

@@ -2,7 +2,9 @@
 
 Same names, defaults and validation as the reference's
 polars_ols/least_squares.py (:47-118); the expressions evaluate on the
-batched PyTorch engine. Weights are not ported yet and raise.
+batched PyTorch engine. WLS scales the engine's column stack by sqrt(w)
+(reference least_squares.py:190-196); residuals are the target minus the
+(unscaled) predictions.
 """
 
 from __future__ import annotations
@@ -84,27 +86,25 @@ def _build_least_squares_expr(
     add_intercept: bool = False,
 ) -> Expr:
     """The least-squares node for ``mode``, with the intercept folded into
-    the engine's column stack (reference least_squares.py:163-239)."""
-    if sample_weights is not None:
-        raise NotImplementedError(
-            "sample_weights (WLS) is not ported to polars_ols_tpu_torch yet "
-            "(ROADMAP.md Queue 1 item 4)"
-        )
-    if mode == "residuals":
-        raise NotImplementedError(
-            "mode='residuals' is not ported to polars_ols_tpu_torch yet "
-            "(ROADMAP.md Queue 1 item 4)"
-        )
+    the engine's column stack and the weights into its sqrt(w) scaling
+    (reference least_squares.py:163-239). Residuals subtract the engine's
+    predictions, already unscaled, from the unscaled target."""
     target = parse_into_expr(target)
     features = [parse_into_expr(f) for f in features]
+    weights = None if sample_weights is None else parse_into_expr(sample_weights)
     add_const = False
     if add_intercept:
         if any(f.output_name == "const" for f in features):
             logger.info("a 'const' column is present among the features; treating it as the intercept")
         else:
             add_const = True
-    node = LeastSquaresExpr(target, features, ols_kwargs, mode, add_intercept=add_const)
-    return node.alias(mode) if mode in ("coefficients", "statistics") else node
+    node_mode = "predictions" if mode == "residuals" else mode
+    node = LeastSquaresExpr(
+        target, features, ols_kwargs, node_mode, add_intercept=add_const, weights=weights
+    )
+    if mode in ("coefficients", "statistics"):
+        return node.alias(mode)
+    return target - node if mode == "residuals" else node
 
 
 def compute_least_squares(
@@ -115,7 +115,7 @@ def compute_least_squares(
     mode: str = "predictions",
     ols_kwargs: Optional[OLSKwargs] = None,
 ) -> Expr:
-    """OLS / ridge least squares (reference least_squares.py:242-279)."""
+    """OLS / WLS / ridge least squares (reference least_squares.py:242-279)."""
     if mode not in _VALID_OUTPUT_MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of {sorted(_VALID_OUTPUT_MODES)}")
     return _build_least_squares_expr(

@@ -1,4 +1,4 @@
-"""The `.least_squares` expression namespace (ols and ridge so far)."""
+"""The `.least_squares` expression namespace (ols, wls and ridge so far)."""
 
 from __future__ import annotations
 
@@ -12,7 +12,6 @@ ExprOrStr = Union[Expr, str]
 # the reference namespace's other methods -> the ROADMAP.md Queue 1 item
 # that ports them
 _NOT_PORTED = {
-    "wls": 4,
     "lasso": 6,
     "elastic_net": 6,
     "rls": 7,
@@ -71,6 +70,10 @@ class LeastSquares:
     def ols(self, *features: ExprOrStr, **kwargs) -> Expr:
         """Ordinary least squares. Alias for `least_squares`."""
         return self.least_squares(*features, **kwargs)
+
+    def wls(self, *features: ExprOrStr, sample_weights: ExprOrStr, **kwargs) -> Expr:
+        """Weighted least squares via sqrt-weight scaling."""
+        return self.least_squares(*features, sample_weights=sample_weights, **kwargs)
 
     def ridge(self, *features: ExprOrStr, alpha: float, **kwargs) -> Expr:
         return self.least_squares(*features, alpha=alpha, l1_ratio=0.0, **kwargs)

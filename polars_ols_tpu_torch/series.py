@@ -2,9 +2,9 @@
 
 Float columns are f64 tensors on ``CONFIG.device``; integer and string
 columns (typically group keys) stay host-side numpy arrays, since group
-factorization runs on the host. ``validity`` is an optional bool mask
-(null is distinct from NaN); the engine's port so far fits fully valid
-columns only and raises on a mask.
+factorization runs on the host. ``validity`` is an optional bool mask: a
+null is distinct from a NaN value, which stays valid. ``None`` entries of
+a Python list are nulls.
 """
 
 from __future__ import annotations
@@ -40,9 +40,20 @@ class BlockPermuted:
         return self.flat.index_select(0, self.idx)
 
 
+def _from_list(values, validity):
+    """(array, validity) of a Python sequence: ``None`` entries are nulls
+    (filled with 0.0 in a float column); a NaN entry stays a valid NaN."""
+    nulls = np.array([v is None for v in values], dtype=bool)
+    if not nulls.any():
+        return np.asarray(values), validity
+    try:
+        arr = np.asarray([0.0 if v is None else v for v in values], dtype=np.float64)
+    except (TypeError, ValueError):  # non-numeric keys with nulls
+        arr = np.asarray(values, dtype=object)
+    return arr, (~nulls if validity is None else validity)
+
+
 def _as_column(values):
-    if isinstance(values, (list, tuple)):
-        values = np.asarray(values)
     if isinstance(values, np.ndarray) and np.issubdtype(values.dtype, np.floating):
         return torch.as_tensor(values, dtype=F64, device=device())
     if isinstance(values, torch.Tensor) and values.is_floating_point():
@@ -60,6 +71,8 @@ class Series:
         if isinstance(values, Series):
             validity = values.validity if validity is None else validity
             values = values._values
+        if isinstance(values, (list, tuple)):
+            values, validity = _from_list(values, validity)
         self._values = values if isinstance(values, BlockPermuted) else _as_column(values)
         if validity is not None:
             if not isinstance(validity, torch.Tensor):
@@ -87,6 +100,12 @@ class Series:
 
     def alias(self, name: str) -> "Series":
         return Series(name, self._values, self.validity)
+
+    def valid_mask(self) -> torch.Tensor:
+        """Validity as a device bool tensor (all True without a mask)."""
+        if self.validity is None:
+            return torch.ones(len(self), dtype=torch.bool, device=device())
+        return self.validity
 
     def to_numpy(self) -> np.ndarray:
         """Host copy, with null slots as NaN."""

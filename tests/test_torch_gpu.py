@@ -1,5 +1,6 @@
-"""The PyTorch port on the card: the CUDA moment kernel against its plain
-version, and the slice on CUDA tensors against the same slice on the CPU.
+"""The PyTorch port on the card: the CUDA kernels against their plain
+versions, and the slices on CUDA tensors against the same slices on the
+CPU.
 
 Every test here needs a CUDA device and skips (with the reason) without
 one. This file imports neither jax nor the JAX package, so it also runs
@@ -9,8 +10,11 @@ where only the port is installed:
 
 Tolerances: kernel and plain version differ only in summation order, so
 rtol 1e-12 / atol 1e-13 * max|M|; counts are integers and match exactly.
-The slice on the card matches the CPU slice at the port's parity
-tolerance against the JAX engine, rtol 1e-9 / atol 1e-11.
+The probe kernel doubles f32 values, which is exact: bit equality. The
+main-path slice on the card matches the CPU slice at the port's parity
+tolerance against the JAX engine, rtol 1e-9 / atol 1e-11; the null-policy
+and WLS slice at 1e-12 (the same solves; only the moment kernel's
+summation order differs), with identical null masks.
 """
 
 import numpy as np
@@ -20,7 +24,7 @@ torch = pytest.importorskip("torch")
 
 import polars_ols_tpu_torch as pt  # noqa: E402
 from polars_ols_tpu_torch import CONFIG, col  # noqa: E402
-from polars_ols_tpu_torch.ops import moments  # noqa: E402
+from polars_ols_tpu_torch.ops import grid_probe, moments  # noqa: E402
 
 
 @pytest.fixture
@@ -96,3 +100,53 @@ def test_slice_on_card_matches_cpu(cuda_device, lazy, monkeypatch):
     gpu = out.to_numpy()
     assert moments.moments_kernel_launches == 1
     np.testing.assert_allclose(gpu, cpu, rtol=1e-9, atol=1e-11)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block_rows", [None, 256])
+def test_probe_kernel_doubles_exactly_on_card(cuda_device, block_rows, monkeypatch):
+    monkeypatch.setattr(grid_probe, "scale_copy_launches", 0)
+    x = torch.arange(2048 * 256, dtype=torch.float32, device=cuda_device).reshape(2048, 256)
+    if block_rows is None:
+        x = x[:256]  # the ungridded form: one [256, 256] tile
+    out = grid_probe.scale_copy(x, block_rows)
+    torch.cuda.synchronize()
+    assert grid_probe.scale_copy_launches == 1
+    assert torch.equal(out, x * 2.0)
+
+
+def _static_frame(n=20_000, k=4, g=37, seed=9):
+    """Columns with ~2 % nulls per column (row 0 valid) and a weight column
+    with one null."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, k))
+    valid = rng.random((n, 1 + k)) > 0.02
+    valid[0] = True
+    w_valid = np.ones(n, dtype=bool)
+    w_valid[3] = False
+    return {
+        "y": pt.Series("y", X @ np.arange(1.0, k + 1) + 0.1 * rng.normal(size=n), valid[:, 0]),
+        **{f"x{i + 1}": pt.Series(f"x{i + 1}", X[:, i], valid[:, 1 + i]) for i in range(k)},
+        "w": pt.Series("w", rng.random(n) + 0.1, w_valid),
+        "g": rng.integers(g, size=n).astype(float),
+    }
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("query", ["drop", "wls", "drop_coefficients"])
+def test_static_slice_on_card_matches_cpu(cuda_device, query, monkeypatch):
+    kw = {"drop": dict(null_policy="drop"), "wls": dict(null_policy="drop", sample_weights="w"),
+          "drop_coefficients": dict(null_policy="drop", mode="coefficients")}[query]
+    column = "coefficients" if query == "drop_coefficients" else "y"
+    monkeypatch.setattr(CONFIG, "moment_chunk_rows", 128)
+    expr = col("y").least_squares.ols(col("^x.*$"), **kw).over("g")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        monkeypatch.setattr(CONFIG, "device", dev)
+        s = pt.DataFrame(_static_frame()).select(expr)[column]
+        valid = s.validity
+        out[dev] = (s.values.cpu().numpy(), None if valid is None else valid.cpu().numpy())
+    assert moments.moments_kernel_launches == 1
+    np.testing.assert_array_equal(out["cuda"][1], out["cpu"][1])
+    m = np.ones(out["cpu"][0].shape, bool) if out["cpu"][1] is None else out["cpu"][1]
+    np.testing.assert_allclose(out["cuda"][0][m], out["cpu"][0][m], rtol=1e-12, atol=1e-12)

@@ -1,4 +1,4 @@
-"""The PyTorch port's batched PSD solves against the JAX engine's.
+"""The PyTorch port's batched solves against the JAX engine's.
 
 Both engines run the same column-recurrence Cholesky, condition estimate
 and eigh pseudo-inverse fallback, op for op. Well-conditioned lanes agree
@@ -6,7 +6,11 @@ to rounding (rtol 1e-12); lanes with cond(A) up to ~1e10 amplify the
 last-bit differences of the two backends' kernels by cond(A), hence
 rtol 1e-6 on their solutions; the finite-factor flags must agree exactly,
 and singular / all-zero lanes must come out of the eigh fallback with
-zero (minimum-norm) coefficients.
+zero (minimum-norm) coefficients. The explicit solvers (partial-pivot LU,
+the Householder reduction, SVD least squares) follow
+tests/test_explicit_solvers.py and agree with the JAX engine at 1e-12;
+the port's one SVD path is held against both of the JAX engine's (the
+lane-major Householder + Jacobi of its grouped fits, and ``svd_lstsq``).
 """
 
 import numpy as np
@@ -127,5 +131,127 @@ def test_eigh_pinv_solve_matches_jax():
 
 def test_more_than_32_features_raises():
     A = torch.eye(tlinalg.MAX_K + 1, dtype=torch.float64)[None]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
         tlinalg.solve_psd(A, torch.ones((1, tlinalg.MAX_K + 1), dtype=torch.float64))
+
+
+def test_eigh_fallback_gives_nan_on_a_nan_lane_like_jax():
+    # an 'ignore'-policy group whose moments hold a NaN: torch's eigh
+    # would raise, the JAX engine's gives NaN, and so must the port
+    A, b = _mixed(seed=50, kinds=("well", "singular"))
+    A[1, 0, 0] = np.nan
+    b[4, 1] = np.nan  # a finite A with a NaN right-hand side
+    t = tlinalg.eigh_pinv_solve(torch.as_tensor(A), torch.as_tensor(b)).numpy()
+    j = np.asarray(jlinalg.eigh_pinv_solve(jnp.asarray(A), jnp.asarray(b)))
+    np.testing.assert_array_equal(np.isnan(t), np.isnan(j))
+    assert np.isnan(t[1]).all() and np.isfinite(t[0]).all()
+    np.testing.assert_allclose(t, j, rtol=1e-10, atol=1e-12)
+    s = tlinalg.solve_psd(torch.as_tensor(A), torch.as_tensor(b)).numpy()
+    np.testing.assert_array_equal(np.isnan(s), np.isnan(np.asarray(
+        jlinalg.solve_psd(jnp.asarray(A), jnp.asarray(b))
+    )))
+
+
+# the explicit solvers: the JAX engine's arithmetic, op for op, so 1e-12
+SOLVER_TOL = dict(rtol=1e-12, atol=1e-12)
+
+
+def _lu_cases(case: str, seed: int):
+    rng = np.random.default_rng(seed)
+    if case == "general":  # nonsymmetric, indefinite
+        return rng.normal(size=(50, 7, 7)), rng.normal(size=(50, 7))
+    if case == "matrix_rhs":
+        return rng.normal(size=(50, 7, 7)), rng.normal(size=(50, 7, 3))
+    if case == "pivoting":  # zero leading pivots
+        A = np.array([
+            [[0.0, 2.0, 1.0], [1.0, 0.0, 3.0], [4.0, 1.0, 0.0]],
+            [[0.0, 1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 5.0]],
+        ])
+        return A, np.array([[1.0, 2.0, 3.0], [4.0, 5.0, 6.0]])
+    good = rng.normal(size=(K, K))  # "singular": one lane falls back to pinv
+    good = good @ good.T + K * np.eye(K)
+    return np.stack([good, np.ones((K, K))]), rng.normal(size=(2, K))
+
+
+@pytest.mark.parametrize("case", ["general", "matrix_rhs", "pivoting", "singular"])
+def test_solve_lu_matches_jax(case):
+    A, b = _lu_cases(case, seed=60)
+    t = tlinalg.solve_lu(torch.as_tensor(A), torch.as_tensor(b)).numpy()
+    j = np.asarray(jlinalg.solve_lu(jnp.asarray(A), jnp.asarray(b)))
+    np.testing.assert_allclose(t, j, **SOLVER_TOL)
+    if case == "singular":
+        np.testing.assert_allclose(t[1], np.linalg.pinv(A[1]) @ b[1], rtol=1e-8, atol=1e-9)
+    else:
+        exp = np.linalg.solve(A, b[..., None])[..., 0] if b.ndim == 2 else np.linalg.solve(A, b)
+        np.testing.assert_allclose(t, exp, rtol=1e-10, atol=1e-11)
+
+
+def test_householder_reduce_matches_jax():
+    # the port's row-major reduction against both of the JAX engine's forms:
+    # its own row-major one and the lane-major one its grouped path runs
+    rng = np.random.default_rng(61)
+    X = rng.normal(size=(80, 50, K))
+    X[:5, 30:] = 0.0  # padding rows
+    X[7, :, 2] = 0.0  # a zero column: an identity reflection
+    Y = rng.normal(size=(80, 50, 1))
+    Rt, Qt = (a.numpy() for a in tlinalg._householder_reduce(torch.as_tensor(X), torch.as_tensor(Y)))
+    Rj, Qj = jlinalg._householder_reduce(jnp.asarray(X), jnp.asarray(Y))
+    np.testing.assert_allclose(Rt, np.asarray(Rj), **SOLVER_TOL)
+    np.testing.assert_allclose(Qt, np.asarray(Qj), **SOLVER_TOL)
+    Rl, Ql = jlinalg.householder_lanes(jnp.asarray(X.transpose(1, 2, 0)), jnp.asarray(Y.transpose(1, 2, 0)))
+    np.testing.assert_allclose(Rt, np.asarray(Rl).transpose(2, 0, 1), **SOLVER_TOL)
+    np.testing.assert_allclose(Qt, np.asarray(Ql).transpose(2, 0, 1), **SOLVER_TOL)
+    for g in (0, 7, 79):  # and R'R is the Gram matrix
+        np.testing.assert_allclose(Rt[g].T @ Rt[g], X[g].T @ X[g], rtol=1e-11, atol=1e-11)
+
+
+@pytest.mark.parametrize("alpha", [0.0, 0.3])
+@pytest.mark.parametrize("deficient", [False, True])
+def test_grouped_svd_lstsq_matches_jax_lanes(alpha, deficient):
+    # the port's one SVD path against the JAX engine's grouped one
+    # (lane Householder + one-sided Jacobi)
+    rng = np.random.default_rng(63)
+    G, R, k = 70, 40, 4
+    X = rng.normal(size=(G, R, k))
+    X[:, 30:] = 0.0  # padded / masked rows
+    if deficient:
+        X[..., 3] = X[..., 2]  # the rank cutoff: minimum norm
+    y = np.einsum("grk,k->gr", X, np.arange(1.0, k + 1)) + rng.normal(size=(G, R)) * 0.1
+    n_valid = np.full(G, 30.0)
+    t = tlinalg.svd_lstsq(torch.as_tensor(X), torch.as_tensor(y), alpha,
+                          n_valid=torch.as_tensor(n_valid)).numpy()
+    j = np.asarray(jlinalg.svd_lstsq_lanes(jnp.asarray(X), jnp.asarray(y), alpha=alpha,
+                                           n_valid=jnp.asarray(n_valid)))
+    np.testing.assert_allclose(t, j, **SOLVER_TOL)
+    if alpha == 0.0:
+        for g in (0, 33):
+            np.testing.assert_allclose(t[g], np.linalg.lstsq(X[g], y[g], rcond=None)[0],
+                                       rtol=1e-9, atol=1e-10)
+
+
+@pytest.mark.parametrize("shape", ["tall", "wide", "multi_target"])
+def test_svd_lstsq_matches_jax(shape):
+    rng = np.random.default_rng(64)
+    n = {"tall": 40, "wide": 3, "multi_target": 40}[shape]
+    X = rng.normal(size=(6, n, K))
+    X[2, :, 1] = 0.0  # a zero feature in one problem: cut
+    y = rng.normal(size=(6, n, 2) if shape == "multi_target" else (6, n))
+    n_valid = np.full(6, float(n))
+    t = tlinalg.svd_lstsq(torch.as_tensor(X), torch.as_tensor(y), 0.1 if shape == "tall" else 0.0,
+                          n_valid=torch.as_tensor(n_valid)).numpy()
+    j = np.asarray(jlinalg.svd_lstsq(jnp.asarray(X), jnp.asarray(y), alpha=0.1 if shape == "tall" else 0.0,
+                                     n_valid=jnp.asarray(n_valid)))
+    np.testing.assert_allclose(t, j, **SOLVER_TOL)
+
+
+def test_svd_lstsq_gives_nan_on_a_nan_problem_like_jax():
+    rng = np.random.default_rng(65)
+    X = rng.normal(size=(3, 40, K))
+    y = rng.normal(size=(3, 40))
+    X[1, 5, 2] = np.nan  # torch's svd would raise on this factor
+    y[2, 7] = np.nan
+    t = tlinalg.svd_lstsq(torch.as_tensor(X), torch.as_tensor(y)).numpy()
+    j = np.asarray(jlinalg.svd_lstsq(jnp.asarray(X), jnp.asarray(y)))
+    np.testing.assert_array_equal(np.isnan(t), np.isnan(j))
+    assert np.isnan(t[1:]).all()
+    np.testing.assert_allclose(t[0], j[0], **SOLVER_TOL)

@@ -148,14 +148,8 @@ def _ols2(**kw):
 
 
 NOT_PORTED = {
-    "weights": _ols2(sample_weights="x3"),
-    "residuals": _ols2(mode="residuals"),
     "statistics": _ols2(mode="statistics"),
-    "svd": _ols2(solve_method="svd"),
-    "qr": _ols2(solve_method="qr"),
-    "lu": _ols2(solve_method="lu"),
     "lasso": _ols2(alpha=0.1, l1_ratio=1.0),
-    "nulls": _ols2(),
     "multi_target": _ols2(multi_target=True),
     "rolling": lambda c: c("y").least_squares.rolling_ols("x1", "x2", window_size=50),
     "rls": lambda c: c("y").least_squares.rls("x1", "x2"),
@@ -165,7 +159,5 @@ NOT_PORTED = {
 @pytest.mark.parametrize("case", sorted(NOT_PORTED))
 def test_unported_paths_raise(case):
     cols, *_ = _data(seed=7)
-    if case == "nulls":
-        cols["y"] = pt.Series("y", cols["y"], np.arange(N) % 7 != 0)
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
         pt.DataFrame(cols).select(NOT_PORTED[case](pt.col))
