@@ -13,10 +13,15 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-Every phase prints one line. The line before the last is a JSON object with
-the kernels' names, sources, launch counts on the main path, errors and
-times; the last line is ``{"ok": true, "device": {...}}``. Any failure
-raises and exits non-zero; without a CUDA device it exits non-zero at once.
+Every phase prints one line. A kernel's time is device ms per launch: one
+CUDA event pair around a run of back-to-back launches, divided by their
+count, with the stream held by a device sleep while the host queues them,
+so that the span is the device's time and not the host's; beside it, host
+us per call (the host clock over the same calls, no synchronise). The line
+before the last is a JSON object with the kernels' names, sources, launch
+counts on the main path, errors and times; the last line is
+``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
+without a CUDA device it exits non-zero at once.
 """
 
 from __future__ import annotations
@@ -34,31 +39,82 @@ N_FEATURES = 5
 N_GROUPS = 10_000
 N_CHECK_GROUPS = 200
 TIMING_REPS = 5
-KERNEL_REPS = 20
+KERNEL_REPS = 20  # samples of each version, taken in turns
+PROBE_LAUNCHES = 100  # launches per sample: a few microseconds each
+MOMENT_LAUNCHES = 20  # ~0.5 ms each
+# device sleep that holds the stream while the host queues a sample's
+# launches: ~20 ms at the H100's ~2 GHz, several times the host's queueing
+# (up to ~5 ms for 20 calls of the plain moment version)
+HOLD_CYCLES = 40_000_000
+HOLD_TRIES = 3  # a sample whose queueing outlasted the hold is taken again
 NULL_RATE = 0.02  # per column in the odd-numbered groups (~1 % overall); row 0 valid
 POLICIES = ("ignore", "zero", "drop", "drop_zero", "drop_y_zero_x")
 COEF_TOL = dict(rtol=1e-9, atol=1e-11)
 PRED_TOL = dict(rtol=1e-8, atol=1e-10)
 
 
-def _cuda_ms(fn, torch) -> float:
+def _hold_ms(torch) -> float:
+    """Device ms of one HOLD_CYCLES sleep."""
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
-    fn()
+    torch.cuda._sleep(HOLD_CYCLES)
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop)
 
 
-def _abba_ms(plain, kernel, torch):
-    """Median CUDA-event times of two versions taken in turns (plain,
-    kernel, kernel, plain), KERNEL_REPS samples each."""
-    times = {"plain": [], "kernel": []}
+def _launch_run(fn, n, hold_ms, torch):
+    """(device ms per launch, host us per call) of n back-to-back calls of
+    fn. The sleep queued first holds the stream until the host has queued
+    all n, so the event pair brackets device time alone. A sample in which
+    the host queued for more than 0.8 of the hold, so that the device may
+    have waited on it, is taken again, up to HOLD_TRIES times; then it
+    raises."""
+    for _ in range(HOLD_TRIES):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(HOLD_CYCLES)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        stop.record()
+        stop.synchronize()
+        if host_ms <= 0.8 * hold_ms:
+            return start.elapsed_time(stop) / n, host_ms * 1e3 / n
+    raise AssertionError(
+        f"the host queued {n} calls in {host_ms!r} ms against a {hold_ms!r} ms "
+        f"hold, {HOLD_TRIES} times: the event span would include host time"
+    )
+
+
+def _in_turns(fns, n, torch):
+    """Median (device ms per launch, host us per call) of each named
+    callable, KERNEL_REPS samples of n calls each, taken in turns forward
+    and back (plain, kernel, kernel, plain for two), after a warm call."""
+    for fn in fns.values():
+        fn()
+    hold_ms = _hold_ms(torch)
+    samples = {name: [] for name in fns}
+    order = list(fns)
     for _ in range(KERNEL_REPS // 2):
-        for which in ("plain", "kernel", "kernel", "plain"):
-            times[which].append(_cuda_ms(plain if which == "plain" else kernel, torch))
-    return float(np.median(times["kernel"])), float(np.median(times["plain"]))
+        for name in order + order[::-1]:
+            samples[name].append(_launch_run(fns[name], n, hold_ms, torch))
+    return {
+        name: tuple(float(np.median(col)) for col in zip(*runs))
+        for name, runs in samples.items()
+    }
+
+
+def _timing_fields(times):
+    """The kernels-line fields of an _in_turns result over plain and kernel."""
+    return {
+        "ms": times["kernel"][0], "plain_ms": times["plain"][0],
+        "host_us": times["kernel"][1], "plain_host_us": times["plain"][1],
+    }
 
 
 def _check_kernel(name, Zp, wp, offsets, G, moments, torch):
@@ -74,17 +130,17 @@ def _check_kernel(name, Zp, wp, offsets, G, moments, torch):
     np.testing.assert_allclose(M_k, M_p, rtol=1e-12, atol=1e-13 * scale)
     np.testing.assert_array_equal(c_k.cpu().numpy(), c_p.cpu().numpy())
     err = float(np.abs(M_k - M_p).max())
-    ms, plain_ms = _abba_ms(
-        lambda: moments.grouped_moments_blocks_ref(Zp, wp, offsets, G),
-        lambda: moments.grouped_moments_blocks(Zp, wp, offsets, G),
-        torch,
-    )
+    t = _timing_fields(_in_turns({
+        "plain": lambda: moments.grouped_moments_blocks_ref(Zp, wp, offsets, G),
+        "kernel": lambda: moments.grouped_moments_blocks(Zp, wp, offsets, G),
+    }, MOMENT_LAUNCHES, torch))
     S, R, C = Zp.shape
     print(
         f"kernel {name}: S={S} R={R} C={C} G={G} max_abs_err={err!r} "
-        f"(max|M|={scale!r}) kernel_ms={ms!r} plain_ms={plain_ms!r}"
+        f"(max|M|={scale!r}) kernel_ms={t['ms']!r} plain_ms={t['plain_ms']!r} "
+        f"per launch, host_us={t['host_us']!r} plain_host_us={t['plain_host_us']!r} per call"
     )
-    return err, ms, plain_ms
+    return err, t
 
 
 def _random_blocks(rng, n_blocks, R, C, torch):
@@ -119,29 +175,57 @@ def _lstsq(X, y):
     return np.linalg.lstsq(X, y, rcond=None)[0]
 
 
-def _check_probe(grid_probe, torch):
-    """Both forms of the probe kernel against x * 2 on the card: doubling an
-    f32 is exact, so bit equality. Returns the gridded form's (err, ms,
-    plain_ms)."""
+def _probe_inputs(grid_probe, torch):
+    """(form, x, block_rows) of the probe cases: the JAX probe's two forms,
+    a ragged shape, a view 4 bytes past a 16-byte boundary, tiles of an odd
+    element count (bulk-copy edges at every tile), and more tiles than a
+    grid's y dimension takes."""
     rows, cols, tile = grid_probe.PROBE_ROWS, grid_probe.PROBE_COLS, grid_probe.PROBE_TILE_ROWS
     x = torch.arange(rows * cols, dtype=torch.float32, device="cuda").reshape(rows, cols)
-    for form, args in (("ungridded", (x[:tile], None)), ("gridded", (x, tile))):
-        out = grid_probe.scale_copy(*args)
-        ref = grid_probe.scale_copy_ref(args[0])
+    shifted = torch.arange(rows * cols + 1, dtype=torch.float32, device="cuda")[1:]
+    return (
+        ("ungridded", x[:tile], None),
+        ("gridded", x, tile),
+        ("ragged", torch.arange(300 * 7, dtype=torch.float32, device="cuda").reshape(300, 7), 100),
+        ("misaligned", shifted.view(rows, cols), tile),
+        ("odd-tiles", torch.arange(999 * 33, dtype=torch.float32, device="cuda").reshape(999, 33), 333),
+        ("many-tiles", torch.arange(70_000 * 4, dtype=torch.float32, device="cuda").reshape(70_000, 4), 1),
+    )
+
+
+def _check_probe(grid_probe, torch):
+    """Every probe case against x * 2 on the card, one launch each: doubling
+    an f32 is exact, so bit equality. The JAX probe's two forms are timed;
+    returns the gridded form's (err, timing fields)."""
+    gridded = None
+    for form, x, block_rows in _probe_inputs(grid_probe, torch):
+        before = grid_probe.scale_copy_launches
+        out = grid_probe.scale_copy(x, block_rows)
+        ref = grid_probe.scale_copy_ref(x)
         torch.cuda.synchronize()
+        if grid_probe.scale_copy_launches != before + 1:
+            raise AssertionError(f"probe kernel ({form}) was not launched exactly once")
         if not torch.equal(out, ref):
             raise AssertionError(f"probe kernel ({form}) differs from x * 2")
         err = float((out - ref).abs().max())
-        ms, plain_ms = _abba_ms(
-            lambda: grid_probe.scale_copy_ref(args[0]),
-            lambda: grid_probe.scale_copy(*args),
-            torch,
+        rows = x.shape[0]
+        line = (
+            f"kernel probe {form}: {tuple(x.shape)} f32 in {rows // (block_rows or rows)} "
+            f"tile(s) max_abs_err={err!r} (bit-equal)"
         )
-        print(
-            f"kernel probe {form}: {tuple(args[0].shape)} f32 in {rows // (args[1] or rows)} "
-            f"block(s) max_abs_err={err!r} (bit-equal) kernel_ms={ms!r} plain_ms={plain_ms!r}"
-        )
-    return err, ms, plain_ms
+        if form in ("ungridded", "gridded"):
+            t = _timing_fields(_in_turns({
+                "plain": lambda: grid_probe.scale_copy_ref(x),
+                "kernel": lambda: grid_probe.scale_copy(x, block_rows),
+            }, PROBE_LAUNCHES, torch))
+            line += (
+                f" kernel_ms={t['ms']!r} plain_ms={t['plain_ms']!r} per launch, "
+                f"host_us={t['host_us']!r} plain_host_us={t['plain_host_us']!r} per call"
+            )
+            if form == "gridded":
+                gridded = (err, t)
+        print(line)
+    return gridded
 
 
 def _policy_expected(policy, X, y, vx, vy):
@@ -235,7 +319,7 @@ def main() -> int:
     probe_launches = grid_probe.scale_copy_launches
     if probe_launches != 2:
         raise AssertionError(f"probe kernel launched {probe_launches} times for 2 forms")
-    probe_err, probe_ms, probe_plain_ms = _check_probe(grid_probe, torch)
+    probe_err, probe_times = _check_probe(grid_probe, torch)
 
     rng = np.random.default_rng(0)
     x = rng.normal(size=(N_ROWS, N_FEATURES))
@@ -262,7 +346,7 @@ def main() -> int:
     vals, _ = fit._stack_cached(df["y"], [df[f"x{i + 1}"] for i in range(N_FEATURES)])
     Zp, wp, _ = fit._blocks_cached(layout, vals, None, "ignore")
     r_cap = Zp.shape[1]
-    main_err, main_ms, main_plain_ms = _check_kernel(
+    main_err, main_times = _check_kernel(
         "main-path", Zp, wp, layout.device_block_offsets(r_cap),
         layout.num_groups, moments, torch,
     )
@@ -458,8 +542,7 @@ def main() -> int:
             "launches": launches + static_launches,
             "launches_by_path": {"main": launches, "static": static_launches},
             "max_abs_err": main_err,
-            "ms": main_ms,
-            "plain_ms": main_plain_ms,
+            **main_times,
         },
         {
             "name": "scale_copy",
@@ -468,8 +551,7 @@ def main() -> int:
             "replaces": "experiments/pallas_grid_probe.py:19",
             "launches": probe_launches,
             "max_abs_err": probe_err,
-            "ms": probe_ms,
-            "plain_ms": probe_plain_ms,
+            **probe_times,
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,13 @@
 """The probe kernel: a scaled copy ``x * 2`` of an f32 ``[M, N]`` tensor,
-ungridded (one thread block) or gridded (one thread block per row tile).
+ungridded (one tile of all rows) or gridded (row tiles of ``block_rows``).
 
 The port of ``experiments/pallas_grid_probe.py``. On a CUDA tensor
 ``scale_copy`` always launches the hand-written kernel
 ``csrc/grid_probe.cu`` and counts the launch in ``scale_copy_launches``; a
-failed build or launch raises. On a CPU tensor it runs the plain version
-``scale_copy_ref``. Run the probe on the card with
+failed build or launch raises. The kernel cuts each tile into 8 KB chunks,
+one thread block each, and stages every chunk through shared memory with
+Hopper's bulk copies completed on an mbarrier. On a CPU tensor it runs the
+plain version ``scale_copy_ref``. Run the probe on the card with
 
     python -m polars_ols_tpu_torch.ops.grid_probe
 
@@ -54,9 +56,10 @@ def scale_copy_ref(x: torch.Tensor) -> torch.Tensor:
 
 
 def scale_copy(x: torch.Tensor, block_rows: Optional[int] = None) -> torch.Tensor:
-    """``x * 2`` of a contiguous f32 [M, N] tensor: one thread block over
-    the whole tensor (``block_rows`` None), or one per tile of
-    ``block_rows`` rows, which must divide M."""
+    """``x * 2`` of a contiguous f32 [M, N] tensor, as the JAX probe's
+    ``copy_kernel`` over one tile of all M rows (``block_rows`` None) or
+    over tiles of ``block_rows`` rows, which must divide M. On the card each
+    tile is cut into 8 KB chunks, one thread block per chunk."""
     global scale_copy_launches
     if x.dtype != torch.float32 or x.dim() != 2 or not x.is_contiguous():
         raise TypeError(
@@ -73,11 +76,15 @@ def scale_copy(x: torch.Tensor, block_rows: Optional[int] = None) -> torch.Tenso
         raise ValueError(f"no probe kernel for device {x.device}")
     out = torch.empty_like(x)
     lib = _kernel()
-    with torch.cuda.device(x.device):
-        rc = lib.pols_scale_copy(
-            x.data_ptr(), out.data_ptr(), rows, cols, tile,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
+    args = (x.data_ptr(), out.data_ptr(), rows, cols, tile,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    # the device guard costs host time on every call: enter it only when
+    # the launch needs another device current
+    if x.device.index == torch.cuda.current_device():
+        rc = lib.pols_scale_copy(*args)
+    else:
+        with torch.cuda.device(x.device):
+            rc = lib.pols_scale_copy(*args)
     if rc != 0:
         msg = lib.pols_cuda_error_string(rc).decode()
         raise RuntimeError(f"probe kernel launch failed: CUDA error {rc} ({msg})")

@@ -10,7 +10,8 @@ where only the port is installed:
 
 Tolerances: kernel and plain version differ only in summation order, so
 rtol 1e-12 / atol 1e-13 * max|M|; counts are integers and match exactly.
-The probe kernel doubles f32 values, which is exact: bit equality. The
+The probe kernel doubles f32 values, which is exact: bit equality, also
+on ragged, misaligned and many-tile shapes that take its plain edges. The
 main-path slice on the card matches the CPU slice at the port's parity
 tolerance against the JAX engine, rtol 1e-9 / atol 1e-11; the null-policy
 and WLS slice at 1e-12 (the same solves; only the moment kernel's
@@ -109,6 +110,27 @@ def test_probe_kernel_doubles_exactly_on_card(cuda_device, block_rows, monkeypat
     x = torch.arange(2048 * 256, dtype=torch.float32, device=cuda_device).reshape(2048, 256)
     if block_rows is None:
         x = x[:256]  # the ungridded form: one [256, 256] tile
+    out = grid_probe.scale_copy(x, block_rows)
+    torch.cuda.synchronize()
+    assert grid_probe.scale_copy_launches == 1
+    assert torch.equal(out, x * 2.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "case,rows,cols,block_rows",
+    [
+        ("ragged", 300, 7, 100),  # a tile of one partial chunk
+        ("misaligned", 2048, 256, 256),  # 4 bytes past a 16-byte boundary
+        ("odd_tiles", 999, 33, 333),  # unaligned edges at every tile
+        ("many_tiles", 70_000, 4, 1),  # more tiles than the grid's y limit
+    ],
+)
+def test_probe_kernel_edges_on_card(cuda_device, case, rows, cols, block_rows, monkeypatch):
+    monkeypatch.setattr(grid_probe, "scale_copy_launches", 0)
+    flat = torch.arange(rows * cols + 1, dtype=torch.float32, device=cuda_device)
+    x = (flat[1:] if case == "misaligned" else flat[:-1]).view(rows, cols)
+    assert (x.data_ptr() % 16 != 0) == (case == "misaligned")
     out = grid_probe.scale_copy(x, block_rows)
     torch.cuda.synchronize()
     assert grid_probe.scale_copy_launches == 1

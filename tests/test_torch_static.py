@@ -34,7 +34,7 @@ from polars_ols_tpu.ops import masking as jmasking  # noqa: E402
 import polars_ols_tpu_torch as pt  # noqa: E402
 from polars_ols_tpu_torch import CONFIG  # noqa: E402
 from polars_ols_tpu_torch.engine import fit  # noqa: E402
-from polars_ols_tpu_torch.ops import grid_probe, masking, moments  # noqa: E402
+from polars_ols_tpu_torch.ops import masking, moments  # noqa: E402
 
 COEF_TOL = dict(rtol=1e-9, atol=1e-11)
 PRED_TOL = dict(rtol=1e-8, atol=1e-10)
@@ -311,32 +311,3 @@ def test_cpu_static_fits_launch_no_kernel(monkeypatch):
     for method in ("lu", "qr", None):
         df.select(_query(pt.col, null_policy="drop", solve_method=method))["y"].to_numpy()
     assert moments.moments_kernel_launches == 0
-
-
-# --------------------------------------------------------------------------- #
-# the probe kernel's plain path
-# --------------------------------------------------------------------------- #
-@pytest.mark.parametrize("block_rows", [None, 256])
-def test_probe_plain_path_doubles_and_counts_no_launch(block_rows, monkeypatch):
-    monkeypatch.setattr(grid_probe, "scale_copy_launches", 0)
-    x = torch.arange(2048 * 256, dtype=torch.float32).reshape(2048, 256)
-    out = grid_probe.scale_copy(x, block_rows)
-    assert out.dtype == torch.float32
-    assert torch.equal(out, x * 2.0)
-    assert grid_probe.scale_copy_launches == 0
-
-
-@pytest.mark.parametrize("case", ["f64", "one_dim", "non_contiguous", "ragged_tiles"])
-def test_probe_wrapper_rejects_what_the_kernel_does_not_take(case):
-    x = torch.zeros((512, 256), dtype=torch.float32)
-    block_rows = None
-    if case == "f64":
-        x = x.double()
-    elif case == "one_dim":
-        x = x.reshape(-1)
-    elif case == "non_contiguous":
-        x = x.t()
-    else:
-        block_rows = 300
-    with pytest.raises((TypeError, ValueError)):
-        grid_probe.scale_copy(x, block_rows)
