@@ -3,11 +3,13 @@
 Builds the hand-written CUDA kernels from this checkout (one nvcc per
 source, all at once), runs the probe kernel's entry point, checks each
 kernel against its plain PyTorch version on the card, drives the
-grouped-OLS main path and the static fits (the five null policies, WLS,
-residuals, explicit lu / qr / svd) once at full width through the public
-API (8,000,000 rows x 5 features x 10,000 groups, f64: the workload of
-bench.py, with ~1 % nulls per column in half of the groups and a weight
-column), checks the results against numpy, and times them.
+grouped-OLS main path, the static fits (the five null policies, WLS,
+residuals, explicit lu / qr / svd) and the statistics and
+coordinate-descent queries (statistics, lasso, elastic net, NNLS, the
+active-set variant) once at full width through the public API (8,000,000
+rows x 5 features x 10,000 groups, f64: the workload of bench.py, with
+~1 % nulls per column in half of the groups and a weight column), checks
+the results against numpy and scipy, and times them.
 
 Run from the repository root with no arguments:
 
@@ -17,7 +19,11 @@ Every phase prints one line. A kernel's time is device ms per launch: one
 CUDA event pair around a run of back-to-back launches, divided by their
 count, with the stream held by a device sleep while the host queues them,
 so that the span is the device's time and not the host's; beside it, host
-us per call (the host clock over the same calls, no synchronise). The line
+us per call (the host clock over the same calls, no synchronise). The
+plain versions of the coordinate-descent and p-value kernels synchronise
+inside (a convergence test per sweep or per 8 iterations), so they cannot
+be queued behind a hold: their time is an event pair around whole calls,
+host gaps included. The line
 before the last is a JSON object with the kernels' names, sources, launch
 counts on the main path, errors and times; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -42,6 +48,9 @@ TIMING_REPS = 5
 KERNEL_REPS = 20  # samples of each version, taken in turns
 PROBE_LAUNCHES = 100  # launches per sample: a few microseconds each
 MOMENT_LAUNCHES = 20  # ~0.5 ms each
+CD_LAUNCHES = 20
+PVALUE_LAUNCHES = 100
+SYNCED_CALLS = 2  # calls per sample of a plain version that synchronises inside
 # device sleep that holds the stream while the host queues a sample's
 # launches: ~20 ms at the H100's ~2 GHz, several times the host's queueing
 # (up to ~5 ms for 20 calls of the plain moment version)
@@ -51,6 +60,17 @@ NULL_RATE = 0.02  # per column in the odd-numbered groups (~1 % overall); row 0 
 POLICIES = ("ignore", "zero", "drop", "drop_zero", "drop_y_zero_x")
 COEF_TOL = dict(rtol=1e-9, atol=1e-11)
 PRED_TOL = dict(rtol=1e-8, atol=1e-10)
+# the statistics against numpy lstsq and scipy.stats.t (tests/oracles.py)
+SE_T_TOL = dict(rtol=1e-8, atol=0.0)
+P_TOL = dict(rtol=1e-6, atol=1e-12)
+METRIC_TOL = dict(rtol=1e-9, atol=0.0)
+CD_TOL = dict(rtol=1e-8, atol=1e-10)  # against a literal numpy coordinate descent
+P_KERNEL_RTOL = 1e-12  # p-value kernel against its plain version and scipy
+# alpha = 1 puts the lasso's threshold at the size of the true coefficients
+# (all 1): about half the coefficients of a group are zero
+LASSO_ALPHA = 1.0
+ENET_ALPHA = 1.0
+RIDGE_ALPHA = 10.0
 
 
 def _hold_ms(torch) -> float:
@@ -91,10 +111,28 @@ def _launch_run(fn, n, hold_ms, torch):
     )
 
 
-def _in_turns(fns, n, torch):
+def _synced_run(fn, n, torch):
+    """(ms per call, host us per call) of n calls of fn that synchronises
+    inside: an event pair around the calls, host gaps included."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / n, host_ms * 1e3 / n
+
+
+def _in_turns(fns, n, torch, synced=()):
     """Median (device ms per launch, host us per call) of each named
     callable, KERNEL_REPS samples of n calls each, taken in turns forward
-    and back (plain, kernel, kernel, plain for two), after a warm call."""
+    and back (plain, kernel, kernel, plain for two), after a warm call.
+    The callables named in ``synced`` synchronise inside: SYNCED_CALLS
+    calls a sample, timed by ``_synced_run``."""
     for fn in fns.values():
         fn()
     hold_ms = _hold_ms(torch)
@@ -102,7 +140,10 @@ def _in_turns(fns, n, torch):
     order = list(fns)
     for _ in range(KERNEL_REPS // 2):
         for name in order + order[::-1]:
-            samples[name].append(_launch_run(fns[name], n, hold_ms, torch))
+            if name in synced:
+                samples[name].append(_synced_run(fns[name], SYNCED_CALLS, torch))
+            else:
+                samples[name].append(_launch_run(fns[name], n, hold_ms, torch))
     return {
         name: tuple(float(np.median(col)) for col in zip(*runs))
         for name, runs in samples.items()
@@ -275,6 +316,162 @@ def _timed_median(fn, torch) -> float:
     return float(np.median(times))
 
 
+def _check_cd(label, XtX, Xty, counts, kw, cd, torch):
+    """The coordinate-descent kernel against its plain version on the same
+    CUDA moments: the same sums in the same order, so the same sweep counts
+    and coefficients at COEF_TOL (equal bits expected) on every group."""
+    w_k, s_k = cd.solve_elastic_net_cov(XtX, Xty, counts, **kw)
+    torch.cuda.synchronize()
+    w_p, s_p = cd.solve_elastic_net_cov_ref(XtX, Xty, counts, **kw)
+    w_k, w_p = w_k.cpu().numpy(), w_p.cpu().numpy()
+    s_k, s_p = s_k.cpu().numpy(), s_p.cpu().numpy()
+    np.testing.assert_array_equal(s_k, s_p)
+    np.testing.assert_allclose(w_k, w_p, **COEF_TOL)
+    err = float(np.abs(w_k - w_p).max())
+    t = _timing_fields(_in_turns({
+        "plain": lambda: cd.solve_elastic_net_cov_ref(XtX, Xty, counts, **kw),
+        "kernel": lambda: cd.solve_elastic_net_cov(XtX, Xty, counts, **kw),
+    }, CD_LAUNCHES, torch, synced=("plain",)))
+    G, K = w_k.shape
+    print(
+        f"kernel cd {label}: G={G} K={K} {kw} max_abs_err={err!r} "
+        f"bit-equal={bool(np.array_equal(w_k, w_p))} sweeps median={float(np.median(s_k))!r} "
+        f"max={int(s_k.max())} zero coefficients={float((w_k == 0).mean())!r} "
+        f"kernel_ms={t['ms']!r} per launch, plain_ms={t['plain_ms']!r} per call (host syncs "
+        f"inside), host_us={t['host_us']!r} plain_host_us={t['plain_host_us']!r} per call"
+    )
+    return err, t
+
+
+def _signed_moments(rng, G, K, torch):
+    """Moments of G groups of 40 rows with sparse coefficients of both
+    signs, so that positive=True clamps."""
+    X = rng.normal(size=(G, 40, K))
+    beta = rng.normal(size=(G, K)) * (rng.random((G, K)) > 0.3)
+    y = np.einsum("grk,gk->gr", X, beta) + rng.normal(size=(G, 40))
+    dev = torch.device("cuda")
+    return (
+        torch.as_tensor(np.einsum("grk,grl->gkl", X, X), device=dev),
+        torch.as_tensor(np.einsum("grk,gr->gk", X, y), device=dev),
+        torch.full((G,), 40.0, dtype=torch.float64, device=dev),
+    )
+
+
+def _pvalue_inputs(t_query, dof_query, torch):
+    """(t [G, 5], dof [G]) of the p-value check: the statistics query's t and
+    dof, the same t / 100 (p-values away from 0), and edge rows: t = 0,
+    |t| = 40, dof 1 / 2.5 / 8e6, dof 0 and -3, NaN t."""
+    nan = float("nan")
+    edges = np.asarray([
+        [0.0, 0.5, 1.0, 2.0, 40.0],
+        [0.0, -0.5, 1.5, 3.0, -40.0],
+        [0.0, 1.5, 1.8, 2.0, 40.0],
+        [0.0, 1.0, 2.0, 3.0, 4.0],
+        [1.0, 2.0, 3.0, 4.0, 5.0],
+        [nan, 1.0, nan, 2.0, 3.0],
+    ])
+    edge_dof = np.asarray([1.0, 2.5, 8e6, 0.0, -3.0, 10.0])
+    dev = torch.device("cuda")
+    t = torch.cat([t_query, t_query / 100.0, torch.as_tensor(edges, device=dev)]).contiguous()
+    dof = torch.cat([dof_query, dof_query, torch.as_tensor(edge_dof, device=dev)]).contiguous()
+    return t, dof
+
+
+def _check_pvalue(t_query, dof_query, special, torch):
+    """The p-value kernel against its plain version (rtol 1e-12, NaN where
+    it has NaN) and scipy.special.betainc (rtol 1e-12) on the statistics
+    query's t, the same t / 100 and edge rows; timed at the query's shape."""
+    from scipy import special as sp
+
+    t, dof = _pvalue_inputs(t_query, dof_query, torch)
+    p_k = special.t_two_sided_p_value(t, dof)
+    torch.cuda.synchronize()
+    p_p = special.t_two_sided_p_value_ref(t, dof).cpu().numpy()
+    p_k = p_k.cpu().numpy()
+    np.testing.assert_array_equal(np.isnan(p_k), np.isnan(p_p))
+    np.testing.assert_allclose(p_k, p_p, rtol=P_KERNEL_RTOL, atol=0.0)
+    tn, dn = t.cpu().numpy(), dof.cpu().numpy()[:, None]
+    with np.errstate(invalid="ignore"):
+        x = dn / (dn + tn * tn)
+    ok = (dn > 0) & np.isfinite(x)
+    ref = sp.betainc(np.broadcast_to(dn / 2.0, x.shape)[ok], 0.5, x[ok])
+    np.testing.assert_allclose(p_k[ok], ref, rtol=P_KERNEL_RTOL, atol=1e-300)
+    if not ((p_k[tn == 0] == 1.0) | (dn <= 0).repeat(5, 1)[tn == 0]).all():
+        raise AssertionError("p-value at t = 0 is not 1")
+    if not (np.isnan(p_k[-2:-1]).all() and np.isnan(p_k[-1, [0, 2]]).all()):
+        raise AssertionError("p-value of a negative dof or a NaN t is not NaN")
+    err = float(np.nanmax(np.abs(p_k - p_p)))
+    scipy_rel = float(np.max(np.abs(p_k[ok] - ref) / np.maximum(ref, 1e-300)))
+    G = t_query.shape[0]
+    times = _timing_fields(_in_turns({
+        "plain": lambda: special.t_two_sided_p_value_ref(t_query, dof_query),
+        "kernel": lambda: special.t_two_sided_p_value(t_query, dof_query),
+    }, PVALUE_LAUNCHES, torch, synced=("plain",)))
+    print(
+        f"kernel t_pvalue: {2 * G + 6} rows x 5 (query t, t/100, edges) max_abs_err={err!r} "
+        f"vs plain, max rel err vs scipy={scipy_rel!r}; at the query's [{G}, 5]: "
+        f"kernel_ms={times['ms']!r} per launch, plain_ms={times['plain_ms']!r} per call (host "
+        f"syncs inside), host_us={times['host_us']!r} plain_host_us={times['plain_host_us']!r} "
+        "per call"
+    )
+    return err, times
+
+
+def _cd_numpy(XtX, Xty, n, alpha, l1_ratio, positive=False, active_set=False,
+              max_iter=1000, tol=1e-5):
+    """A literal covariance-form cyclic coordinate descent of one group (the
+    reference's src/least_squares.rs:386-492 on the moments)."""
+    K = len(Xty)
+    a = alpha * max(n, 1.0)
+    a_l1, a_l2 = a * l1_ratio, a * (1.0 - l1_ratio)
+    w = np.zeros(K)
+    active = np.ones(K, dtype=bool)
+    for _ in range(max_iter):
+        w_old = w.copy()
+        for j in range(K):
+            rho = Xty[j] - XtX[j] @ w + XtX[j, j] * w[j]
+            wj = np.sign(rho) * max(abs(rho) - a_l1, 0.0)
+            if positive:
+                wj = max(wj, 0.0)
+            d = XtX[j, j] + a_l2
+            wj = wj / (d if d > 0 else 1.0)
+            if active_set:
+                wj = wj if active[j] else w[j]
+                active[j] = active[j] and abs(wj) >= tol
+            w[j] = wj
+        if np.linalg.norm(w - w_old) < tol:
+            break
+    return w
+
+
+def _stats_numpy(X, y, alpha, beta=None):
+    """numpy statistics of one group (tests/oracles.py:ols_statistics /
+    ridge_statistics): coefficients, r2 / mae / mse of ``beta`` (default
+    the normal-equation or lstsq solution), se / t / p from the normal
+    equations with df = n - tr((X'X + alpha I)^-1) when alpha > 0, else
+    n - K, and p = 2 sf(|t|)."""
+    from scipy import stats
+
+    n, k = X.shape
+    A_inv = np.linalg.inv(X.T @ X + alpha * np.eye(k))
+    beta_ne = _lstsq(X, y) if alpha == 0 else A_inv @ (X.T @ y)
+    beta = beta_ne if beta is None else beta
+    r_ne = y - X @ beta_ne
+    df = n - (float(np.trace(A_inv)) if alpha > 0 else k)
+    se = np.sqrt(float(r_ne @ r_ne) / df * np.abs(np.diag(A_inv)))
+    t = (A_inv @ (X.T @ y)) / se
+    r = y - X @ beta
+    return {
+        "coefficients": beta,
+        "standard_errors": se,
+        "t_values": t,
+        "p_values": 2.0 * stats.t.sf(np.abs(t), df),
+        "r2": 1.0 - float(r @ r) / float(((y - y.mean()) ** 2).sum()),
+        "mse": float(r @ r) / n,
+        "mae": float(np.abs(r).sum()) / n,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -286,7 +483,8 @@ def main() -> int:
     from polars_ols_tpu_torch import CONFIG, col
     from polars_ols_tpu_torch.engine import fit, groups
     from polars_ols_tpu_torch.engine.native import native_loaded
-    from polars_ols_tpu_torch.ops import grid_probe, kernels, moments
+    from polars_ols_tpu_torch.ops import cd, grid_probe, kernels, moments, special
+    from polars_ols_tpu_torch.ops.direct import grouped_moments
 
     CONFIG.device = "cuda"
     smi = subprocess.run(
@@ -301,7 +499,7 @@ def main() -> int:
     )
 
     # 2. build: one nvcc per source, all at once
-    sources = ("moments", "grid_probe")
+    sources = ("moments", "grid_probe", "cd", "t_pvalue")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(kernels.build, sources))
@@ -519,7 +717,135 @@ def main() -> int:
         moments, torch,
     )
 
-    # 6. steady-state timing, median of TIMING_REPS after one warm call
+    # 6. statistics and coordinate descent at full width, through the
+    # public API under .over("group"): every query once, with the counts
+    # of all kernels set to 0 just before and read just after
+    def lasso(target, feats, **kw):
+        return col(target).least_squares.lasso(*feats, alpha=LASSO_ALPHA, **kw).over("group")
+
+    stat_queries = {
+        "statistics": (ols("y", xv, mode="statistics"), "statistics"),
+        "ridge/statistics": (
+            col("y").least_squares.ridge(*xv, alpha=RIDGE_ALPHA, mode="statistics").over("group"),
+            "statistics",
+        ),
+        "drop/statistics": (ols("yn", xn, null_policy="drop", mode="statistics"), "statistics"),
+        "lasso": (lasso("y", xv), "y"),
+        "lasso/coef": (lasso("y", xv, mode="coefficients"), "coefficients"),
+        "lasso/statistics": (lasso("y", xv, mode="statistics"), "statistics"),
+        "elastic_net/coef": (
+            col("y").least_squares.elastic_net(
+                *xv, alpha=ENET_ALPHA, l1_ratio=0.5, mode="coefficients"
+            ).over("group"),
+            "coefficients",
+        ),
+        "nnls/coef": (lasso("y", xv, positive=True, mode="coefficients"), "coefficients"),
+        "cd_active_set/coef": (
+            lasso("y", xv, solve_method="cd_active_set", mode="coefficients"), "coefficients"
+        ),
+    }
+    CONFIG.lazy_row_order = False
+    moments.moments_kernel_launches = 0
+    cd.cd_kernel_launches = 0
+    special.t_pvalue_kernel_launches = 0
+    sout, first_s_stat = {}, {}
+    for label, (q, column) in stat_queries.items():
+        t0 = time.perf_counter()
+        sout[label] = df.select(q)[column]
+        torch.cuda.synchronize()
+        first_s_stat[label] = time.perf_counter() - t0
+    stat_launches = {
+        "grouped_moments": moments.moments_kernel_launches,
+        "cd_cov": cd.cd_kernel_launches,
+        "t_pvalue": special.t_pvalue_kernel_launches,
+    }
+    n_stat = sum(label.endswith("statistics") for label in stat_queries)
+    n_cd = sum(label.split("/")[0] in ("lasso", "elastic_net", "nnls", "cd_active_set")
+               for label in stat_queries)
+    if (stat_launches["grouped_moments"] < len(stat_queries) or stat_launches["cd_cov"] < n_cd
+            or stat_launches["t_pvalue"] < n_stat):
+        raise AssertionError(
+            f"kernel launches {stat_launches} for {len(stat_queries)} queries, {n_cd} by "
+            f"coordinate descent and {n_stat} with statistics"
+        )
+
+    # values on the sampled groups against numpy / scipy
+    first = np.asarray([rows[0] for _, rows in group_rows])
+    first_t = torch.as_tensor(first, device=dev)
+    picked = {}
+    for label, s in sout.items():
+        if label.endswith("statistics"):
+            arrays = s.gather(first_t).arrays
+            picked[label] = {k: v.cpu().numpy() for k, v in arrays.items()}
+        elif label.endswith("/coef"):
+            picked[label] = _picked(s, first_t)
+    lasso_preds = _picked(sout["lasso"], sel)
+    at = 0
+    for i, (_, rows) in enumerate(group_rows):
+        here = slice(at, at + len(rows))
+        at += len(rows)
+        Xg, yg, vx, vy = x[rows], y[rows], valid[rows, 1:], valid[rows, 0]
+        fit = vy & vx.all(axis=1)
+        XtX_g, Xty_g, n_g = Xg.T @ Xg, Xg.T @ yg, float(len(rows))
+        w_lasso = _cd_numpy(XtX_g, Xty_g, n_g, LASSO_ALPHA, 1.0)
+        want = {
+            "statistics": _stats_numpy(Xg, yg, 0.0),
+            "ridge/statistics": _stats_numpy(Xg, yg, RIDGE_ALPHA),
+            "drop/statistics": _stats_numpy(Xg[fit], yg[fit], 0.0),
+            "lasso/statistics": _stats_numpy(Xg, yg, LASSO_ALPHA, beta=w_lasso),
+        }
+        for label, ref in want.items():
+            got = {k: v[i] for k, v in picked[label].items()}
+            coef_tol = CD_TOL if label.startswith("lasso") else COEF_TOL
+            np.testing.assert_allclose(got["coefficients"], ref["coefficients"], **coef_tol)
+            for key in ("standard_errors", "t_values"):
+                np.testing.assert_allclose(got[key], ref[key], err_msg=f"{label} {key}", **SE_T_TOL)
+            np.testing.assert_allclose(got["p_values"], ref["p_values"], **P_TOL)
+            for key in ("r2", "mse", "mae"):
+                np.testing.assert_allclose(got[key], ref[key], err_msg=f"{label} {key}", **METRIC_TOL)
+        cd_want = {
+            "lasso/coef": w_lasso,
+            "elastic_net/coef": _cd_numpy(XtX_g, Xty_g, n_g, ENET_ALPHA, 0.5),
+            "nnls/coef": _cd_numpy(XtX_g, Xty_g, n_g, LASSO_ALPHA, 1.0, positive=True),
+            "cd_active_set/coef": _cd_numpy(XtX_g, Xty_g, n_g, LASSO_ALPHA, 1.0, active_set=True),
+        }
+        for label, ref in cd_want.items():
+            np.testing.assert_allclose(picked[label][i], ref, err_msg=label, **CD_TOL)
+        np.testing.assert_allclose(lasso_preds[here], Xg @ w_lasso, **CD_TOL)
+    lasso_coefs = picked["lasso/coef"]
+    if not ((lasso_coefs == 0).any() and (lasso_coefs != 0).any()):
+        raise AssertionError(f"lasso at alpha {LASSO_ALPHA}: the sampled groups need zero and nonzero coefficients")
+    print(
+        f"statistics/cd: {len(stat_queries)} queries ({', '.join(stat_queries)}) at {N_ROWS} rows, "
+        f"kernel launches {json.dumps(stat_launches)}, {N_CHECK_GROUPS} groups match numpy lstsq / "
+        f"scipy.stats.t and a literal numpy coordinate descent; lasso zero coefficients "
+        f"{float((lasso_coefs == 0).mean())!r} of the sampled"
+    )
+    print("statistics/cd first-query s: " + json.dumps({k: round(v, 4) for k, v in first_s_stat.items()}))
+
+    # the two kernels of this path against their plain versions, at its
+    # shapes: coordinate descent on the main path's moments, the p-values
+    # on the statistics query's t and dof
+    XtX_m, Xty_m, counts_m = grouped_moments(Zp, wp, layout.device_block_offsets(r_cap), layout.num_groups)
+    XtX_m, Xty_m = XtX_m.contiguous(), Xty_m.contiguous()
+    cd_err, cd_times = _check_cd(
+        "main-path lasso", XtX_m, Xty_m, counts_m, dict(alpha=LASSO_ALPHA, l1_ratio=1.0), cd, torch
+    )
+    for label, kw in (
+        ("main-path active_set", dict(alpha=LASSO_ALPHA, l1_ratio=1.0, active_set=True)),
+        ("main-path positive", dict(alpha=LASSO_ALPHA, l1_ratio=1.0, positive=True)),
+    ):
+        _check_cd(label, XtX_m, Xty_m, counts_m, kw, cd, torch)
+    _check_cd(
+        "signed positive", *_signed_moments(rng, N_GROUPS, N_FEATURES, torch),
+        dict(alpha=0.05, l1_ratio=0.8, positive=True), cd, torch,
+    )
+    first_of_group = torch.as_tensor(np.unique(g.astype(np.int64), return_index=True)[1], device=dev)
+    t_query = sout["statistics"].gather(first_of_group).arrays["t_values"].contiguous()
+    dof_query = torch.as_tensor(layout.counts - N_FEATURES, dtype=torch.float64, device=dev)
+    p_err, p_times = _check_pvalue(t_query, dof_query, special, torch)
+
+    # 7. steady-state timing, median of TIMING_REPS after one warm call
     for label, lazy in (("materialized", False), ("lazy", True)):
         CONFIG.lazy_row_order = lazy
         med = _timed_median(lambda: df.select(expr), torch)
@@ -532,6 +858,18 @@ def main() -> int:
             f"timing {label} (materialized): median {med * 1e3!r} ms, "
             f"{N_ROWS / med!r} rows/s, first query {first_s[label]!r} s ({smi})"
         )
+    timed = {
+        "statistics (deferred rows)": lambda: df.select(stat_queries["statistics"][0]),
+        "statistics (materialized)": lambda: df.select(stat_queries["statistics"][0])["statistics"].arrays,
+        "lasso (materialized)": lambda: df.select(stat_queries["lasso"][0]),
+        "lasso/statistics (deferred rows)": lambda: df.select(stat_queries["lasso/statistics"][0]),
+    }
+    for label, fn in timed.items():
+        med = _timed_median(fn, torch)
+        print(
+            f"timing {label}: median {med * 1e3!r} ms, {N_ROWS / med!r} rows/s, "
+            f"first query {first_s_stat[label.split(' ')[0]]!r} s ({smi})"
+        )
 
     print(json.dumps({"kernels": [
         {
@@ -539,8 +877,11 @@ def main() -> int:
             "route": "cuda",
             "source": "polars_ols_tpu_torch/csrc/moments.cu",
             "replaces": "polars_ols_tpu/ops/pallas_moments.py:78",
-            "launches": launches + static_launches,
-            "launches_by_path": {"main": launches, "static": static_launches},
+            "launches": launches + static_launches + stat_launches["grouped_moments"],
+            "launches_by_path": {
+                "main": launches, "static": static_launches,
+                "statistics_cd": stat_launches["grouped_moments"],
+            },
             "max_abs_err": main_err,
             **main_times,
         },
@@ -552,6 +893,26 @@ def main() -> int:
             "launches": probe_launches,
             "max_abs_err": probe_err,
             **probe_times,
+        },
+        {
+            "name": "cd_cov",
+            "route": "cuda",
+            "source": "polars_ols_tpu_torch/csrc/cd.cu",
+            "replaces": "polars_ols_tpu/ops/cd.py:99",
+            "replaces_kind": "XLA while loop, not Pallas",
+            "launches": stat_launches["cd_cov"],
+            "max_abs_err": cd_err,
+            **cd_times,
+        },
+        {
+            "name": "t_pvalue",
+            "route": "cuda",
+            "source": "polars_ols_tpu_torch/csrc/t_pvalue.cu",
+            "replaces": "polars_ols_tpu/ops/linalg.py:659",
+            "replaces_kind": "XLA betainc, not Pallas",
+            "launches": stat_launches["t_pvalue"],
+            "max_abs_err": p_err,
+            **p_times,
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

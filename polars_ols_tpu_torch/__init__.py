@@ -2,14 +2,17 @@
 
 The PyTorch port of ``polars_ols_tpu`` (the JAX engine, which stays the
 reference): the same DataFrame / expression surface, with every group
-batched into tensor programs on ``CONFIG.device`` and the per-group moment
-stage in a hand-written CUDA kernel (``csrc/moments.cu``).
+batched into tensor programs on ``CONFIG.device`` and hand-written CUDA
+kernels for the per-group moments (``csrc/moments.cu``), coordinate
+descent (``csrc/cd.cu``) and the t-test p-values (``csrc/t_pvalue.cu``).
 
-Ported so far: grouped and ungrouped OLS and ridge through
-``col(y).least_squares.ols(...)`` / ``.ridge(...)``, ``.over(keys)`` and
-``DataFrame.select``, on fully valid f64 columns, in predictions or
-coefficients mode. Everything else raises ``NotImplementedError`` naming
-its ROADMAP.md queue item.
+Ported so far: the static fits, grouped (``.over(keys)``) and not, through
+``col(y).least_squares.ols / wls / ridge / lasso / elastic_net(...)`` and
+``DataFrame.select``: the five static null policies, sample weights,
+solve methods chol / lu / qr / svd / cd / cd_active_set (``positive=True``
+for NNLS), K <= 32, in predictions, residuals, coefficients or statistics
+mode (a ``StatisticsSeries``). Everything else raises
+``NotImplementedError`` naming its ROADMAP.md queue item.
 
 This package imports torch and numpy only; it never imports jax or
 polars_ols_tpu.
@@ -20,8 +23,8 @@ from __future__ import annotations
 from .config import CONFIG
 from .expr import col
 from .frame import DataFrame
-from .series import Series
+from .series import Series, StatisticsSeries
 
 __version__ = "0.1.0"
 
-__all__ = ["CONFIG", "DataFrame", "Series", "col"]
+__all__ = ["CONFIG", "DataFrame", "Series", "StatisticsSeries", "col"]

@@ -1,4 +1,4 @@
-"""Least-squares evaluation engine: the static fits.
+"""Least-squares evaluation engine: the static fits and their statistics.
 
 A static fit runs as: the cached ``[N, 1+K]`` column stack (values and
 validity, target first; scaled by sqrt(w) for WLS) -> the null policy
@@ -11,9 +11,15 @@ row order, deferred (``BlockPermuted``) or materialized.
   then a batched Cholesky with eigh fallback and conditioning-gated CSNE
   refinement (``qr``: always refined; ``lu``: partial-pivot LU, never
   refined).
+- ``cd`` / ``cd_active_set`` (lasso, elastic net, NNLS): the same moments,
+  then covariance-form coordinate descent (ops/cd.py, a CUDA kernel on the
+  card).
 - ``svd``: the fully padded ``[G, R, K]`` layout, Householder reduction
   and one batched SVD of the K x K factors (minimum norm, numpy lstsq's
   cutoff), for any number of groups.
+- ``mode="statistics"``: the split-padded blocks and their moments for
+  every solver; the dispatch solver's coefficients with their residual
+  metrics, and se / t / p from the normal equations (ops/statistics.py).
 
 What is not ported raises ``NotImplementedError`` naming its ROADMAP
 queue item; nothing falls back silently.
@@ -26,10 +32,12 @@ from typing import List
 import torch
 
 from ..config import CONFIG, EPSILON, F64, device
+from ..ops.cd import solve_elastic_net_cov
 from ..ops.direct import grouped_moments, resolve_solve_method
 from ..ops.linalg import MAX_K, psd_solver, solve_lu, solve_psd, solve_psd_cond, svd_lstsq
 from ..ops.masking import prepare_problem, zero_filled
-from ..series import BlockPermuted, Series, StructSeries
+from ..ops.statistics import feature_metrics, residual_metrics
+from ..series import BlockPermuted, Series, StatisticsSeries, StructSeries
 from .groups import bucket_size, single_layout
 
 # cond(XtX) beyond which one f64 Cholesky solve of the squared system loses
@@ -222,6 +230,27 @@ def _csne_refine_blocks(A, beta, Xp, yp, wp, block_group, block_offsets, alpha):
     return beta
 
 
+def _cd_params(kwargs, method: str) -> dict:
+    """Coordinate-descent settings with the JAX engine's defaults
+    (l1_ratio 0.5, max_iter 1000, tol 1e-5; polars_ols_tpu/engine/fit.py
+    :1153-1159): ``ols(alpha=a, solve_method="cd")`` is an elastic net at
+    ratio 0.5."""
+    return dict(
+        l1_ratio=float(0.5 if kwargs.l1_ratio is None else kwargs.l1_ratio),
+        max_iter=int(kwargs.max_iter or 1000),
+        tol=float(kwargs.tol if kwargs.tol is not None else 1e-5),
+        positive=bool(kwargs.positive),
+        active_set=method == "cd_active_set",
+    )
+
+
+def _solve_cd(XtX, Xty, counts, alpha: float, cd: dict):
+    """Covariance-form coordinate descent (ops/cd.py) on contiguous copies
+    of the moment slices; the coefficients [G, K]."""
+    w, _ = solve_elastic_net_cov(XtX.contiguous(), Xty.contiguous(), counts, alpha, **cd)
+    return w
+
+
 def _solve_dispatch(XtX, Xty, alpha: float, method: str, refine):
     """The per-group solve of the moment path (``refine`` = (Xp, yp, wp,
     block_group, block_offsets), the rows of the CSNE sweeps):
@@ -246,18 +275,31 @@ def _solve_dispatch(XtX, Xty, alpha: float, method: str, refine):
     return beta
 
 
-def _fit_moments(layout, vals, valid, policy: str, alpha: float, method: str):
-    """Per-group beta [G, K] on the split-padded blocks; returns (beta,
+def _moment_blocks(layout, vals, valid, policy: str):
+    """The cached split-padded blocks and their per-group moments:
+    (Zp, wp, predict_valid, block_group, block_offsets, XtX, Xty, counts)."""
+    _, pmask, block_group, _ = _split_layout(layout)
+    Zp, wp, predict_valid = _blocks_cached(layout, vals, valid, policy)
+    offsets = layout.device_block_offsets(pmask.shape[1])
+    XtX, Xty, counts = grouped_moments(Zp, wp, offsets, layout.num_groups)
+    return Zp, wp, predict_valid, block_group, offsets, XtX, Xty, counts
+
+
+def _fit_moments(layout, vals, valid, policy: str, alpha: float, method: str, cd=None):
+    """Per-group beta [G, K] on the split-padded blocks (coordinate descent
+    with the settings ``cd``, else ``_solve_dispatch``); returns (beta,
     Xp, block_group, unpad, predict_valid): the blocks' features, their
     group ids and the row-order gather [N] out of the flat block layout
     (None for one group, whose layout is row-sequential)."""
-    _, pmask, block_group, _ = _split_layout(layout)
-    r_cap = pmask.shape[1]
-    Zp, wp, predict_valid = _blocks_cached(layout, vals, valid, policy)
-    offsets = layout.device_block_offsets(r_cap)
+    Zp, wp, predict_valid, block_group, offsets, XtX, Xty, counts = _moment_blocks(
+        layout, vals, valid, policy
+    )
     yp, Xp = Zp[..., 0], Zp[..., 1:]
-    XtX, Xty, _ = grouped_moments(Zp, wp, offsets, layout.num_groups)
-    beta = _solve_dispatch(XtX, Xty, alpha, method, (Xp, yp, wp, block_group, offsets))
+    if cd is not None:
+        beta = _solve_cd(XtX, Xty, counts, alpha, cd)
+    else:
+        beta = _solve_dispatch(XtX, Xty, alpha, method, (Xp, yp, wp, block_group, offsets))
+    r_cap = Zp.shape[1]
     unpad = layout.device_split_unpad(r_cap) if layout.num_groups > 1 else None
     return beta, Xp, block_group, unpad, predict_valid
 
@@ -279,6 +321,50 @@ def _fit_svd(layout, vals, valid, policy: str, alpha: float, rcond):
 def _coef_struct(beta: torch.Tensor, names: List[str]) -> StructSeries:
     """Coefficient matrix -> struct column; NaN entries become nulls."""
     return StructSeries("coefficients", names, beta, torch.isfinite(beta))
+
+
+def _statistics(layout, vals, valid, policy: str, kwargs, method: str, cd, names, layout_in):
+    """mode='statistics' (the JAX engine's ``_blocks_statistics_kernel``
+    and, for 'svd', its ``_statistics``): moments, residuals and metrics on
+    the split-padded blocks. The coefficients field holds the dispatch
+    solver's estimate: the plain Cholesky solve (with its eigh fallback,
+    no CSNE, no LU) for chol / lu / qr, coordinate descent for cd, the
+    minimum-norm SVD for svd; r2 / mae / mse are those coefficients'.
+    se / t / p always come from the normal equations with the raw alpha
+    and the per-row RSS of their own solution; df = n - tr(A^-1) whenever
+    alpha > 0 (lasso and elastic net included)."""
+    alpha = float(kwargs.alpha or 0.0)
+    Zp, wp, _, block_group, offsets, XtX, Xty, counts = _moment_blocks(
+        layout, vals, valid, policy
+    )
+    yp, Xp = Zp[..., 0], Zp[..., 1:]
+    blocks = (block_group, offsets)
+
+    def metrics(beta):
+        preds = _block_preds(Xp, beta.index_select(0, block_group))
+        return residual_metrics(yp, preds, wp, blocks)
+
+    A = XtX + alpha * torch.eye(XtX.shape[-1], dtype=F64, device=XtX.device)
+    beta_ne = solve_psd(A, Xty)
+    if cd is not None:
+        beta = _solve_cd(XtX, Xty, counts, alpha, cd)
+    elif method == "svd":
+        beta = _fit_svd(layout, vals, valid, policy, alpha, kwargs.rcond)[0]
+    else:
+        beta = beta_ne
+    rm = metrics(beta)
+    rss_ne = rm["rss"] if beta is beta_ne else metrics(beta_ne)["rss"]
+    fm = feature_metrics(XtX, Xty, rss_ne, counts, alpha)
+    out = StatisticsSeries("statistics", names, {
+        "coefficients": beta,
+        "mse": rm["mse"],
+        "mae": rm["mae"],
+        "r2": rm["r2"],
+        "standard_errors": fm["standard_errors"],
+        "t_values": fm["t_values"],
+        "p_values": fm["p_values"],
+    })
+    return out if layout_in is None else out.gather(layout.device_gids())
 
 
 def _resolve_method(layout, kwargs, k: int) -> str:
@@ -307,11 +393,9 @@ def evaluate_least_squares(
     """A static least-squares fit of ``target`` on ``feat_series`` per
     group of ``layout_in`` (one group when None), under the kwargs' null
     policy and solve method, weighted by ``weights`` when given:
-    predictions as a Series (unscaled for WLS), or coefficients as a
-    struct column (one row per group without ``.over()``, one per row
-    with it)."""
-    if mode == "statistics":
-        raise _not_ported("mode='statistics'", 5)
+    predictions as a Series (unscaled for WLS), coefficients as a struct
+    column, or statistics as a ``StatisticsSeries`` (one row per group
+    without ``.over()``, one per row with it)."""
     n = len(target)
     if add_intercept:
         feat_series = list(feat_series) + [_const_series(target, n)]
@@ -319,8 +403,6 @@ def evaluate_least_squares(
     layout = layout_in if layout_in is not None else single_layout(n)
     G = layout.num_groups
     method = _resolve_method(layout, kwargs, k)
-    if method.startswith("cd"):
-        raise _not_ported(f"solve_method {method!r}", 6)
     if k > MAX_K:
         raise _not_ported(f"K={k} > {MAX_K} features", 12)
 
@@ -331,17 +413,20 @@ def evaluate_least_squares(
         vals, valid, inv_w = _weighted_stack_cached(target, feat_series, weights)
     policy = kwargs.null_policy
     alpha = float(kwargs.alpha or 0.0)
+    cd = _cd_params(kwargs, method) if method.startswith("cd") else None
+    names = [s.name for s in feat_series]
+    if mode == "statistics":
+        return _statistics(layout, vals, valid, policy, kwargs, method, cd, names, layout_in)
     row_preds = valid is not None and policy in _ROW_PREDICT_POLICIES
-    if method in ("chol", "lu", "qr"):
-        beta, Xp, block_group, unpad, predict_valid = _fit_moments(
-            layout, vals, valid, policy, alpha, method
-        )
-    else:
+    if method == "svd":
         beta, Xp, block_group, unpad, predict_valid = _fit_svd(
             layout, vals, valid, policy, alpha, kwargs.rcond
         )
+    else:
+        beta, Xp, block_group, unpad, predict_valid = _fit_moments(
+            layout, vals, valid, policy, alpha, method, cd
+        )
 
-    names = [s.name for s in feat_series]
     if mode == "coefficients":
         rows = beta if layout_in is None else beta.index_select(0, layout.device_gids())
         return _coef_struct(rows, names)

@@ -6,7 +6,7 @@ from __future__ import annotations
 from typing import Dict, List, Optional
 
 from .expr import Expr, parse_into_expr
-from .series import Series, StructSeries
+from .series import Series, StatisticsSeries, StructSeries
 
 
 class DataFrame:
@@ -14,7 +14,7 @@ class DataFrame:
         self._columns: Dict[str, object] = {}
         for name, v in (data or {}).items():
             self._columns[name] = (
-                v.alias(name) if isinstance(v, (Series, StructSeries)) else Series(name, v)
+                v.alias(name) if isinstance(v, (Series, StructSeries, StatisticsSeries)) else Series(name, v)
             )
         heights = {len(c) for c in self._columns.values()}
         if len(heights) > 1:

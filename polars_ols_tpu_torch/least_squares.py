@@ -115,7 +115,9 @@ def compute_least_squares(
     mode: str = "predictions",
     ols_kwargs: Optional[OLSKwargs] = None,
 ) -> Expr:
-    """OLS / WLS / ridge least squares (reference least_squares.py:242-279)."""
+    """OLS / WLS / ridge / lasso / elastic-net least squares (reference
+    least_squares.py:242-279); ``mode="statistics"`` gives a
+    ``StatisticsSeries``."""
     if mode not in _VALID_OUTPUT_MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of {sorted(_VALID_OUTPUT_MODES)}")
     return _build_least_squares_expr(

@@ -1,4 +1,5 @@
-"""The `.least_squares` expression namespace (ols, wls and ridge so far)."""
+"""The `.least_squares` expression namespace (ols, wls, ridge, lasso and
+elastic_net so far)."""
 
 from __future__ import annotations
 
@@ -12,8 +13,6 @@ ExprOrStr = Union[Expr, str]
 # the reference namespace's other methods -> the ROADMAP.md Queue 1 item
 # that ports them
 _NOT_PORTED = {
-    "lasso": 6,
-    "elastic_net": 6,
     "rls": 7,
     "rolling_ols": 7,
     "expanding_ols": 7,
@@ -77,3 +76,20 @@ class LeastSquares:
 
     def ridge(self, *features: ExprOrStr, alpha: float, **kwargs) -> Expr:
         return self.least_squares(*features, alpha=alpha, l1_ratio=0.0, **kwargs)
+
+    def lasso(self, *features: ExprOrStr, alpha: float, **kwargs) -> Expr:
+        """L1-penalized fit by coordinate descent (``positive=True``: NNLS)."""
+        return self.least_squares(*features, alpha=alpha, l1_ratio=1.0, **kwargs)
+
+    def elastic_net(
+        self,
+        *features: ExprOrStr,
+        alpha: float,
+        l1_ratio: float = 0.5,
+        positive: bool = False,
+        **kwargs,
+    ) -> Expr:
+        """L1 + L2-penalized fit by coordinate descent."""
+        return self.least_squares(
+            *features, alpha=alpha, l1_ratio=l1_ratio, positive=positive, **kwargs
+        )

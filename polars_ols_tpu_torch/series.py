@@ -9,7 +9,7 @@ a Python list are nulls.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -158,3 +158,137 @@ class StructSeries:
 
     def __repr__(self) -> str:  # pragma: no cover
         return f"StructSeries(name={self.name!r}, fields={self.field_names}, len={len(self)})"
+
+
+class StatisticsSeries:
+    """The statistics struct column (reference src/expressions.rs:448-509):
+    scalar fields r2 / mae / mse and list fields coefficients /
+    standard_errors / t_values / p_values, beside the feature names.
+
+    The fields stay device tensors, [G] scalars and [G, K] lists, one row
+    per group. A row broadcast (``.over()``) or any other gather is
+    deferred: the series records a chain of index maps into the base and
+    composes it only when ``arrays`` is read, with one gather of all fields
+    packed together. ``values`` builds the row dicts from one host fetch.
+    """
+
+    __slots__ = ("name", "feature_names", "_base", "_row_index", "_mat", "_rows")
+
+    SCALAR_FIELDS = ("r2", "mae", "mse")
+    LIST_FIELDS = ("coefficients", "standard_errors", "t_values", "p_values")
+
+    def __init__(
+        self,
+        name: str,
+        feature_names: Sequence[str],
+        arrays: dict,
+        row_index: Optional[Tuple[torch.Tensor, ...]] = None,
+    ) -> None:
+        self.name = name
+        self.feature_names: List[str] = list(feature_names)
+        self._base = arrays  # field -> device tensor, [G] or [G, K]
+        # index maps into the base, applied outermost-first, or None
+        self._row_index = row_index
+        self._mat = None
+        self._rows = None
+
+    def __len__(self) -> int:
+        if self._row_index is not None:
+            return int(self._row_index[-1].shape[0])
+        return int(self._base["r2"].shape[0])
+
+    def _index(self) -> torch.Tensor:
+        idx = self._row_index[-1]
+        for link in self._row_index[-2::-1]:
+            idx = link.index_select(0, idx)
+        return idx
+
+    @property
+    def arrays(self) -> dict:
+        """Row-level field tensors (composes a deferred gather, once)."""
+        if self._row_index is None:
+            return self._base
+        if self._mat is None:
+            keys = list(self._base)
+            cols = [self._base[k] for k in keys]
+            packed = torch.cat([c[:, None] if c.dim() == 1 else c for c in cols], dim=1)
+            out = packed.index_select(0, self._index())
+            self._mat, at = {}, 0
+            for key, c in zip(keys, cols):
+                width = 1 if c.dim() == 1 else c.shape[1]
+                part = out[:, at : at + width]
+                self._mat[key] = part[:, 0] if c.dim() == 1 else part
+                at += width
+        return self._mat
+
+    def composed_index(self) -> Optional[np.ndarray]:
+        """The final per-row index into the base (host numpy), or None when
+        the series is base-level."""
+        return None if self._row_index is None else self._index().cpu().numpy()
+
+    def gather(self, indices) -> "StatisticsSeries":
+        """Rows ``indices`` (a device tensor, or host ints), deferred."""
+        device = self._base["r2"].device
+        if isinstance(indices, torch.Tensor):
+            idx = indices.to(device=device, dtype=torch.int64)
+        else:
+            idx = torch.as_tensor(np.asarray(indices, dtype=np.int64), device=device)
+        chain = (idx,) if self._row_index is None else self._row_index + (idx,)
+        return StatisticsSeries(self.name, self.feature_names, self._base, chain)
+
+    def head(self, n: int = 5) -> "StatisticsSeries":
+        return self.gather(np.arange(min(n, len(self))))
+
+    def tail(self, n: int = 5) -> "StatisticsSeries":
+        return self.gather(np.arange(max(0, len(self) - n), len(self)))
+
+    def filter(self, mask) -> "StatisticsSeries":
+        if isinstance(mask, torch.Tensor):
+            return self.gather(torch.nonzero(mask.to(torch.bool)).flatten())
+        return self.gather(np.nonzero(np.asarray(mask, dtype=bool))[0])
+
+    def alias(self, name: str) -> "StatisticsSeries":
+        return StatisticsSeries(name, self.feature_names, self._base, self._row_index)
+
+    @property
+    def values(self) -> list:
+        """One dict per row: r2, mae, mse, feature_names, coefficients,
+        standard_errors, t_values, p_values (one host fetch)."""
+        if self._rows is None:
+            arrays = self.arrays
+            packed = torch.cat(
+                [arrays[k][:, None] for k in self.SCALAR_FIELDS]
+                + [arrays[k] for k in self.LIST_FIELDS],
+                dim=1,
+            ).cpu().numpy()
+            k = len(self.feature_names)
+            ns = len(self.SCALAR_FIELDS)
+            rows = []
+            for r in packed:
+                row = {key: float(r[i]) for i, key in enumerate(self.SCALAR_FIELDS)}
+                row["feature_names"] = list(self.feature_names)
+                for j, key in enumerate(self.LIST_FIELDS):
+                    row[key] = r[ns + j * k : ns + (j + 1) * k].tolist()
+                rows.append(row)
+            self._rows = rows
+        return self._rows
+
+    def to_list(self) -> list:
+        return list(self.values)
+
+    def to_numpy(self) -> np.ndarray:
+        return np.asarray(self.values, dtype=object)
+
+    def __getitem__(self, i):
+        return self.values[i]
+
+    def item(self) -> dict:
+        if len(self) != 1:
+            raise ValueError(f"item() needs a series of one row, this one has {len(self)}")
+        return self.values[0]
+
+    def __repr__(self) -> str:  # pragma: no cover
+        return (
+            f"StatisticsSeries(name={self.name!r}, len={len(self)}, "
+            f"features={self.feature_names})"
+        )

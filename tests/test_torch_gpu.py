@@ -15,7 +15,14 @@ on ragged, misaligned and many-tile shapes that take its plain edges. The
 main-path slice on the card matches the CPU slice at the port's parity
 tolerance against the JAX engine, rtol 1e-9 / atol 1e-11; the null-policy
 and WLS slice at 1e-12 (the same solves; only the moment kernel's
-summation order differs), with identical null masks.
+summation order differs), with identical null masks. The coordinate-descent
+kernel makes the plain version's sums in the same order from separately
+rounded products: the same sweep counts and coefficients at rtol 1e-12
+(equal bits expected). The p-value kernel runs the plain version's
+arithmetic with the compiler's fused multiply-adds and the device's
+``log`` / ``exp`` / ``erfc``: rtol 1e-12 to it, 1e-12 to scipy. The
+statistics and lasso slices on the card match the CPU at rtol 1e-9 (the
+moment kernel's summation order, through the solves).
 """
 
 import numpy as np
@@ -25,7 +32,7 @@ torch = pytest.importorskip("torch")
 
 import polars_ols_tpu_torch as pt  # noqa: E402
 from polars_ols_tpu_torch import CONFIG, col  # noqa: E402
-from polars_ols_tpu_torch.ops import grid_probe, moments  # noqa: E402
+from polars_ols_tpu_torch.ops import cd, grid_probe, moments, special  # noqa: E402
 
 
 @pytest.fixture
@@ -33,6 +40,8 @@ def cuda_device(monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the port's kernels run only on the card")
     monkeypatch.setattr(moments, "moments_kernel_launches", 0)
+    monkeypatch.setattr(cd, "cd_kernel_launches", 0)
+    monkeypatch.setattr(special, "t_pvalue_kernel_launches", 0)
     return torch.device("cuda")
 
 
@@ -172,3 +181,115 @@ def test_static_slice_on_card_matches_cpu(cuda_device, query, monkeypatch):
     np.testing.assert_array_equal(out["cuda"][1], out["cpu"][1])
     m = np.ones(out["cpu"][0].shape, bool) if out["cpu"][1] is None else out["cpu"][1]
     np.testing.assert_allclose(out["cuda"][0][m], out["cpu"][0][m], rtol=1e-12, atol=1e-12)
+
+
+def _cd_moments(seed: int, G: int, K: int, device, empty_group: bool = False):
+    """Per-group moments of random groups of 5..200 rows with correlated
+    features; one group without rows when ``empty_group``."""
+    rng = np.random.default_rng(seed)
+    XtX = np.zeros((G, K, K))
+    Xty = np.zeros((G, K))
+    n = rng.integers(5, 200, size=G).astype(float)
+    for g in range(G):
+        X = rng.normal(size=(int(n[g]), K)) @ (np.eye(K) + 0.3 * rng.normal(size=(K, K)))
+        y = X @ (rng.normal(size=K) * (rng.random(K) > 0.5)) + rng.normal(size=int(n[g]))
+        XtX[g], Xty[g] = X.T @ X, X.T @ y
+    if empty_group:
+        XtX[0], Xty[0], n[0] = 0.0, 0.0, 0.0
+    return tuple(torch.as_tensor(a, device=device) for a in (XtX, Xty, n))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "G,K,kw",
+    [
+        (10_000, 5, dict(alpha=0.05, l1_ratio=1.0)),
+        (1001, 5, dict(alpha=0.05, l1_ratio=0.5, positive=True)),
+        (1001, 5, dict(alpha=0.05, l1_ratio=1.0, active_set=True)),
+        (1, 5, dict(alpha=0.05, l1_ratio=1.0)),
+        (333, 1, dict(alpha=0.2, l1_ratio=1.0)),
+        (64, 32, dict(alpha=0.1, l1_ratio=0.7, max_iter=40)),  # plain: ~1,100 launches a sweep
+        (64, 32, dict(alpha=0.01, l1_ratio=1.0, max_iter=3)),
+    ],
+    ids=["main", "positive", "active_set", "one_group", "k1", "k32", "max_iter"],
+)
+def test_cd_kernel_matches_plain_on_card(cuda_device, G, K, kw):
+    XtX, Xty, n = _cd_moments(G + K, G, K, cuda_device, empty_group=G > 1)
+    w_k, s_k = cd.solve_elastic_net_cov(XtX, Xty, n, **kw)
+    torch.cuda.synchronize()
+    assert cd.cd_kernel_launches == 1
+    w_p, s_p = cd.solve_elastic_net_cov_ref(XtX, Xty, n, **kw)
+    np.testing.assert_array_equal(s_k.cpu().numpy(), s_p.cpu().numpy())
+    np.testing.assert_allclose(w_k.cpu().numpy(), w_p.cpu().numpy(), rtol=1e-12, atol=1e-14)
+    if G > 1:  # the group without rows: zero coefficients after one sweep
+        assert float(w_k[0].abs().max()) == 0.0 and int(s_k[0]) == 1
+    if "max_iter" in kw:
+        assert int(s_k.max()) == kw["max_iter"]
+
+
+def _pvalue_inputs(device, G, K):
+    """t [G, K] and dof [G]: dof from 1 to 8e6, |t| from 1e-3 to 40, and
+    with G >= 6, K >= 5 the edge rows (t = 0, dof <= 0, a NaN t or dof)."""
+    rng = np.random.default_rng(3 + G + K)
+    dof = np.exp(rng.uniform(0.0, np.log(8e6), G))
+    t = np.exp(rng.uniform(np.log(1e-3), np.log(40.0), (G, K))) * rng.choice([-1.0, 1.0], (G, K))
+    edges = G >= 6 and K >= 5
+    if edges:
+        dof[:3] = (1.0, 2.5, 8e6)
+        t[:3, 0] = 0.0
+        t[3, :5] = (0.0, 1.0, np.nan, np.inf, 2.0)
+        dof[3:6] = (0.0, -1.0, np.nan)
+    return torch.as_tensor(t, device=device), torch.as_tensor(dof, device=device), edges
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "G,K", [(2_000, 5), (1, 1), (1, 32), (2_001, 32), (37, 1)],
+    ids=["edges", "one", "one_group_k32", "ragged_k32", "k1"],
+)
+def test_pvalue_kernel_matches_plain_and_scipy_on_card(cuda_device, G, K):
+    special_fns = pytest.importorskip("scipy.special")
+    t, dof, edges = _pvalue_inputs(cuda_device, G, K)
+    p_k = special.t_two_sided_p_value(t, dof)
+    torch.cuda.synchronize()
+    assert special.t_pvalue_kernel_launches == 1
+    p_p = special.t_two_sided_p_value_ref(t, dof).cpu().numpy()
+    p_k = p_k.cpu().numpy()
+    np.testing.assert_array_equal(np.isnan(p_k), np.isnan(p_p))
+    np.testing.assert_allclose(p_k, p_p, rtol=1e-12, atol=0)
+    tn, dn = t.cpu().numpy(), dof.cpu().numpy()[:, None]
+    with np.errstate(invalid="ignore"):
+        x = dn / (dn + tn * tn)
+    ok = (dn > 0) & np.isfinite(x)
+    ref = special_fns.betainc(np.broadcast_to(dn / 2, x.shape)[ok], 0.5, x[ok])
+    np.testing.assert_allclose(p_k[ok], ref, rtol=1e-12, atol=1e-300)
+    if edges:
+        assert (p_k[:3, 0] == 1.0).all()  # t = 0
+        assert np.isnan(p_k[3, 2]) and np.isnan(p_k[4]).all() and np.isnan(p_k[5]).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("query", ["statistics", "lasso_statistics", "lasso"])
+def test_statistics_and_lasso_slices_on_card_match_cpu(cuda_device, query, monkeypatch):
+    monkeypatch.setattr(CONFIG, "moment_chunk_rows", 128)
+    feats = [col(f"x{i + 1}") for i in range(4)]
+    kw = {"statistics": dict(mode="statistics"),
+          "lasso_statistics": dict(alpha=0.01, l1_ratio=1.0, mode="statistics"),
+          "lasso": dict(alpha=0.01, l1_ratio=1.0, null_policy="drop")}[query]
+    expr = col("y").least_squares.ols(*feats, **kw).over("g")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        monkeypatch.setattr(CONFIG, "device", dev)
+        s = pt.DataFrame(_static_frame()).select(expr)[
+            "statistics" if "statistics" in query else "y"
+        ]
+        if "statistics" in query:
+            out[dev] = {k: v.cpu().numpy() for k, v in s.arrays.items()}
+        else:
+            out[dev] = {"y": s.to_numpy()}
+    assert moments.moments_kernel_launches == 1
+    assert cd.cd_kernel_launches == (0 if query == "statistics" else 1)
+    assert special.t_pvalue_kernel_launches == (1 if "statistics" in query else 0)
+    for key, ref in out["cpu"].items():
+        np.testing.assert_array_equal(np.isnan(out["cuda"][key]), np.isnan(ref), err_msg=key)
+        np.testing.assert_allclose(out["cuda"][key], ref, rtol=1e-9, atol=1e-12, err_msg=key)

@@ -148,8 +148,6 @@ def _ols2(**kw):
 
 
 NOT_PORTED = {
-    "statistics": _ols2(mode="statistics"),
-    "lasso": _ols2(alpha=0.1, l1_ratio=1.0),
     "multi_target": _ols2(multi_target=True),
     "rolling": lambda c: c("y").least_squares.rolling_ols("x1", "x2", window_size=50),
     "rls": lambda c: c("y").least_squares.rls("x1", "x2"),
@@ -161,3 +159,10 @@ def test_unported_paths_raise(case):
     cols, *_ = _data(seed=7)
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
         pt.DataFrame(cols).select(NOT_PORTED[case](pt.col))
+
+
+def test_lasso_above_32_features_raises_item_12():
+    rng = np.random.default_rng(8)
+    cols = {"y": rng.normal(size=100), **{f"x{i}": rng.normal(size=100) for i in range(33)}}
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 12"):
+        pt.DataFrame(cols).select(pt.col("y").least_squares.lasso(pt.col("^x.*$"), alpha=0.1))
