@@ -23,9 +23,17 @@ us per call (the host clock over the same calls, no synchronise). The
 plain versions of the coordinate-descent and p-value kernels synchronise
 inside (a convergence test per sweep or per 8 iterations), so they cannot
 be queued behind a hold: their time is an event pair around whole calls,
-host gaps included. The line
-before the last is a JSON object with the kernels' names, sources, launch
-counts on the main path, errors and times; the last line is
+host gaps included. An empty kernel timed the same way gives the floor
+under every launch. Each kernel's bound is the least time the card could
+take for its work on this run's inputs: the larger of the bytes it must
+move over 3.35 TB/s and its operations over the peak rate of their type
+(f64 34 TFLOP/s outside the tensor cores, f32 67 TFLOP/s). The edge cases
+of the card-only tests (moments at C = 8 / 9, R = 513, empty groups, a grid
+larger than the work; coordinate descent at K = 8 / 9 / 16 / 17) are held
+to the plain versions too, and ``torch.profiler`` reads device busy time,
+launches and host syncs of the main, lasso and statistics queries. The
+line before the last is a JSON object with the kernels' names, sources,
+launch counts on their paths, errors, times and bounds; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a CUDA device it exits non-zero at once.
 """
@@ -33,6 +41,7 @@ without a CUDA device it exits non-zero at once.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -71,6 +80,12 @@ P_KERNEL_RTOL = 1e-12  # p-value kernel against its plain version and scipy
 LASSO_ALPHA = 1.0
 ENET_ALPHA = 1.0
 RIDGE_ALPHA = 10.0
+# the H100 SXM's peaks at 700 W (NVIDIA's data sheet): device memory, f64
+# outside the tensor cores, f32 outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F64_PER_S = 34e12
+PEAK_F32_PER_S = 67e12
+PROFILE_QUERIES = 5
 
 
 def _hold_ms(torch) -> float:
@@ -151,19 +166,132 @@ def _in_turns(fns, n, torch, synced=()):
 
 
 def _timing_fields(times):
-    """The kernels-line fields of an _in_turns result over plain and kernel."""
+    """The kernels-line fields of an _in_turns result over plain, kernel and
+    (where one PyTorch call computes the same function) library."""
     return {
         "ms": times["kernel"][0], "plain_ms": times["plain"][0],
+        "library_ms": times["library"][0] if "library" in times else None,
         "host_us": times["kernel"][1], "plain_host_us": times["plain"][1],
     }
 
 
-def _check_kernel(name, Zp, wp, offsets, G, moments, torch):
+def _bound(moved_bytes, ops, ops_per_s):
+    """{bound_ms, bound_by}: the larger of the bytes over the memory rate
+    and the operations over the peak rate of their type."""
+    by_bytes = moved_bytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = ops / ops_per_s * 1e3
+    if by_bytes >= by_ops:
+        return {"bound_ms": by_bytes, "bound_by": "bytes"}
+    return {"bound_ms": by_ops, "bound_by": "operations"}
+
+
+def _moment_bound(Zp, wp, G):
+    """Zp, wp and the offsets read once, M and counts written once; one
+    multiply and one add per upper-triangle entry of each valid row."""
+    S, R, C = Zp.shape
+    moved = S * R * (8 * C + 1) + 8 * (G + 1) + 8 * G * C * C + 8 * G
+    return _bound(moved, int(wp.sum()) * C * (C + 1), PEAK_F64_PER_S)
+
+
+def _cd_bound(G, K, sweeps):
+    """XtX, Xty and n_valid read once, w and the sweep counts written once;
+    per sweep of a group K coordinate steps of 2K + 6 operations (the
+    K-term dot, rho, the threshold, the division) and 3K for the step norm,
+    over the sweeps this run's groups took."""
+    moved = 8 * (G * K * K + G * K + G) + 8 * G * K + 4 * G
+    return _bound(moved, int(sweeps.sum()) * K * (2 * K + 9), PEAK_F64_PER_S)
+
+
+def _lentz_iterations(p, q, z):
+    """Iterations the kernel's continued fraction (csrc/t_pvalue.cu:lentz)
+    takes for each element: a numpy replica of its loop and its stop test."""
+    tiny, eps = 1e-300, 2.0 ** -52
+
+    def floor(v):
+        return np.where(np.abs(v) < tiny, tiny, v)
+
+    qab, qap, qam = p + q, p + 1.0, p - 1.0
+    c = np.ones_like(z)
+    d = 1.0 / floor(1.0 - qab * z / qap)
+    count = np.zeros(z.shape, dtype=np.int64)
+    running = np.ones(z.shape, dtype=bool)
+    for m in range(1, 201):
+        m2 = 2.0 * m
+        aa = m * (q - m) * z / ((qam + m2) * (p + m2))
+        d = 1.0 / floor(1.0 + aa * d)
+        c = floor(1.0 + aa / c)
+        aa = -(p + m) * (qab + m) * z / ((p + m2) * (qap + m2))
+        d = 1.0 / floor(1.0 + aa * d)
+        c = floor(1.0 + aa / c)
+        count += running
+        running &= ~(np.abs(d * c - 1.0) <= eps)
+        if not running.any():
+            break
+    return count
+
+
+def _pvalue_bound(t, dof):
+    """t and dof read once, p written once. Operations: 31 adds, multiplies
+    and divides per continued-fraction iteration, as many as a numpy
+    replica of the kernel's loop counts for these inputs, 12 per series
+    term (all 15 counted where the series branch runs), and 25 around them;
+    a call of log, exp, lgamma or erfc counts as one."""
+    G, K = t.shape
+    t = t.cpu().numpy()
+    d = np.broadcast_to(dof.cpu().numpy()[:, None], t.shape).ravel()
+    t = t.ravel()
+    with np.errstate(all="ignore"):
+        x = d / (d + t * t)
+        a = d / 2.0
+        live = (a > 0) & np.isfinite(a) & (x > 0) & (x < 1)
+        series = live & (a >= 15.0) & (-np.log(x) <= 1.0)
+        cf = live & ~series
+        direct = x < (a + 1.0) / (a + 2.5)
+        iters = _lentz_iterations(
+            np.where(direct, a, 0.5)[cf], np.where(direct, 0.5, a)[cf],
+            np.where(direct, x, 1.0 - x)[cf],
+        )
+    ops = 25 * int(live.sum()) + 31 * int(iters.sum()) + 12 * 15 * int(series.sum())
+    return _bound(8 * (2 * G * K + G), ops, PEAK_F64_PER_S)
+
+
+def _ptxas(log):
+    """(kernel, registers line, spill line) of each entry in nvcc's
+    -Xptxas -v output; the kernel named by the readable part of its
+    mangled name."""
+    out, entry, spill = [], "?", ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = mangled = line.split("'")[1]
+            # _ZN<n>_GLOBAL__N__<hash>_<n>_<file>_cu_<hash8><n><name>[I...E]
+            m = re.search(r"_cu_[0-9a-f]{8}(\d+)", mangled)
+            if m:
+                end = m.end() + int(m.group(1))
+                entry = mangled[m.end():end]
+                t = re.match(r"I(?:NS_\d+([A-Za-z]+)I)?((?:Li\d+E)+)", mangled[end:])
+                if t:
+                    args = ",".join(re.findall(r"Li(\d+)E", t.group(2)))
+                    entry += f"<{t.group(1)}<{args}>>" if t.group(1) else f"<{args}>"
+            spill = ""
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "ptxas info" in line and "Used" in line:
+            out.append((entry, line.split(":", 1)[1].strip(), spill))
+    return out
+
+
+def _check_kernel(name, Zp, wp, offsets, G, moments, torch, timed=True, library=False):
     """Kernel against plain version on the same CUDA tensors: only the
     summation order differs, so rtol 1e-12 / atol 1e-13 * max|M|; counts
-    are integers and must match exactly."""
+    are integers and must match exactly, and a second launch gives the same
+    bits (no atomics). Timed in turns with the plain version and, with
+    ``library``, with torch.bmm(Zm^T, Zm) on the pre-masked blocks (block
+    products only: no mask, no segment sum)."""
     M_k, c_k = moments.grouped_moments_blocks(Zp, wp, offsets, G)
+    M_k2, _ = moments.grouped_moments_blocks(Zp, wp, offsets, G)
     torch.cuda.synchronize()
+    if not torch.equal(M_k, M_k2):
+        raise AssertionError(f"moment kernel ({name}): two launches differ")
     M_p, c_p = moments.grouped_moments_blocks_ref(Zp, wp, offsets, G)
     torch.cuda.synchronize()
     M_k, M_p = M_k.cpu().numpy(), M_p.cpu().numpy()
@@ -171,15 +299,26 @@ def _check_kernel(name, Zp, wp, offsets, G, moments, torch):
     np.testing.assert_allclose(M_k, M_p, rtol=1e-12, atol=1e-13 * scale)
     np.testing.assert_array_equal(c_k.cpu().numpy(), c_p.cpu().numpy())
     err = float(np.abs(M_k - M_p).max())
-    t = _timing_fields(_in_turns({
+    S, R, C = Zp.shape
+    line = (
+        f"kernel {name}: S={S} R={R} C={C} G={G} max_abs_err={err!r} "
+        f"(max|M|={scale!r}), bit-equal launch to launch"
+    )
+    if not timed:
+        print(line)
+        return err, None
+    fns = {
         "plain": lambda: moments.grouped_moments_blocks_ref(Zp, wp, offsets, G),
         "kernel": lambda: moments.grouped_moments_blocks(Zp, wp, offsets, G),
-    }, MOMENT_LAUNCHES, torch))
-    S, R, C = Zp.shape
+    }
+    if library:
+        Zm = torch.where(wp[..., None], Zp, torch.zeros((), dtype=Zp.dtype, device=Zp.device))
+        fns["library"] = lambda: torch.bmm(Zm.mT, Zm)
+    t = _timing_fields(_in_turns(fns, MOMENT_LAUNCHES, torch))
     print(
-        f"kernel {name}: S={S} R={R} C={C} G={G} max_abs_err={err!r} "
-        f"(max|M|={scale!r}) kernel_ms={t['ms']!r} plain_ms={t['plain_ms']!r} "
-        f"per launch, host_us={t['host_us']!r} plain_host_us={t['plain_host_us']!r} per call"
+        f"{line} kernel_ms={t['ms']!r} plain_ms={t['plain_ms']!r} "
+        f"library_ms={t['library_ms']!r} per launch, host_us={t['host_us']!r} "
+        f"plain_host_us={t['plain_host_us']!r} per call"
     )
     return err, t
 
@@ -316,31 +455,78 @@ def _timed_median(fn, torch) -> float:
     return float(np.median(times))
 
 
-def _check_cd(label, XtX, Xty, counts, kw, cd, torch):
+def _check_cd(label, XtX, Xty, counts, kw, cd, torch, timed=True):
     """The coordinate-descent kernel against its plain version on the same
     CUDA moments: the same sums in the same order, so the same sweep counts
-    and coefficients at COEF_TOL (equal bits expected) on every group."""
+    and the same bits on every group. Returns (max abs error, timing fields
+    or None, the sweep counts)."""
     w_k, s_k = cd.solve_elastic_net_cov(XtX, Xty, counts, **kw)
     torch.cuda.synchronize()
     w_p, s_p = cd.solve_elastic_net_cov_ref(XtX, Xty, counts, **kw)
     w_k, w_p = w_k.cpu().numpy(), w_p.cpu().numpy()
     s_k, s_p = s_k.cpu().numpy(), s_p.cpu().numpy()
     np.testing.assert_array_equal(s_k, s_p)
-    np.testing.assert_allclose(w_k, w_p, **COEF_TOL)
+    np.testing.assert_array_equal(w_k, w_p)
     err = float(np.abs(w_k - w_p).max())
+    G, K = w_k.shape
+    line = (
+        f"kernel cd {label}: G={G} K={K} {kw} max_abs_err={err!r} bit-equal, equal sweep "
+        f"counts (median {float(np.median(s_k))!r}, max {int(s_k.max())}), zero "
+        f"coefficients={float((w_k == 0).mean())!r}"
+    )
+    if not timed:
+        print(line)
+        return err, None, s_k
     t = _timing_fields(_in_turns({
         "plain": lambda: cd.solve_elastic_net_cov_ref(XtX, Xty, counts, **kw),
         "kernel": lambda: cd.solve_elastic_net_cov(XtX, Xty, counts, **kw),
     }, CD_LAUNCHES, torch, synced=("plain",)))
-    G, K = w_k.shape
     print(
-        f"kernel cd {label}: G={G} K={K} {kw} max_abs_err={err!r} "
-        f"bit-equal={bool(np.array_equal(w_k, w_p))} sweeps median={float(np.median(s_k))!r} "
-        f"max={int(s_k.max())} zero coefficients={float((w_k == 0).mean())!r} "
-        f"kernel_ms={t['ms']!r} per launch, plain_ms={t['plain_ms']!r} per call (host syncs "
-        f"inside), host_us={t['host_us']!r} plain_host_us={t['plain_host_us']!r} per call"
+        f"{line} kernel_ms={t['ms']!r} per launch, plain_ms={t['plain_ms']!r} per call (host "
+        f"syncs inside), host_us={t['host_us']!r} plain_host_us={t['plain_host_us']!r} per call"
     )
-    return err, t
+    return err, t, s_k
+
+
+def _profile(fn, torch):
+    """Device busy ms (the union of device intervals), launches (launch API
+    calls) and host syncs (stream / device syncs, less the loop's own) per
+    query, from torch.profiler over PROFILE_QUERIES queries after a warm
+    one, with the host ms per query under the profiler (which inflates it:
+    the idle share 1 - busy / wall is an upper bound). None when the
+    profiler records no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_QUERIES):
+            fn()
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_QUERIES
+    events = prof.events()
+    spans = sorted(
+        (e.time_range.start, e.time_range.end) for e in events if e.device_type == DeviceType.CUDA
+    )
+    if not spans:
+        return None
+    busy_us, end = 0.0, float("-inf")
+    for lo, hi in spans:
+        if hi > end:
+            busy_us += hi - max(lo, end)
+            end = hi
+    names = [e.name for e in events if e.device_type == DeviceType.CPU]
+    launches = sum(n in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
+                   for n in names)
+    syncs = sum(n in ("cudaStreamSynchronize", "cudaDeviceSynchronize") for n in names)
+    busy_ms = busy_us / 1e3 / PROFILE_QUERIES
+    return {
+        "busy_ms": busy_ms, "launches": launches / PROFILE_QUERIES,
+        "host_syncs": (syncs - PROFILE_QUERIES) / PROFILE_QUERIES,
+        "wall_ms": wall_ms, "idle_share": 1.0 - busy_ms / wall_ms,
+    }
 
 
 def _signed_moments(rng, G, K, torch):
@@ -505,9 +691,8 @@ def main() -> int:
         list(pool.map(kernels.build, sources))
     print(f"build: csrc/{{{','.join(sources)}}}.cu in {time.perf_counter() - t0:.3f} s")
     for name in sources:
-        for line in kernels.build_log.get(name, "").splitlines():
-            if "ptxas info" in line and ("Used" in line or "spill" in line):
-                print(f"build {name}: {line.strip()}")
+        for entry, used, spill in _ptxas(kernels.build_log.get(name, "")):
+            print(f"build {name} {entry}: {used}; {spill}")
 
     # 3. the probe's own entry point (its path), then each kernel against
     # its plain version, at the main path's shapes first
@@ -518,6 +703,11 @@ def main() -> int:
     if probe_launches != 2:
         raise AssertionError(f"probe kernel launched {probe_launches} times for 2 forms")
     probe_err, probe_times = _check_probe(grid_probe, torch)
+    probe_x = torch.zeros((grid_probe.PROBE_ROWS, grid_probe.PROBE_COLS), dtype=torch.float32, device="cuda")
+    probe_bound = _bound(2 * 4 * probe_x.numel(), probe_x.numel(), PEAK_F32_PER_S)
+    dev = torch.device("cuda")
+    floor_ms = _in_turns({"empty": lambda: grid_probe.empty_launch(dev)}, PROBE_LAUNCHES, torch)["empty"][0]
+    print(f"floor: an empty kernel (one 32-thread block) {floor_ms!r} ms per launch ({smi})")
 
     rng = np.random.default_rng(0)
     x = rng.normal(size=(N_ROWS, N_FEATURES))
@@ -532,7 +722,6 @@ def main() -> int:
     valid = rng_s.random((N_ROWS, 1 + N_FEATURES)) >= NULL_RATE
     valid[g.astype(np.int64) % 2 == 0] = True
     valid[0] = True
-    dev = torch.device("cuda")
     names = ["y"] + [f"x{i + 1}" for i in range(N_FEATURES)]
     up = {n: torch.as_tensor(v, dtype=torch.float64, device=dev)
           for n, v in zip(names + ["w"], [y, *x.T, w])}
@@ -546,16 +735,32 @@ def main() -> int:
     r_cap = Zp.shape[1]
     main_err, main_times = _check_kernel(
         "main-path", Zp, wp, layout.device_block_offsets(r_cap),
-        layout.num_groups, moments, torch,
+        layout.num_groups, moments, torch, library=True,
+    )
+    main_bound = _moment_bound(Zp, wp, layout.num_groups)
+    print(f"kernel main-path bound: {json.dumps(main_bound)}")
+    _check_kernel(
+        "ragged (R=37: mask bytes not 16-aligned; R*C odd: slabs 8-byte aligned)",
+        *_random_blocks(rng, rng.integers(1, 8, size=300), 37, 33, torch), moments, torch,
     )
     _check_kernel(
-        "ragged", *_random_blocks(rng, rng.integers(1, 8, size=300), 37, 33, torch),
-        moments, torch,
+        "one-group (S=64, fewer blocks than the persistent grid's warps)",
+        *_random_blocks(rng, np.asarray([64]), 512, 6, torch), moments, torch,
     )
-    _check_kernel(
-        "one-group", *_random_blocks(rng, np.asarray([64]), 512, 6, torch),
-        moments, torch,
-    )
+    # the edges of the card-only tests: where lanes owning rows hand over to
+    # lanes owning entries, mask bytes not 16-aligned, groups without blocks
+    # (from a stream of their own, so that the draws below stay as they were)
+    rng_e = np.random.default_rng(2)
+    # (C = 9 and C = 16 are timed too: a shape each side of the hand-over
+    # from lanes owning entries to lanes owning tiles)
+    for label, n_blocks, R, C, timed in (
+        ("C=8 (rows in lanes)", rng_e.integers(1, 8, size=300), 512, 8, False),
+        ("C=9 (entries in lanes)", np.full(2000, 2), 512, 9, True),
+        ("C=16 (tiles in lanes)", np.full(2000, 2), 512, 16, True),
+        ("R=513", rng_e.integers(1, 8, size=300), 513, 6, False),
+        ("empty groups", np.asarray([3, 0, 2, 0, 0, 5, 0]), 512, 6, False),
+    ):
+        _check_kernel(label, *_random_blocks(rng_e, n_blocks, R, C, torch), moments, torch, timed=timed)
 
     # 4. the main path at full width, through the public API
     expr = col("y").least_squares.ols(*features).over("group")
@@ -828,9 +1033,11 @@ def main() -> int:
     # on the statistics query's t and dof
     XtX_m, Xty_m, counts_m = grouped_moments(Zp, wp, layout.device_block_offsets(r_cap), layout.num_groups)
     XtX_m, Xty_m = XtX_m.contiguous(), Xty_m.contiguous()
-    cd_err, cd_times = _check_cd(
+    cd_err, cd_times, cd_sweeps = _check_cd(
         "main-path lasso", XtX_m, Xty_m, counts_m, dict(alpha=LASSO_ALPHA, l1_ratio=1.0), cd, torch
     )
+    cd_bound = _cd_bound(N_GROUPS, N_FEATURES, cd_sweeps)
+    print(f"kernel cd main-path lasso bound: {json.dumps(cd_bound)}")
     for label, kw in (
         ("main-path active_set", dict(alpha=LASSO_ALPHA, l1_ratio=1.0, active_set=True)),
         ("main-path positive", dict(alpha=LASSO_ALPHA, l1_ratio=1.0, positive=True)),
@@ -840,10 +1047,19 @@ def main() -> int:
         "signed positive", *_signed_moments(rng, N_GROUPS, N_FEATURES, torch),
         dict(alpha=0.05, l1_ratio=0.8, positive=True), cd, torch,
     )
+    # the K buckets' edges (8 | 9, 16 | 17) at group counts that leave the
+    # last warp part empty (4 and 2 groups a warp at K <= 8 and <= 16)
+    for K in (8, 9, 16, 17):
+        _check_cd(
+            f"K={K} bucket edge", *_signed_moments(rng_e, 1001, K, torch),
+            dict(alpha=0.05, l1_ratio=0.8, positive=K % 2 == 1), cd, torch, timed=False,
+        )
     first_of_group = torch.as_tensor(np.unique(g.astype(np.int64), return_index=True)[1], device=dev)
     t_query = sout["statistics"].gather(first_of_group).arrays["t_values"].contiguous()
     dof_query = torch.as_tensor(layout.counts - N_FEATURES, dtype=torch.float64, device=dev)
     p_err, p_times = _check_pvalue(t_query, dof_query, special, torch)
+    p_bound = _pvalue_bound(t_query, dof_query)
+    print(f"kernel t_pvalue bound at the query's [{N_GROUPS}, {N_FEATURES}]: {json.dumps(p_bound)}")
 
     # 7. steady-state timing, median of TIMING_REPS after one warm call
     for label, lazy in (("materialized", False), ("lazy", True)):
@@ -871,6 +1087,24 @@ def main() -> int:
             f"first query {first_s_stat[label.split(' ')[0]]!r} s ({smi})"
         )
 
+    # 8. where the device time goes: torch.profiler over the main, lasso and
+    # statistics queries
+    CONFIG.lazy_row_order = False
+    for label, fn in (
+        ("main (materialized)", lambda: df.select(expr)),
+        ("lasso (materialized)", timed["lasso (materialized)"]),
+        ("statistics (deferred rows)", timed["statistics (deferred rows)"]),
+    ):
+        prof = _profile(fn, torch)
+        if prof is None:
+            print(f"profile {label}: not measured (the profiler recorded no device activity)")
+            continue
+        print(
+            f"profile {label}: device busy {prof['busy_ms']!r} ms, {prof['launches']!r} launches, "
+            f"{prof['host_syncs']!r} host syncs a query; {prof['wall_ms']!r} ms a query under the "
+            f"profiler, idle share <= {prof['idle_share']!r} ({smi})"
+        )
+
     print(json.dumps({"kernels": [
         {
             "name": "grouped_moments",
@@ -884,6 +1118,10 @@ def main() -> int:
             },
             "max_abs_err": main_err,
             **main_times,
+            **main_bound,
+            "library_call": "torch.bmm(Zm.mT, Zm) on the pre-masked blocks: block products "
+                            "only, no mask, no segment sum",
+            "floor_ms": floor_ms,
         },
         {
             "name": "scale_copy",
@@ -893,6 +1131,8 @@ def main() -> int:
             "launches": probe_launches,
             "max_abs_err": probe_err,
             **probe_times,
+            **probe_bound,
+            "floor_ms": floor_ms,
         },
         {
             "name": "cd_cov",
@@ -903,6 +1143,8 @@ def main() -> int:
             "launches": stat_launches["cd_cov"],
             "max_abs_err": cd_err,
             **cd_times,
+            **cd_bound,
+            "floor_ms": floor_ms,
         },
         {
             "name": "t_pvalue",
@@ -913,6 +1155,8 @@ def main() -> int:
             "launches": stat_launches["t_pvalue"],
             "max_abs_err": p_err,
             **p_times,
+            **p_bound,
+            "floor_ms": floor_ms,
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

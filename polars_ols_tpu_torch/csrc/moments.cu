@@ -11,21 +11,55 @@
 // value into int8 digit planes because the TPU has no f64 unit; the H100
 // has one, so this kernel forms the exact f64 products directly.
 //
-// What bounds it: device-memory bytes. It reads S*R*(8C+1) bytes (about
-// 0.5 GB at 8M rows, C=6, R=512) for S*R*C(C+1) flops (about 0.35 GFLOP),
-// far below the card's f64 rate per byte. So Zp is read exactly once,
-// coalesced, and no per-row intermediate is ever written: each block's
-// [C(C+1)/2 + 1] partial sums go to a small scratch array.
+// What bounds it: device-memory bytes. It reads S*R*(8C+1) bytes for
+// S*R*C(C+1) flops: at the main path's S = 20,000, R = 512, C = 6 that is
+// 0.50 GB, 0.151 ms at 3.35 TB/s, against ~10 us at the card's f64 rate.
+// Reading at that rate takes ~25 KB in flight on every SM at all times
+// (3.35 TB/s x ~1 us of latency / 132 SMs), with the arithmetic hidden
+// under the copies. The design:
+//
+// - Persistent warps. The grid is what the occupancy calculator fits on
+//   the card (a few 4-warp CTAs per SM). Each warp owns whole row blocks,
+//   s = its index in the grid, s += the grid's warps, so a block's sum
+//   never crosses warps: no CTA barrier and no cross-warp reduction.
+// - A ring of kStages shared-memory stages per warp, each holding one chunk
+//   of the current block (~6-8 KB of Zp rows and their mask bytes). Lane 0
+//   fills a stage with bulk copies (the TMA's 1-D form) completed on the
+//   stage's mbarrier and refills it as soon as the warp has read it, so
+//   kStages - 1 chunks stay in flight while the warp computes on the one
+//   that arrived: ~150 KB an SM at the main path's shape. No thread spends
+//   registers or instructions on the copies' addresses.
+// - Bulk copies take 16-byte aligned addresses and sizes. A chunk whose Zp
+//   rows or mask bytes do not start or end on a 16-byte boundary (R*C odd,
+//   R % 16 != 0, a view at an odd offset) is copied rounded out to the
+//   16-byte words that hold it, and lands in its stage at the same offset
+//   from a boundary as in device memory. The few bytes read beyond it lie
+//   in those same words, so on the pages that hold the tensor, and are
+//   never used. Every chunk thus comes whole by bulk copy, and the
+//   arithmetic reads shared memory only.
+// - C <= 8 (the main path's C = 6): lanes own rows. Each lane keeps all
+//   C(C+1)/2 upper-triangle sums and its count in registers (a template per
+//   C, so the loops unroll) and reads its rows from shared memory. The mask
+//   selects a row and does not multiply it, so a NaN in a masked row does
+//   not leak. At the end of a block one xor-shuffle tree, a fixed order,
+//   gives every lane the block's sums.
+// - 9 <= C <= 13: lanes own entries (up to 3 each, a template per bucket)
+//   and the warp walks the rows together, four at a time so that their
+//   loads overlap; each lane sums its entries' products over the valid rows
+//   in row order, so nothing is reduced.
+// - 14 <= C <= 33: the same, but each lane owns a tile of the C x C square
+//   (a 4 x 8 grid of tiles of up to 9 x 5), so that a row costs it 14
+//   shared loads for 45 products instead of two loads a product; it keeps
+//   the tile's entries on and above the diagonal. Shared-memory loads, not
+//   bytes, bound the short blocks of wide C (R = 37, C = 33). Tiles waste
+//   the products below the diagonal, so at small C entries are faster.
+//   Above C = 8 chunks are smaller (~2 KB), so that more warps share an SM.
 //
 // Two passes, no atomics, so results are identical run to run:
-//   1. block_moments: one thread block per row block. Rows are staged in
-//      shared memory in chunks (invalid rows zeroed, validity as an extra
-//      column). Each thread owns one upper-triangle entry (or the count) and
-//      sums its products over a fixed subset of rows in order; the subsets
-//      are then added in a fixed order. Above 256 entries (C > 22) each
-//      thread owns up to three entries and sums every row.
+//   1. block_moments: the block partials [S, C(C+1)/2 + 1] as above.
 //   2. group_sums: one thread per (group, entry) adds its group's block
-//      partials in block order and writes both triangles of M.
+//      partials in block order and writes both triangles of M (zeros for a
+//      group without blocks).
 // Supports 1 <= C <= 33 (K <= 32 features, the range of the batched
 // Cholesky that consumes M).
 
@@ -35,14 +69,20 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRowsPerChunk = 128;
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kStages = 4;
+// Zp bytes a stage holds, about: for C <= 8, and for larger C
+constexpr int kRowChunkBytes = 8192;
+constexpr int kEntryChunkBytes = 2048;
 constexpr int kMaxCols = 33;
-constexpr int kMaxSlots = kMaxCols * (kMaxCols + 1) / 2 + 1;  // entries + count
-constexpr int kMaxPerThread = (kMaxSlots + kThreads - 1) / kThreads;
+// CTAs an SM must hold: caps the registers at 168 a thread, so that the
+// tiles of wide C fit three CTAs an SM
+constexpr int kMinBlocks = 3;
+constexpr int kBarBytes = kWarps * kStages * 8;  // one mbarrier per stage
+constexpr unsigned kFull = 0xffffffffu;
 
-// Upper-triangle entry e -> (i, j), i <= j, row-major. e == C(C+1)/2 (the
-// count slot) maps to (C, C): the staged validity column, whose square is w.
+// Upper-triangle entry e -> (i, j), i <= j, row-major.
 __device__ __forceinline__ void entry_ij(int e, int C, int* i, int* j) {
   int r = 0;
   while (r < C && e >= C - r) {
@@ -53,76 +93,296 @@ __device__ __forceinline__ void entry_ij(int e, int C, int* i, int* j) {
   *j = r + e;
 }
 
-__global__ void __launch_bounds__(kThreads)
-block_moments(const double* __restrict__ zp, const uint8_t* __restrict__ wp,
-              int64_t R, int C, int slots, double* __restrict__ partial) {
-  extern __shared__ double smem[];
-  const int W = C + 1;
-  double* tile = smem;                     // [kRowsPerChunk, W]
-  double* red = smem + kRowsPerChunk * W;  // [kThreads]
-  const int64_t s = blockIdx.x;
-  const double* z = zp + s * R * C;
-  const uint8_t* w = wp + s * R;
-  const int t = threadIdx.x;
+__device__ __forceinline__ uint32_t shared_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  // slots <= kThreads: `phases` groups of `slots` threads; thread t owns
-  // slot t % slots over rows phase, phase + phases, ... of each chunk.
-  // slots > kThreads: one group; thread t owns slots t, t + 256, t + 512.
-  const bool narrow = slots <= kThreads;
-  const int phases = narrow ? kThreads / slots : 1;
-  const int phase = narrow ? t / slots : 0;
-  int ei[kMaxPerThread], ej[kMaxPerThread];
-  double acc[kMaxPerThread];
+__device__ __forceinline__ void wait_parity(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One chunk of a row block: its rows in device memory and where they land
+// in a stage. Every lane computes the same from the chunk's first row.
+struct Chunk {
+  const double* z;  // the chunk's Zp rows
+  const uint8_t* m;  // their mask bytes
+  int rows;
+  int z_shift;  // bytes from a 16-byte boundary to z: double 0's offset in the stage
+  int m_shift;  // the same for m and mask byte 0 in the stage's mask area
+};
+
+__device__ __forceinline__ Chunk chunk_at(const double* zp, const uint8_t* wp,
+                                          int64_t row0, int rows, int C) {
+  Chunk k;
+  k.z = zp + row0 * C;
+  k.m = wp + row0;
+  k.rows = rows;
+  k.z_shift = static_cast<int>(reinterpret_cast<uintptr_t>(k.z) & 15);  // 0 or 8
+  k.m_shift = static_cast<int>(reinterpret_cast<uintptr_t>(k.m) & 15);
+  return k;
+}
+
+__host__ __device__ __forceinline__ int round16(int v) { return (v + 15) & ~15; }
+
+// Lane 0: arm the stage's barrier with the chunk's bytes, rounded out to
+// 16-byte words, and start the two bulk copies.
+__device__ __forceinline__ void issue(const Chunk& k, int C, uint32_t stage,
+                                      int z_bytes, uint32_t bar) {
+  const uint32_t zb = static_cast<uint32_t>(round16(k.z_shift + 8 * k.rows * C));
+  const uint32_t mb = static_cast<uint32_t>(round16(k.m_shift + k.rows));
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(zb + mb) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(stage), "l"(reinterpret_cast<const uint8_t*>(k.z) - k.z_shift), "r"(zb),
+         "r"(bar)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(stage + z_bytes), "l"(k.m - k.m_shift), "r"(mb), "r"(bar)
+      : "memory");
+}
+
+// C <= 8: lane l sums rows l, l + 32, ... of every chunk of its block.
+template <int C>
+struct RowSums {
+  static constexpr int kEntries = C * (C + 1) / 2;
+  double acc[kEntries];
+  int cnt;
+
+  __device__ __forceinline__ RowSums(int, int) : cnt(0) {
 #pragma unroll
-  for (int k = 0; k < kMaxPerThread; ++k) {
-    const int e = narrow ? (k == 0 ? t % slots : slots) : t + k * kThreads;
-    ei[k] = -1;
-    ej[k] = -1;
-    if (e < slots && phase < phases) entry_ij(e, C, &ei[k], &ej[k]);
-    acc[k] = 0.0;
+    for (int e = 0; e < kEntries; ++e) acc[e] = 0.0;
   }
 
-  for (int64_t r0 = 0; r0 < R; r0 += kRowsPerChunk) {
-    const int rows = static_cast<int>(
-        R - r0 < kRowsPerChunk ? R - r0 : kRowsPerChunk);
-    const double* zc = z + r0 * C;
-    // consecutive threads load consecutive doubles of the contiguous block
-    for (int idx = t; idx < rows * W; idx += kThreads) {
-      const int r = idx / W;
-      const int c = idx - r * W;
-      const bool ok = w[r0 + r] != 0;
-      tile[idx] = ok ? (c < C ? zc[r * C + c] : 1.0) : 0.0;
-    }
-    __syncthreads();
-    for (int r = phase; r < rows; r += phases) {
-      const double* row = tile + r * W;
+  __device__ __forceinline__ void row(const double (&v)[C], bool ok) {
+    cnt += ok ? 1 : 0;
+    double x[C];
 #pragma unroll
-      for (int k = 0; k < kMaxPerThread; ++k) {
-        if (ei[k] >= 0) acc[k] = fma(row[ei[k]], row[ej[k]], acc[k]);
+    for (int c = 0; c < C; ++c) x[c] = ok ? v[c] : 0.0;
+    int e = 0;
+#pragma unroll
+    for (int i = 0; i < C; ++i) {
+#pragma unroll
+      for (int j = i; j < C; ++j) {
+        acc[e] = fma(x[i], x[j], acc[e]);
+        ++e;
       }
     }
-    __syncthreads();
   }
 
-  double* out = partial + s * slots;
-  if (narrow) {
-    if (phase < phases) red[t] = acc[0];
-    __syncthreads();
-    if (t < slots) {
-      double sum = 0.0;
-      for (int p = 0; p < phases; ++p) sum += red[p * slots + t];
-      out[t] = sum;
-    }
-  } else {
+  __device__ __forceinline__ void add(const double* zs, const uint8_t* ms,
+                                      int rows, int lane) {
+    for (int r = lane; r < rows; r += 32) {
+      double v[C];
 #pragma unroll
-    for (int k = 0; k < kMaxPerThread; ++k) {
-      const int e = t + k * kThreads;
-      if (e < slots) out[e] = acc[k];
+      for (int c = 0; c < C; ++c) v[c] = zs[r * C + c];
+      row(v, ms[r] != 0);
     }
+  }
+
+  // the block's sums into out[0 .. kEntries] (count last), then zero
+  __device__ __forceinline__ void flush(double* out, int lane) {
+#pragma unroll
+    for (int e = 0; e < kEntries; ++e) {
+      double v = acc[e];
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+      if (lane == e % 32) out[e] = v;
+      acc[e] = 0.0;
+    }
+    const int n = __reduce_add_sync(kFull, cnt);
+    if (lane == kEntries % 32) out[kEntries] = static_cast<double>(n);
+    cnt = 0;
+  }
+};
+
+// 9 <= C <= 13: lane l owns entries l, l + 32, ... (at most KPL) and sums
+// their products over every valid row of the block in row order.
+template <int KPL>
+struct EntrySums {
+  double acc[KPL];
+  int ij[KPL];  // i << 8 | j of each owned entry
+  int C, entries, cnt;
+
+  __device__ __forceinline__ EntrySums(int lane, int C_)
+      : C(C_), entries(C_ * (C_ + 1) / 2), cnt(0) {
+#pragma unroll
+    for (int k = 0; k < KPL; ++k) {
+      int i = 0, j = 0;
+      if (lane + 32 * k < entries) entry_ij(lane + 32 * k, C, &i, &j);
+      ij[k] = i << 8 | j;
+      acc[k] = 0.0;
+    }
+  }
+
+  // rows r .. r + U - 1 in order; a masked row's products are formed and
+  // dropped by a select, so its values never reach a sum
+  template <int U>
+  __device__ __forceinline__ void rows_at(const double* zs, const uint8_t* ms,
+                                          int r, int lane) {
+    bool ok[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      ok[u] = ms[r + u] != 0;
+      cnt += ok[u] ? 1 : 0;
+    }
+#pragma unroll
+    for (int k = 0; k < KPL; ++k) {
+      if (lane + 32 * k < entries) {
+        const double* vi = zs + r * C + (ij[k] >> 8);
+        const double* vj = zs + r * C + (ij[k] & 255);
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const double f = fma(vi[u * C], vj[u * C], acc[k]);
+          acc[k] = ok[u] ? f : acc[k];
+        }
+      }
+    }
+  }
+
+  __device__ __forceinline__ void add(const double* zs, const uint8_t* ms,
+                                      int rows, int lane) {
+    int r = 0;
+    for (; r + 4 <= rows; r += 4) rows_at<4>(zs, ms, r, lane);
+    for (; r < rows; ++r) rows_at<1>(zs, ms, r, lane);
+  }
+
+  __device__ __forceinline__ void flush(double* out, int lane) {
+#pragma unroll
+    for (int k = 0; k < KPL; ++k) {
+      if (lane + 32 * k < entries) out[lane + 32 * k] = acc[k];
+      acc[k] = 0.0;
+    }
+    if (lane == 0) out[entries] = static_cast<double>(cnt);
+    cnt = 0;
+  }
+};
+
+// 14 <= C <= 33: the C x C square in a 4 x 8 grid of A x B tiles, one a
+// lane. Each lane sums its tile's products over the valid rows in row order
+// from A + B values a row, and writes the tile's entries with i <= j.
+template <int A, int B>
+struct TileSums {
+  double acc[A][B];
+  int i0, j0, C, cnt;
+
+  __device__ __forceinline__ TileSums(int lane, int C_)
+      : i0(lane / 8 * A), j0(lane % 8 * B), C(C_), cnt(0) {
+#pragma unroll
+    for (int a = 0; a < A; ++a) {
+#pragma unroll
+      for (int b = 0; b < B; ++b) acc[a][b] = 0.0;
+    }
+  }
+
+  __device__ __forceinline__ void add(const double* zs, const uint8_t* ms,
+                                      int rows, int) {
+#pragma unroll 2
+    for (int r = 0; r < rows; ++r) {
+      const bool ok = ms[r] != 0;  // the row is selected, not multiplied
+      cnt += ok ? 1 : 0;
+      const double* v = zs + r * C;
+      double x[A], y[B];
+#pragma unroll
+      for (int a = 0; a < A; ++a) x[a] = (ok && i0 + a < C) ? v[i0 + a] : 0.0;
+#pragma unroll
+      for (int b = 0; b < B; ++b) y[b] = (ok && j0 + b < C) ? v[j0 + b] : 0.0;
+#pragma unroll
+      for (int a = 0; a < A; ++a) {
+#pragma unroll
+        for (int b = 0; b < B; ++b) acc[a][b] = fma(x[a], y[b], acc[a][b]);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void flush(double* out, int lane) {
+#pragma unroll
+    for (int a = 0; a < A; ++a) {
+      const int i = i0 + a;
+#pragma unroll
+      for (int b = 0; b < B; ++b) {
+        const int j = j0 + b;
+        // entry (i, j) of the row-major upper triangle
+        if (i <= j && j < C) out[i * C - i * (i - 1) / 2 + (j - i)] = acc[a][b];
+        acc[a][b] = 0.0;
+      }
+    }
+    if (lane == 0) out[C * (C + 1) / 2] = static_cast<double>(cnt);
+    cnt = 0;
+  }
+};
+
+template <class Sums>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+block_moments(const double* __restrict__ zp, const uint8_t* __restrict__ wp,
+              int64_t S, int64_t R, int C, int chunk_rows, int stage_bytes,
+              int z_bytes, int slots, double* __restrict__ partial) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int warp = static_cast<int>(threadIdx.x) / 32;
+  const int lane = static_cast<int>(threadIdx.x) % 32;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kWarps;
+  if (first >= S) return;  // the whole warp leaves together
+  const int64_t nch = (R + chunk_rows - 1) / chunk_rows;
+  const int64_t total = (S - first + stride - 1) / stride * nch;
+  const uint32_t bars = shared_addr(smem) + 8u * kStages * warp;
+  unsigned char* ring = smem + kBarBytes + static_cast<int64_t>(kStages) * stage_bytes * warp;
+  const uint32_t ring_addr = shared_addr(ring);
+
+  // work item q: chunk q % nch of the warp's (q / nch)-th block
+  auto chunk = [&](int64_t q) {
+    const int64_t s = first + q / nch * stride;
+    const int64_t r0 = q % nch * chunk_rows;
+    const int rows = static_cast<int>(R - r0 < chunk_rows ? R - r0 : chunk_rows);
+    return chunk_at(zp, wp, s * R + r0, rows, C);
+  };
+
+  if (lane == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(bars + 8u * st) : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    for (int64_t q = 0; q < kStages && q < total; ++q) {
+      issue(chunk(q), C, ring_addr + static_cast<uint32_t>(q * stage_bytes), z_bytes,
+            bars + 8u * static_cast<uint32_t>(q));
+    }
+  }
+  __syncwarp();
+
+  Sums sums(lane, C);
+  for (int64_t q = 0; q < total; ++q) {
+    const int st = static_cast<int>(q % kStages);
+    const uint32_t bar = bars + 8u * st;
+    wait_parity(bar, static_cast<uint32_t>(q / kStages) & 1u);
+    const Chunk k = chunk(q);
+    const unsigned char* stage = ring + static_cast<int64_t>(st) * stage_bytes;
+    sums.add(reinterpret_cast<const double*>(stage + k.z_shift),
+             stage + z_bytes + k.m_shift, k.rows, lane);
+    __syncwarp();  // every lane has read the stage before it is refilled
+    if (lane == 0 && q + kStages < total) {
+      issue(chunk(q + kStages), C, ring_addr + static_cast<uint32_t>(st * stage_bytes),
+            z_bytes, bar);
+    }
+    if (q % nch == nch - 1) sums.flush(partial + (first + q / nch * stride) * slots, lane);
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(256)
 group_sums(const double* __restrict__ partial,
            const int64_t* __restrict__ offsets, int64_t G, int C, int slots,
            double* __restrict__ M, double* __restrict__ counts) {
@@ -145,6 +405,43 @@ group_sums(const double* __restrict__ partial,
   Mg[j * C + i] = sum;
 }
 
+using MomentKernel = void (*)(const double*, const uint8_t*, int64_t, int64_t, int,
+                              int, int, int, int, double*);
+
+// C <= 8: lanes own rows; up to 13: lanes own entries; above: tiles
+MomentKernel pick(int C) {
+  switch (C) {
+    case 1: return block_moments<RowSums<1>>;
+    case 2: return block_moments<RowSums<2>>;
+    case 3: return block_moments<RowSums<3>>;
+    case 4: return block_moments<RowSums<4>>;
+    case 5: return block_moments<RowSums<5>>;
+    case 6: return block_moments<RowSums<6>>;
+    case 7: return block_moments<RowSums<7>>;
+    case 8: return block_moments<RowSums<8>>;
+    default: break;
+  }
+  if (C <= 10) return block_moments<EntrySums<2>>;  // 45 and 55 entries
+  if (C <= 13) return block_moments<EntrySums<3>>;  // up to 91
+  if (C <= 16) return block_moments<TileSums<4, 2>>;
+  if (C <= 24) return block_moments<TileSums<6, 3>>;
+  return block_moments<TileSums<9, 5>>;
+}
+
+// Rows of a chunk: about kRowChunkBytes of Zp (at least 32 rows) for
+// C <= 8, kEntryChunkBytes (at least 16) above; the block cut into equal
+// chunks, rounded up to 16 rows so that a chunk's mask bytes keep the
+// block's 16-byte alignment.
+int chunk_rows_for(int64_t R, int C) {
+  const bool by_rows = C <= 8;
+  int64_t target = (by_rows ? kRowChunkBytes : kEntryChunkBytes) / (8 * C);
+  const int64_t least = by_rows ? 32 : 16;
+  if (target < least) target = least;
+  const int64_t n = (R + target - 1) / target;
+  const int64_t rows = (R + n - 1) / n;
+  return static_cast<int>((rows + 15) & ~int64_t{15});
+}
+
 }  // namespace
 
 extern "C" {
@@ -162,18 +459,34 @@ int pols_grouped_moments(const double* zp, const uint8_t* wp,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int slots = static_cast<int>(C * (C + 1) / 2 + 1);
+  const int c = static_cast<int>(C);
+  const int slots = c * (c + 1) / 2 + 1;
   if (S > 0) {
-    const size_t smem = (kRowsPerChunk * (C + 1) + kThreads) * sizeof(double);
-    block_moments<<<static_cast<unsigned>(S), kThreads, smem, st>>>(
-        zp, wp, R, static_cast<int>(C), slots, partial);
+    const int rows = chunk_rows_for(R, c);
+    // room for a chunk's bytes rounded out to 16-byte words
+    const int z_bytes = round16(rows * c * 8 + 8);
+    const int stage_bytes = z_bytes + round16(rows + 15);
+    const size_t smem = kBarBytes + static_cast<size_t>(kWarps) * kStages * stage_bytes;
+    const MomentKernel fn = pick(c);
+    cudaError_t err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    int dev = 0, sms = 0, per_sm = 0;
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads, smem);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    const int64_t want = (S + kWarps - 1) / kWarps;
+    const int64_t fit = static_cast<int64_t>(per_sm) * sms;
+    fn<<<static_cast<unsigned>(want < fit ? want : fit), kThreads, smem, st>>>(
+        zp, wp, S, R, c, rows, stage_bytes, z_bytes, slots, partial);
   }
   if (G > 0) {
     const int64_t n = G * slots;
-    const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
-    group_sums<<<blocks, kThreads, 0, st>>>(partial, offsets, G,
-                                            static_cast<int>(C), slots, M,
-                                            counts);
+    const unsigned blocks = static_cast<unsigned>((n + 255) / 256);
+    group_sums<<<blocks, 256, 0, st>>>(partial, offsets, G, c, slots, M, counts);
   }
   return static_cast<int>(cudaGetLastError());
 }

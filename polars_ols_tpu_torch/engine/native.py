@@ -2,9 +2,10 @@
 
 The helpers (O(N) hash factorization of group keys, the counting-sort group
 layout and the one-pass block scatter / unpad maps) are the C++ source
-``polars_ols_tpu/engine/native/factorize.cpp``. It has no Python or JAX
-dependency, so this package compiles that file by path with ``g++`` into its
-own git-ignored build directory; nothing of the JAX package is imported.
+``engine/native/factorize.cpp`` of this package, a copy of the JAX
+package's file of the same name kept here so that the port stands on its
+own. It has no Python dependency; it is compiled with ``g++`` into the
+package's git-ignored build directory at first use.
 
 The shared object is named by a hash of the source and flags. A rebuilt
 source therefore gets a new path, and dlopen can never hand back a stale
@@ -28,10 +29,7 @@ import numpy as np
 
 from ..config import BUILD_DIR
 
-SOURCE = (
-    Path(__file__).resolve().parents[2]
-    / "polars_ols_tpu" / "engine" / "native" / "factorize.cpp"
-)
+SOURCE = Path(__file__).resolve().parent / "native" / "factorize.cpp"
 _CXXFLAGS = ["-O3", "-fPIC", "-std=c++17", "-shared"]
 
 _LIB = None

@@ -14,7 +14,8 @@ its update lands below ``tol`` in absolute value (the reference's
 ``cd_active_set``, src/least_squares.rs:447-488).
 
 On a CUDA tensor ``solve_elastic_net_cov`` always launches the
-hand-written kernel ``csrc/cd.cu`` (one warp per group) and counts the
+hand-written kernel ``csrc/cd.cu`` (``32 / KB`` groups a warp, KB the
+bucket 8, 16 or 32 that holds K) and counts the
 launch in ``cd_kernel_launches``; a failed build or launch raises. On a
 CPU tensor it runs ``solve_elastic_net_cov_ref``. Both form ``(XtX w)_j``
 and the squared step norm as sequential sums in k-order from separately

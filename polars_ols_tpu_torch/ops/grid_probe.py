@@ -44,6 +44,8 @@ def _kernel():
             ctypes.c_void_p, ctypes.c_void_p, i64, i64, i64, ctypes.c_void_p,
         ]
         lib.pols_scale_copy.restype = ctypes.c_int
+        lib.pols_empty_launch.argtypes = [ctypes.c_void_p]
+        lib.pols_empty_launch.restype = ctypes.c_int
         lib.pols_cuda_error_string.argtypes = [ctypes.c_int]
         lib.pols_cuda_error_string.restype = ctypes.c_char_p
         _BOUND = lib
@@ -90,6 +92,19 @@ def scale_copy(x: torch.Tensor, block_rows: Optional[int] = None) -> torch.Tenso
         raise RuntimeError(f"probe kernel launch failed: CUDA error {rc} ({msg})")
     scale_copy_launches += 1
     return out
+
+
+def empty_launch(device: torch.device) -> None:
+    """Launch an empty kernel on ``device``'s current stream: the floor of
+    every kernel's time per launch (it computes nothing and is not counted
+    among the probe's launches)."""
+    if device.type != "cuda":
+        raise ValueError(f"the empty kernel runs on a CUDA device, not {device}")
+    lib = _kernel()
+    rc = lib.pols_empty_launch(torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        msg = lib.pols_cuda_error_string(rc).decode()
+        raise RuntimeError(f"empty kernel launch failed: CUDA error {rc} ({msg})")
 
 
 def run_probe(device: torch.device) -> None:

@@ -150,6 +150,19 @@ def test_cd_ref_matches_jax(case):
     assert 0.0 < nz < 1.0  # both zero and nonzero coefficients
 
 
+@pytest.mark.parametrize("k", [8, 9, 16, 17])
+def test_cd_ref_matches_jax_at_the_kernels_k_buckets(k):
+    """K on both sides of the kernel's buckets (8 | 9, 16 | 17), at a group
+    count that is no multiple of the groups a warp holds (4 or 2)."""
+    kw = dict(alpha=0.05, l1_ratio=0.8, positive=k % 2 == 1)
+    XtX, Xty, n = _moments(seed=k, groups=37, k=k)
+    w, sweeps = cd.solve_elastic_net_cov_ref(
+        torch.as_tensor(XtX), torch.as_tensor(Xty), torch.as_tensor(n), **kw
+    )
+    np.testing.assert_allclose(w.numpy(), np.asarray(jax_cd(XtX, Xty, n, **kw)), **TOL)
+    assert int(sweeps.min()) >= 1 and float(np.abs(w[2].numpy()).max()) == 0.0
+
+
 def test_cd_wrapper_on_cpu_is_the_plain_version(monkeypatch):
     monkeypatch.setattr(cd, "cd_kernel_launches", 0)
     XtX, Xty, n = (torch.as_tensor(a) for a in _moments(seed=3))

@@ -9,7 +9,13 @@ where only the port is installed:
     python -m pytest --noconftest tests/test_torch_gpu.py -q
 
 Tolerances: kernel and plain version differ only in summation order, so
-rtol 1e-12 / atol 1e-13 * max|M|; counts are integers and match exactly.
+rtol 1e-12 / atol 1e-13 * max|M|; counts are integers and match exactly,
+and two launches give the same bits (no atomics). The moment kernel's edges
+are held the same way: C = 8 | 9 and 13 | 14 (lanes owning rows hand over
+to lanes owning entries, then tiles), R = 513 and R = 37 (mask bytes not
+16-aligned), R * C odd and views at odd offsets (rows 8 bytes past a
+16-byte boundary), fewer blocks than the persistent grid's warps,
+S = 20,000, groups without blocks.
 The probe kernel doubles f32 values, which is exact: bit equality, also
 on ragged, misaligned and many-tile shapes that take its plain edges. The
 main-path slice on the card matches the CPU slice at the port's parity
@@ -17,8 +23,9 @@ tolerance against the JAX engine, rtol 1e-9 / atol 1e-11; the null-policy
 and WLS slice at 1e-12 (the same solves; only the moment kernel's
 summation order differs), with identical null masks. The coordinate-descent
 kernel makes the plain version's sums in the same order from separately
-rounded products: the same sweep counts and coefficients at rtol 1e-12
-(equal bits expected). The p-value kernel runs the plain version's
+rounded products: the same sweep counts and the same bits, also at the
+K buckets' edges (8 | 9, 16 | 17) with group counts that leave a warp's
+last groups empty. The p-value kernel runs the plain version's
 arithmetic with the compiler's fused multiply-adds and the device's
 ``log`` / ``exp`` / ``erfc``: rtol 1e-12 to it, 1e-12 to scipy. The
 statistics and lasso slices on the card match the CPU at rtol 1e-9 (the
@@ -62,7 +69,9 @@ def _blocks(seed: int, n_groups: int, R: int, C: int, device):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize(
-    "G,R,C", [(2_000, 512, 6), (300, 37, 33), (1, 512, 6), (50, 100, 1), (50, 200, 22), (50, 200, 23)]
+    "G,R,C",
+    [(2_000, 512, 6), (300, 37, 33), (1, 512, 6), (50, 100, 1), (50, 200, 22), (50, 200, 23),
+     (300, 512, 8), (300, 512, 9), (300, 512, 13), (300, 512, 14), (300, 513, 6)],
 )
 def test_kernel_matches_plain_on_card(cuda_device, G, R, C):
     args = _blocks(G + C, G, R, C, cuda_device)
@@ -78,6 +87,50 @@ def test_kernel_matches_plain_on_card(cuda_device, G, R, C):
     # no atomics: a second launch gives the same bits
     M_k2, _ = moments.grouped_moments_blocks(*args)
     assert torch.equal(M_k, M_k2)
+
+
+MOMENT_EDGES = {
+    # id: (blocks per group, R, C, element offset of Zp, byte offset of wp)
+    "r37_c33_views_at_odd_offsets": (np.full(300, 3), 37, 33, 1, 3),
+    "r100_c5_views_at_odd_offsets": (np.full(300, 3), 100, 5, 1, 7),
+    "s_below_grid": (np.asarray([5]), 512, 6, 0, 0),
+    "s_20000": (np.full(10_000, 2), 512, 6, 0, 0),
+    "empty_groups": (np.asarray([0, 3, 0, 2, 0, 0, 5, 0]), 512, 6, 0, 0),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(MOMENT_EDGES))
+def test_moment_kernel_edges_on_card(cuda_device, case):
+    n_blocks, R, C, z_off, w_off = MOMENT_EDGES[case]
+    rng = np.random.default_rng(len(case))
+    S, G = int(n_blocks.sum()), len(n_blocks)
+    Z = rng.normal(size=(S, R, C)) * np.exp(rng.normal(size=(1, 1, C)) * 3)
+    W = rng.random((S, R)) > 0.2
+    Z[~W] = np.nan  # a masked row is selected away, never multiplied
+    Zp = torch.empty(S * R * C + z_off, dtype=torch.float64, device=cuda_device)[z_off:].view(S, R, C)
+    wp = torch.empty(S * R + w_off, dtype=torch.bool, device=cuda_device)[w_off:].view(S, R)
+    Zp.copy_(torch.as_tensor(Z))
+    wp.copy_(torch.as_tensor(W))
+    offsets = torch.as_tensor(np.concatenate([[0], np.cumsum(n_blocks)]), device=cuda_device)
+    M_k, c_k = moments.grouped_moments_blocks(Zp, wp, offsets, G)
+    M_k2, c_k2 = moments.grouped_moments_blocks(Zp, wp, offsets, G)
+    torch.cuda.synchronize()
+    assert moments.moments_kernel_launches == 2
+    assert torch.equal(M_k, M_k2) and torch.equal(c_k, c_k2)
+    M_p, c_p = moments.grouped_moments_blocks_ref(Zp, wp, offsets, G)
+    M_k, M_p = M_k.cpu().numpy(), M_p.cpu().numpy()
+    assert np.isfinite(M_k).all()
+    np.testing.assert_allclose(M_k, M_p, rtol=1e-12, atol=1e-13 * float(np.abs(M_p).max()))
+    np.testing.assert_array_equal(c_k.cpu().numpy(), c_p.cpu().numpy())
+    empty = n_blocks == 0
+    assert (M_k[empty] == 0).all() and (c_k.cpu().numpy()[empty] == 0).all()
+
+
+@pytest.mark.gpu
+def test_empty_kernel_launches_on_card(cuda_device):
+    grid_probe.empty_launch(cuda_device)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.gpu
@@ -210,8 +263,14 @@ def _cd_moments(seed: int, G: int, K: int, device, empty_group: bool = False):
         (333, 1, dict(alpha=0.2, l1_ratio=1.0)),
         (64, 32, dict(alpha=0.1, l1_ratio=0.7, max_iter=40)),  # plain: ~1,100 launches a sweep
         (64, 32, dict(alpha=0.01, l1_ratio=1.0, max_iter=3)),
+        # the K buckets' edges, G no multiple of the groups a warp holds
+        (1001, 8, dict(alpha=0.05, l1_ratio=0.8)),
+        (1001, 9, dict(alpha=0.05, l1_ratio=0.8, positive=True)),
+        (1003, 16, dict(alpha=0.05, l1_ratio=1.0, active_set=True)),
+        (1003, 17, dict(alpha=0.05, l1_ratio=0.7)),
     ],
-    ids=["main", "positive", "active_set", "one_group", "k1", "k32", "max_iter"],
+    ids=["main", "positive", "active_set", "one_group", "k1", "k32", "max_iter",
+         "k8", "k9", "k16", "k17"],
 )
 def test_cd_kernel_matches_plain_on_card(cuda_device, G, K, kw):
     XtX, Xty, n = _cd_moments(G + K, G, K, cuda_device, empty_group=G > 1)
@@ -220,7 +279,7 @@ def test_cd_kernel_matches_plain_on_card(cuda_device, G, K, kw):
     assert cd.cd_kernel_launches == 1
     w_p, s_p = cd.solve_elastic_net_cov_ref(XtX, Xty, n, **kw)
     np.testing.assert_array_equal(s_k.cpu().numpy(), s_p.cpu().numpy())
-    np.testing.assert_allclose(w_k.cpu().numpy(), w_p.cpu().numpy(), rtol=1e-12, atol=1e-14)
+    np.testing.assert_array_equal(w_k.cpu().numpy(), w_p.cpu().numpy())
     if G > 1:  # the group without rows: zero coefficients after one sweep
         assert float(w_k[0].abs().max()) == 0.0 and int(s_k[0]) == 1
     if "max_iter" in kw:

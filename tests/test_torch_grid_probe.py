@@ -105,3 +105,8 @@ def test_probe_wrapper_rejects_what_the_kernel_does_not_take(case):
         block_rows = 300
     with pytest.raises((TypeError, ValueError)):
         grid_probe.scale_copy(x, block_rows)
+
+
+def test_empty_kernel_needs_a_cuda_device():
+    with pytest.raises(ValueError, match="CUDA device"):
+        grid_probe.empty_launch(torch.device("cpu"))

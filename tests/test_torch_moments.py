@@ -78,7 +78,13 @@ def test_plain_moments_match_ozaki(G, R, C):
     np.testing.assert_array_equal(c_t, np.asarray(c_j))
 
 
-@pytest.mark.parametrize("G,R,C", [(6, 128, 6), (4, 37, 33), (2, 16, 2)])
+# beside the main path's C = 6: the CUDA kernel's hand-overs (C = 8 | 9,
+# 13 | 14) and mask bytes that are not 16-aligned (R = 37, R = 513)
+@pytest.mark.parametrize(
+    "G,R,C",
+    [(6, 128, 6), (4, 37, 33), (2, 16, 2), (3, 64, 8), (3, 64, 9), (3, 40, 13), (3, 40, 14),
+     (2, 513, 6)],
+)
 def test_direct_grouped_moments_match_jax_einsum(G, R, C):
     Zp, wp, bg, offsets = _blocks(2, G, R, C)
     XtX_j, Xty_j, c_j = jdirect.grouped_moments(
@@ -92,6 +98,27 @@ def test_direct_grouped_moments_match_jax_einsum(G, R, C):
         j = np.asarray(j)
         np.testing.assert_allclose(t.numpy(), j, rtol=1e-13, atol=1e-13 * np.abs(j).max())
     np.testing.assert_array_equal(c_t.numpy(), np.asarray(c_j))
+
+
+def test_groups_without_blocks_get_zero_moments():
+    """Groups without blocks, first, inside and last, against the JAX
+    engine's segment sums."""
+    n_blocks = np.asarray([0, 3, 0, 0, 2, 0])
+    G, S, R, C = len(n_blocks), int(n_blocks.sum()), 48, 6
+    rng = np.random.default_rng(5)
+    Zp = rng.normal(size=(S, R, C))
+    wp = rng.random((S, R)) > 0.15
+    bg = np.repeat(np.arange(G), n_blocks)
+    offsets = np.concatenate([[0], np.cumsum(n_blocks)])
+    XtX_j, Xty_j, c_j = jdirect.grouped_moments(
+        jnp.asarray(Zp[..., 1:]), jnp.asarray(Zp[..., 0]), jnp.asarray(wp), jnp.asarray(bg), G,
+    )
+    M_t, c_t = _port(Zp, wp, offsets, G)
+    np.testing.assert_allclose(M_t[:, 1:, 1:], np.asarray(XtX_j), rtol=1e-13, atol=1e-12)
+    np.testing.assert_allclose(M_t[:, 1:, 0], np.asarray(Xty_j), rtol=1e-13, atol=1e-12)
+    np.testing.assert_array_equal(c_t, np.asarray(c_j))
+    empty = n_blocks == 0
+    assert (M_t[empty] == 0).all() and (c_t[empty] == 0).all()
 
 
 def test_cpu_tensors_launch_no_kernel(monkeypatch):
