@@ -4,12 +4,17 @@ Builds the hand-written CUDA kernels from this checkout (one nvcc per
 source, all at once), runs the probe kernel's entry point, checks each
 kernel against its plain PyTorch version on the card, drives the
 grouped-OLS main path, the static fits (the five null policies, WLS,
-residuals, explicit lu / qr / svd) and the statistics and
+residuals, explicit lu / qr / svd), the statistics and
 coordinate-descent queries (statistics, lasso, elastic net, NNLS, the
-active-set variant) once at full width through the public API (8,000,000
-rows x 5 features x 10,000 groups, f64: the workload of bench.py, with
-~1 % nulls per column in half of the groups and a weight column), checks
-the results against numpy and scipy, and times them.
+active-set variant) and the moving models (rls, expanding_ols,
+rolling_ols under 'drop_window' and 'drop', weighted, coefficients) once
+at full width through the public API (8,000,000 rows x 5 features x
+10,000 groups, f64: the workload of bench.py, with ~1 % nulls per column
+in half of the groups and a weight column; the moving models also on the
+first 2,000,000 rows as one series, rolling_ols on all 8,000,000 rows as
+one), checks the results against numpy and
+scipy (a literal Kalman recursion and a numpy lstsq per window for the
+moving models), and times them.
 
 Run from the repository root with no arguments:
 
@@ -31,7 +36,10 @@ move over 3.35 TB/s and its operations over the peak rate of their type
 of the card-only tests (moments at C = 8 / 9, R = 513, empty groups, a grid
 larger than the work; coordinate descent at K = 8 / 9 / 16 / 17) are held
 to the plain versions too, and ``torch.profiler`` reads device busy time,
-launches and host syncs of the main, lasso and statistics queries. The
+launches and host syncs of the main, lasso, statistics, rls and rolling
+queries. The p-value kernel also gets a latency bound (the dependent f64
+operations of its longest thread times the measured time of one) and a
+breakdown of its time by stage. The
 line before the last is a JSON object with the kernels' names, sources,
 launch counts on their paths, errors, times and bounds; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -86,6 +94,27 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F64_PER_S = 34e12
 PEAK_F32_PER_S = 67e12
 PROFILE_QUERIES = 5
+# the moving models: the reference benchmark suite's rls(half_life=252) and
+# rolling_ols(window_size=252) under .over("group"), and the same models on
+# the first SERIES_ROWS rows as one series
+HALF_LIFE = 252.0
+WINDOW = 252
+MOVING_LAUNCHES = 20
+CHUNK_SWEEP = (32, 128, 512)  # rows a chunk, timed at the main frame beside the chosen length
+SERIES_ROWS = 2_000_000
+SERIES_HEAD = 20_000  # rows of the series checked against the literal oracles
+SERIES_TAIL = 50  # and its last rows against closed forms
+MOVING_KERNEL_TOL = dict(rtol=1e-9, atol=1e-11)  # kernel against its plain versions
+# windows with fewer than K + SETTLED_EXTRA valid rows are compared by their
+# null pattern only: with as many rows as features the normal equations'
+# error (cond^2 eps) can pass any tolerance, and with fewer the system is
+# singular and round-off picks the branch
+SETTLED_EXTRA = 3
+# the latency yardstick: chains of dependent f64 operations of each kind
+# the p-value kernel's critical path holds (ops/special.py:CHAIN_OPS), at
+# two lengths whose difference cancels the launch
+CHAIN_LAUNCHES = 5
+CHAIN_LENGTHS = (20_000, 40_000)
 
 
 def _hold_ms(torch) -> float:
@@ -202,43 +231,36 @@ def _cd_bound(G, K, sweeps):
     return _bound(moved, int(sweeps.sum()) * K * (2 * K + 9), PEAK_F64_PER_S)
 
 
-def _lentz_iterations(p, q, z):
-    """Iterations the kernel's continued fraction (csrc/t_pvalue.cu:lentz)
-    takes for each element: a numpy replica of its loop and its stop test."""
-    tiny, eps = 1e-300, 2.0 ** -52
-
-    def floor(v):
-        return np.where(np.abs(v) < tiny, tiny, v)
-
+def _cf_iterations(p, q, z):
+    """Iterations the kernel's continued fraction
+    (csrc/t_pvalue.cu:continued_fraction) takes for each element: a numpy
+    replica of its recurrence and its stop test."""
+    eps, big = 2.0 ** -52, 2.0 ** 200
     qab, qap, qam = p + q, p + 1.0, p - 1.0
-    c = np.ones_like(z)
-    d = 1.0 / floor(1.0 - qab * z / qap)
+    am, bm, az = np.ones_like(z), np.ones_like(z), np.ones_like(z)
+    bz = 1.0 - qab * z / qap
     count = np.zeros(z.shape, dtype=np.int64)
     running = np.ones(z.shape, dtype=bool)
     for m in range(1, 201):
         m2 = 2.0 * m
-        aa = m * (q - m) * z / ((qam + m2) * (p + m2))
-        d = 1.0 / floor(1.0 + aa * d)
-        c = floor(1.0 + aa / c)
-        aa = -(p + m) * (qab + m) * z / ((p + m2) * (qap + m2))
-        d = 1.0 / floor(1.0 + aa * d)
-        c = floor(1.0 + aa / c)
+        aa = (m * (q - m)) / ((qam + m2) * (p + m2)) * z
+        ap, bp = az + aa * am, bz + aa * bm
+        aa = -((p + m) * (qab + m)) / ((p + m2) * (qap + m2)) * z
+        app, bpp = ap + aa * az, bp + aa * bz
+        scale = np.where(np.abs(bpp) > big, 1.0 / big, np.where(np.abs(bpp) < 1.0 / big, big, 1.0))
+        am, bm, az, bz = ap * scale, bp * scale, app * scale, bpp * scale
         count += running
-        running &= ~(np.abs(d * c - 1.0) <= eps)
+        running &= ~(np.abs(app * bp - ap * bpp) <= eps * np.abs(ap * bpp))
         if not running.any():
             break
     return count
 
 
-def _pvalue_bound(t, dof):
-    """t and dof read once, p written once. Operations: 31 adds, multiplies
-    and divides per continued-fraction iteration, as many as a numpy
-    replica of the kernel's loop counts for these inputs, 12 per series
-    term (all 15 counted where the series branch runs), and 25 around them;
-    a call of log, exp, lgamma or erfc counts as one."""
-    G, K = t.shape
-    t = t.cpu().numpy()
-    d = np.broadcast_to(dof.cpu().numpy()[:, None], t.shape).ravel()
+def _pvalue_branches(t, dof):
+    """(live, series, cf, continued-fraction iterations of the cf elements)
+    of the kernel on these inputs: which elements it computes at all, and
+    by which branch."""
+    d = np.broadcast_to(dof[:, None], t.shape).ravel()
     t = t.ravel()
     with np.errstate(all="ignore"):
         x = d / (d + t * t)
@@ -247,12 +269,138 @@ def _pvalue_bound(t, dof):
         series = live & (a >= 15.0) & (-np.log(x) <= 1.0)
         cf = live & ~series
         direct = x < (a + 1.0) / (a + 2.5)
-        iters = _lentz_iterations(
+        iters = _cf_iterations(
             np.where(direct, a, 0.5)[cf], np.where(direct, 0.5, a)[cf],
             np.where(direct, x, 1.0 - x)[cf],
         )
-    ops = 25 * int(live.sum()) + 31 * int(iters.sum()) + 12 * 15 * int(series.sum())
-    return _bound(8 * (2 * G * K + G), ops, PEAK_F64_PER_S)
+    return live, series, cf, iters
+
+
+def _pvalue_paths(cf_iterations, series_terms):
+    """The strands of dependent f64 operations that can be the longest path
+    of one thread of the p-value kernel, each as {operation kind: count};
+    the thread runs ``cf_iterations`` of the continued fraction, or (None)
+    the series with ``series_terms`` terms.
+
+    Every strand starts with x = d / (d + t^2): a multiply, an add, a
+    divide. Continued fraction: the front factor exp(a log x + log1p(-x) / 2
+    + lgamma ratio - ...) is reached through log x, through log1p(-x), or
+    through the lgamma ratio's log1p(0.5 / a) (a division first), each
+    followed by the sum's four multiply-adds, exp and the last multiply;
+    beside them the recurrence: the first convergent's division (and two
+    multiply-adds), two multiply-adds and the four-operation stop test an
+    iteration, the final division, the last multiply. Series: log x, z = T u,
+    sqrt, erfc, two operations on H and the sum a term, the last multiply."""
+    x = {"fma": 2, "div": 1}
+    if cf_iterations is None:
+        return [{**x, "log": 1, "sqrt": 1, "erfc": 1, "fma": 2 + 1 + 3 * series_terms + 1}]
+    tail = {"exp": 1, "fma_tail": 5}
+    strands = [
+        {**x, "log": 1, **tail},
+        {**x, "log1p": 1, **tail},
+        {"div": 1, "log1p": 1, **tail},
+        {"fma": 2 + 2 + 6 * cf_iterations + 1, "div": 3},
+    ]
+    for strand in strands:
+        strand["fma"] = strand.get("fma", 0) + strand.pop("fma_tail", 0)
+    return strands
+
+
+def _path_ms(path, op_ms):
+    return sum(count * op_ms[kind] for kind, count in path.items())
+
+
+def _pvalue_bound(t, dof, op_ms):
+    """t and dof read once, p written once. Operations: 20 adds, multiplies
+    and divides per continued-fraction iteration, as many as a numpy
+    replica of the kernel's loop counts for these inputs, 10 per series
+    term (all 15 counted where the series branch runs), and 25 around them;
+    a call of log, exp, lgamma or erfc counts as one. Beside that bound,
+    the latency bound: the longest strand of dependent f64 operations of
+    any thread on these inputs (``_pvalue_paths``), each operation at the
+    time ``op_ms`` one of its kind takes in a chain of its own on this
+    card, all threads resident at once."""
+    G, K = t.shape
+    live, series, cf, iters = _pvalue_branches(t.cpu().numpy(), dof.cpu().numpy())
+    ops = 25 * int(live.sum()) + 20 * int(iters.sum()) + 10 * 15 * int(series.sum())
+    paths = []
+    if cf.any():
+        paths += _pvalue_paths(int(iters.max()), 0)
+    if series.any():
+        paths += _pvalue_paths(None, 15)
+    longest = max(paths, key=lambda path: _path_ms(path, op_ms), default={})
+    return {
+        **_bound(8 * (2 * G * K + G), ops, PEAK_F64_PER_S),
+        "latency_bound_ms": _path_ms(longest, op_ms), "longest_path": longest,
+    }
+
+
+def _kalman_numpy(X, y, v, ff, c=10.0, mean0=None):
+    """The literal recursive-least-squares recursion of one series
+    (src/least_squares.rs:494-598): P = c I and coef = mean0 to begin with;
+    a valid row updates both with forgetting factor ff, an invalid one
+    leaves them. Returns the coefficients after every row [n, K]."""
+    n, k = X.shape
+    P = np.eye(k) * c
+    coef = np.zeros(k) if mean0 is None else np.broadcast_to(np.asarray(mean0, float), (k,)).copy()
+    out = np.empty((n, k))
+    for i in range(n):
+        if v[i]:
+            Px = P @ X[i]
+            r = 1.0 + X[i] @ Px / ff
+            gain = Px / (r * ff)
+            coef = coef + gain * (y[i] - X[i] @ coef)
+            P = P / ff - np.outer(gain, gain) * r
+        out[i] = coef
+    return out
+
+
+def _window_numpy(X, y, v, window, min_periods, positional, rows=None):
+    """Rolling OLS of one series by a numpy lstsq per window: (coefficients
+    [n, K], NaN before the first solved window; valid rows in each row's
+    window [n]). positional: the window is the last ``window`` rows, solved
+    where it holds >= min_periods valid ones, else the last solution is
+    carried. Otherwise the window is the last ``window`` valid rows, solved
+    at valid rows from the min_periods-th on. ``rows`` limits the rows that
+    are solved (the others stay NaN)."""
+    n, k = X.shape
+    out = np.full((n, k), np.nan)
+    valid_idx = np.flatnonzero(v)
+    rank = np.cumsum(v)
+    counts = np.zeros(n, dtype=np.int64)
+    last = np.full(k, np.nan)
+    for i in (range(n) if rows is None else rows):
+        if positional:
+            lo = max(0, i - window + 1)
+            take = lo + np.flatnonzero(v[lo:i + 1])
+            solve = len(take) >= min_periods
+        else:
+            take = valid_idx[max(0, rank[i] - window):rank[i]]
+            solve = bool(v[i]) and rank[i] >= min_periods
+            if rows is not None and not solve and rank[i] >= min_periods:
+                solve = True  # a carried row of a sparse selection: its window is unchanged
+        counts[i] = len(take)
+        if solve:
+            last = _lstsq(X[take], y[take])
+        out[i] = last
+    return out, counts
+
+
+def _moving_bound(n_rows, n_valid, n_refresh, n_leaving, K, rolling, discounted, coefficients, G):
+    """Z and the valid mask read once (and, rolling, the leaving-row index
+    and the refresh mask), the row counts read once, the output written
+    once. Operations: K (K + 3) multiply-adds to add a row's outer products
+    (as many again for a leaving row; K (K + 3) / 2 + 1 multiplies where the
+    state is discounted), and per solved row a Cholesky solve: K^3 / 3 + 2 K^2
+    operations and 2 K square roots and divisions; 2 K for a prediction."""
+    per_row = 8 * (1 + K) + 1 + (5 if rolling else 0) + 8 * (K if coefficients else 1)
+    update = K * (K + 3)
+    ops = (n_valid + n_leaving) * update + n_refresh * (K ** 3 / 3 + 2 * K * K + 2 * K)
+    if discounted:
+        ops += n_valid * (K * (K + 3) // 2 + 1)
+    if not coefficients:
+        ops += 2 * K * n_rows
+    return _bound(n_rows * per_row + 8 * G, ops, PEAK_F64_PER_S)
 
 
 def _ptxas(log):
@@ -488,12 +636,13 @@ def _check_cd(label, XtX, Xty, counts, kw, cd, torch, timed=True):
     return err, t, s_k
 
 
-def _profile(fn, torch):
+def _profile(fn, torch, named=()):
     """Device busy ms (the union of device intervals), launches (launch API
     calls) and host syncs (stream / device syncs, less the loop's own) per
     query, from torch.profiler over PROFILE_QUERIES queries after a warm
     one, with the host ms per query under the profiler (which inflates it:
-    the idle share 1 - busy / wall is an upper bound). None when the
+    the idle share 1 - busy / wall is an upper bound), and the device ms per
+    query of the kernels whose names hold one of ``named``. None when the
     profiler records no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -522,7 +671,15 @@ def _profile(fn, torch):
                    for n in names)
     syncs = sum(n in ("cudaStreamSynchronize", "cudaDeviceSynchronize") for n in names)
     busy_ms = busy_us / 1e3 / PROFILE_QUERIES
+    by_name = {
+        key: sum(
+            e.time_range.end - e.time_range.start
+            for e in events if e.device_type == DeviceType.CUDA and key in e.name
+        ) / 1e3 / PROFILE_QUERIES
+        for key in named
+    }
     return {
+        "kernels_ms": by_name,
         "busy_ms": busy_ms, "launches": launches / PROFILE_QUERIES,
         "host_syncs": (syncs - PROFILE_QUERIES) / PROFILE_QUERIES,
         "wall_ms": wall_ms, "idle_share": 1.0 - busy_ms / wall_ms,
@@ -589,18 +746,136 @@ def _check_pvalue(t_query, dof_query, special, torch):
     err = float(np.nanmax(np.abs(p_k - p_p)))
     scipy_rel = float(np.max(np.abs(p_k[ok] - ref) / np.maximum(ref, 1e-300)))
     G = t_query.shape[0]
-    times = _timing_fields(_in_turns({
+    seed = torch.full((1,), 0.5, dtype=torch.float64, device=t.device)
+    raw = _in_turns({
         "plain": lambda: special.t_two_sided_p_value_ref(t_query, dof_query),
         "kernel": lambda: special.t_two_sided_p_value(t_query, dof_query),
-    }, PVALUE_LAUNCHES, torch, synced=("plain",)))
+        "load_store": lambda: special.t_pvalue_timing_stage(t_query, dof_query, "load_store"),
+        "front": lambda: special.t_pvalue_timing_stage(t_query, dof_query, "front"),
+    }, PVALUE_LAUNCHES, torch, synced=("plain",))
+    chain = _in_turns({
+        (kind, n): (lambda kind=kind, n=n: special.f64_chain(n, seed, kind))
+        for kind in special.CHAIN_OPS for n in CHAIN_LENGTHS
+    }, CHAIN_LAUNCHES, torch)
+    short, long_ = CHAIN_LENGTHS
+    op_ms = {
+        kind: (chain[(kind, long_)][0] - chain[(kind, short)][0]) / (long_ - short)
+        for kind in special.CHAIN_OPS
+    }
+    for kind in special.CHAIN_OPS[1:]:  # their steps carry one more add or multiply
+        op_ms[kind] -= op_ms["fma"]
+    times = _timing_fields(raw)
+    times["load_store_ms"], times["front_ms"] = raw["load_store"][0], raw["front"][0]
+    times["dependent_op_ns"] = {kind: ms * 1e6 for kind, ms in op_ms.items()}
     print(
         f"kernel t_pvalue: {2 * G + 6} rows x 5 (query t, t/100, edges) max_abs_err={err!r} "
         f"vs plain, max rel err vs scipy={scipy_rel!r}; at the query's [{G}, 5]: "
-        f"kernel_ms={times['ms']!r} per launch, plain_ms={times['plain_ms']!r} per call (host "
-        f"syncs inside), host_us={times['host_us']!r} plain_host_us={times['plain_host_us']!r} "
-        "per call"
+        f"kernel_ms={times['ms']!r} per launch (loads, x and store alone {times['load_store_ms']!r}, "
+        f"with the front factor {times['front_ms']!r}), plain_ms={times['plain_ms']!r} per call "
+        f"(host syncs inside), host_us={times['host_us']!r} plain_host_us="
+        f"{times['plain_host_us']!r} per call; one dependent f64 operation, ns: "
+        f"{json.dumps(times['dependent_op_ns'])}"
     )
     return err, times
+
+
+def _moving_batch(rng, K, torch, r=300):
+    """Five groups for the moving kernel's checks: full, shorter than the
+    long window, empty, one row, ragged; ~5 % invalid rows."""
+    rows = np.asarray([r, 40, 0, 1, r - 13])
+    G = len(rows)
+    X = rng.normal(size=(G, r, K)) * np.resize([1.0, 3.0, 0.3], K)
+    y = X.sum(-1) + rng.normal(size=(G, r)) * 0.1
+    v = (rng.random((G, r)) > 0.05) & (np.arange(r)[None] < rows[:, None])
+    dev = torch.device("cuda")
+    return (
+        torch.as_tensor(np.concatenate([y[..., None], X], axis=-1), device=dev),
+        torch.as_tensor(v, device=dev), torch.as_tensor(rows, device=dev), rows,
+    )
+
+
+def _window_counts(v, window, positional):
+    """Valid rows in each row's window, [G, R]."""
+    r = np.cumsum(v, axis=1)
+    if not positional:
+        return np.minimum(r, window)
+    shifted = np.concatenate([np.zeros((v.shape[0], window), dtype=r.dtype), r], axis=1)
+    return r - shifted[:, : v.shape[1]]
+
+
+def _moving_diff(out, ref, rows, settled=None):
+    """Max abs difference of a moving result from its plain version over
+    each group's own rows: an equal NaN pattern everywhere, values at
+    MOVING_KERNEL_TOL where ``settled`` (default: everywhere)."""
+    out, ref = out.cpu().numpy(), ref.cpu().numpy()
+    worst = 0.0
+    for g, n in enumerate(rows):
+        a, b = out[g, :n], ref[g, :n]
+        np.testing.assert_array_equal(np.isnan(a), np.isnan(b))
+        m = ~np.isnan(b)
+        if settled is not None:
+            m &= settled[g, :n].reshape((-1,) + (1,) * (a.ndim - 1))
+        np.testing.assert_allclose(a[m], b[m], **MOVING_KERNEL_TOL)
+        if m.any():
+            worst = max(worst, float(np.abs(a[m] - b[m]).max()))
+    return worst
+
+
+def _check_moving(moving, recursive, rolling, torch):
+    """csrc/moving.cu against the plain versions on the card: rls with and
+    without forgetting and prior mean, rolling in both window semantics, at
+    K = 5, 8, 9, 16, 17, 32 (registers, then the two local-memory
+    buckets' edges), coefficients and predictions, the chunk length chosen
+    and forced to 32 rows (several chunks a group) and to 2 rows (the
+    prefix over a group's chunks in segments), on groups that are
+    full, shorter than the window, empty and of one row. Returns the
+    number of cases and the largest difference."""
+    rng = np.random.default_rng(3)
+    cases, worst = 0, 0.0
+    for K in (5, 8, 9, 16, 17, 32):
+        Z, v, rows_t, rows = _moving_batch(rng, K, torch)
+        X, y, vn = Z[..., 1:], Z[..., 0], v.cpu().numpy()
+        for half_life, mean in ((HALF_LIFE, None), (None, None), (HALF_LIFE, 0.5),
+                                (None, list(np.linspace(-1.0, 1.0, K)))):
+            coefs = recursive.solve_recursive_least_squares(X, y, v, half_life, 10.0, mean)
+            for want in moving.WANTS:
+                for chunk in (None, 32, 2):
+                    out = moving.recursive_least_squares(
+                        Z, v, rows_t, half_life, 10.0, mean, want=want, chunk=chunk
+                    )
+                    worst = max(worst, _moving_diff(out, moving._from_coefs(coefs, Z, want), rows))
+                    cases += 1
+        for window, min_periods, alpha in ((WINDOW, None, 0.0), (WINDOW, 2, 0.1), (5, None, 0.1), (5, 2, 0.0)):
+            for positional in (True, False):
+                coefs = rolling.solve_rolling_ols(X, y, v, window, min_periods, alpha, positional)
+                settled = None
+                if alpha == 0.0:
+                    settled = _window_counts(vn, window, positional) >= K + SETTLED_EXTRA
+                for want in moving.WANTS:
+                    for chunk in (None, 32, 2):
+                        out = moving.rolling_ols(
+                            Z, v, rows_t, window, min_periods, alpha, positional, want=want, chunk=chunk
+                        )
+                        worst = max(worst, _moving_diff(out, moving._from_coefs(coefs, Z, want), rows, settled))
+                        cases += 1
+    torch.cuda.synchronize()
+    print(
+        f"kernel moving: {cases} cases (rls / rolling x K 5..32 x coefficients / predictions x "
+        f"chunk lengths) equal their plain versions at {MOVING_KERNEL_TOL}, equal NaN patterns, "
+        f"max_abs_err={worst!r}; flagged rows re-solved by eigh: {moving.moving_flagged_rows}"
+    )
+    return cases, worst
+
+
+def _closed_form_discounted(X, y, v, ff, c, t):
+    """The RLS coefficient after row t in closed form: the discounted normal
+    equations over the valid rows up to t, with the prior I / c discounted
+    by all of them."""
+    idx = np.flatnonzero(v[: t + 1])
+    wgt = ff ** np.arange(len(idx) - 1, -1, -1, dtype=np.float64)
+    Xw = X[idx] * wgt[:, None]
+    A = Xw.T @ X[idx] + (ff ** len(idx) / c) * np.eye(X.shape[1])
+    return np.linalg.solve(A, Xw.T @ y[idx])
 
 
 def _cd_numpy(XtX, Xty, n, alpha, l1_ratio, positive=False, active_set=False,
@@ -669,7 +944,9 @@ def main() -> int:
     from polars_ols_tpu_torch import CONFIG, col
     from polars_ols_tpu_torch.engine import fit, groups
     from polars_ols_tpu_torch.engine.native import native_loaded
-    from polars_ols_tpu_torch.ops import cd, grid_probe, kernels, moments, special
+    from polars_ols_tpu_torch.ops import (
+        cd, grid_probe, kernels, moments, moving, recursive, rolling, special,
+    )
     from polars_ols_tpu_torch.ops.direct import grouped_moments
 
     CONFIG.device = "cuda"
@@ -685,7 +962,7 @@ def main() -> int:
     )
 
     # 2. build: one nvcc per source, all at once
-    sources = ("moments", "grid_probe", "cd", "t_pvalue")
+    sources = ("moments", "grid_probe", "cd", "t_pvalue", "moving")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(kernels.build, sources))
@@ -990,13 +1267,13 @@ def main() -> int:
         here = slice(at, at + len(rows))
         at += len(rows)
         Xg, yg, vx, vy = x[rows], y[rows], valid[rows, 1:], valid[rows, 0]
-        fit = vy & vx.all(axis=1)
+        fit_rows = vy & vx.all(axis=1)
         XtX_g, Xty_g, n_g = Xg.T @ Xg, Xg.T @ yg, float(len(rows))
         w_lasso = _cd_numpy(XtX_g, Xty_g, n_g, LASSO_ALPHA, 1.0)
         want = {
             "statistics": _stats_numpy(Xg, yg, 0.0),
             "ridge/statistics": _stats_numpy(Xg, yg, RIDGE_ALPHA),
-            "drop/statistics": _stats_numpy(Xg[fit], yg[fit], 0.0),
+            "drop/statistics": _stats_numpy(Xg[fit_rows], yg[fit_rows], 0.0),
             "lasso/statistics": _stats_numpy(Xg, yg, LASSO_ALPHA, beta=w_lasso),
         }
         for label, ref in want.items():
@@ -1058,10 +1335,237 @@ def main() -> int:
     t_query = sout["statistics"].gather(first_of_group).arrays["t_values"].contiguous()
     dof_query = torch.as_tensor(layout.counts - N_FEATURES, dtype=torch.float64, device=dev)
     p_err, p_times = _check_pvalue(t_query, dof_query, special, torch)
-    p_bound = _pvalue_bound(t_query, dof_query)
+    p_bound = _pvalue_bound(
+        t_query, dof_query, {kind: ns * 1e-6 for kind, ns in p_times["dependent_op_ns"].items()}
+    )
     print(f"kernel t_pvalue bound at the query's [{N_GROUPS}, {N_FEATURES}]: {json.dumps(p_bound)}")
 
-    # 7. steady-state timing, median of TIMING_REPS after one warm call
+    # 7. the moving models: the kernel against its plain versions on small
+    # batches, then every query once at full width through the public API,
+    # with the counts of all kernels set to 0 just before and read just after
+    _check_moving(moving, recursive, rolling, torch)
+    K = N_FEATURES
+
+    def mv(model, target, feats, **kw):
+        return getattr(col(target).least_squares, model)(*feats, **kw)
+
+    moving_queries = {
+        "rls": (mv("rls", "y", xv, half_life=HALF_LIFE).over("group"), "y"),
+        "rls/coef": (
+            mv("rls", "y", xv, half_life=HALF_LIFE, mode="coefficients").over("group"), "coefficients"
+        ),
+        "rls/wls": (mv("rls", "y", xv, half_life=HALF_LIFE, sample_weights="w").over("group"), "y"),
+        "expanding": (mv("expanding_ols", "y", xv).over("group"), "y"),
+        "rolling": (mv("rolling_ols", "y", xv, window_size=WINDOW).over("group"), "y"),
+        "rolling/drop_window": (
+            mv("rolling_ols", "yn", xn, window_size=WINDOW, null_policy="drop_window").over("group"), "yn"
+        ),
+        "rolling/drop": (
+            mv("rolling_ols", "yn", xn, window_size=WINDOW, null_policy="drop").over("group"), "yn"
+        ),
+    }
+    S = SERIES_ROWS
+    df2 = pt.DataFrame({
+        **{n: up[n][:S] for n in names + ["w"]},
+        **{f"{n}n": pt.Series(f"{n}n", up[n][:S], valid[:S, j]) for j, n in enumerate(names)},
+    })
+    series_queries = {
+        "series/rls": (mv("rls", "yn", xn, half_life=HALF_LIFE), "yn"),
+        "series/expanding": (mv("expanding_ols", "yn", xn), "yn"),
+        "series/expanding/coef": (mv("expanding_ols", "yn", xn, mode="coefficients"), "coefficients"),
+        "series/rolling": (mv("rolling_ols", "yn", xn, window_size=WINDOW), "yn"),
+    }
+    CONFIG.lazy_row_order = True
+    moments.moments_kernel_launches = cd.cd_kernel_launches = special.t_pvalue_kernel_launches = 0
+    moving.moving_kernel_launches = moving.moving_host_syncs = moving.moving_flagged_rows = 0
+    mout, first_s_mov = {}, {}
+    for frame, qs in ((df, moving_queries), (df2, series_queries)):
+        for label, (q, column) in qs.items():
+            t0 = time.perf_counter()
+            mout[label] = frame.select(q)[column]
+            torch.cuda.synchronize()
+            first_s_mov[label] = time.perf_counter() - t0
+    CONFIG.lazy_row_order = False
+    rls_mat = df.select(moving_queries["rls"][0])["y"]
+    torch.cuda.synchronize()
+    moving_launches = moving.moving_kernel_launches
+    moving_syncs, moving_flagged = moving.moving_host_syncs, moving.moving_flagged_rows
+    n_moving = len(moving_queries) + len(series_queries) + 1
+    if moving_launches < n_moving:
+        raise AssertionError(f"moving kernel launched {moving_launches} times for {n_moving} queries")
+    if not mout["rls"].is_lazy or rls_mat.is_lazy:
+        raise AssertionError("lazy_row_order did not select the moving output form")
+    if not torch.equal(mout["rls"].values, rls_mat.values):
+        raise AssertionError("rls: lazy and materialized predictions differ")
+
+    # the grouped queries on the sampled groups against a literal Kalman
+    # recursion and a numpy lstsq per window
+    ff = recursive.forgetting_factor(HALF_LIFE)
+    mhost = {label: _picked(mout[label], sel) for label in moving_queries}
+    t0 = time.perf_counter()
+    at = 0
+    for _, rows in group_rows:
+        here = slice(at, at + len(rows))
+        at += len(rows)
+        Xg, yg, vx, vy = x[rows], y[rows], valid[rows, 1:], valid[rows, 0]
+        every = np.ones(len(rows), dtype=bool)
+        kal = _kalman_numpy(Xg, yg, every, ff)
+        np.testing.assert_allclose(mhost["rls/coef"][here], kal, err_msg="rls/coef", **COEF_TOL)
+        np.testing.assert_allclose(mhost["rls"][here], (Xg * kal).sum(1), err_msg="rls", **PRED_TOL)
+        kal = _kalman_numpy(Xg, yg, every, 1.0)
+        np.testing.assert_allclose(mhost["expanding"][here], (Xg * kal).sum(1), err_msg="expanding", **PRED_TOL)
+        sqw = sq[rows]
+        kal = _kalman_numpy(Xg * sqw[:, None], yg * sqw, every, ff)
+        np.testing.assert_allclose(mhost["rls/wls"][here], (Xg * kal).sum(1), err_msg="rls/wls", **PRED_TOL)
+        fitm = vy & vx.all(axis=1)
+        Xz, yz = np.where(vx, Xg, 0.0), np.where(vy, yg, 0.0)
+        for label, Xw, yw, vw, positional in (
+            ("rolling", Xg, yg, every, True),
+            ("rolling/drop_window", Xz, yz, fitm, True),
+            ("rolling/drop", Xz, yz, fitm, False),
+        ):
+            win, cnt = _window_numpy(Xw, yw, vw, WINDOW, K, positional)
+            shown = vw & ~np.isnan(win[:, 0])
+            got = mhost[label][here]
+            np.testing.assert_array_equal(np.isnan(got), ~shown, err_msg=label)
+            m = shown & (cnt >= K + SETTLED_EXTRA)
+            np.testing.assert_allclose(got[m], (Xw * win).sum(1)[m], err_msg=label, **PRED_TOL)
+    oracle_s = time.perf_counter() - t0
+
+    # the single series: its first rows against the same oracles, its last
+    # rows against closed forms
+    H, T = SERIES_HEAD, SERIES_TAIL
+    fit_s = valid[:S].all(axis=1)
+    Xs, ys = np.where(valid[:S, 1:], x[:S], 0.0), np.where(valid[:S, 0], y[:S], 0.0)
+    shost = {label: s_.to_numpy() for label, s_ in mout.items() if label.startswith("series/")}
+    kal = _kalman_numpy(Xs[:H], ys[:H], fit_s[:H], ff)
+    np.testing.assert_array_equal(np.isnan(shost["series/rls"]), ~fit_s)
+    np.testing.assert_allclose(shost["series/rls"][:H][fit_s[:H]], (Xs[:H] * kal).sum(1)[fit_s[:H]], **PRED_TOL)
+    kal = _kalman_numpy(Xs[:H], ys[:H], fit_s[:H], 1.0)
+    np.testing.assert_allclose(shost["series/expanding/coef"][:H], kal, **COEF_TOL)
+    np.testing.assert_allclose(shost["series/expanding"][:H][fit_s[:H]], (Xs[:H] * kal).sum(1)[fit_s[:H]], **PRED_TOL)
+    win, cnt = _window_numpy(Xs[:H], ys[:H], fit_s[:H], WINDOW, K, False)
+    shown = fit_s[:H] & ~np.isnan(win[:, 0])
+    np.testing.assert_array_equal(np.isnan(shost["series/rolling"][:H]), ~shown)
+    m = shown & (cnt >= K + SETTLED_EXTRA)
+    np.testing.assert_allclose(shost["series/rolling"][:H][m], (Xs[:H] * win).sum(1)[m], **PRED_TOL)
+    tail = np.arange(S - T, S)
+    win, _ = _window_numpy(Xs, ys, fit_s, WINDOW, K, False, rows=tail)
+    m = fit_s[tail]
+    rolling_tail_err = float(np.abs(shost["series/rolling"][tail][m] - (Xs[tail] * win[tail]).sum(1)[m]).max())
+    np.testing.assert_allclose(shost["series/rolling"][tail][m], (Xs[tail] * win[tail]).sum(1)[m], **PRED_TOL)
+    # rows more than 100,000 back weigh below 1e-119 at this half life
+    lo = S - 100_000
+    for i in tail[m][-10:]:
+        beta = _closed_form_discounted(Xs[lo:], ys[lo:], fit_s[lo:], ff, 10.0, i - lo)
+        np.testing.assert_allclose(shost["series/rls"][i], Xs[i] @ beta, **PRED_TOL)
+    # expanding: (X'X + I / c)^-1 X'y at the last row, and backwards from it
+    A = Xs[fit_s].T @ Xs[fit_s] + np.eye(K) / 10.0
+    b = Xs[fit_s].T @ ys[fit_s]
+    np.testing.assert_allclose(shost["series/expanding/coef"][S - 1], np.linalg.solve(A, b), **COEF_TOL)
+    for i in tail[::-1]:
+        beta = np.linalg.solve(A, b)
+        np.testing.assert_allclose(shost["series/expanding/coef"][i], beta, **COEF_TOL)
+        if fit_s[i]:
+            np.testing.assert_allclose(shost["series/expanding"][i], Xs[i] @ beta, **PRED_TOL)
+            A -= np.outer(Xs[i], Xs[i])
+            b -= Xs[i] * ys[i]
+    if not np.isfinite(shost["series/rls"][fit_s]).all():
+        raise AssertionError("series/rls: non-finite predictions after the prior's discount underflows")
+    print(
+        f"moving: {len(moving_queries)} grouped queries ({', '.join(moving_queries)}) at {N_ROWS} rows x "
+        f"{N_GROUPS} groups and {len(series_queries)} on the first {S} rows as one series, kernel "
+        f"launches={moving_launches}, host syncs={moving_syncs}, flagged rows={moving_flagged}; "
+        f"{N_CHECK_GROUPS} groups match a literal Kalman recursion and a numpy lstsq per window "
+        f"({oracle_s:.1f} s of numpy), the series its first {H} rows likewise and its last {T} rows "
+        f"closed forms; rolling, last {T} windows of the series: max abs err {rolling_tail_err!r} "
+        "against a fresh lstsq per window"
+    )
+    print("moving first-query s: " + json.dumps({k: round(v, 4) for k, v in first_s_mov.items()}))
+
+    # add / subtract drift over a long history: the whole frame as one series
+    # (the window sums are prefix sums of entering minus leaving products
+    # from row 0 on), its last windows against a fresh lstsq each
+    long_q = mv("rolling_ols", "y", xv, window_size=WINDOW)
+    got = df.select(long_q)["y"].to_numpy()
+    tail = np.arange(N_ROWS - T, N_ROWS)
+    win, _ = _window_numpy(x, y, np.ones(N_ROWS, dtype=bool), WINDOW, K, True, rows=tail)
+    want = (x[tail] * win[tail]).sum(1)
+    np.testing.assert_allclose(got[tail], want, **PRED_TOL)
+    med = _timed_median(lambda: df.select(long_q), torch)
+    print(
+        f"moving: rolling over all {N_ROWS} rows as one series, last {T} windows: max abs err "
+        f"{float(np.abs(got[tail] - want).max())!r} against a fresh lstsq per window; median "
+        f"{med * 1e3!r} ms a query ({smi})"
+    )
+    del got
+
+    # p-values at large dof end to end: the weight column (noise) regressed
+    # on the features of the series, one group of SERIES_ROWS rows
+    big_stat = col("w").least_squares.ols(*xv, mode="statistics")
+    got = df2.select(big_stat)["statistics"].item()
+    ref = _stats_numpy(x[:S], w[:S], 0.0)
+    np.testing.assert_allclose(got["coefficients"], ref["coefficients"], **COEF_TOL)
+    np.testing.assert_allclose(got["t_values"], ref["t_values"], **SE_T_TOL)
+    np.testing.assert_allclose(got["p_values"], ref["p_values"], **P_TOL)
+    med = _timed_median(lambda: df2.select(big_stat), torch)
+    print(
+        f"statistics at dof {S - K}: p-values {got['p_values']!r} match scipy.stats.t at {P_TOL} "
+        f"(max rel err {float(np.max(np.abs(np.asarray(got['p_values']) / ref['p_values'] - 1)))!r}); "
+        f"median {med * 1e3!r} ms a query ({smi})"
+    )
+
+    # the moving kernel at the main frame: against the plain versions, timed,
+    # with its bound
+    Zm, vm, _ = fit._moving_cached(layout, vals, None, "drop")
+    rows_m = layout.device_counts()
+    counts_np = layout.counts
+    live = torch.arange(Zm.shape[1], device=dev) < rows_m[:, None]
+    idx_m = rolling.rolling_indices(vm, WINDOW, K, True)
+    chunk_m = moving.chunk_rows(Zm.shape[0] * Zm.shape[1], moving._sm_count(dev))
+    zero_mean = [0.0] * K
+    kernel_args = {
+        "rls": (Zm, vm, rows_m, vm, None, False, ff, 0.1, zero_mean),
+        "rolling": (Zm, vm, rows_m, idx_m[1].contiguous(), idx_m[0].contiguous(), True, 1.0, 0.0, zero_mean),
+    }
+    plain_fns = {
+        "rls": lambda: recursive.solve_recursive_least_squares(Zm[..., 1:], Zm[..., 0], vm, HALF_LIFE),
+        "rolling": lambda: rolling.solve_rolling_ols(Zm[..., 1:], Zm[..., 0], vm, WINDOW, None, 0.0, True),
+    }
+    settled_m = {"rls": None, "rolling": _window_counts(vm.cpu().numpy(), WINDOW, True) >= K + SETTLED_EXTRA}
+    mv_err, mv_times, mv_bound = {}, {}, {}
+    for model, args in kernel_args.items():
+        out_k = moving._launch(*args, "coefficients", None)
+        mv_err[model] = _moving_diff(out_k, plain_fns[model](), counts_np, settled_m[model])
+        del out_k
+        mv_times[model] = _timing_fields(_in_turns({
+            "plain": plain_fns[model],
+            "kernel": lambda args=args: moving._launch_kernels(*args, "predictions", None),
+        }, MOVING_LAUNCHES, torch, synced=("plain",)))
+        n_refresh = int((args[3] & live).sum())
+        n_leaving = 0 if args[4] is None else int(((args[4] >= 0) & live).sum())
+        mv_bound[model] = _moving_bound(
+            N_ROWS, N_ROWS, n_refresh, n_leaving, K, model == "rolling", model == "rls", False, N_GROUPS
+        )
+        print(
+            f"kernel moving {model} at the main frame: G={Zm.shape[0]} R={Zm.shape[1]} (padding "
+            f"{Zm.shape[0] * Zm.shape[1] / N_ROWS - 1!r} of the rows) K={K} chunk={chunk_m} rows, "
+            f"max_abs_err={mv_err[model]!r} vs plain on the coefficients; predictions: kernel_ms="
+            f"{mv_times[model]['ms']!r} per launch (4 CUDA kernels), plain_ms="
+            f"{mv_times[model]['plain_ms']!r} per call (host syncs inside), host_us="
+            f"{mv_times[model]['host_us']!r}; bound {json.dumps(mv_bound[model])}; no PyTorch call "
+            "computes it"
+        )
+    sweep = _in_turns({
+        (model, L): (lambda args=args, L=L: moving._launch_kernels(*args, "predictions", L))
+        for model, args in kernel_args.items() for L in CHUNK_SWEEP
+    }, MOVING_LAUNCHES, torch)
+    print(
+        "kernel moving chunk sweep at the main frame, ms per launch: "
+        + json.dumps({f"{model} chunk={L}": t[0] for (model, L), t in sweep.items()})
+    )
+
+    # 8. steady-state timing, median of TIMING_REPS after one warm call
     for label, lazy in (("materialized", False), ("lazy", True)):
         CONFIG.lazy_row_order = lazy
         med = _timed_median(lambda: df.select(expr), torch)
@@ -1087,22 +1591,46 @@ def main() -> int:
             f"first query {first_s_stat[label.split(' ')[0]]!r} s ({smi})"
         )
 
-    # 8. where the device time goes: torch.profiler over the main, lasso and
-    # statistics queries
+    moving_timed = {
+        "rls (materialized)": (df, N_ROWS, moving_queries["rls"][0], False),
+        "rls (lazy)": (df, N_ROWS, moving_queries["rls"][0], True),
+        "expanding (materialized)": (df, N_ROWS, moving_queries["expanding"][0], False),
+        "rolling (materialized)": (df, N_ROWS, moving_queries["rolling"][0], False),
+        "rolling/drop (materialized)": (df, N_ROWS, moving_queries["rolling/drop"][0], False),
+        "series/rls": (df2, S, series_queries["series/rls"][0], False),
+        "series/expanding": (df2, S, series_queries["series/expanding"][0], False),
+        "series/rolling": (df2, S, series_queries["series/rolling"][0], False),
+    }
+    for label, (frame, n_frame, q, lazy) in moving_timed.items():
+        CONFIG.lazy_row_order = lazy
+        med = _timed_median(lambda: frame.select(q), torch)
+        print(
+            f"timing {label}: median {med * 1e3!r} ms, {n_frame / med!r} rows/s, "
+            f"first query {first_s_mov[label.split(' ')[0]]!r} s ({smi})"
+        )
+
+    # 9. where the device time goes: torch.profiler over the main, lasso,
+    # statistics, rls and rolling queries
     CONFIG.lazy_row_order = False
     for label, fn in (
         ("main (materialized)", lambda: df.select(expr)),
         ("lasso (materialized)", timed["lasso (materialized)"]),
         ("statistics (deferred rows)", timed["statistics (deferred rows)"]),
+        ("rls (materialized)", lambda: df.select(moving_queries["rls"][0])),
+        ("rolling (materialized)", lambda: df.select(moving_queries["rolling"][0])),
+        ("series/rolling", lambda: df2.select(series_queries["series/rolling"][0])),
     ):
-        prof = _profile(fn, torch)
+        named = ("summarize", "prefix", "walk", "fill") if "rls" in label or "rolling" in label else ()
+        prof = _profile(fn, torch, named)
         if prof is None:
             print(f"profile {label}: not measured (the profiler recorded no device activity)")
             continue
         print(
             f"profile {label}: device busy {prof['busy_ms']!r} ms, {prof['launches']!r} launches, "
             f"{prof['host_syncs']!r} host syncs a query; {prof['wall_ms']!r} ms a query under the "
-            f"profiler, idle share <= {prof['idle_share']!r} ({smi})"
+            f"profiler, idle share <= {prof['idle_share']!r}"
+            + (f"; device ms by kernel {json.dumps(prof['kernels_ms'])}" if named else "")
+            + f" ({smi})"
         )
 
     print(json.dumps({"kernels": [
@@ -1156,6 +1684,21 @@ def main() -> int:
             "max_abs_err": p_err,
             **p_times,
             **p_bound,
+            "floor_ms": floor_ms,
+        },
+        {
+            "name": "moving",
+            "route": "cuda",
+            "source": "polars_ols_tpu_torch/csrc/moving.cu",
+            "replaces": "polars_ols_tpu/ops/moving.py:553",
+            "replaces_kind": "XLA scans (lax.associative_scan, lax.scan) and batched solves of "
+                             "ops/recursive.py:40, ops/rolling.py:41 and ops/moving.py:553,601, not Pallas",
+            "launches": moving_launches,
+            "max_abs_err": mv_err["rls"],
+            **mv_times["rls"],
+            **mv_bound["rls"],
+            "rolling": {"max_abs_err": mv_err["rolling"], **mv_times["rolling"], **mv_bound["rolling"]},
+            "chunk_rows": chunk_m,
             "floor_ms": floor_ms,
         },
     ]}))

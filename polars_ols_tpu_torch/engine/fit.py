@@ -1,4 +1,5 @@
-"""Least-squares evaluation engine: the static fits and their statistics.
+"""Least-squares evaluation engine: the static fits, their statistics and
+the moving models.
 
 A static fit runs as: the cached ``[N, 1+K]`` column stack (values and
 validity, target first; scaled by sqrt(w) for WLS) -> the null policy
@@ -21,8 +22,17 @@ row order, deferred (``BlockPermuted``) or materialized.
   every solver; the dispatch solver's coefficients with their residual
   metrics, and se / t / p from the normal equations (ops/statistics.py).
 
-What is not ported raises ``NotImplementedError`` naming its ROADMAP
-queue item; nothing falls back silently.
+The moving models (``rls`` / ``expanding_ols`` / ``rolling_ols``) run on
+the fully padded ``[G, R, 1+K]`` layout under the moving null-policy
+semantics (zero-filled values, validity carried apart; one group is the
+column stack itself, no gather): ops/moving.py gives every row its
+coefficients, or their predictions, from one scan-and-solve kernel family
+on the card; rolling warm-up NaNs become nulls; the output goes back to row
+order like the static fits'.
+
+What is not ported (multi-target, predict, formulas, K > 32, fused select)
+raises ``NotImplementedError`` naming its ROADMAP queue item; nothing falls
+back silently.
 """
 
 from __future__ import annotations
@@ -36,6 +46,8 @@ from ..ops.cd import solve_elastic_net_cov
 from ..ops.direct import grouped_moments, resolve_solve_method
 from ..ops.linalg import MAX_K, psd_solver, solve_lu, solve_psd, solve_psd_cond, svd_lstsq
 from ..ops.masking import prepare_problem, zero_filled
+from ..ops.moving import recursive_least_squares, rolling_ols
+from ..ops.rolling import default_min_periods, rolling_indices
 from ..ops.statistics import feature_metrics, residual_metrics
 from ..series import BlockPermuted, Series, StatisticsSeries, StructSeries
 from .groups import bucket_size, single_layout
@@ -147,21 +159,24 @@ def _const_series(target, n: int) -> Series:
     return cache[key]
 
 
-def _problem(vals, valid, policy: str):
+def _problem(vals, valid, policy: str, moving: bool = False):
     """(y [N], X [N, K], fit_mask [N] or None, predict_valid [N] or None)
-    of a stack under a null policy; fully valid stacks pass through."""
+    of a stack under a null policy (``moving``: a moving model's
+    semantics); fully valid stacks pass through."""
     if valid is None:
         return vals[:, 0], vals[:, 1:], None, None
-    p = prepare_problem(policy, vals[:, 0], valid[:, 0], vals[:, 1:], valid[:, 1:])
+    p = prepare_problem(
+        policy, vals[:, 0], valid[:, 0], vals[:, 1:], valid[:, 1:], moving=moving
+    )
     return p.y, p.X, p.fit_mask, p.predict_valid
 
 
-def _gather_layout(vals, valid, policy: str, gather, pmask):
+def _gather_layout(vals, valid, policy: str, gather, pmask, moving: bool = False):
     """Policy pass, then one row gather of ``[y | X]`` (and of the bool
     fit mask) into a padded layout ``pmask.shape``: (Zp [B, R, 1+K] target
     in slot 0, wp [B, R] fit mask, predict_valid [N] or None). Padding
     slots gather row 0 and are masked out."""
-    y, X, fit_mask, predict_valid = _problem(vals, valid, policy)
+    y, X, fit_mask, predict_valid = _problem(vals, valid, policy, moving)
     B, R = pmask.shape
     Z = vals if fit_mask is None else torch.cat([y[:, None], X], dim=1)
     Zp = Z.index_select(0, gather).reshape(B, R, Z.shape[1])
@@ -197,6 +212,41 @@ def _padded_cached(layout, vals, valid, policy: str):
         lambda: _gather_layout(vals, valid, policy, gather, pmask) + (vals, valid),
     )
     return entry[:3]
+
+
+def _moving_layout(layout, vals, valid, policy: str):
+    """The moving models' layout: one group is the column stack itself
+    (no gather), several are the fully padded gather."""
+    if layout.num_groups > 1:
+        gather, pmask, _ = layout.device_padded()
+        return _gather_layout(vals, valid, policy, gather, pmask, moving=True)
+    y, X, fit_mask, predict_valid = _problem(vals, valid, policy, moving=True)
+    Z = vals if fit_mask is None else torch.cat([y[:, None], X], dim=1)
+    if fit_mask is None:
+        fit_mask = torch.ones(vals.shape[0], dtype=torch.bool, device=vals.device)
+    return Z[None].contiguous(), fit_mask[None].contiguous(), predict_valid
+
+
+def _moving_cached(layout, vals, valid, policy: str):
+    """(Zp [G, R, 1+K], vp [G, R], predict_valid) of a moving model,
+    cached like ``_blocks_cached``."""
+    key = _cache_key("moving", vals, valid, policy, 0)
+    entry = _lru(
+        layout._dev, "moving", key,
+        lambda: _moving_layout(layout, vals, valid, policy) + (vals, valid),
+    )
+    return entry[:3]
+
+
+def _rolling_indices_cached(layout, vp, window: int, min_periods: int, positional: bool):
+    """``rolling_indices`` of a cached layout's valid rows, cached beside
+    it (the entry holds ``vp``: the key uses its id)."""
+    key = ("rolling_indices", id(vp), window, min_periods, positional)
+    entry = _lru(
+        layout._dev, "rolling_indices", key,
+        lambda: rolling_indices(vp, window, min_periods, positional) + (vp,),
+    )
+    return entry[:2]
 
 
 # --------------------------------------------------------------------------- #
@@ -378,6 +428,64 @@ def _resolve_method(layout, kwargs, k: int) -> str:
     )
 
 
+def _evaluate_moving(function_name, target, feat_series, kwargs, mode, layout, weights):
+    """``rls`` / ``rolling_ols`` per group (the JAX engine's moving branch,
+    engine/fit.py:1293-1520): per-row coefficients as a struct column, or
+    their predictions. ``initial_state_mean`` reaches the coefficients
+    only: the reference's predictions entry point passes none
+    (src/expressions.rs:624-646), and so predictions and residuals run
+    with a zero prior mean."""
+    n, k, G = len(target), len(feat_series), layout.num_groups
+    inv_w = None
+    if weights is None:
+        vals, valid = _stack_cached(target, feat_series)
+    else:
+        vals, valid, inv_w = _weighted_stack_cached(target, feat_series, weights)
+    policy = kwargs.null_policy
+    Zp, vp, predict_valid = _moving_cached(layout, vals, valid, policy)
+    rows = layout.device_counts()
+    want = "coefficients" if mode == "coefficients" else "predictions"
+    is_rls = function_name == "recursive_least_squares"
+    if is_rls:
+        mean0 = kwargs.initial_state_mean if mode == "coefficients" else None
+        out = recursive_least_squares(
+            Zp, vp, rows, kwargs.half_life, kwargs.initial_state_covariance, mean0, want=want
+        )
+    else:
+        window, mp = int(kwargs.window_size), kwargs.min_periods
+        # on a fully valid stack every row is a window member, so the
+        # valid-rank window of the drop family is the positional one
+        positional = policy == "drop_window" or (valid is None and (mp is None or mp <= window))
+        indices = None
+        if Zp.is_cuda:
+            indices = _rolling_indices_cached(
+                layout, vp, window, default_min_periods(mp, k, window), positional
+            )
+        out = rolling_ols(
+            Zp, vp, rows, window, mp, float(kwargs.alpha or 0.0), positional,
+            want=want, indices=indices,
+        )
+    R = Zp.shape[1]
+    unpad = layout.device_unpad(R) if G > 1 else None
+    if mode == "coefficients":
+        flat = out.reshape(G * R, k)
+        rows_out = flat if unpad is None else flat.index_select(0, unpad)
+        return _coef_struct(rows_out, [s.name for s in feat_series])
+    flat = out.reshape(-1)
+    if not is_rls:
+        # warm-up NaN predictions become nulls (the reference's fill_nan
+        # post-step, least_squares.py:407)
+        finite = ~torch.isnan(flat)
+        finite = finite if unpad is None else finite.index_select(0, unpad)
+        predict_valid = finite if predict_valid is None else predict_valid & finite
+    if CONFIG.lazy_row_order and G > 1 and inv_w is None:
+        return Series(target.name, BlockPermuted(flat, unpad), predict_valid)
+    preds = flat if unpad is None else flat.index_select(0, unpad)
+    if inv_w is not None:
+        preds = preds * inv_w
+    return Series(target.name, preds, predict_valid)
+
+
 # --------------------------------------------------------------------------- #
 # entry point
 # --------------------------------------------------------------------------- #
@@ -389,22 +497,27 @@ def evaluate_least_squares(
     layout_in,
     add_intercept: bool = False,
     weights: Series | None = None,
+    function_name: str = "least_squares",
 ):
-    """A static least-squares fit of ``target`` on ``feat_series`` per
-    group of ``layout_in`` (one group when None), under the kwargs' null
-    policy and solve method, weighted by ``weights`` when given:
-    predictions as a Series (unscaled for WLS), coefficients as a struct
-    column, or statistics as a ``StatisticsSeries`` (one row per group
-    without ``.over()``, one per row with it)."""
+    """A least-squares fit of ``target`` on ``feat_series`` per group of
+    ``layout_in`` (one group when None), under the kwargs' null policy,
+    weighted by ``weights`` when given. ``function_name`` picks the model:
+    a static fit (``least_squares``, by the kwargs' solve method) or a
+    moving one (``recursive_least_squares``, ``rolling_least_squares``).
+    Predictions come as a Series (unscaled for WLS), coefficients as a
+    struct column, statistics (static fits only) as a ``StatisticsSeries``
+    (one row per group without ``.over()``, one per row with it)."""
     n = len(target)
     if add_intercept:
         feat_series = list(feat_series) + [_const_series(target, n)]
     k = len(feat_series)
     layout = layout_in if layout_in is not None else single_layout(n)
     G = layout.num_groups
-    method = _resolve_method(layout, kwargs, k)
     if k > MAX_K:
         raise _not_ported(f"K={k} > {MAX_K} features", 12)
+    if function_name != "least_squares":
+        return _evaluate_moving(function_name, target, feat_series, kwargs, mode, layout, weights)
+    method = _resolve_method(layout, kwargs, k)
 
     inv_w = None
     if weights is None:

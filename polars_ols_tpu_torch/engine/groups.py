@@ -131,6 +131,14 @@ class GroupLayout:
             self._dev["gids"] = _to_device(self.gids, torch.int64)
         return self._dev["gids"]
 
+    def device_counts(self) -> torch.Tensor:
+        """Rows per group as a device int64 tensor [G] (keyed by the
+        device: single-group layouts outlive a change of ``CONFIG.device``)."""
+        key = ("counts", str(device()))
+        if key not in self._dev:
+            self._dev[key] = _to_device(self.counts, torch.int64)
+        return self._dev[key]
+
     def device_padded(self):
         """(gather [G*R], pad_mask [G,R], R) device tensors, memoized."""
         if "padded" not in self._dev:

@@ -1,8 +1,9 @@
-"""Expression AST and evaluator (the static-fit subset).
+"""Expression AST and evaluator (the subset the ported fits need).
 
 Column references (exact names and ``^regex$`` patterns), aliases, the
-``.over()`` window context, subtraction of two expressions (residuals) and
-the least-squares node, which dispatches into the batched engine
+``.over()`` window context, subtraction of two expressions (residuals),
+``fill_nan`` (the rolling residuals' NaN -> null step) and the
+least-squares node, which dispatches into the batched engine
 (engine/fit.py). Under ``.over()`` group ids flow into the engine as a
 batch axis instead of a solver call per group.
 """
@@ -11,6 +12,8 @@ from __future__ import annotations
 
 import re
 from typing import List, Optional, Union
+
+import torch
 
 from .series import Series
 
@@ -33,6 +36,9 @@ class Expr:
                 "(literals are ROADMAP.md Queue 1 item 10)"
             )
         return SubExpr(self, other)
+
+    def fill_nan(self, value) -> "Expr":
+        return FillNanExpr(self, value)
 
     @property
     def output_name(self) -> Optional[str]:
@@ -122,8 +128,32 @@ class SubExpr(Expr):
         return sub_series(self.left.evaluate(df, groups), self.right.evaluate(df, groups))
 
 
+class FillNanExpr(Expr):
+    """``fill_nan(None)`` turns NaN values into nulls, the step the
+    reference applies to rolling outputs (polars_ols/least_squares.py:
+    407-409); ``fill_nan(value)`` replaces them."""
+
+    def __init__(self, inner: Expr, value):
+        self.inner = inner
+        self.value = value
+
+    @property
+    def output_name(self) -> Optional[str]:
+        return self.inner.output_name
+
+    def evaluate(self, df, groups=None):
+        s = self.inner.evaluate(df, groups)
+        vals = s.values
+        nan = torch.isnan(vals)
+        if self.value is None:
+            return Series(s.name, torch.where(nan, 0.0, vals), s.valid_mask() & ~nan)
+        return Series(s.name, torch.where(nan, float(self.value), vals), s.validity)
+
+
 class LeastSquaresExpr(Expr):
-    """The least-squares node, dispatching into the batched engine."""
+    """The least-squares node, dispatching into the batched engine;
+    ``function_name`` picks the model (least_squares,
+    recursive_least_squares, rolling_least_squares)."""
 
     def __init__(
         self,
@@ -133,7 +163,9 @@ class LeastSquaresExpr(Expr):
         mode: str,
         add_intercept: bool = False,
         weights: Optional[Expr] = None,
+        function_name: str = "least_squares",
     ):
+        self.function_name = function_name
         self.target = target
         self.features = features
         self.kwargs = kwargs
@@ -164,6 +196,7 @@ class LeastSquaresExpr(Expr):
             groups,
             add_intercept=self.add_intercept,
             weights=weights,
+            function_name=self.function_name,
         )
 
 

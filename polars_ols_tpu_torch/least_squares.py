@@ -1,17 +1,19 @@
 """Public compute functions and kwargs dataclasses.
 
 Same names, defaults and validation as the reference's
-polars_ols/least_squares.py (:47-118); the expressions evaluate on the
+polars_ols/least_squares.py (:47-160); the expressions evaluate on the
 batched PyTorch engine. WLS scales the engine's column stack by sqrt(w)
 (reference least_squares.py:190-196); residuals are the target minus the
-(unscaled) predictions.
+(unscaled) predictions. The static fits refuse ``null_policy="drop_window"``;
+the recursive and rolling models take all six policies and refuse
+``mode="statistics"``.
 """
 
 from __future__ import annotations
 
 import logging
 from dataclasses import dataclass
-from typing import Literal, Optional, Set, Union, get_args
+from typing import List, Literal, Optional, Set, Union, get_args
 
 from .expr import Expr, LeastSquaresExpr, parse_into_expr
 
@@ -77,11 +79,37 @@ class OLSKwargs(Kwargs):
             )
 
 
+@dataclass
+class RLSKwargs(Kwargs):
+    """Recursive least squares parameters (reference least_squares.py:121-140)."""
+
+    half_life: Optional[float] = None
+    initial_state_covariance: Optional[float] = 10.0
+    initial_state_mean: Union[Optional[List[float]], float] = None
+    null_policy: str = "drop"
+
+
+@dataclass
+class RollingKwargs(Kwargs):
+    """Rolling OLS parameters (reference least_squares.py:143-160).
+
+    ``use_woodbury`` is accepted and ignored: the engine solves every
+    window from its moments.
+    """
+
+    window_size: int = 1_000_000  # defaults to an expanding fit
+    min_periods: Optional[int] = None
+    use_woodbury: Optional[bool] = None
+    alpha: Optional[float] = None
+    null_policy: str = "drop_window"
+
+
 def _build_least_squares_expr(
     target: ExprOrStr,
     *features: ExprOrStr,
     mode: str,
     ols_kwargs: Kwargs,
+    function_name: str = "least_squares",
     sample_weights: Optional[ExprOrStr] = None,
     add_intercept: bool = False,
 ) -> Expr:
@@ -100,7 +128,8 @@ def _build_least_squares_expr(
             add_const = True
     node_mode = "predictions" if mode == "residuals" else mode
     node = LeastSquaresExpr(
-        target, features, ols_kwargs, node_mode, add_intercept=add_const, weights=weights
+        target, features, ols_kwargs, node_mode, add_intercept=add_const, weights=weights,
+        function_name=function_name,
     )
     if mode in ("coefficients", "statistics"):
         return node.alias(mode)
@@ -128,3 +157,56 @@ def compute_least_squares(
         sample_weights=sample_weights,
         add_intercept=add_intercept,
     )
+
+
+def _check_moving_mode(mode: str) -> None:
+    valid = _VALID_OUTPUT_MODES - {"statistics"}
+    if mode not in valid:
+        raise ValueError(f"unknown mode {mode!r}; expected one of {sorted(valid)}")
+
+
+def compute_recursive_least_squares(
+    target: ExprOrStr,
+    *features: ExprOrStr,
+    sample_weights: Optional[ExprOrStr] = None,
+    add_intercept: bool = False,
+    mode: str = "predictions",
+    rls_kwargs: Optional[RLSKwargs] = None,
+) -> Expr:
+    """Recursive least squares (reference least_squares.py:332-369)."""
+    _check_moving_mode(mode)
+    return _build_least_squares_expr(
+        target,
+        *features,
+        mode=mode,
+        function_name="recursive_least_squares",
+        ols_kwargs=rls_kwargs or RLSKwargs(),
+        sample_weights=sample_weights,
+        add_intercept=add_intercept,
+    )
+
+
+def compute_rolling_least_squares(
+    target: ExprOrStr,
+    *features: ExprOrStr,
+    sample_weights: Optional[ExprOrStr] = None,
+    add_intercept: bool = False,
+    mode: str = "predictions",
+    rolling_kwargs: Optional[RollingKwargs] = None,
+) -> Expr:
+    """Rolling-window least squares (reference least_squares.py:372-409)."""
+    _check_moving_mode(mode)
+    expr = _build_least_squares_expr(
+        target,
+        *features,
+        mode=mode,
+        function_name="rolling_least_squares",
+        ols_kwargs=rolling_kwargs or RollingKwargs(),
+        sample_weights=sample_weights,
+        add_intercept=add_intercept,
+    )
+    if mode == "residuals":
+        # warm-up NaNs -> nulls (:407-409); for predictions the engine
+        # does the same conversion itself
+        expr = expr.fill_nan(None)
+    return expr

@@ -28,6 +28,24 @@ _EPS64 = float(torch.finfo(torch.float64).eps)
 MAX_K = 32
 
 
+# lanes per call of the batched eigh: cuSOLVER's batched eigh refused
+# batches of 32,768 matrices and more on the H100 (CUSOLVER_STATUS_INVALID_VALUE)
+_EIGH_LANES = 1 << 14
+
+
+def _eigh_chunked(A: torch.Tensor):
+    """``torch.linalg.eigh`` of a batch of any size, ``_EIGH_LANES``
+    matrices a call."""
+    K = A.shape[-1]
+    flat = A.reshape(-1, K, K)
+    if flat.shape[0] <= _EIGH_LANES:
+        return torch.linalg.eigh(A)
+    parts = [torch.linalg.eigh(flat[i : i + _EIGH_LANES]) for i in range(0, flat.shape[0], _EIGH_LANES)]
+    w = torch.cat([p[0] for p in parts]).reshape(A.shape[:-1])
+    v = torch.cat([p[1] for p in parts]).reshape(A.shape)
+    return w, v
+
+
 def eigh_pinv_solve(A: torch.Tensor, b: torch.Tensor, rcond: float | None = None) -> torch.Tensor:
     """Pseudo-inverse solve of symmetric A via eigh, batched.
 
@@ -38,7 +56,7 @@ def eigh_pinv_solve(A: torch.Tensor, b: torch.Tensor, rcond: float | None = None
     so such lanes are decomposed as zero matrices and then overwritten.
     """
     bad = ~torch.isfinite(A).all(dim=-1).all(dim=-1)
-    w, v = torch.linalg.eigh(torch.where(bad[..., None, None], 0.0, A))
+    w, v = _eigh_chunked(torch.where(bad[..., None, None], 0.0, A))
     w = torch.where(bad[..., None], torch.nan, w)
     v = torch.where(bad[..., None, None], torch.nan, v)
     k = A.shape[-1]
@@ -103,11 +121,18 @@ def _check_k(A: torch.Tensor) -> None:
 
 
 def _with_fallback(A, rhs, sol, ok):
-    """Failed lanes take the eigh pseudo-solve. Host sync: ``ok.all()``
-    (the Cholesky solves and ``solve_lu``)."""
+    """Failed lanes take the eigh pseudo-solve, computed for those lanes
+    only. Host syncs: ``ok.all()`` (the Cholesky solves and ``solve_lu``)
+    and, where a lane failed, the selection of the failed lanes."""
     if bool(ok.all()):
         return sol
-    return torch.where(ok[..., None, None], sol, eigh_pinv_solve(A, rhs))
+    K, M = A.shape[-1], rhs.shape[-1]
+    bad = torch.nonzero(~ok.reshape(-1)).flatten()
+    A_bad = A.reshape(-1, K, K).index_select(0, bad)
+    rhs_bad = rhs.reshape(-1, K, M).index_select(0, bad)
+    out = sol.reshape(-1, K, M).clone()
+    out[bad] = eigh_pinv_solve(A_bad, rhs_bad)
+    return out.reshape(sol.shape)
 
 
 def psd_solver(A: torch.Tensor):

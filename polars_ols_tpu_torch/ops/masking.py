@@ -1,4 +1,4 @@
-"""Null policies of the static fits as mask and fill transforms.
+"""Null policies of the static and moving fits as mask and fill transforms.
 
 The port of the JAX engine's ``ops/masking.py`` (the semantics of the
 reference's ``compute_is_valid_mask`` / ``handle_nulls``,
@@ -15,6 +15,7 @@ from typing import Optional
 import torch
 
 VALID_NULL_POLICIES = {"zero", "drop", "ignore", "drop_zero", "drop_y_zero_x", "drop_window"}
+DROP_FAMILY = {"drop", "drop_zero", "drop_y_zero_x", "drop_window"}
 
 
 @dataclass
@@ -29,7 +30,8 @@ class MaskedProblem:
         X_predict: [N, K] features the predictions are formed from
            (zero-filled, reference src/expressions.rs:408).
         predict_valid: optional [N] bool; where given, predictions are
-           null outside it (policy 'drop', src/expressions.rs:398-427).
+           null outside it (policy 'drop', and every drop-family policy
+           of a moving model, src/expressions.rs:398-427, 624-701).
     """
 
     y: torch.Tensor
@@ -60,22 +62,26 @@ def prepare_problem(
     x_valid: torch.Tensor,
     moving: bool = False,
 ) -> MaskedProblem:
-    """Apply a static fit's null policy to raw values and validity.
+    """Apply a null policy to raw values and validity.
 
     Args:
         policy: one of VALID_NULL_POLICIES.
         y_values / y_valid: [N] f64 / bool; values at null slots are arbitrary.
         x_values / x_valid: [N, K] f64 / bool.
-        moving: the moving-window semantics, not ported yet.
+        moving: the recursive and rolling models fit on zero-filled data
+            with the validity carried apart (src/expressions.rs:656,683) and
+            mask their predictions under every drop-family policy.
     """
     if policy not in VALID_NULL_POLICIES:
         raise ValueError(f"invalid null policy {policy!r}")
-    if moving:
-        raise NotImplementedError(
-            "null policies of the moving-window models are not ported to "
-            "polars_ols_tpu_torch yet (ROADMAP.md Queue 1 item 7)"
-        )
     ones = torch.ones(x_values.shape[0], dtype=torch.bool, device=x_values.device)
+    if moving:
+        x_zero = zero_filled(x_values, x_valid)
+        y_zero = zero_filled(y_values, y_valid)
+        if policy not in DROP_FAMILY:
+            return MaskedProblem(y_zero, x_zero, ones, x_zero, None)
+        mask = is_valid_mask(policy, y_valid, x_valid)
+        return MaskedProblem(y_zero, x_zero, mask, x_zero, mask)
     if policy == "ignore":
         y_nan = torch.where(y_valid, y_values, torch.nan)
         x_nan = torch.where(x_valid, x_values, torch.nan)

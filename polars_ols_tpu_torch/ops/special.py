@@ -15,11 +15,11 @@
   The continued fraction below loses ``~a * eps`` near ``x = 1`` (its
   terms cancel like ``1 - x``): 1e-10 relative at a million degrees of
   freedom, where this expansion keeps ~1e-13.
-- otherwise: the continued fraction of DLMF 8.17.22 by the modified
-  Lentz method, with the symmetry ``I_x(a, b) = 1 - I_{1-x}(b, a)`` where
-  ``x > (a+1)/(a+b+2)``. It converges in at most ~25 iterations over this
-  region (checked against mpmath for ``a`` from 0.5 to 4e6); the cap is
-  200.
+- otherwise: the continued fraction of DLMF 8.17.22 by the forward
+  recurrence of its convergents (no division inside the loop), with the
+  symmetry ``I_x(a, b) = 1 - I_{1-x}(b, a)`` where ``x > (a+1)/(a+b+2)``.
+  It converges in at most ~25 iterations over this region (checked against
+  mpmath for ``a`` from 0.5 to 4e6); the cap is 200.
 
 ``log B(a, 1/2)`` takes ``lgamma(a + 1/2) - lgamma(a)`` from the Stirling
 series for ``a >= 8`` (the plain difference of two ``lgamma`` loses their
@@ -50,7 +50,7 @@ from . import kernels
 t_pvalue_kernel_launches = 0
 
 _EPS = 2.0**-52
-_TINY = 1.0e-300  # Lentz's floor for a vanishing denominator
+_CF_BIG = 2.0**200  # the continued fraction's convergents are rescaled past this
 CF_MAX_ITER = 200
 A_SERIES = 15.0  # the large-a expansion from this a ...
 U_SERIES = 1.0  # ... while -log x stays below this
@@ -76,7 +76,7 @@ SERIES_COEFFS = (
 )
 _LOG_SQRT_PI = 0.5 * math.log(math.pi)
 _INV_SQRT_PI = 1.0 / math.sqrt(math.pi)
-# Lentz iterations between the plain version's convergence checks (each
+# continued-fraction iterations between the plain version's convergence checks (each
 # check is a host sync)
 _CHECK_EVERY = 8
 
@@ -88,8 +88,10 @@ def _kernel():
     if _BOUND is None:
         lib = kernels.load("t_pvalue")
         vp, i64 = ctypes.c_void_p, ctypes.c_int64
-        lib.pols_t_pvalue.argtypes = [vp, vp, i64, i64, vp, vp]
+        lib.pols_t_pvalue.argtypes = [vp, vp, i64, i64, vp, ctypes.c_int, vp]
         lib.pols_t_pvalue.restype = ctypes.c_int
+        lib.pols_f64_chain.argtypes = [ctypes.c_int, i64, vp, vp]
+        lib.pols_f64_chain.restype = ctypes.c_int
         lib.pols_cuda_error_string.argtypes = [ctypes.c_int]
         lib.pols_cuda_error_string.restype = ctypes.c_char_p
         _BOUND = lib
@@ -119,34 +121,40 @@ def log_gamma_ratio_half(a: torch.Tensor) -> torch.Tensor:
     return torch.where(small, torch.lgamma(a_small + 0.5) - torch.lgamma(a_small), big)
 
 
-def _lentz(p: torch.Tensor, q: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-    """The continued fraction of I_z(p, q) (DLMF 8.17.22, Numerical
-    Recipes' ``betacf``), every lane to its own convergence; converged lanes
-    keep their value."""
+def _continued_fraction(p: torch.Tensor, q: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """The continued fraction of I_z(p, q) (DLMF 8.17.22) by the forward
+    recurrence of its convergents ``A_n / B_n`` (Wallis; Numerical Recipes'
+    first ``betacf``): two multiply-adds a half step and one division at
+    the end, where the modified Lentz form divides four times an
+    iteration. An iteration ends a lane when its two half steps' convergents
+    agree to eps, tested without dividing: ``|A_n B_{n-1} - A_{n-1} B_n| <=
+    eps |A_{n-1} B_n|``; converged lanes keep their value. All four terms
+    are rescaled by 2^-200 where ``|B_n|`` passes 2^200 (and back below
+    2^-200), which changes no ratio."""
     qab, qap, qam = p + q, p + 1.0, p - 1.0
-
-    def floor(v):
-        return torch.where(v.abs() < _TINY, _TINY, v)
-
-    c = torch.ones_like(z)
-    d = 1.0 / floor(1.0 - qab * z / qap)
-    h = d
+    one = torch.ones_like(z)
+    am, bm, az = one, one, one
+    bz = 1.0 - qab * z / qap
     live = torch.ones_like(z, dtype=torch.bool)
     for m in range(1, CF_MAX_ITER + 1):
         m2 = 2.0 * m
-        aa = m * (q - m) * z / ((qam + m2) * (p + m2))
-        d = 1.0 / floor(1.0 + aa * d)
-        c = floor(1.0 + aa / c)
-        h = torch.where(live, h * (d * c), h)
-        aa = -(p + m) * (qab + m) * z / ((p + m2) * (qap + m2))
-        d = 1.0 / floor(1.0 + aa * d)
-        c = floor(1.0 + aa / c)
-        de = d * c
-        h = torch.where(live, h * de, h)
-        live = live & ~((de - 1.0).abs() <= _EPS)
+        aa = (m * (q - m)) / ((qam + m2) * (p + m2)) * z
+        ap = az + aa * am
+        bp = bz + aa * bm
+        aa = -((p + m) * (qab + m)) / ((p + m2) * (qap + m2)) * z
+        app = ap + aa * az
+        bpp = bp + aa * bz
+        scale = torch.where(
+            bpp.abs() > _CF_BIG, one / _CF_BIG, torch.where(bpp.abs() < 1.0 / _CF_BIG, one * _CF_BIG, one)
+        )
+        am = torch.where(live, ap * scale, am)
+        bm = torch.where(live, bp * scale, bm)
+        az = torch.where(live, app * scale, az)
+        bz = torch.where(live, bpp * scale, bz)
+        live = live & ~((app * bp - ap * bpp).abs() <= _EPS * (ap * bpp).abs())
         if m % _CHECK_EVERY == 0 and not bool(live.any()):  # host sync
             break
-    return h
+    return az / bz
 
 
 def _betainc_half_cf(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -154,7 +162,7 @@ def _betainc_half_cf(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     direct = x < (a + 1.0) / (a + 2.5)
     y = 1.0 - x
     p = torch.where(direct, a, 0.5)
-    h = _lentz(p, torch.where(direct, 0.5, a), torch.where(direct, x, y))
+    h = _continued_fraction(p, torch.where(direct, 0.5, a), torch.where(direct, x, y))
     # x^a y^(1/2) / (p B(a, 1/2))
     log_front = (
         a * torch.log(x) + 0.5 * torch.log1p(-x)
@@ -170,16 +178,16 @@ def _betainc_half_series(a: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     below eps of the sum."""
     T = a - 0.25
     z = T * u
-    T2, z2 = T * T, z * z
+    inv_T2, z2 = 1.0 / (T * T), z * z
     H = torch.special.erfc(torch.sqrt(z))  # Gamma(1/2, z) / sqrt(pi)
     E = torch.sqrt(z) * torch.exp(-z) * _INV_SQRT_PI  # z^(1/2) e^-z / sqrt(pi)
     s = H
     live = torch.ones_like(s, dtype=torch.bool)
     for n in range(1, len(SERIES_COEFFS)):
         sn = 2.0 * n - 1.5
-        # two steps of Gamma(s+1, z) = s Gamma(s, z) + z^s e^-z, over T^2
-        H = ((sn + 1.0) * sn * H + ((sn + 1.0) + z) * E) / T2
-        E = E * z2 / T2
+        # two steps of Gamma(s+1, z) = s Gamma(s, z) + z^s e^-z, times 1 / T^2
+        H = ((sn + 1.0) * sn * H + ((sn + 1.0) + z) * E) * inv_T2
+        E = E * z2 * inv_T2
         term = SERIES_COEFFS[n] * H
         s = torch.where(live, s + term, s)
         live = live & ~(term.abs() <= _EPS * s.abs())
@@ -228,6 +236,21 @@ def _check(t: torch.Tensor, dof: torch.Tensor) -> None:
         raise ValueError("t and dof must be contiguous")
 
 
+def _launch(t: torch.Tensor, dof: torch.Tensor, stage: int) -> torch.Tensor:
+    G, K = t.shape
+    p = torch.empty_like(t)
+    lib = _kernel()
+    with torch.cuda.device(t.device):
+        rc = lib.pols_t_pvalue(
+            t.data_ptr(), dof.data_ptr(), G, K, p.data_ptr(), stage,
+            torch.cuda.current_stream(t.device).cuda_stream,
+        )
+    if rc != 0:
+        msg = lib.pols_cuda_error_string(rc).decode()
+        raise RuntimeError(f"p-value kernel launch failed: CUDA error {rc} ({msg})")
+    return p
+
+
 def t_two_sided_p_value(t: torch.Tensor, dof: torch.Tensor) -> torch.Tensor:
     """Two-sided Student-t p-values [G, K] of t [G, K] f64 with degrees of
     freedom dof [G] f64 (one per row)."""
@@ -237,16 +260,43 @@ def t_two_sided_p_value(t: torch.Tensor, dof: torch.Tensor) -> torch.Tensor:
         return t_two_sided_p_value_ref(t, dof)
     if t.device.type != "cuda":
         raise ValueError(f"no p-value kernel for device {t.device}")
-    G, K = t.shape
-    p = torch.empty_like(t)
+    p = _launch(t, dof, 0)
+    t_pvalue_kernel_launches += 1
+    return p
+
+
+TIMING_STAGES = {"load_store": 1, "front": 2}
+
+
+def t_pvalue_timing_stage(t: torch.Tensor, dof: torch.Tensor, stage: str) -> torch.Tensor:
+    """A part of the kernel's work on CUDA tensors, for the timing breakdown
+    only (the result is no p-value): ``load_store`` loads, forms x and
+    stores; ``front`` adds the continued-fraction branch's front factor
+    (log, log1p, the lgamma ratio, exp) without the fraction."""
+    _check(t, dof)
+    if t.device.type != "cuda":
+        raise ValueError("the timing stages run on the card only")
+    return _launch(t, dof, TIMING_STAGES[stage])
+
+
+CHAIN_OPS = ("fma", "div", "sqrt", "log", "log1p", "exp", "erfc")
+
+
+def f64_chain(n: int, seed: torch.Tensor, op: str = "fma") -> None:
+    """Run ``n`` dependent f64 operations of kind ``op`` (one of
+    ``CHAIN_OPS``) on one warp of the card, seeded from ``seed[0]`` (a CUDA
+    f64 tensor holding a value in [0, 1]): the yardstick of the p-value
+    kernel's latency bound. Every kind but ``fma`` carries one more
+    dependent add or multiply a step. Nothing it computes is kept; two chain
+    lengths timed against each other give the time of one step."""
+    if seed.device.type != "cuda" or seed.dtype != F64 or seed.numel() < 1:
+        raise ValueError("seed must be a CUDA float64 tensor of at least one element")
     lib = _kernel()
-    with torch.cuda.device(t.device):
-        rc = lib.pols_t_pvalue(
-            t.data_ptr(), dof.data_ptr(), G, K, p.data_ptr(),
-            torch.cuda.current_stream(t.device).cuda_stream,
+    with torch.cuda.device(seed.device):
+        rc = lib.pols_f64_chain(
+            CHAIN_OPS.index(op), int(n), seed.data_ptr(),
+            torch.cuda.current_stream(seed.device).cuda_stream,
         )
     if rc != 0:
         msg = lib.pols_cuda_error_string(rc).decode()
-        raise RuntimeError(f"p-value kernel launch failed: CUDA error {rc} ({msg})")
-    t_pvalue_kernel_launches += 1
-    return p
+        raise RuntimeError(f"f64 chain launch failed: CUDA error {rc} ({msg})")

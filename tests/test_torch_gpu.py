@@ -29,7 +29,13 @@ last groups empty. The p-value kernel runs the plain version's
 arithmetic with the compiler's fused multiply-adds and the device's
 ``log`` / ``exp`` / ``erfc``: rtol 1e-12 to it, 1e-12 to scipy. The
 statistics and lasso slices on the card match the CPU at rtol 1e-9 (the
-moment kernel's summation order, through the solves).
+moment kernel's summation order, through the solves). The moving kernel
+sums a window's rows in another order than the plain versions' cumulative
+sums and solves by its own Cholesky: rtol 1e-9 / atol 1e-11 on the
+coefficients where the window holds K + 3 valid rows or alpha > 0 (a
+singular window's branch is decided by round-off), an equal NaN pattern
+everywhere, and the same bits from two launches; chunks of 2 rows make
+the prefix over a group's chunks run in segments.
 """
 
 import numpy as np
@@ -39,7 +45,7 @@ torch = pytest.importorskip("torch")
 
 import polars_ols_tpu_torch as pt  # noqa: E402
 from polars_ols_tpu_torch import CONFIG, col  # noqa: E402
-from polars_ols_tpu_torch.ops import cd, grid_probe, moments, special  # noqa: E402
+from polars_ols_tpu_torch.ops import cd, grid_probe, moments, moving, recursive, rolling, special  # noqa: E402
 
 
 @pytest.fixture
@@ -49,6 +55,7 @@ def cuda_device(monkeypatch):
     monkeypatch.setattr(moments, "moments_kernel_launches", 0)
     monkeypatch.setattr(cd, "cd_kernel_launches", 0)
     monkeypatch.setattr(special, "t_pvalue_kernel_launches", 0)
+    monkeypatch.setattr(moving, "moving_kernel_launches", 0)
     return torch.device("cuda")
 
 
@@ -352,3 +359,126 @@ def test_statistics_and_lasso_slices_on_card_match_cpu(cuda_device, query, monke
     for key, ref in out["cpu"].items():
         np.testing.assert_array_equal(np.isnan(out["cuda"][key]), np.isnan(ref), err_msg=key)
         np.testing.assert_allclose(out["cuda"][key], ref, rtol=1e-9, atol=1e-12, err_msg=key)
+
+
+# --------------------------------------------------------------------------- #
+# the moving kernel
+# --------------------------------------------------------------------------- #
+def _moving_batch(seed: int, k: int, device, r: int = 300):
+    """Five groups: full, shorter than most windows, empty, one row, ragged;
+    ~5 % invalid rows."""
+    rng = np.random.default_rng(seed)
+    rows = np.asarray([r, 40, 0, 1, r - 13])
+    G = len(rows)
+    X = rng.normal(size=(G, r, k)) * np.resize([1.0, 3.0, 0.3], k)
+    y = X.sum(-1) + rng.normal(size=(G, r)) * 0.1
+    v = (rng.random((G, r)) > 0.05) & (np.arange(r)[None] < rows[:, None])
+    Z = np.concatenate([y[..., None], X], axis=-1)
+    return (
+        torch.as_tensor(Z, device=device), torch.as_tensor(v, device=device),
+        torch.as_tensor(rows, device=device), rows,
+    )
+
+
+def _assert_moving(out, ref, rows, settled=None):
+    out, ref = out.cpu().numpy(), ref.cpu().numpy()
+    for g, n in enumerate(rows):
+        a, b = out[g, :n], ref[g, :n]
+        np.testing.assert_array_equal(np.isnan(a), np.isnan(b))
+        m = ~np.isnan(b)
+        if settled is not None:
+            m &= settled[g, :n].reshape((-1,) + (1,) * (a.ndim - 1))
+        np.testing.assert_allclose(a[m], b[m], rtol=1e-9, atol=1e-11)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("want", moving.WANTS)
+@pytest.mark.parametrize("chunk", [None, 32, 7, 2])
+@pytest.mark.parametrize("half_life,mean", [(252.0, None), (None, None), (3.0, 0.5), (None, "list")])
+@pytest.mark.parametrize("k", [5, 8, 9, 16, 17, 32])
+def test_moving_kernel_rls_matches_plain_on_card(cuda_device, k, half_life, mean, chunk, want):
+    Z, v, rows_t, rows = _moving_batch(k, k, cuda_device)
+    m = list(np.linspace(-1.0, 1.0, k)) if mean == "list" else mean
+    out = moving.recursive_least_squares(Z, v, rows_t, half_life, 10.0, m, want=want, chunk=chunk)
+    torch.cuda.synchronize()
+    assert moving.moving_kernel_launches == 1
+    coefs = recursive.solve_recursive_least_squares(Z[..., 1:], Z[..., 0], v, half_life, 10.0, m)
+    _assert_moving(out, moving._from_coefs(coefs, Z, want), rows)
+    again = moving.recursive_least_squares(Z, v, rows_t, half_life, 10.0, m, want=want, chunk=chunk)
+    for g, n in enumerate(rows):
+        assert torch.equal(out[g, :n], again[g, :n])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("want", moving.WANTS)
+@pytest.mark.parametrize("chunk", [None, 32, 7, 2])
+@pytest.mark.parametrize("positional", [True, False])
+@pytest.mark.parametrize("window,min_periods,alpha", [
+    (252, None, 0.0), (252, 2, 0.1), (5, None, 0.1), (5, 2, 0.1), (40, None, 0.0), (40, 2, 0.0),
+])
+@pytest.mark.parametrize("k", [5, 8, 9, 16, 17, 32])
+def test_moving_kernel_rolling_matches_plain_on_card(
+    cuda_device, k, window, min_periods, alpha, positional, chunk, want
+):
+    Z, v, rows_t, rows = _moving_batch(100 + k, k, cuda_device)
+    out = moving.rolling_ols(
+        Z, v, rows_t, window, min_periods, alpha, positional, want=want, chunk=chunk
+    )
+    torch.cuda.synchronize()
+    assert moving.moving_kernel_launches == 1
+    coefs = rolling.solve_rolling_ols(Z[..., 1:], Z[..., 0], v, window, min_periods, alpha, positional)
+    settled = None
+    if alpha == 0.0:
+        vn = v.cpu().numpy()
+        r = np.cumsum(vn, axis=1)
+        if positional:
+            shifted = np.concatenate([np.zeros((len(rows), window), dtype=r.dtype), r], axis=1)
+            counts = r - shifted[:, : vn.shape[1]]
+        else:
+            counts = np.minimum(r, window)
+        settled = counts >= k + 3
+    _assert_moving(out, moving._from_coefs(coefs, Z, want), rows, settled)
+    again = moving.rolling_ols(
+        Z, v, rows_t, window, min_periods, alpha, positional, want=want, chunk=chunk
+    )
+    for g, n in enumerate(rows):
+        a, b = out[g, :n], again[g, :n]
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+        assert torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [3, 9])
+def test_moving_kernel_flagged_rows_take_the_eigh_solve_on_card(cuda_device, k, monkeypatch):
+    monkeypatch.setattr(moving, "moving_flagged_rows", 0)
+    Z, v, rows_t, rows = _moving_batch(200 + k, k, cuda_device, r=90)
+    Z[..., 2] = 0.0  # an all-zero feature: every window's Cholesky meets a zero pivot
+    for chunk in (None, 16):
+        for want in moving.WANTS:
+            out = moving.rolling_ols(Z, v, rows_t, 20, None, 0.0, True, want=want, chunk=chunk)
+            coefs = rolling.solve_rolling_ols(Z[..., 1:], Z[..., 0], v, 20, None, 0.0, True)
+            vn = v.cpu().numpy()
+            r = np.cumsum(vn, axis=1)
+            shifted = np.concatenate([np.zeros((len(rows), 20), dtype=r.dtype), r], axis=1)
+            _assert_moving(out, moving._from_coefs(coefs, Z, want), rows, r - shifted[:, :90] >= k + 3)
+    assert moving.moving_flagged_rows > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", ["rls", "rolling_ols", "expanding_ols"])
+@pytest.mark.parametrize("mode", ["predictions", "residuals", "coefficients"])
+def test_moving_slices_on_card_match_cpu(cuda_device, model, mode, monkeypatch):
+    feats = [col(f"x{i + 1}") for i in range(4)]
+    kw = dict(window_size=30, min_periods=12) if model == "rolling_ols" else {}
+    expr = getattr(col("y").least_squares, model)(*feats, mode=mode, null_policy="drop", **kw)
+    out = {}
+    for grouped in (True, False):
+        for dev in ("cpu", "cuda"):
+            monkeypatch.setattr(CONFIG, "device", dev)
+            s = pt.DataFrame(_static_frame()).select(expr.over("g") if grouped else expr)[
+                "coefficients" if mode == "coefficients" else "y"
+            ]
+            out[dev] = s.to_numpy()
+        np.testing.assert_array_equal(np.isnan(out["cuda"]), np.isnan(out["cpu"]))
+        np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=1e-7, atol=1e-9)
+    assert moving.moving_kernel_launches == 2

@@ -255,3 +255,30 @@ def test_svd_lstsq_gives_nan_on_a_nan_problem_like_jax():
     np.testing.assert_array_equal(np.isnan(t), np.isnan(j))
     assert np.isnan(t[1:]).all()
     np.testing.assert_allclose(t[0], j[0], **SOLVER_TOL)
+
+
+def test_eigh_fallback_runs_in_bounded_batches_on_the_failed_lanes_only(monkeypatch):
+    # cuSOLVER's batched eigh refuses batches of 32,768 matrices and more:
+    # the fallback selects the failed lanes and decomposes them a bounded
+    # number a call, with the same result as one call over every lane
+    rng = np.random.default_rng(11)
+    X = rng.normal(size=(4, 37, 9, 3))
+    A = np.einsum("abrk,abrl->abkl", X, X)
+    A[1, 5] = 0.0  # a zero system: minimum-norm zero
+    A[2, 7, :, 1] = A[2, 7, 1, :] = 0.0  # a dead feature: Cholesky fails
+    b = rng.normal(size=(4, 37, 3))
+    b[2, 7, 1] = 0.0
+    At, bt = torch.as_tensor(A), torch.as_tensor(b)
+    whole = tlinalg.solve_psd(At, bt)
+    calls = []
+    real = torch.linalg.eigh
+    monkeypatch.setattr(tlinalg, "_EIGH_LANES", 1)
+    monkeypatch.setattr(torch.linalg, "eigh", lambda M: calls.append(M.shape[0]) or real(M))
+    chunked = tlinalg.solve_psd(At, bt)
+    assert calls == [1, 1]  # two failed lanes, one a call
+    assert torch.equal(whole, chunked)
+    assert (chunked[1, 5] == 0).all() and chunked[2, 7, 1] == 0
+    monkeypatch.setattr(tlinalg, "_EIGH_LANES", 50)
+    w, v = tlinalg._eigh_chunked(At)
+    w0, v0 = real(At)
+    assert torch.equal(w, w0) and torch.equal(v, v0) and w.shape == (4, 37, 3)

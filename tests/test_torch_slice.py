@@ -149,8 +149,8 @@ def _ols2(**kw):
 
 NOT_PORTED = {
     "multi_target": _ols2(multi_target=True),
-    "rolling": lambda c: c("y").least_squares.rolling_ols("x1", "x2", window_size=50),
-    "rls": lambda c: c("y").least_squares.rls("x1", "x2"),
+    "from_formula": lambda c: c("y").least_squares.from_formula("y ~ x1 + x2", half_life=20),
+    "predict": lambda c: c("y").least_squares.predict("x1", "x2"),
 }
 
 

@@ -140,12 +140,29 @@ def test_prepare_problem_matches_jax(policy):
 
 
 def test_moving_policies_raise_naming_their_item():
-    ones = torch.ones(4, dtype=torch.bool)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        masking.prepare_problem(
-            "drop", torch.zeros(4, dtype=torch.float64), ones,
-            torch.zeros((4, 2), dtype=torch.float64), ones[:, None].repeat(1, 2), moving=True,
+    # the moving semantics are ported (every policy matches the JAX
+    # engine's below); what a moving model still refuses names its item
+    cols = {"y": np.arange(40.0), **{f"x{i}": np.arange(40.0) + i for i in range(33)}}
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+        pt.DataFrame(cols).select(
+            pt.col("y").least_squares.rls(pt.col("^x.*$"), null_policy="drop_window")
         )
+
+
+@pytest.mark.parametrize("policy", POLICIES + ["drop_window"])
+def test_prepare_problem_moving_matches_jax(policy):
+    d = _data(seed=1)
+    yv, xv = d["valid"][:, 0], d["valid"][:, 1:]
+    t = masking.prepare_problem(
+        policy, torch.as_tensor(d["y"]), torch.as_tensor(yv),
+        torch.as_tensor(d["X"]), torch.as_tensor(xv), moving=True,
+    )
+    j = jmasking.prepare_problem(policy, d["y"], yv, d["X"], xv, moving=True)
+    for name in ("y", "X", "fit_mask", "X_predict", "predict_valid"):
+        tv, jv = getattr(t, name), getattr(j, name)
+        assert (tv is None) == (jv is None), name
+        if tv is not None:
+            np.testing.assert_array_equal(tv.numpy(), np.asarray(jv), err_msg=name)
 
 
 # --------------------------------------------------------------------------- #

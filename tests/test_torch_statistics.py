@@ -127,7 +127,17 @@ def test_p_values_match_jax_up_to_dof_1000():
     dof[:4] = (1.0, 2.5, 3.0, 1_000.0)
     got = special.t_two_sided_p_value(torch.as_tensor(t), torch.as_tensor(dof)).numpy()
     want = np.asarray(jax_p_value(t, dof[:, None]))
-    np.testing.assert_allclose(got, want, **P_JAX_TOL)
+    # JAX's betainc is the engine that moves: alone it is already up to
+    # 6.7e-12 from scipy at dof 800-1000 (the port: 1.1e-13), and in some
+    # orders of the whole suite a few of its elements reach 1.6e-10. Where
+    # it is within 5e-11 of scipy the port is held to it; on the few
+    # elements where it is not, to scipy, as at dof 8e6 below.
+    x = dof[:, None] / (dof[:, None] + t * t)
+    ref = scipy_special.betainc(dof[:, None] / 2.0, 0.5, x)
+    steady = np.abs(want - ref) <= 5e-11 * np.abs(ref)
+    assert steady.mean() > 0.99
+    np.testing.assert_allclose(got[steady], want[steady], **P_JAX_TOL)
+    np.testing.assert_allclose(got[~steady], ref[~steady], rtol=P_SCIPY_RTOL, atol=1e-300)
 
 
 @pytest.mark.parametrize("dof_range", [(1.0, 30.0), (30.0, 1e4), (1e4, 8e6)], ids=["small", "mid", "large"])
