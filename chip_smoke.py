@@ -37,11 +37,14 @@ of the card-only tests (moments at C = 8 / 9, R = 513, empty groups, a grid
 larger than the work; coordinate descent at K = 8 / 9 / 16 / 17) are held
 to the plain versions too, and ``torch.profiler`` reads device busy time,
 launches and host syncs of the main, lasso, statistics, rls and rolling
-queries. The p-value kernel also gets a latency bound (the dependent f64
-operations of its longest thread times the measured time of one) and a
-breakdown of its time by stage. The
-line before the last is a JSON object with the kernels' names, sources,
-launch counts on their paths, errors, times and bounds; the last line is
+queries (and which moving kernels ran). The moving kernel is also timed
+on a sweep of its shape (rows a lane, rows a range), at K = 8 and 16 on
+the main frame's groups, and on a frame of lognormal group sizes. The
+p-value kernel also gets a latency bound (the dependent f64 operations of
+its longest thread times the measured time of one) and a breakdown of its
+time by stage. The line before the last is a JSON object with the
+kernels' names, sources, launch counts on their paths, errors, times and
+bounds; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a CUDA device it exits non-zero at once.
 """
@@ -94,13 +97,40 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F64_PER_S = 34e12
 PEAK_F32_PER_S = 67e12
 PROFILE_QUERIES = 5
+# profiles taken again where the device recorded fewer kernels than the host
+# launched (CUPTI drops activity records now and then)
+PROFILE_TRIES = 3
 # the moving models: the reference benchmark suite's rls(half_life=252) and
 # rolling_ols(window_size=252) under .over("group"), and the same models on
 # the first SERIES_ROWS rows as one series
 HALF_LIFE = 252.0
 WINDOW = 252
 MOVING_LAUNCHES = 20
-CHUNK_SWEEP = (32, 128, 512)  # rows a chunk, timed at the main frame beside the chosen length
+# the moving kernel's shape, timed at the main frame: rows a lane (T) at the
+# planner's rows a range, and rows a range at the default T (480 cuts every
+# group of the frame into two ranges or more, 240 into four)
+STRETCH_SWEEP = (3, 4, 5, 7, 8)
+RANGE_SWEEP = (480, 240)
+SWEEP_LAUNCHES = 10
+# the moving kernel at wider K on the main frame's groups; the plain
+# version at K = 16 runs on the first WIDE_PLAIN_GROUPS groups (its
+# [G, R, K, K] states of all 10,000 groups would not fit the card)
+WIDE_K = (8, 16)
+WIDE_PLAIN_GROUPS = {8: N_GROUPS, 16: 1_000}
+WIDE_STRETCH_SWEEP = {8: (5,), 16: (1, 2, 4)}  # rows a lane timed beside the default
+# the skewed frame: N_ROWS rows over N_GROUPS groups of lognormal sizes
+# (sigma 1) capped at SKEW_CAP rows; its plain check runs on SKEW_CHECKED
+# groups, the longest among them
+SKEW_SIGMA = 1.0
+SKEW_CAP = 4_000
+SKEW_CHECKED = 300
+SKEW_RANGE_SWEEP = (2_560, 4_000)  # rows a range timed beside the planner's on it
+# the moving kernels by name in a profile: the walk and the summary pass are
+# one template (its last argument says which), then the prefix and the fill
+MOVING_KERNEL_NAMES = {
+    "walk": ("walk<", "true>("), "summary": ("walk<", "false>("), "prefix": ("prefix_",),
+    "fill": ("fill<",),
+}
 SERIES_ROWS = 2_000_000
 SERIES_HEAD = 20_000  # rows of the series checked against the literal oracles
 SERIES_TAIL = 50  # and its last rows against closed forms
@@ -416,9 +446,9 @@ def _ptxas(log):
             if m:
                 end = m.end() + int(m.group(1))
                 entry = mangled[m.end():end]
-                t = re.match(r"I(?:NS_\d+([A-Za-z]+)I)?((?:Li\d+E)+)", mangled[end:])
+                t = re.match(r"I(?:NS_\d+([A-Za-z]+)I)?((?:L[ib]\d+E)+)", mangled[end:])
                 if t:
-                    args = ",".join(re.findall(r"Li(\d+)E", t.group(2)))
+                    args = ",".join(re.findall(r"L[ib](\d+)E", t.group(2)))
                     entry += f"<{t.group(1)}<{args}>>" if t.group(1) else f"<{args}>"
             spill = ""
         elif "spill stores" in line:
@@ -636,26 +666,37 @@ def _check_cd(label, XtX, Xty, counts, kw, cd, torch, timed=True):
     return err, t, s_k
 
 
-def _profile(fn, torch, named=()):
+def _profile(fn, torch, named=None):
     """Device busy ms (the union of device intervals), launches (launch API
     calls) and host syncs (stream / device syncs, less the loop's own) per
     query, from torch.profiler over PROFILE_QUERIES queries after a warm
     one, with the host ms per query under the profiler (which inflates it:
     the idle share 1 - busy / wall is an upper bound), and the device ms per
-    query of the kernels whose names hold one of ``named``. None when the
+    query of the kernels of each label of ``named`` (those whose names hold
+    all of its strings). Taken again, up to PROFILE_TRIES times, where the
+    device recorded fewer kernels than the host launched. None when the
     profiler records no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    named = named or {}
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(PROFILE_QUERIES):
-            fn()
-            torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_QUERIES
-    events = prof.events()
+    for tries in range(1, PROFILE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(PROFILE_QUERIES):
+                fn()
+                torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_QUERIES
+        events = prof.events()
+        names = [e.name for e in events if e.device_type == DeviceType.CPU]
+        launches = sum(n in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
+                       for n in names)
+        kernels = sum(e.device_type == DeviceType.CUDA and not e.name.startswith(("Memcpy", "Memset"))
+                      for e in events)
+        if kernels >= launches:
+            break
     spans = sorted(
         (e.time_range.start, e.time_range.end) for e in events if e.device_type == DeviceType.CUDA
     )
@@ -666,20 +707,21 @@ def _profile(fn, torch, named=()):
         if hi > end:
             busy_us += hi - max(lo, end)
             end = hi
-    names = [e.name for e in events if e.device_type == DeviceType.CPU]
-    launches = sum(n in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
-                   for n in names)
     syncs = sum(n in ("cudaStreamSynchronize", "cudaDeviceSynchronize") for n in names)
     busy_ms = busy_us / 1e3 / PROFILE_QUERIES
     by_name = {
-        key: sum(
+        label: sum(
             e.time_range.end - e.time_range.start
-            for e in events if e.device_type == DeviceType.CUDA and key in e.name
+            for e in events if e.device_type == DeviceType.CUDA and all(k in e.name for k in keys)
         ) / 1e3 / PROFILE_QUERIES
-        for key in named
+        for label, keys in named.items()
     }
+    seen = sorted({
+        e.name.split(">(")[0] + ">" for e in events
+        if e.device_type == DeviceType.CUDA and any(all(k in e.name for k in keys) for keys in named.values())
+    })
     return {
-        "kernels_ms": by_name,
+        "kernels_ms": by_name, "kernel_names": seen, "tries": tries, "complete": kernels >= launches,
         "busy_ms": busy_ms, "launches": launches / PROFILE_QUERIES,
         "host_syncs": (syncs - PROFILE_QUERIES) / PROFILE_QUERIES,
         "wall_ms": wall_ms, "idle_share": 1.0 - busy_ms / wall_ms,
@@ -825,9 +867,10 @@ def _check_moving(moving, recursive, rolling, torch):
     """csrc/moving.cu against the plain versions on the card: rls with and
     without forgetting and prior mean, rolling in both window semantics, at
     K = 5, 8, 9, 16, 17, 32 (registers, then the two local-memory
-    buckets' edges), coefficients and predictions, the chunk length chosen
-    and forced to 32 rows (several chunks a group) and to 2 rows (the
-    prefix over a group's chunks in segments), on groups that are
+    buckets' edges), coefficients and predictions, the rows a range chosen
+    (one range a group) and forced to 32 rows (several ranges a group: the
+    summary pass, the prefix and the fill) and to 2 rows (the prefix over a
+    group's ranges in segments), on groups that are
     full, shorter than the window, empty and of one row. Returns the
     number of cases and the largest difference."""
     rng = np.random.default_rng(3)
@@ -861,10 +904,126 @@ def _check_moving(moving, recursive, rolling, torch):
     torch.cuda.synchronize()
     print(
         f"kernel moving: {cases} cases (rls / rolling x K 5..32 x coefficients / predictions x "
-        f"chunk lengths) equal their plain versions at {MOVING_KERNEL_TOL}, equal NaN patterns, "
+        f"rows a range) equal their plain versions at {MOVING_KERNEL_TOL}, equal NaN patterns, "
         f"max_abs_err={worst!r}; flagged rows re-solved by eigh: {moving.moving_flagged_rows}"
     )
     return cases, worst
+
+
+def _moving_kernel_bound(args, counts, K, model, torch):
+    """``_moving_bound`` of one moving-kernel launch on these inputs: the
+    group's own rows, their valid, refresh and leaving rows."""
+    Z, v, rows_t, refresh, leaving = args[:5]
+    live = torch.arange(Z.shape[1], device=Z.device) < rows_t[:, None]
+    n_refresh = int((refresh & live).sum())
+    n_leaving = 0 if leaving is None else int(((leaving >= 0) & live).sum())
+    return _moving_bound(
+        int(counts.sum()), int((v & live).sum()), n_refresh, n_leaving, K, model == "rolling",
+        model == "rls", False, len(counts),
+    )
+
+
+def _moving_shape(moving, Z, counts, rolling, dev):
+    """The planner's cut of a frame for the moving kernel's predictions:
+    rows a lane (T), rows a range, the ranges of the groups longer than
+    that, and the warps the card holds."""
+    K = Z.shape[2] - 1
+    T = moving.stretch_rows(K, rolling)
+    resident = moving._resident_warps(dev, K, rolling, T, False)
+    plan = moving.plan_ranges(counts, T, resident)
+    return {
+        "stretch_rows": T, "range_rows": plan.L, "long_groups": len(plan.grp_seg) - 1,
+        "ranges_of_long_groups": plan.M, "resident_warps": resident,
+    }
+
+
+def _skewed_counts(rng, n_rows, n_groups, sigma, cap):
+    """Group sizes from a lognormal (sigma), scaled so that, capped at
+    ``cap``, they hold ``n_rows`` rows in all."""
+    raw = rng.lognormal(0.0, sigma, n_groups)
+    lo, hi = 0.0, 100.0 * n_rows / raw.sum()
+    for _ in range(200):
+        mid = (lo + hi) / 2
+        if np.minimum(raw * mid, cap).sum() < n_rows:
+            lo = mid
+        else:
+            hi = mid
+    counts = np.minimum(np.floor(raw * hi), cap).astype(np.int64)
+    short = n_rows - int(counts.sum())
+    counts[np.flatnonzero(counts < cap)[:short]] += 1
+    if counts.sum() != n_rows or counts.max() > cap:
+        raise AssertionError(f"skewed sizes: {counts.sum()} rows, longest {counts.max()}")
+    return counts
+
+
+def _moving_frame(label, counts, R, K, n_checked, moving, recursive, rolling, ff, torch, smi, seed,
+                  sweep=None):
+    """The moving kernel on a frame of random rows (made on the card from
+    ``seed``) in groups of ``counts`` rows padded to R: rls and rolling
+    against their plain versions on ``n_checked`` groups (all where that is
+    every group; else the longest half of them and the first others),
+    timed per launch beside the plain version's one call on those groups,
+    with the bound, and in turns with each shape of ``sweep`` (label ->
+    rows a range, rows a lane; None: the planner's). Returns the
+    kernels-line fields of each model."""
+    dev = torch.device("cuda")
+    G = len(counts)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rows_t = torch.as_tensor(counts, device=dev)
+    live = torch.arange(R, device=dev) < rows_t[:, None]
+    X = torch.randn((G, R, K), generator=gen, device=dev, dtype=torch.float64)
+    y = X.sum(-1) + 0.1 * torch.randn((G, R), generator=gen, device=dev, dtype=torch.float64)
+    Z = torch.where(live[..., None], torch.cat([y[..., None], X], dim=-1), 0.0).contiguous()
+    del X, y
+    v = live.contiguous()
+    idx = rolling.rolling_indices(v, WINDOW, K, True)
+    zero = [0.0] * K
+    args = {
+        "rls": (Z, v, rows_t, v, None, False, ff, 0.1, zero),
+        "rolling": (Z, v, rows_t, idx[1].contiguous(), idx[0].contiguous(), True, 1.0, 0.0, zero),
+    }
+    if n_checked >= G:
+        sel = np.arange(G)
+    else:
+        longest = np.argsort(counts, kind="stable")[-(n_checked // 2):]
+        sel = np.unique(np.concatenate([longest, np.arange(n_checked - len(longest))]))
+    sel_t = torch.as_tensor(sel, device=dev)
+    Zs, vs = Z[sel_t], v[sel_t]
+    plain = {
+        "rls": lambda: recursive.solve_recursive_least_squares(Zs[..., 1:], Zs[..., 0], vs, HALF_LIFE),
+        "rolling": lambda: rolling.solve_rolling_ols(Zs[..., 1:], Zs[..., 0], vs, WINDOW, None, 0.0, True),
+    }
+    settled = {"rls": None, "rolling": _window_counts(vs.cpu().numpy(), WINDOW, True) >= K + SETTLED_EXTRA}
+    n_launches = MOVING_LAUNCHES if K <= 8 else 2
+    fields = {}
+    for model, a in args.items():
+        out = moving._launch(*a, "coefficients", None, counts)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = plain[model]()
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = _moving_diff(out[sel_t], ref, counts[sel], settled[model])
+        del out, ref
+        fns = {"kernel": lambda a=a: moving._launch_kernels(*a, "predictions", None, counts)}
+        for shape, (L, T) in (sweep or {}).items():
+            fns[shape] = lambda a=a, L=L, T=T: moving._launch_kernels(*a, "predictions", L, counts, T)
+        times = _in_turns(fns, n_launches, torch)
+        t = times["kernel"]
+        fields[model] = {
+            "ms": t[0], "host_us": t[1], "plain_ms": plain_ms, "plain_groups": len(sel),
+            **({"sweep_ms": {shape: times[shape][0] for shape in sweep}} if sweep else {}),
+            "max_abs_err": err, **_moving_kernel_bound(a, counts, K, model, torch),
+            **_moving_shape(moving, Z, counts, model == "rolling", dev),
+        }
+        print(
+            f"kernel moving {model} on the {label} frame: padded [{G}, {R}, {K + 1}], "
+            f"{int(counts.sum())} rows, longest group {int(counts.max())}; "
+            f"{json.dumps(fields[model])} (ms per launch of the predictions; plain_ms: one call on "
+            f"{len(sel)} groups, host syncs inside; max_abs_err on the coefficients of those groups) "
+            f"({smi})"
+        )
+    return fields
 
 
 def _closed_form_discounted(X, y, v, ff, c, t):
@@ -1520,9 +1679,7 @@ def main() -> int:
     Zm, vm, _ = fit._moving_cached(layout, vals, None, "drop")
     rows_m = layout.device_counts()
     counts_np = layout.counts
-    live = torch.arange(Zm.shape[1], device=dev) < rows_m[:, None]
     idx_m = rolling.rolling_indices(vm, WINDOW, K, True)
-    chunk_m = moving.chunk_rows(Zm.shape[0] * Zm.shape[1], moving._sm_count(dev))
     zero_mean = [0.0] * K
     kernel_args = {
         "rls": (Zm, vm, rows_m, vm, None, False, ff, 0.1, zero_mean),
@@ -1533,36 +1690,55 @@ def main() -> int:
         "rolling": lambda: rolling.solve_rolling_ols(Zm[..., 1:], Zm[..., 0], vm, WINDOW, None, 0.0, True),
     }
     settled_m = {"rls": None, "rolling": _window_counts(vm.cpu().numpy(), WINDOW, True) >= K + SETTLED_EXTRA}
-    mv_err, mv_times, mv_bound = {}, {}, {}
+    mv_err, mv_times, mv_bound, mv_shape = {}, {}, {}, {}
     for model, args in kernel_args.items():
-        out_k = moving._launch(*args, "coefficients", None)
+        out_k = moving._launch(*args, "coefficients", None, counts_np)
         mv_err[model] = _moving_diff(out_k, plain_fns[model](), counts_np, settled_m[model])
         del out_k
         mv_times[model] = _timing_fields(_in_turns({
             "plain": plain_fns[model],
-            "kernel": lambda args=args: moving._launch_kernels(*args, "predictions", None),
+            "kernel": lambda args=args: moving._launch_kernels(*args, "predictions", None, counts_np),
         }, MOVING_LAUNCHES, torch, synced=("plain",)))
-        n_refresh = int((args[3] & live).sum())
-        n_leaving = 0 if args[4] is None else int(((args[4] >= 0) & live).sum())
-        mv_bound[model] = _moving_bound(
-            N_ROWS, N_ROWS, n_refresh, n_leaving, K, model == "rolling", model == "rls", False, N_GROUPS
-        )
+        mv_bound[model] = _moving_kernel_bound(args, counts_np, K, model, torch)
+        mv_shape[model] = _moving_shape(moving, Zm, counts_np, model == "rolling", dev)
         print(
             f"kernel moving {model} at the main frame: G={Zm.shape[0]} R={Zm.shape[1]} (padding "
-            f"{Zm.shape[0] * Zm.shape[1] / N_ROWS - 1!r} of the rows) K={K} chunk={chunk_m} rows, "
+            f"{Zm.shape[0] * Zm.shape[1] / N_ROWS - 1!r} of the rows) K={K} {json.dumps(mv_shape[model])}, "
             f"max_abs_err={mv_err[model]!r} vs plain on the coefficients; predictions: kernel_ms="
-            f"{mv_times[model]['ms']!r} per launch (4 CUDA kernels), plain_ms="
+            f"{mv_times[model]['ms']!r} per launch, plain_ms="
             f"{mv_times[model]['plain_ms']!r} per call (host syncs inside), host_us="
             f"{mv_times[model]['host_us']!r}; bound {json.dumps(mv_bound[model])}; no PyTorch call "
             "computes it"
         )
-    sweep = _in_turns({
-        (model, L): (lambda args=args, L=L: moving._launch_kernels(*args, "predictions", L))
-        for model, args in kernel_args.items() for L in CHUNK_SWEEP
-    }, MOVING_LAUNCHES, torch)
+    sweep = {}
+    for model, args in kernel_args.items():
+        for T in STRETCH_SWEEP:
+            sweep[f"{model} T={T}"] = (
+                lambda args=args, T=T: moving._launch_kernels(*args, "predictions", None, counts_np, T)
+            )
+        for L in RANGE_SWEEP:
+            sweep[f"{model} L={L}"] = (
+                lambda args=args, L=L: moving._launch_kernels(*args, "predictions", L, counts_np)
+            )
+    swept = _in_turns(sweep, SWEEP_LAUNCHES, torch)
     print(
-        "kernel moving chunk sweep at the main frame, ms per launch: "
-        + json.dumps({f"{model} chunk={L}": t[0] for (model, L), t in sweep.items()})
+        "kernel moving sweep at the main frame, ms per launch (T: rows a lane at the planner's "
+        "rows a range; L: rows a range at the default T): "
+        + json.dumps({label: t[0] for label, t in swept.items()}) + f" ({smi})"
+    )
+    del sweep, swept
+    mv_wide = {}
+    for k_wide in WIDE_K:
+        mv_wide[k_wide] = _moving_frame(
+            f"K={k_wide}", counts_np, Zm.shape[1], k_wide, WIDE_PLAIN_GROUPS[k_wide], moving, recursive,
+            rolling, ff, torch, smi, seed=10 + k_wide,
+            sweep={f"T={T}": (None, T) for T in WIDE_STRETCH_SWEEP[k_wide]},
+        )
+    skew_counts = _skewed_counts(np.random.default_rng(5), N_ROWS, N_GROUPS, SKEW_SIGMA, SKEW_CAP)
+    mv_skew = _moving_frame(
+        f"skewed (lognormal sizes, sigma {SKEW_SIGMA}, capped at {SKEW_CAP} rows)", skew_counts,
+        int(skew_counts.max()), K, SKEW_CHECKED, moving, recursive, rolling, ff, torch, smi, seed=6,
+        sweep={f"L={L}": (L, None) for L in SKEW_RANGE_SWEEP},
     )
 
     # 8. steady-state timing, median of TIMING_REPS after one warm call
@@ -1620,7 +1796,7 @@ def main() -> int:
         ("rolling (materialized)", lambda: df.select(moving_queries["rolling"][0])),
         ("series/rolling", lambda: df2.select(series_queries["series/rolling"][0])),
     ):
-        named = ("summarize", "prefix", "walk", "fill") if "rls" in label or "rolling" in label else ()
+        named = MOVING_KERNEL_NAMES if "rls" in label or "rolling" in label else {}
         prof = _profile(fn, torch, named)
         if prof is None:
             print(f"profile {label}: not measured (the profiler recorded no device activity)")
@@ -1628,8 +1804,10 @@ def main() -> int:
         print(
             f"profile {label}: device busy {prof['busy_ms']!r} ms, {prof['launches']!r} launches, "
             f"{prof['host_syncs']!r} host syncs a query; {prof['wall_ms']!r} ms a query under the "
-            f"profiler, idle share <= {prof['idle_share']!r}"
-            + (f"; device ms by kernel {json.dumps(prof['kernels_ms'])}" if named else "")
+            f"profiler, idle share <= {prof['idle_share']!r}; every launch traced: {prof['complete']} "
+            f"(try {prof['tries']})"
+            + (f"; device ms by kernel {json.dumps(prof['kernels_ms'])}, kernels "
+               f"{json.dumps(prof['kernel_names'])}" if named else "")
             + f" ({smi})"
         )
 
@@ -1697,8 +1875,13 @@ def main() -> int:
             "max_abs_err": mv_err["rls"],
             **mv_times["rls"],
             **mv_bound["rls"],
-            "rolling": {"max_abs_err": mv_err["rolling"], **mv_times["rolling"], **mv_bound["rolling"]},
-            "chunk_rows": chunk_m,
+            **mv_shape["rls"],
+            "rolling": {
+                "max_abs_err": mv_err["rolling"], **mv_times["rolling"], **mv_bound["rolling"],
+                **mv_shape["rolling"],
+            },
+            "wide_k": {str(k): f for k, f in mv_wide.items()},
+            "skewed": mv_skew,
             "floor_ms": floor_ms,
         },
     ]}))

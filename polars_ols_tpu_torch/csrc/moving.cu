@@ -20,57 +20,69 @@
 // beta (the prior mean, or NaN for rolling, before the first). The output is
 // beta_t [G, R, K] or the prediction x_t . beta_t [G, R].
 //
-// Design. One thread owns one (group, chunk of L rows) and keeps the packed
-// lower triangle of A, b and the Cholesky factor in registers (K <= 8: the
-// loops unroll over a compile-time K) or in its local memory (K <= 16,
-// K <= 32). Neighbouring threads' rows lie L rows apart, so a thread that
-// loaded its own row would make its warp touch 32 lines with every load:
-// instead the warp stages the next T rows of each of its 32 chunks through
-// shared memory with contiguous loads (stage), every lane works on its own
-// rows there, and the warp writes the T rows of output back the same way
-// (unstage). Four kernels on one stream:
-//   summarize: each chunk's state from a zero start (the recurrence is
-//              linear, so that is its contribution to any later state) and
-//              its total discount;
-//   prefix:    per group and state entry, a pass over the chunk summaries
-//              in chunk order that gives each chunk its exact start state
-//              (a long group's chunks in segments: composed, scanned over
-//              the segments, expanded);
-//   walk:      every chunk walks its rows from its start state, solves at
-//              refresh rows by Cholesky and writes the output; it leaves its
-//              last beta for the chunks after it;
-//   fill:      the first rows of a chunk that only carry take the last beta
-//              of the nearest earlier chunk that solved any.
-// All sums run in row order within a chunk and in chunk order across chunks:
-// no atomics touch a result, so two launches give the same bits. A row whose
-// Cholesky meets a pivot that is not positive and finite is flagged (and
-// counted, the one atomic) and gets NaN; moments_at recomputes the systems of
-// listed rows for the caller's eigh fallback.
+// Design. A warp owns a range of one group's rows: the whole group where it
+// has at most L rows (the planner's rows a range, ops/moving.py), else one
+// of the group's ranges of L rows. It walks the range in stretches of 32 T
+// rows; lane j owns rows [j T, (j + 1) T) of a stretch, so a stretch of Z is
+// one contiguous span. Per stretch:
+//   - lane 0 bulk-copies (cp.async.bulk, the TMA's 1-D form, completed on an
+//     mbarrier) the stretch's rows of Z, v, refresh and leaving into one of
+//     two shared-memory stages; the copy of stretch s + 2 is issued as soon
+//     as stretch s is done, so one copy is always in flight behind the
+//     arithmetic. Addresses and sizes are rounded out to 16-byte words, and
+//     the data lands at the same offset from a boundary as in device memory;
+//   - rolling: the stretch's leaving rows form one span of Z (leaving[t]
+//     does not decrease where it is set), bulk-copied into a third buffer,
+//     in pieces where the span is longer than a stretch;
+//   - each lane forms the summary of its T rows from a zero start (the
+//     recurrence is linear, so that is its contribution to every later
+//     state) and its total discount; an inclusive Hillis-Steele scan over
+//     the lanes by __shfl_up_sync composes (lam_a, S_a) o (lam_b, S_b) =
+//     (lam_a lam_b, lam_b S_a + S_b) in 5 steps (K > 8, whose state lives
+//     in local memory: through shared memory, one lane an entry composing
+//     the 32 lanes in turn); the exclusive result composed onto the carry
+//     (the state before the stretch, in shared memory) is each lane's
+//     exact start state;
+//   - every lane walks its rows again from that state, solves at refresh
+//     rows by Cholesky and writes its rows' output into shared memory; the
+//     last solved beta passes to the lanes after it by a shuffle (and from
+//     stretch to stretch in shared memory), so a lane's leading rows that
+//     only carry take it there; the warp stores the stretch's output with
+//     contiguous stores; lane 31's end state becomes the carry.
+// So a group that one warp walks reads Z once and needs no other kernel.
+// A group longer than L is cut into ranges (the planner's table): a summary
+// pass over those ranges only (the same stretches, the carry composed from
+// the scan's inclusive totals), a segmented prefix over each group's range
+// summaries, the walk from each range's seed, and a fill of the leading
+// rows of a range that only carry a beta solved in an earlier range.
+// All sums run in a fixed order: no atomics touch a result, so two launches
+// give the same bits. A row whose Cholesky meets a pivot that is not
+// positive and finite is flagged (and counted, the one atomic) and gets
+// NaN; the walk then keeps the start state of that stretch, and moments_at
+// recomputes the systems of listed rows from it for the caller's eigh
+// fallback.
 //
-// What bounds it: bytes (Z and the masks read once, the output written once)
-// at K = 5; the summary pass and the walk each read Z, and a rolling row's
-// leaving row is a second, scattered read. The chain of a row (K square
-// roots and divisions, ~K^3/3 dependent multiply-adds) times L rows is the
-// latency floor of a launch.
+// What bounds it: bytes would (Z and the masks read once, the output
+// written once), but the f64 work sits close: every row is advanced twice
+// (the lanes' summary and the walk) and a refresh row runs a Cholesky with
+// K double-precision reciprocal square roots. K <= 8 keeps the state, the
+// factor and the row in registers (the loops unroll over a compile-time K);
+// K <= 16 and K <= 32 run the same code on local-memory arrays.
 
+#include <climits>
 #include <cmath>
 #include <cstdint>
 
-#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 128;
 constexpr int kWarp = 32;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxK = 32;
-// doubles of Z a lane's share of a tile holds at most (rolling: as many
-// again of its leaving rows). On the H100 at K = 5, shares of 24 / 2 x 20
-// doubles (4 / 3 rows) ran faster than larger ones, which cost resident
-// warps.
-constexpr int kTileDoubles = 24;
-constexpr int kTileDoublesRolling = 20;
+constexpr int kMaxWarps = 4;  // warps a block, fewer where a warp's buffers are large
+constexpr int kMaxShared = 227 * 1024;
+constexpr int kMaxT = 16;
 
 struct Mean {
   double m[kMaxK];
@@ -82,10 +94,40 @@ struct Problem {
   const int64_t* rows;     // [G]
   const uint8_t* refresh;  // [G, R]
   const int32_t* leaving;  // [G, R], rolling only
-  int64_t G, R, L, NC;
-  int K;
+  const int64_t* ranges;   // [M, 2]: (group, first row) of the ranges of groups longer than L
+  int64_t G, R, L, M;
+  int K, T;
   double ff, reg0;
 };
+
+__host__ __device__ __forceinline__ int round16(int v) { return (v + 15) & ~15; }
+
+// A warp's shared memory: three mbarriers (two stages, the leaving span),
+// the carry (state, beta, whether beta is known), two stages of a stretch's
+// rows and masks, the leaving span, the stretch's output and, for K > 8,
+// the block the lanes' summaries are scanned in.
+struct Layout {
+  int carry, cbeta, misc, stage, z, m, lv, gone, out, scan, total;
+};
+
+__host__ __device__ inline Layout layout_for(int K, int T, bool rolling, int ow) {
+  const int C = K + 1, rows = kWarp * T, E = K * (K + 1) / 2 + K + 1;
+  Layout l;
+  l.z = round16(rows * C * 8) + 16;
+  l.m = round16(rows) + 16;
+  l.lv = rolling ? round16(rows * 4) + 16 : 0;
+  l.carry = 32;
+  l.cbeta = l.carry + round16(E * 8);
+  l.misc = l.cbeta + round16(K * 8);
+  l.stage = l.misc + 16;
+  const int stage_bytes = l.z + 2 * l.m + l.lv;
+  l.gone = l.stage + 2 * stage_bytes;
+  l.out = l.gone + (rolling ? l.z : 0);
+  l.scan = l.out + round16(rows * ow * 8);
+  // K > 8: the lanes' summaries, 32 entries at a time, and their discounts
+  l.total = (l.scan + (K > 8 ? round16(kWarp * (kWarp + 2) * 8) : 0) + 127) & ~127;
+  return l;
+}
 
 __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
 
@@ -114,7 +156,7 @@ __device__ __forceinline__ void clear(State<KB>& s, int k) {
   s.disc = 1.0;
 }
 
-// state entries in the order of the summary and seed buffers: A, b, disc
+// state entries in the order of the carry, summary and seed buffers: A, b, disc
 template <int KB>
 __device__ __forceinline__ void store(const State<KB>& s, int k, double* __restrict__ dst) {
   const int kt = k * (k + 1) / 2;
@@ -133,6 +175,113 @@ __device__ __forceinline__ void load(State<KB>& s, int k, const double* __restri
 #pragma unroll
   for (int i = 0; i < k; ++i) s.b[i] = src[kt + i];
   s.disc = src[kt + k];
+}
+
+// s = c o s: the state after c's rows and then s's, for s from a zero start
+// (A = disc_s A_c + A_s, disc = disc_c disc_s)
+template <int KB>
+__device__ __forceinline__ void compose_after(State<KB>& s, const double* __restrict__ c, int k) {
+  const int kt = k * (k + 1) / 2;
+#pragma unroll
+  for (int e = 0; e < kt; ++e) s.A[e] = fma(s.disc, c[e], s.A[e]);
+#pragma unroll
+  for (int i = 0; i < k; ++i) s.b[i] = fma(s.disc, c[kt + i], s.b[i]);
+  s.disc *= c[kt + k];
+}
+
+// Inclusive scan of the lanes' summaries in lane order: lane j ends with
+// the composition of lanes 0..j (Hillis-Steele, 5 steps).
+template <int KB, bool kDisc>
+__device__ __forceinline__ void scan_lanes(State<KB>& s, int lane, int k) {
+  const int kt = k * (k + 1) / 2;
+#pragma unroll
+  for (int o = 1; o < kWarp; o <<= 1) {
+    const bool on = lane >= o;
+#pragma unroll
+    for (int e = 0; e < kt; ++e) {
+      const double x = __shfl_up_sync(kFull, s.A[e], o);
+      if (on) s.A[e] = kDisc ? fma(s.disc, x, s.A[e]) : s.A[e] + x;
+    }
+#pragma unroll
+    for (int i = 0; i < k; ++i) {
+      const double x = __shfl_up_sync(kFull, s.b[i], o);
+      if (on) s.b[i] = kDisc ? fma(s.disc, x, s.b[i]) : s.b[i] + x;
+    }
+    if (kDisc) {
+      const double x = __shfl_up_sync(kFull, s.disc, o);
+      if (on) s.disc *= x;
+    }
+  }
+}
+
+// the inclusive scan shifted by one lane: lane j gets lanes 0..j-1, lane 0
+// the zero state
+template <int KB>
+__device__ __forceinline__ void exclusive(State<KB>& s, int lane, int k) {
+  const int kt = k * (k + 1) / 2;
+#pragma unroll
+  for (int e = 0; e < kt; ++e) {
+    const double x = __shfl_up_sync(kFull, s.A[e], 1);
+    s.A[e] = lane > 0 ? x : 0.0;
+  }
+#pragma unroll
+  for (int i = 0; i < k; ++i) {
+    const double x = __shfl_up_sync(kFull, s.b[i], 1);
+    s.b[i] = lane > 0 ? x : 0.0;
+  }
+  const double x = __shfl_up_sync(kFull, s.disc, 1);
+  s.disc = lane > 0 ? x : 1.0;
+}
+
+// entry e of the state in the order of the carry: A, then b
+template <int KB>
+__device__ __forceinline__ double& entry(State<KB>& s, int e, int kt) {
+  return e < kt ? s.A[e] : s.b[e - kt];
+}
+
+// K > 8 (the state in local memory, where shuffles cost a local load and
+// store each): the lanes' summaries go through a [32][33] block of shared
+// memory 32 entries at a time, and lane q composes entry q over the lanes
+// in turn; its running value before lane j is lane j's exclusive prefix.
+// Walk: s becomes the lane's start state (the prefix composed onto the
+// carry); summary: the carry becomes the carry composed with all 32 lanes.
+template <int KB>
+__device__ __forceinline__ void scan_shared(State<KB>& s, int lane, int k, double* buf, double* carry,
+                                            bool walk) {
+  const int kt = k * (k + 1) / 2, body = kt + k;
+  double* lam = buf + kWarp * (kWarp + 1);
+  lam[lane] = s.disc;
+  __syncwarp();
+  double ex = 1.0, total = 1.0;  // the discount before the lane, and of all lanes
+  for (int j = 0; j < kWarp; ++j) {
+    if (j == lane) ex = total;
+    total *= lam[j];
+  }
+  for (int e0 = 0; e0 < body; e0 += kWarp) {
+    const int n = body - e0 < kWarp ? body - e0 : kWarp;
+    for (int q = 0; q < n; ++q) buf[q * (kWarp + 1) + lane] = entry<KB>(s, e0 + q, kt);
+    __syncwarp();
+    if (lane < n) {
+      double* row = buf + lane * (kWarp + 1);
+      double run = 0.0;
+      for (int j = 0; j < kWarp; ++j) {
+        const double x = row[j];
+        row[j] = run;
+        run = fma(lam[j], run, x);
+      }
+      if (!walk) carry[e0 + lane] = fma(total, carry[e0 + lane], run);
+    }
+    __syncwarp();
+    if (walk) {
+      for (int q = 0; q < n; ++q) entry<KB>(s, e0 + q, kt) = fma(ex, carry[e0 + q], buf[q * (kWarp + 1) + lane]);
+    }
+    __syncwarp();
+  }
+  if (walk) {
+    s.disc = carry[body] * ex;
+  } else if (lane == 0) {
+    carry[body] *= total;
+  }
 }
 
 template <int KB>
@@ -231,319 +380,430 @@ __device__ __forceinline__ void emit(double* __restrict__ dst, bool coefs, const
   }
 }
 
-// Rows of a chunk a tile holds: as many as the doubles a lane may hold allow
-template <int KB, bool kRolling>
-constexpr int tile_rows() {
-  const int t = (kRolling ? kTileDoublesRolling : kTileDoubles) / (KB + 1);
-  return t < 1 ? 1 : t;
+__device__ __forceinline__ uint32_t shared_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// A warp's tile in shared memory: T rows of each of its 32 chunks. Lane j's
-// rows start at z + j zs, its leaving rows at gone + j zs, its output at
-// out + j os; the strides zs and os are odd, so the lanes' accesses at one
-// offset fall into different banks.
-struct TileShape {
-  int zs;     // doubles between two lanes' rows
-  int os;     // doubles between two lanes' outputs (0: the pass writes none)
-  int bytes;  // of one warp's tile
-};
+__device__ __forceinline__ void wait_parity(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
 
-// The chunk of thread w: its group's first row (grow = g R), its own first
-// row (row0) and the rows it walks (len; 0 past the group's rows and past
-// the last chunk).
-struct Chunk {
-  int64_t grow, row0;
+__device__ __forceinline__ int shift16(const void* p) {
+  return static_cast<int>(reinterpret_cast<uintptr_t>(p) & 15);
+}
+
+// bytes from src (rounded out to 16-byte words) into dst, completing on bar
+__device__ __forceinline__ void bulk(uint32_t dst, const void* src, int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(reinterpret_cast<const uint8_t*>(src) - shift16(src)),
+         "r"(static_cast<uint32_t>(round16(shift16(src) + bytes))), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void expect(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(static_cast<uint32_t>(bytes)) : "memory");
+}
+
+// The range a warp walks: its group, first row and rows (0: none).
+struct Range {
+  int64_t g, t0;
   int len;
 };
 
-__device__ __forceinline__ Chunk chunk_of(const Problem& p, int64_t w) {
-  Chunk ch{0, 0, 0};
-  if (w < p.G * p.NC) {
-    const int64_t g = w / p.NC, t0 = (w % p.NC) * p.L, n = p.rows[g];
-    ch.grow = g * p.R;
-    ch.row0 = ch.grow + t0;
-    if (t0 < n) ch.len = static_cast<int>(min64(p.L, n - t0));
+// item i < G: group i where it has at most L rows; item G + m: range m of
+// the table
+__device__ __forceinline__ Range range_of(const Problem& p, int64_t i) {
+  Range r{0, 0, 0};
+  if (i < p.G) {
+    const int64_t n = p.rows[i];
+    if (n <= p.L) r = Range{i, 0, static_cast<int>(n)};
+  } else {
+    const int64_t m = i - p.G;
+    r.g = p.ranges[2 * m];
+    r.t0 = p.ranges[2 * m + 1];
+    r.len = static_cast<int>(min64(p.L, p.rows[r.g] - r.t0));
   }
-  return ch;
+  return r;
 }
 
-template <int KB, bool kRolling>
-struct Tile {
-  static constexpr int T = tile_rows<KB, kRolling>();
-  double* z;
-  double* gone;
-  double* out;
-  int64_t* row0;     // [32] the lanes' chunks
-  int64_t* grow;
-  int* len;
-  int* from;         // [32] the first row of the tile each lane has output for
-  int32_t* leaving;  // [32, T]
-  uint8_t* v;
-  uint8_t* refresh;
-
-  // every lane of the warp constructs it, with its own chunk
-  __device__ Tile(const TileShape& sh, double* smem, const Chunk& ch) {
-    const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-    z = reinterpret_cast<double*>(reinterpret_cast<char*>(smem) + static_cast<size_t>(warp) * sh.bytes);
-    gone = z + kWarp * sh.zs;
-    out = gone + (kRolling ? kWarp * sh.zs : 0);
-    row0 = reinterpret_cast<int64_t*>(out + kWarp * sh.os);
-    grow = row0 + kWarp;
-    len = reinterpret_cast<int*>(grow + kWarp);
-    from = len + kWarp;
-    leaving = from + kWarp;
-    v = reinterpret_cast<uint8_t*>(leaving + (kRolling ? kWarp * T : 0));
-    refresh = v + kWarp * T;
-    row0[lane] = ch.row0;
-    grow[lane] = ch.grow;
-    len[lane] = ch.len;
-    __syncwarp();
-  }
+// The rows of stretch st of a range in device memory.
+struct Stretch {
+  int64_t row;  // g R + first row
+  int64_t a;    // first row in the group
+  int n;        // rows
 };
 
-// The warp copies rows [r0, r0 + T) of every lane's chunk into the tile.
-// Lane j's rows are contiguous in Z, so the copy runs over the flat index
-// (j, element) with neighbouring lanes on neighbouring doubles, as
-// asynchronous 8-byte copies that are all in flight before the one wait;
-// likewise the masks and the leaving-row index (through registers, loads
-// before stores) and, found through that index, the leaving rows.
-template <int KB, bool kRolling>
-__device__ __forceinline__ void stage(const Tile<KB, kRolling>& tl, const TileShape& sh,
-                                      const Problem& p, int lane, int c1, int r0, bool with_refresh) {
-  constexpr int T = Tile<KB, kRolling>::T;
-  const int seg = T * c1;
-  for (int i = lane; i < kWarp * seg; i += kWarp) {
-    const int j = i / seg, e = i - j * seg;
-    const int left = tl.len[j] - r0;
-    if (e < (left < T ? left : T) * c1) {
-      __pipeline_memcpy_async(tl.z + j * sh.zs + e, p.Z + (tl.row0[j] + r0) * c1 + e, 8);
-    }
-  }
-  uint8_t mv[T], mr[T];
-  int32_t ml[T];
-#pragma unroll
-  for (int q = 0; q < T; ++q) {  // flat over (j, row): i = j T + row
-    const int i = lane + kWarp * q;
-    const int j = i / T, r = r0 + i - j * T;
-    const bool on = r < tl.len[j];
-    const int64_t at = tl.row0[j] + r;
-    mv[q] = on ? p.v[at] : 0;
-    mr[q] = on && with_refresh ? p.refresh[at] : 0;
-    ml[q] = on && kRolling ? p.leaving[at] : -1;
-  }
-#pragma unroll
-  for (int q = 0; q < T; ++q) {
-    const int i = lane + kWarp * q;
-    tl.v[i] = mv[q];
-    tl.refresh[i] = mr[q];
-    if (kRolling) tl.leaving[i] = ml[q];
-  }
-  if (kRolling) {
-    __syncwarp();
-    for (int i = lane; i < kWarp * seg; i += kWarp) {
-      const int j = i / seg, e = i - j * seg;
-      const int r = e / c1;
-      const int32_t gone = tl.leaving[j * T + r];
-      if (gone >= 0) {
-        __pipeline_memcpy_async(tl.gone + j * sh.zs + e, p.Z + (tl.grow[j] + gone) * c1 + (e - r * c1), 8);
+__device__ __forceinline__ Stretch stretch_of(const Problem& p, const Range& rg, int st) {
+  const int rows = kWarp * p.T;
+  Stretch s;
+  s.a = rg.t0 + static_cast<int64_t>(st) * rows;
+  s.row = rg.g * p.R + s.a;
+  s.n = static_cast<int>(min64(rows, rg.len - static_cast<int64_t>(st) * rows));
+  return s;
+}
+
+// Lane 0: the bulk copies of a stretch into a stage.
+template <bool kRolling>
+__device__ __forceinline__ void issue_stretch(const Problem& p, const Layout& lay, const Stretch& s,
+                                              uint32_t stage, uint32_t bar) {
+  const int C = p.K + 1;
+  const double* z = p.Z + s.row * C;
+  const uint8_t* v = p.v + s.row;
+  const uint8_t* r = p.refresh + s.row;
+  int bytes = round16(shift16(z) + 8 * s.n * C) + round16(shift16(v) + s.n) + round16(shift16(r) + s.n);
+  const int32_t* l = kRolling ? p.leaving + s.row : nullptr;
+  if (kRolling) bytes += round16(shift16(l) + 4 * s.n);
+  expect(bar, bytes);
+  bulk(stage, z, 8 * s.n * C, bar);
+  bulk(stage + lay.z, v, s.n, bar);
+  bulk(stage + lay.z + lay.m, r, s.n, bar);
+  if (kRolling) bulk(stage + lay.z + 2 * lay.m, l, 4 * s.n, bar);
+}
+
+// A lane's view of a stretch in its stage.
+struct Rows {
+  const double* z;      // its first row
+  const uint8_t* v;
+  const uint8_t* refresh;
+  const int32_t* leaving;
+  int n;                // its rows (0..T)
+};
+
+// The rolling window's leaving rows of a stretch: the span [lo, hi] of
+// the group's rows and the pieces of at most 32 T rows it is copied in.
+struct Span {
+  int lo, hi, pieces;
+};
+
+// Lanes walk their rows in order; in rolling, over the pieces of the
+// leaving span, each lane going as far as the piece holds its leaving rows.
+// `copy`: bring each piece in (else the one piece is still there).
+template <int KB, bool kRolling, class Row>
+__device__ __forceinline__ void over_rows(const Problem& p, const Rows& mine, const Span& sp, int64_t g,
+                                          unsigned char* gone, uint32_t gone_bar, int& gone_phase,
+                                          bool copy, int lane, Row&& row) {
+  const int C = p.K + 1, cap = kWarp * p.T;
+  const int passes = kRolling && sp.pieces > 0 ? sp.pieces : 1;
+  int r = 0;
+  for (int pc = 0; pc < passes; ++pc) {
+    int lo = 0, hi = INT_MAX;
+    const double* gz = nullptr;
+    if (kRolling && sp.pieces > 0) {
+      lo = sp.lo + pc * cap;
+      hi = sp.hi + 1 < lo + cap ? sp.hi + 1 : lo + cap;
+      const double* src = p.Z + (g * p.R + lo) * C;
+      if (copy) {
+        __syncwarp();  // every lane is done with the last piece
+        if (lane == 0) {
+          expect(gone_bar, round16(shift16(src) + 8 * (hi - lo) * C));
+          bulk(shared_addr(gone), src, 8 * (hi - lo) * C, gone_bar);
+        }
+        wait_parity(gone_bar, static_cast<uint32_t>(gone_phase) & 1u);
+        ++gone_phase;
       }
+      gz = reinterpret_cast<const double*>(gone + shift16(src));
     }
-  }
-  __pipeline_commit();
-  __pipeline_wait_prior(0);
-  __syncwarp();
-}
-
-// The warp writes every lane's output of rows [r0 + from, r0 + T) of its
-// chunk from the tile to out (ow doubles a row), over the flat index again.
-template <int KB, bool kRolling>
-__device__ __forceinline__ void unstage(const Tile<KB, kRolling>& tl, const TileShape& sh,
-                                        double* __restrict__ out, int ow, int lane, int r0, int from) {
-  constexpr int T = Tile<KB, kRolling>::T;
-  tl.from[lane] = from;
-  __syncwarp();
-  const int seg = T * ow;
-  for (int i = lane; i < kWarp * seg; i += kWarp) {
-    const int j = i / seg, e = i - j * seg;
-    const int left = tl.len[j] - r0;
-    if (e >= tl.from[j] * ow && e < (left < T ? left : T) * ow) {
-      out[(tl.row0[j] + r0) * ow + e] = tl.out[j * sh.os + e];
+    for (; r < mine.n; ++r) {
+      const int s = kRolling ? mine.leaving[r] : -1;
+      if (kRolling && s >= hi) break;
+      row(r, mine.z + r * C, s >= 0 ? gz + (s - lo) * C : nullptr);
     }
   }
 }
 
-// lane's staged row r: its values into z, those of its leaving row or null
-// into gone; returns the row in the tile
-template <int KB, bool kRolling>
-__device__ __forceinline__ const double* staged_row(const Tile<KB, kRolling>& tl, const TileShape& sh,
-                                                    int lane, int r, int k, double (&z)[KB + 1],
-                                                    const double*& gone) {
-  const int at = lane * sh.zs + r * (k + 1);
-  load_row<KB>(z, tl.z + at, k);
-  gone = kRolling && tl.leaving[lane * tl.T + r] >= 0 ? tl.gone + at : nullptr;
-  return tl.z + at;
-}
-
-template <int KB, bool kRolling>
-__global__ void __launch_bounds__(kThreads)
-summarize(Problem p, TileShape sh, double* __restrict__ summ) {
-  extern __shared__ double smem[];
-  const int lane = threadIdx.x % kWarp;
-  const int64_t w = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const Chunk ch = chunk_of(p, w);
-  const Tile<KB, kRolling> tl(sh, smem, ch);
-  constexpr int T = Tile<KB, kRolling>::T;
-  const int k = width<KB>(p.K);
-  State<KB> s;
-  clear<KB>(s, k);
-  const int longest = __reduce_max_sync(kFull, ch.len);
-  for (int r0 = 0; r0 < longest; r0 += T) {
-    stage<KB, kRolling>(tl, sh, p, lane, k + 1, r0, false);
-    for (int r = 0; r < T && r0 + r < ch.len; ++r) {
-      double z[KB + 1];
-      const double* gone;
-      staged_row<KB, kRolling>(tl, sh, lane, r, k, z, gone);
-      advance<KB, kRolling>(s, p.ff, z, tl.v[lane * T + r] != 0, gone, k);
-    }
-    __syncwarp();  // the next tile overwrites this one
-  }
-  if (w < p.G * p.NC) store<KB>(s, k, summ + w * (k * (k + 1) / 2 + k + 1));
-}
-
-// The prefix over a group's chunk summaries, per state entry e:
-// state[c + 1] = lam_c state[c] + summ[c], lam_c the chunk's total discount
-// (the last entry, which itself runs as a product from 1). One thread runs
-// segment j (SEG chunks) of group g for entry e, from start[g, j] (the zero
-// state where null), writes the state before each chunk into seed (where not
-// null) and the state after its last chunk into total (where not null). A
-// group of few chunks is one segment; a long one is composed per segment
-// (total), scanned over the segments' totals (a second call of this kernel
-// on them), and expanded per segment from those starts.
-__global__ void __launch_bounds__(kThreads)
-prefix(const double* __restrict__ summ, const double* __restrict__ start,
-       double* __restrict__ seed, double* __restrict__ total, int64_t G, int64_t NC, int E,
-       int64_t S, int64_t SEG) {
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= G * S * E) return;
-  const int64_t gj = idx / E, g = gj / S, j = gj % S;
-  const int e = static_cast<int>(idx % E);
-  const bool is_disc = e == E - 1;
-  double run = start != nullptr ? start[gj * E + e] : (is_disc ? 1.0 : 0.0);
-  const int64_t c1 = min64((j + 1) * SEG, NC);
-#pragma unroll 4
-  for (int64_t c = j * SEG; c < c1; ++c) {
-    const int64_t base = (g * NC + c) * E;
-    if (seed != nullptr) seed[base + e] = run;
-    const double lam = summ[base + E - 1];
-    run = is_disc ? run * lam : fma(lam, run, summ[base + e]);
-  }
-  if (total != nullptr) total[gj * E + e] = run;
-}
-
-template <int KB, bool kRolling>
-__global__ void __launch_bounds__(kThreads)
-walk(Problem p, Mean mean, TileShape sh, const double* __restrict__ seed, double* __restrict__ tail,
+// One warp walks one range (kWalk) or forms its summary (else: the ranges
+// of groups longer than L only, items G .. G + M - 1). seed: the ranges'
+// start states [M, E] (null: zero). Walk: output into coef or pred; a
+// stretch with a flagged row leaves its start state in
+// sseed[item, stretch]; a range of the table leaves its last beta in tail
+// and whether it has one in has. Summary: summ [M, E].
+template <int KB, bool kRolling, bool kWalk>
+__global__ void __launch_bounds__(kMaxWarps * kWarp)
+walk(Problem p, Mean mean, Layout lay, int64_t first, int64_t items, const double* __restrict__ seed,
+     double* __restrict__ summ, double* __restrict__ sseed, int64_t nsmax, double* __restrict__ tail,
      uint8_t* __restrict__ has, double* __restrict__ coef, double* __restrict__ pred,
      uint8_t* __restrict__ flag, int* __restrict__ nflag) {
-  extern __shared__ double smem[];
-  const int lane = threadIdx.x % kWarp;
-  const int64_t w = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const Chunk ch = chunk_of(p, w);
-  const Tile<KB, kRolling> tl(sh, smem, ch);
-  constexpr int T = Tile<KB, kRolling>::T;
-  const int k = width<KB>(p.K);
-  State<KB> s;
-  if (seed != nullptr && ch.len > 0) {
-    load<KB>(s, k, seed + w * (k * (k + 1) / 2 + k + 1));
-  } else {
-    clear<KB>(s, k);
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int warp = static_cast<int>(threadIdx.x) / kWarp;
+  const int lane = static_cast<int>(threadIdx.x) % kWarp;
+  const int64_t item = first + static_cast<int64_t>(blockIdx.x) * (blockDim.x / kWarp) + warp;
+  if (item >= first + items) return;
+  const Range rg = range_of(p, item);
+  if (rg.len <= 0) return;  // the whole warp leaves together
+  const int k = width<KB>(p.K), C = k + 1, T = p.T, E = k * (k + 1) / 2 + k + 1;
+  unsigned char* base = smem + static_cast<int64_t>(warp) * lay.total;
+  const uint32_t bars = shared_addr(base);
+  double* carry = reinterpret_cast<double*>(base + lay.carry);
+  double* cbeta = reinterpret_cast<double*>(base + lay.cbeta);
+  int* known = reinterpret_cast<int*>(base + lay.misc);
+  double* out = reinterpret_cast<double*>(base + lay.out);
+  const int stage_bytes = lay.z + 2 * lay.m + lay.lv;
+  const int nst = (rg.len + kWarp * T - 1) / (kWarp * T);
+  const bool in_table = item >= p.G;
+
+  if (lane == 0) {
+    for (int b = 0; b < 3; ++b) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(bars + 8u * b) : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    for (int st = 0; st < 2 && st < nst; ++st) {
+      issue_stretch<kRolling>(p, lay, stretch_of(p, rg, st),
+                              shared_addr(base + lay.stage + st * stage_bytes), bars + 8u * st);
+    }
   }
+  const double* s0 = in_table && seed != nullptr ? seed + (item - p.G) * E : nullptr;
+  for (int e = lane; e < E; e += kWarp) carry[e] = s0 != nullptr ? s0[e] : (e == E - 1 ? 1.0 : 0.0);
+  if (kWalk) {
+    for (int i = lane; i < k; i += kWarp) cbeta[i] = kRolling ? NAN : mean.m[i];
+    if (lane == 0) *known = rg.t0 == 0 ? 1 : 0;  // a later range's carry comes from fill
+  }
+  __syncwarp();
+
   const bool coefs = coef != nullptr;
   const int ow = coefs ? k : 1;
-  double beta[KB];
-  bool have = false;
-  const int longest = __reduce_max_sync(kFull, ch.len);
-  for (int r0 = 0; r0 < longest; r0 += T) {
-    stage<KB, kRolling>(tl, sh, p, lane, k + 1, r0, true);
-    int from = T;  // the first row of this tile that has coefficients
-    for (int r = 0; r < T && r0 + r < ch.len; ++r) {
-      double z[KB + 1];
-      const double* gone;
-      const double* row = staged_row<KB, kRolling>(tl, sh, lane, r, k, z, gone);
-      advance<KB, kRolling>(s, p.ff, z, tl.v[lane * T + r] != 0, gone, k);
-      if (tl.refresh[lane * T + r]) {
-        const double reg = kRolling ? p.reg0 : s.disc * p.reg0;
-        if (!chol_solve<KB>(s, reg, mean, k, beta)) {
-          flag[ch.row0 + r0 + r] = 1;
-          atomicAdd(nflag, 1);
-#pragma unroll
-          for (int i = 0; i < k; ++i) beta[i] = NAN;
+  double* dst = coefs ? coef : pred;
+  int gone_phase = 0;
+  for (int st = 0; st < nst; ++st) {
+    const int slot = st & 1;
+    wait_parity(bars + 8u * slot, static_cast<uint32_t>(st >> 1) & 1u);
+    const Stretch sx = stretch_of(p, rg, st);
+    unsigned char* stage = base + lay.stage + slot * stage_bytes;
+    const int r0 = lane * T;
+    Rows mine;
+    mine.z = reinterpret_cast<const double*>(stage + shift16(p.Z + sx.row * C)) + r0 * C;
+    mine.v = stage + lay.z + shift16(p.v + sx.row) + r0;
+    mine.refresh = stage + lay.z + lay.m + shift16(p.refresh + sx.row) + r0;
+    mine.leaving = kRolling ? reinterpret_cast<const int32_t*>(
+                                  stage + lay.z + 2 * lay.m + shift16(p.leaving + sx.row)) + r0
+                            : nullptr;
+    mine.n = sx.n - r0 < 0 ? 0 : (sx.n - r0 < T ? sx.n - r0 : T);
+    Span sp{0, -1, 0};
+    if (kRolling) {
+      int lo = INT_MAX, hi = -1;
+      for (int r = 0; r < mine.n; ++r) {
+        const int s = mine.leaving[r];
+        if (s >= 0) {
+          lo = s < lo ? s : lo;
+          hi = s > hi ? s : hi;
         }
-        have = true;
       }
-      if (have) {
-        if (from == T) from = r;
-        emit<KB>(tl.out + lane * sh.os + r * ow, coefs, row, beta, k);
+      sp.lo = __reduce_min_sync(kFull, lo);
+      sp.hi = __reduce_max_sync(kFull, hi);
+      sp.pieces = sp.hi >= sp.lo ? (sp.hi - sp.lo + kWarp * T) / (kWarp * T) : 0;
+    }
+    unsigned char* gone = base + lay.gone;
+    const uint32_t gone_bar = bars + 16u;
+
+    // 1. the summary of the lane's rows from a zero start, scanned over the lanes
+    State<KB> s;
+    clear<KB>(s, k);
+    over_rows<KB, kRolling>(p, mine, sp, rg.g, gone, gone_bar, gone_phase, true, lane,
+                            [&](int r, const double* row, const double* gz) {
+                              double z[KB + 1];
+                              load_row<KB>(z, row, k);
+                              advance<KB, kRolling>(s, p.ff, z, mine.v[r] != 0, gz, k);
+                            });
+    if constexpr (KB > 8) {
+      scan_shared<KB>(s, lane, k, reinterpret_cast<double*>(base + lay.scan), carry, kWalk);
+    } else {
+      scan_lanes<KB, !kRolling>(s, lane, k);
+      if (kWalk) {
+        exclusive<KB>(s, lane, k);
+        compose_after<KB>(s, carry, k);
+      } else {
+        __syncwarp();
+        if (lane == kWarp - 1) {
+          compose_after<KB>(s, carry, k);
+          store<KB>(s, k, carry);
+        }
       }
     }
-    unstage<KB, kRolling>(tl, sh, coefs ? coef : pred, ow, lane, r0, from);
-  }
-  if (w >= p.G * p.NC) return;
-  if (have) {
+    __syncwarp();
+    if (kWalk) {
+      // 2. each lane's start state is s: its walk, its output into the stage
+      double beta[KB];
 #pragma unroll
-    for (int i = 0; i < k; ++i) tail[w * k + i] = beta[i];
+      for (int i = 0; i < k; ++i) beta[i] = 0.0;
+      bool have = false, flagged = false;
+      int lead = T;  // the lane's first refresh row
+      over_rows<KB, kRolling>(
+          p, mine, sp, rg.g, gone, gone_bar, gone_phase, sp.pieces > 1, lane,
+          [&](int r, const double* row, const double* gz) {
+            double z[KB + 1];
+            load_row<KB>(z, row, k);
+            advance<KB, kRolling>(s, p.ff, z, mine.v[r] != 0, gz, k);
+            if (mine.refresh[r]) {
+              const double reg = kRolling ? p.reg0 : s.disc * p.reg0;
+              if (!chol_solve<KB>(s, reg, mean, k, beta)) {
+                flag[sx.row + r0 + r] = 1;
+                atomicAdd(nflag, 1);
+                flagged = true;
+#pragma unroll
+                for (int i = 0; i < k; ++i) beta[i] = NAN;
+              }
+              if (!have) lead = r;
+              have = true;
+            }
+            if (have) emit<KB>(out + (r0 + r) * ow, coefs, row, beta, k);
+          });
+      // 3. the beta the lane's leading rows carry: the last solved of the
+      // lanes before it, else the stretch's incoming one
+      const unsigned solved = __ballot_sync(kFull, have);
+      const unsigned before = solved & ((1u << lane) - 1u);
+      const int src = before != 0u ? 31 - __clz(before) : lane;
+      const bool was_known = *known != 0;
+      double in[KB];
+#pragma unroll
+      for (int i = 0; i < k; ++i) {
+        const double x = __shfl_sync(kFull, beta[i], src);
+        in[i] = before != 0u ? x : cbeta[i];
+      }
+      if (before != 0u || was_known) {
+        for (int r = 0; r < lead && r < mine.n; ++r) emit<KB>(out + (r0 + r) * ow, coefs, mine.z + r * C, in, k);
+      }
+      // the first row with output: 0, or the range's first refresh row
+      int from = 0;
+      if (!was_known) {
+        const int fl = solved != 0u ? __ffs(solved) - 1 : 0;
+        const int lead_fl = __shfl_sync(kFull, lead, fl);
+        from = solved != 0u ? fl * T + lead_fl : sx.n;
+      }
+      if (__any_sync(kFull, flagged) && sseed != nullptr) {
+        double* ss = sseed + (item * nsmax + st) * E;
+        for (int e = lane; e < E; e += kWarp) ss[e] = carry[e];
+      }
+      __syncwarp();  // every lane has read the carry and written its output
+      if (lane == kWarp - 1) store<KB>(s, k, carry);
+      if (solved != 0u && lane == 31 - __clz(solved)) {
+#pragma unroll
+        for (int i = 0; i < k; ++i) cbeta[i] = beta[i];
+        *known = 1;
+      }
+      double* o = dst + sx.row * ow;
+      for (int e = from * ow + lane; e < sx.n * ow; e += kWarp) o[e] = out[e];
+      __syncwarp();
+    }
+    if (lane == 0 && st + 2 < nst) {
+      issue_stretch<kRolling>(p, lay, stretch_of(p, rg, st + 2), shared_addr(stage), bars + 8u * slot);
+    }
   }
-  has[w] = have ? 1 : 0;
+  if (!in_table) return;
+  const int64_t m = item - p.G;
+  if (!kWalk) {
+    for (int e = lane; e < E; e += kWarp) summ[m * E + e] = carry[e];
+  } else {
+    for (int i = lane; i < k; i += kWarp) tail[m * k + i] = cbeta[i];
+    if (lane == 0) has[m] = static_cast<uint8_t>(*known);
+  }
 }
 
+// The prefix over each long group's range summaries, per state entry e:
+// state[c + 1] = lam_c state[c] + summ[c], lam_c the range's total discount
+// (the last entry, which itself runs as a product from 1). Ranges are flat
+// (a group's are contiguous) and cut into segments that never cross a
+// group: compose each segment, scan each group's segment totals, expand
+// each segment from its start (the zero state where segseed is null).
+__device__ __forceinline__ double step(double run, const double* __restrict__ summ, int64_t c, int e, int E) {
+  const double lam = summ[c * E + E - 1];
+  return e == E - 1 ? run * lam : fma(lam, run, summ[c * E + e]);
+}
+
+__global__ void __launch_bounds__(128)
+prefix_compose(const double* __restrict__ summ, const int64_t* __restrict__ seg_first, int64_t NS, int E,
+               double* __restrict__ segtot) {
+  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= NS * E) return;
+  const int64_t sg = idx / E;
+  const int e = static_cast<int>(idx % E);
+  double run = e == E - 1 ? 1.0 : 0.0;
+  for (int64_t c = seg_first[sg]; c < seg_first[sg + 1]; ++c) run = step(run, summ, c, e, E);
+  segtot[sg * E + e] = run;
+}
+
+__global__ void __launch_bounds__(128)
+prefix_scan(const double* __restrict__ segtot, const int64_t* __restrict__ grp_seg, int64_t NL, int E,
+            double* __restrict__ segseed) {
+  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= NL * E) return;
+  const int64_t j = idx / E;
+  const int e = static_cast<int>(idx % E);
+  double run = e == E - 1 ? 1.0 : 0.0;
+  for (int64_t sg = grp_seg[j]; sg < grp_seg[j + 1]; ++sg) {
+    segseed[sg * E + e] = run;
+    run = step(run, segtot, sg, e, E);
+  }
+}
+
+__global__ void __launch_bounds__(128)
+prefix_expand(const double* __restrict__ summ, const int64_t* __restrict__ seg_first,
+              const double* __restrict__ segseed, int64_t NS, int E, double* __restrict__ seed) {
+  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= NS * E) return;
+  const int64_t sg = idx / E;
+  const int e = static_cast<int>(idx % E);
+  double run = segseed != nullptr ? segseed[sg * E + e] : (e == E - 1 ? 1.0 : 0.0);
+  for (int64_t c = seg_first[sg]; c < seg_first[sg + 1]; ++c) {
+    seed[c * E + e] = run;
+    run = step(run, summ, c, e, E);
+  }
+}
+
+// The leading rows of a later range of a long group that only carry take
+// the last beta of the nearest earlier range that has one (the group's
+// first range always has: the prior mean, or NaN for rolling).
 template <int KB>
-__global__ void __launch_bounds__(kThreads)
-fill(Problem p, Mean mean, bool rolling, const double* __restrict__ tail,
-     const uint8_t* __restrict__ has, double* __restrict__ coef, double* __restrict__ pred) {
-  const int64_t w = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (w >= p.G * p.NC) return;
-  const int64_t g = w / p.NC, c = w % p.NC;
+__global__ void __launch_bounds__(128)
+fill(Problem p, const double* __restrict__ tail, const uint8_t* __restrict__ has,
+     double* __restrict__ coef, double* __restrict__ pred) {
+  const int64_t m = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (m >= p.M) return;
+  const Range rg = range_of(p, p.G + m);
+  if (rg.t0 == 0) return;
   const int k = width<KB>(p.K);
-  const int64_t n = p.rows[g];
-  const int64_t t0 = c * p.L;
-  if (t0 >= n || p.refresh[g * p.R + t0]) return;
-  const int64_t t1 = min64(t0 + p.L, n);
+  int64_t src = m - 1;
+  while (src > 0 && !has[src] && p.ranges[2 * (src - 1)] == rg.g) --src;
   double beta[KB];
 #pragma unroll
-  for (int i = 0; i < k; ++i) beta[i] = rolling ? NAN : mean.m[i];
-  for (int64_t cc = c - 1; cc >= 0; --cc) {
-    if (has[g * p.NC + cc]) {
-#pragma unroll
-      for (int i = 0; i < k; ++i) beta[i] = tail[(g * p.NC + cc) * k + i];
-      break;
-    }
-  }
-  for (int64_t t = t0; t < t1; ++t) {
-    const int64_t at = g * p.R + t;
+  for (int i = 0; i < k; ++i) beta[i] = tail[src * k + i];
+  for (int t = 0; t < rg.len; ++t) {
+    const int64_t at = rg.g * p.R + rg.t0 + t;
     if (p.refresh[at]) break;
     double* dst = coef != nullptr ? coef + at * k : pred + at;
     emit<KB>(dst, coef != nullptr, p.Z + at * (k + 1), beta, k);
   }
 }
 
-// the system (A + reg I, b + reg mean) of each listed row (fg[f], ft[f])
+// the system (A + reg I, b + reg mean) of each listed row (fg[f], ft[f]),
+// walked from the start state of its stretch sseed[fseed[f]], which begins
+// at row fa[f] of the group
 template <int KB, bool kRolling>
-__global__ void __launch_bounds__(kThreads)
-moments_at(Problem p, Mean mean, const double* __restrict__ seed, const int64_t* __restrict__ fg,
-           const int64_t* __restrict__ ft, int64_t F, double* __restrict__ A_out,
+__global__ void __launch_bounds__(128)
+moments_at(Problem p, Mean mean, const double* __restrict__ sseed, const int64_t* __restrict__ fg,
+           const int64_t* __restrict__ ft, const int64_t* __restrict__ fa,
+           const int64_t* __restrict__ fseed, int64_t F, double* __restrict__ A_out,
            double* __restrict__ rhs_out) {
   const int64_t f = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (f >= F) return;
   const int64_t g = fg[f], t_at = ft[f];
-  const int64_t c = t_at / p.L;
-  const int k = width<KB>(p.K);
+  const int k = width<KB>(p.K), E = k * (k + 1) / 2 + k + 1;
   State<KB> s;
-  if (seed != nullptr) {
-    load<KB>(s, k, seed + (g * p.NC + c) * (k * (k + 1) / 2 + k + 1));
-  } else {
-    clear<KB>(s, k);
-  }
-  for (int64_t t = c * p.L; t <= t_at; ++t) {
+  load<KB>(s, k, sseed + fseed[f] * E);
+  for (int64_t t = fa[f]; t <= t_at; ++t) {
     const int64_t at = g * p.R + t;
     double z[KB + 1];
     const bool valid = p.v[at] != 0;
@@ -564,93 +824,91 @@ moments_at(Problem p, Mean mean, const double* __restrict__ seed, const int64_t*
   }
 }
 
-unsigned blocks_for(int64_t threads) {
-  return static_cast<unsigned>((threads + kThreads - 1) / kThreads);
+unsigned blocks_for(int64_t threads, int per_block) {
+  return static_cast<unsigned>((threads + per_block - 1) / per_block);
 }
 
-// seed = the state before every chunk, from the chunks' summaries
-int run_prefix(const double* summ, double* seed, double* comp, double* segseed, int64_t G,
-               int64_t NC, int E, int64_t S, cudaStream_t st) {
-  const int64_t SEG = (NC + S - 1) / S;
-  const double* no_start = nullptr;
-  double* no_out = nullptr;
-  if (S == 1) {
-    prefix<<<blocks_for(G * E), kThreads, 0, st>>>(summ, no_start, seed, no_out, G, NC, E, S, SEG);
-    return static_cast<int>(cudaGetLastError());
-  }
-  const unsigned blocks = blocks_for(G * S * E);
-  prefix<<<blocks, kThreads, 0, st>>>(summ, no_start, no_out, comp, G, NC, E, S, SEG);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // the segments' totals are summaries of their own: one segment of S of them
-  prefix<<<blocks_for(G * E), kThreads, 0, st>>>(comp, no_start, segseed, no_out, G, S, E, 1, S);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  prefix<<<blocks, kThreads, 0, st>>>(summ, segseed, seed, no_out, G, NC, E, S, SEG);
-  return static_cast<int>(cudaGetLastError());
+// warps a block: as many as fit the block's shared memory, at most kMaxWarps
+int warps_per_block(const Layout& lay) {
+  const int w = kMaxShared / lay.total;
+  return w < kMaxWarps ? w : kMaxWarps;
 }
 
-// The tile of a pass over K features that writes ow doubles a row (0: none)
-template <int KB, bool kRolling>
-TileShape tile_shape(int K, int ow) {
-  constexpr int T = tile_rows<KB, kRolling>();
-  TileShape sh;
-  sh.zs = (T * (K + 1)) | 1;
-  sh.os = ow > 0 ? (T * ow) | 1 : 0;
-  const int doubles = kWarp * (sh.zs * (kRolling ? 2 : 1) + sh.os + 2);  // and row0, grow
-  const int bytes = doubles * 8 + kWarp * (4 * (2 + (kRolling ? T : 0)) + 2 * T);
-  sh.bytes = (bytes + 15) / 16 * 16;
-  return sh;
+template <class Kernel>
+int prepare(Kernel kernel, const Layout& lay, int* wpb) {
+  *wpb = warps_per_block(lay);
+  if (*wpb < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               *wpb * lay.total));
 }
 
-// Launch a staged pass with its block's tiles as dynamic shared memory.
-template <class Kernel, class... Args>
-int launch_staged(Kernel kernel, unsigned blocks, const TileShape& sh, cudaStream_t st, Args... args) {
-  const int smem = sh.bytes * (kThreads / kWarp);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  kernel<<<blocks, kThreads, smem, st>>>(args...);
+template <bool kWalk, int KB, bool kRolling>
+int launch_walk(const Problem& p, const Mean& mean, int ow, int64_t first, int64_t items,
+                const double* seed, double* summ, double* sseed, int64_t nsmax, double* tail,
+                uint8_t* has, double* coef, double* pred, uint8_t* flag, int* nflag, cudaStream_t st) {
+  if (items == 0) return 0;
+  const Layout lay = layout_for(p.K, p.T, kRolling, ow);
+  auto kernel = walk<KB, kRolling, kWalk>;
+  int wpb = 0;
+  const int rc = prepare(kernel, lay, &wpb);
+  if (rc != 0) return rc;
+  kernel<<<blocks_for(items, wpb), wpb * kWarp, wpb * lay.total, st>>>(
+      p, mean, lay, first, items, seed, summ, sseed, nsmax, tail, has, coef, pred, flag, nflag);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int KB, bool kRolling>
-int run_all(const Problem& p, const Mean& mean, int64_t S, double* summ, double* seed,
-            double* comp, double* segseed, double* tail, uint8_t* has, double* coef,
+int run_all(const Problem& p, const Mean& mean, const int64_t* seg_first, int64_t NS,
+            const int64_t* grp_seg, int64_t NL, double* summ, double* seed, double* segtot,
+            double* segseed, double* sseed, int64_t nsmax, double* tail, uint8_t* has, double* coef,
             double* pred, uint8_t* flag, int* nflag, cudaStream_t st) {
-  const unsigned blocks = blocks_for(p.G * p.NC);
   const int E = p.K * (p.K + 1) / 2 + p.K + 1;
   int rc = 0;
-  if (p.NC > 1) {
-    const TileShape sh = tile_shape<KB, kRolling>(p.K, 0);
-    rc = launch_staged(summarize<KB, kRolling>, blocks, sh, st, p, sh, summ);
+  if (p.M > 0) {
+    rc = launch_walk<false, KB, kRolling>(p, mean, 0, p.G, p.M, nullptr, summ, nullptr, 0, nullptr,
+                                          nullptr, nullptr, nullptr, nullptr, nullptr, st);
     if (rc != 0) return rc;
-    rc = run_prefix(summ, seed, comp, segseed, p.G, p.NC, E, S, st);
+    if (NS > NL) {
+      prefix_compose<<<blocks_for(NS * E, 128), 128, 0, st>>>(summ, seg_first, NS, E, segtot);
+      prefix_scan<<<blocks_for(NL * E, 128), 128, 0, st>>>(segtot, grp_seg, NL, E, segseed);
+    } else {
+      segseed = nullptr;
+    }
+    prefix_expand<<<blocks_for(NS * E, 128), 128, 0, st>>>(summ, seg_first, segseed, NS, E, seed);
+    rc = static_cast<int>(cudaGetLastError());
     if (rc != 0) return rc;
-  } else {
-    seed = nullptr;
   }
-  const TileShape sh = tile_shape<KB, kRolling>(p.K, coef != nullptr ? p.K : 1);
-  rc = launch_staged(walk<KB, kRolling>, blocks, sh, st, p, mean, sh, static_cast<const double*>(seed),
-                     tail, has, coef, pred, flag, nflag);
-  if (rc != 0) return rc;
-  fill<KB><<<blocks, kThreads, 0, st>>>(p, mean, kRolling, tail, has, coef, pred);
+  rc = launch_walk<true, KB, kRolling>(p, mean, coef != nullptr ? p.K : 1, 0, p.G + p.M, seed, nullptr,
+                                       sseed, nsmax, tail, has, coef, pred, flag, nflag, st);
+  if (rc != 0 || p.M == 0) return rc;
+  fill<KB><<<blocks_for(p.M, 128), 128, 0, st>>>(p, tail, has, coef, pred);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int KB, bool kRolling>
-int run_moments_at(const Problem& p, const Mean& mean, const double* seed, const int64_t* fg,
-                   const int64_t* ft, int64_t F, double* A_out, double* rhs_out,
-                   cudaStream_t st) {
-  if (p.NC == 1) seed = nullptr;
-  moments_at<KB, kRolling><<<blocks_for(F), kThreads, 0, st>>>(p, mean, seed, fg, ft, F, A_out, rhs_out);
+int run_moments_at(const Problem& p, const Mean& mean, const double* sseed, const int64_t* fg,
+                   const int64_t* ft, const int64_t* fa, const int64_t* fseed, int64_t F,
+                   double* A_out, double* rhs_out, cudaStream_t st) {
+  moments_at<KB, kRolling><<<blocks_for(F, 128), 128, 0, st>>>(p, mean, sseed, fg, ft, fa, fseed, F,
+                                                                A_out, rhs_out);
   return static_cast<int>(cudaGetLastError());
 }
 
-bool valid_sizes(const Problem& p) {
-  return p.G >= 0 && p.R >= 0 && p.L >= 1 && p.NC >= 1 && p.K >= 1 && p.K <= kMaxK &&
-         p.NC * p.L >= p.R && p.G * p.NC < (int64_t{1} << 37);
+template <int KB, bool kRolling>
+int run_occupancy(int K, int T, int ow, int* warps) {
+  const Layout lay = layout_for(K, T, kRolling, ow);
+  auto kernel = walk<KB, kRolling, true>;
+  int wpb = 0, blocks = 0;
+  int rc = prepare(kernel, lay, &wpb);
+  if (rc != 0) return rc;
+  rc = static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, wpb * kWarp, wpb * lay.total));
+  *warps = blocks * wpb;
+  return rc;
+}
+
+bool valid_sizes(int64_t G, int64_t R, int K, int T) {
+  return G >= 0 && R >= 0 && R < (int64_t{1} << 31) && K >= 1 && K <= kMaxK && T >= 1 && T <= kMaxT;
 }
 
 Mean mean_from(const double* mean0) {
@@ -679,56 +937,76 @@ Mean mean_from(const double* mean0) {
 extern "C" {
 
 // The moving fit of Z [G, R, 1 + K] (contiguous f64, target first) over the
-// valid rows v [G, R] of groups of rows[g] rows each, in chunks of L rows
-// (NC = ceil(R / L) chunks a group): beta into coef [G, R, K] or x . beta
-// into pred [G, R] (the other null). rolling: leaving [G, R] int32 and
-// reg0 = alpha; else reg0 = 1 / c, ff the forgetting factor and mean0 (32
-// host doubles) the prior mean. summ and seed [G, NC, E], E = K (K + 1) / 2
-// + K + 1, tail [G, NC, K] and has [G, NC] are scratch, and so are comp
-// and segseed [G, S, E] where the prefix runs in S > 1 segments; flag
-// [G, R] and nflag [1] arrive zeroed and mark and count the rows whose
-// Cholesky failed. Launches on `stream` without synchronising; returns the CUDA
-// error code of the first launch that failed (0 on success).
+// valid rows v [G, R] of groups of rows[g] rows each: beta into coef
+// [G, R, K] or x . beta into pred [G, R] (the other null), in stretches of
+// 32 T rows. rolling: leaving [G, R] int32 and reg0 = alpha; else reg0 =
+// 1 / c, ff the forgetting factor and mean0 (32 host doubles) the prior
+// mean. A group of more than L rows is walked in the M ranges of the table
+// ranges [M, 2] (group, first row; a group's ranges contiguous and in row
+// order), cut for the prefix into NS segments (seg_first [NS + 1], flat
+// range indices) of NL groups (grp_seg [NL + 1], segment indices). Scratch:
+// summ and seed [M, E] (E = K (K + 1) / 2 + K + 1), segtot and segseed
+// [NS, E], tail [M, K], has [M]; sseed [G + M, nsmax, E] receives the start
+// state of every stretch that holds a flagged row (nsmax: stretches of the
+// longest range). flag [G, R] and nflag [1] arrive zeroed and mark and
+// count the rows whose Cholesky failed. Launches on `stream` without
+// synchronising; returns the CUDA error code of the first launch that
+// failed (0 on success).
 int pols_moving(const double* Z, const uint8_t* v, const int64_t* rows, const uint8_t* refresh,
-                const int32_t* leaving, int64_t G, int64_t R, int K, int64_t L, int64_t NC,
-                int rolling, double ff, double reg0, const double* mean0, int64_t S,
-                double* summ, double* seed, double* comp, double* segseed, double* tail,
-                uint8_t* has, double* coef, double* pred, uint8_t* flag, int* nflag,
-                void* stream) {
-  const Problem p{Z, v, rows, refresh, leaving, G, R, L, NC, K, ff, reg0};
-  if (!valid_sizes(p) || (coef == nullptr) == (pred == nullptr) ||
-      (rolling != 0) != (leaving != nullptr) || S < 1 || S > NC ||
-      (S > 1 && (comp == nullptr || segseed == nullptr))) {
+                const int32_t* leaving, int64_t G, int64_t R, int K, int T, int64_t L, int rolling,
+                double ff, double reg0, const double* mean0, const int64_t* ranges, int64_t M,
+                const int64_t* seg_first, int64_t NS, const int64_t* grp_seg, int64_t NL,
+                double* summ, double* seed, double* segtot, double* segseed, double* sseed,
+                int64_t nsmax, double* tail, uint8_t* has, double* coef, double* pred,
+                uint8_t* flag, int* nflag, void* stream) {
+  const Problem p{Z, v, rows, refresh, leaving, ranges, G, R, L, M, K, T, ff, reg0};
+  if (!valid_sizes(G, R, K, T) || L < 1 || M < 0 || (coef == nullptr) == (pred == nullptr) ||
+      (rolling != 0) != (leaving != nullptr) ||
+      (M > 0 && (ranges == nullptr || seg_first == nullptr || grp_seg == nullptr || NL < 1 ||
+                 NS < NL || summ == nullptr || seed == nullptr || tail == nullptr || has == nullptr ||
+                 (NS > NL && (segtot == nullptr || segseed == nullptr))))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (G == 0 || R == 0) return 0;
   const Mean mean = mean_from(mean0);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define POLS_RUN_ALL(KB, ROLL) \
-  run_all<KB, ROLL>(p, mean, S, summ, seed, comp, segseed, tail, has, coef, pred, flag, nflag, st)
+#define POLS_RUN_ALL(KB, ROLL)                                                                   \
+  run_all<KB, ROLL>(p, mean, seg_first, NS, grp_seg, NL, summ, seed, segtot, segseed, sseed, nsmax, \
+                    tail, has, coef, pred, flag, nflag, st)
   POLS_MOVING_DISPATCH(K, rolling != 0, POLS_RUN_ALL)
 #undef POLS_RUN_ALL
 }
 
 // The systems of the F listed rows (fg[f], ft[f]) of the same problem, from
-// the seeds a pols_moving call with the same L left: A_out [F, K, K] with
-// the regularisation on its diagonal, rhs_out [F, K].
+// the stretch start states a pols_moving call left in sseed: row f walks
+// from row fa[f] of its group and the state sseed[fseed[f]]. A_out
+// [F, K, K] with the regularisation on its diagonal, rhs_out [F, K].
 int pols_moving_moments_at(const double* Z, const uint8_t* v, const int32_t* leaving, int64_t G,
-                           int64_t R, int K, int64_t L, int64_t NC, int rolling, double ff,
-                           double reg0, const double* mean0, const double* seed,
-                           const int64_t* fg, const int64_t* ft, int64_t F, double* A_out,
-                           double* rhs_out, void* stream) {
-  const Problem p{Z, v, nullptr, nullptr, leaving, G, R, L, NC, K, ff, reg0};
-  if (!valid_sizes(p) || F < 0 || (rolling != 0) != (leaving != nullptr)) {
+                           int64_t R, int K, int rolling, double ff, double reg0,
+                           const double* mean0, const double* sseed, const int64_t* fg,
+                           const int64_t* ft, const int64_t* fa, const int64_t* fseed, int64_t F,
+                           double* A_out, double* rhs_out, void* stream) {
+  const Problem p{Z, v, nullptr, nullptr, leaving, nullptr, G, R, 1, 0, K, 1, ff, reg0};
+  if (!valid_sizes(G, R, K, 1) || F < 0 || (rolling != 0) != (leaving != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (F == 0) return 0;
   const Mean mean = mean_from(mean0);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define POLS_RUN_AT(KB, ROLL) \
-  run_moments_at<KB, ROLL>(p, mean, seed, fg, ft, F, A_out, rhs_out, st)
+  run_moments_at<KB, ROLL>(p, mean, sseed, fg, ft, fa, fseed, F, A_out, rhs_out, st)
   POLS_MOVING_DISPATCH(K, rolling != 0, POLS_RUN_AT)
 #undef POLS_RUN_AT
+}
+
+// Warps of the walk an SM holds at K features, stretches of 32 T rows and
+// coefficients (else predictions) into *warps; the CUDA error code.
+int pols_moving_resident_warps(int K, int rolling, int T, int coefs, int* warps) {
+  if (!valid_sizes(0, 0, K, T)) return static_cast<int>(cudaErrorInvalidValue);
+  const int ow = coefs != 0 ? K : 1;
+#define POLS_RUN_OCC(KB, ROLL) run_occupancy<KB, ROLL>(K, T, ow, warps)
+  POLS_MOVING_DISPATCH(K, rolling != 0, POLS_RUN_OCC)
+#undef POLS_RUN_OCC
 }
 
 // Message for an error code returned above.

@@ -449,7 +449,8 @@ def _evaluate_moving(function_name, target, feat_series, kwargs, mode, layout, w
     if is_rls:
         mean0 = kwargs.initial_state_mean if mode == "coefficients" else None
         out = recursive_least_squares(
-            Zp, vp, rows, kwargs.half_life, kwargs.initial_state_covariance, mean0, want=want
+            Zp, vp, rows, kwargs.half_life, kwargs.initial_state_covariance, mean0, want=want,
+            counts=layout.counts,
         )
     else:
         window, mp = int(kwargs.window_size), kwargs.min_periods
@@ -463,7 +464,7 @@ def _evaluate_moving(function_name, target, feat_series, kwargs, mode, layout, w
             )
         out = rolling_ols(
             Zp, vp, rows, window, mp, float(kwargs.alpha or 0.0), positional,
-            want=want, indices=indices,
+            want=want, indices=indices, counts=layout.counts,
         )
     R = Zp.shape[1]
     unpad = layout.device_unpad(R) if G > 1 else None

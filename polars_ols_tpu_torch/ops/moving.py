@@ -3,34 +3,42 @@ through the hand-written scan-and-solve kernel ``csrc/moving.cu``.
 
 The JAX engine's fast path (``ops/moving.py:solve_recursive_lanes`` `:553`,
 ``solve_rolling_lanes`` `:601`) scans lane-major f32 inverse states with
-refinement passes, shaped by its accelerator. Here one kernel family keeps
-the exact f64 moments of every (group, row chunk) in one thread's
-registers and solves each row afresh by Cholesky; a warp stages the rows
-of its 32 chunks through shared memory, a few rows of each at a time, so
-that its loads and stores stay contiguous:
+refinement passes, shaped by its accelerator. Here the kernel keeps exact
+f64 moments and solves each refresh row afresh by Cholesky. A warp owns a
+range of one group's rows and walks it in stretches of 32 x T rows (lane j
+owns rows [j T, (j + 1) T) of a stretch), each bulk-copied into shared
+memory behind the previous one's arithmetic:
 
-1. a summary per chunk (its discounted or entering-minus-leaving moment
-   sum and its total discount),
-2. a prefix over each group's chunk summaries, which gives every chunk its
-   exact start state (a long group's chunks in segments: composed,
-   scanned over the segments, expanded),
-3. all (group, chunk) pairs walk their rows at once from those states,
-   solve, and write the coefficients ``[G, R, K]`` or the predictions
-   ``x_t . beta_t`` ``[G, R]``,
-4. the first rows of a chunk that only carry coefficients take them from
-   the nearest earlier chunk that solved any.
+1. every lane forms its rows' summary from a zero start (the discounted
+   or entering-minus-leaving moment sum and the total discount), a
+   shuffle scan over the lanes composes them, and the carry of the
+   earlier stretches gives every lane its exact start state;
+2. the lanes walk their rows again from there, solve, and write the
+   coefficients ``[G, R, K]`` or the predictions ``x_t . beta_t``
+   ``[G, R]``; the last solved beta passes on to later lanes and
+   stretches, so rows that only carry it are written in the same pass.
+
+A group of at most ``L`` rows (the planner's rows a range) is one range:
+it reads Z once and needs nothing else. A longer group is cut into ranges
+of ``L`` rows, and only those ranges pay a summary pass, a prefix over
+their summaries (in segments of ``SEGMENT_RANGES`` ranges) and a fill of
+a later range's leading rows that carry a beta solved before it.
+``plan_ranges`` chooses ``L`` from the host-side row counts and the warps
+the card holds, so that the grid holds ``WAVES`` waves of resident warps.
 
 Sums run in a fixed order, so results repeat bit for bit. Rows whose
 Cholesky meets a pivot that is not positive and finite are flagged; their
-moments are recomputed by a second small kernel and solved again with the
-eigh minimum-norm solve (``ops/linalg.py:eigh_pinv_solve``), as the JAX
+moments are recomputed by a second small kernel (from the start state the
+walk kept for the stretch that holds them) and solved again with the eigh
+minimum-norm solve (``ops/linalg.py:eigh_pinv_solve``), as the JAX
 engine's ``solve_psd`` does. That costs one host sync a call to read the
 flag count, and two more only where a row was flagged
 (``moving_host_syncs`` counts them).
 
 Both entry points take the padded layout ``Zp [G, R, 1+K]`` (target in
 slot 0, zero-filled features), the valid rows ``vp [G, R]`` and each
-group's row count ``rows [G]``; rows from ``rows[g]`` on are never read or
+group's row count ``rows [G]`` (and, to plan without reading them back,
+the same counts on the host); rows from ``rows[g]`` on are never read or
 written. On CUDA tensors they always launch the kernel (counted in
 ``moving_kernel_launches``; a failed build or launch raises); on CPU
 tensors they run the plain versions ``ops/recursive.py`` /
@@ -40,9 +48,10 @@ tensors they run the plain versions ``ops/recursive.py`` /
 from __future__ import annotations
 
 import ctypes
-import math
+from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..config import F64
@@ -62,17 +71,18 @@ moving_flagged_rows = 0
 # largest K of the per-thread Cholesky
 MAX_K = 32
 WANTS = ("coefficients", "predictions")
-MIN_CHUNK_ROWS = 32
-# walkers (one thread each) the chunk length aims at per SM: several times
-# the ~512 threads an SM holds at the walk's register budget, because
-# shorter chunks ran no slower on the H100 and the rolling walk faster
-# (chip_smoke.py's chunk sweep at the main frame; PERF.md section 6)
-_WALKERS_PER_SM = 4096
-# chunks a group up to which one thread per state entry runs the whole prefix
-_ONE_SEGMENT_CHUNKS = 64
+LANES = 32
+# waves of resident warps the planner's ranges fill: enough that groups of
+# unequal length even out at the end of the grid
+WAVES = 4
+# ranges of a long group whose summaries one thread composes in turn
+SEGMENT_RANGES = 32
 
 _BOUND = None
 _SM_COUNT = {}
+_RESIDENT = {}
+_PLANS = {}
+_PLAN_CACHE_SIZE = 16
 
 
 def _kernel():
@@ -81,15 +91,18 @@ def _kernel():
         lib = kernels.load("moving")
         vp, i64, f64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double, ctypes.c_int
         lib.pols_moving.argtypes = [
-            vp, vp, vp, vp, vp, i64, i64, i32, i64, i64, i32, f64, f64, vp, i64,
-            vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
+            vp, vp, vp, vp, vp, i64, i64, i32, i32, i64, i32, f64, f64, vp,
+            vp, i64, vp, i64, vp, i64,
+            vp, vp, vp, vp, vp, i64, vp, vp, vp, vp, vp, vp, vp,
         ]
         lib.pols_moving.restype = ctypes.c_int
         lib.pols_moving_moments_at.argtypes = [
-            vp, vp, vp, i64, i64, i32, i64, i64, i32, f64, f64, vp,
-            vp, vp, vp, i64, vp, vp, vp,
+            vp, vp, vp, i64, i64, i32, i32, f64, f64, vp, vp,
+            vp, vp, vp, vp, i64, vp, vp, vp,
         ]
         lib.pols_moving_moments_at.restype = ctypes.c_int
+        lib.pols_moving_resident_warps.argtypes = [i32, i32, i32, i32, ctypes.POINTER(ctypes.c_int)]
+        lib.pols_moving_resident_warps.restype = ctypes.c_int
         lib.pols_cuda_error_string.argtypes = [ctypes.c_int]
         lib.pols_cuda_error_string.restype = ctypes.c_char_p
         _BOUND = lib
@@ -103,22 +116,113 @@ def _sm_count(device) -> int:
     return _SM_COUNT[key]
 
 
-def chunk_rows(n_rows: int, sm_count: int) -> int:
-    """Rows a chunk: the power of two that fills the card (``n_rows`` over
-    the walkers it holds), at least ``MIN_CHUNK_ROWS``; one group of
-    millions of rows is cut as finely as thousands of short ones."""
-    want = max(MIN_CHUNK_ROWS, n_rows / float(sm_count * _WALKERS_PER_SM))
-    return 1 << math.ceil(math.log2(want))
+def _resident_warps(device, K: int, rolling: bool, T: int, coefs: bool) -> int:
+    """Warps of the walk the card holds at once (the occupancy of its
+    shared memory and registers, times the SMs)."""
+    key = (str(device), K, rolling, T, coefs)
+    if key not in _RESIDENT:
+        lib = _kernel()
+        warps = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            rc = lib.pols_moving_resident_warps(K, int(rolling), T, int(coefs), ctypes.byref(warps))
+        _raise_on(rc, lib, "occupancy")
+        _RESIDENT[key] = max(1, warps.value) * _sm_count(device)
+    return _RESIDENT[key]
 
 
-def prefix_segments(n_chunks: int) -> int:
-    """Segments the prefix over a group's chunks runs in: one up to
-    ``_ONE_SEGMENT_CHUNKS`` chunks, else the power of two near their square
-    root, which balances the passes within the segments against the pass
-    over them."""
-    if n_chunks <= _ONE_SEGMENT_CHUNKS:
+def stretch_rows(K: int, rolling: bool) -> int:
+    """Rows a lane owns in a stretch (T): the fastest of chip_smoke.py's
+    sweeps on the H100 (PERF.md section 6): 5 for the recursive model up
+    to K = 8, 3 for rolling up to K = 5 (it also holds the stretch's
+    leaving rows), 2 for rolling up to K = 8, 1 above K = 8 (where the
+    state lives in local memory and shared memory is better left to
+    resident warps). An odd T puts the lanes' rows on distinct
+    shared-memory banks where K + 1 is odd; where K + 1 is even two lanes
+    share one at best."""
+    if K > 8:
         return 1
-    return 1 << round(math.log2(math.sqrt(n_chunks)))
+    if rolling:
+        return 3 if K <= 5 else 2
+    return 5
+
+
+@dataclass(frozen=True)
+class Plan:
+    """How the kernel cuts the groups: ``L`` rows a range; the ``M``
+    ranges of the groups longer than that (``ranges [M, 2]``: group, first
+    row, a group's ranges contiguous and in row order); their segments for
+    the prefix (``seg_first [NS + 1]`` into the ranges, ``grp_seg [NL + 1]``
+    into the segments, one run per long group); each group's first range
+    (``range_off [G]``, -1 for a group that is one range); and the
+    stretches of the longest range (``nsmax``)."""
+
+    T: int
+    L: int
+    ranges: np.ndarray
+    seg_first: np.ndarray
+    grp_seg: np.ndarray
+    range_off: np.ndarray
+    nsmax: int
+
+    @property
+    def M(self) -> int:
+        return int(self.ranges.shape[0])
+
+
+def plan_ranges(counts, T: int, resident_warps: int, chunk: Optional[int] = None) -> Plan:
+    """The ranges of groups of ``counts`` rows (host int64 [G]) for
+    stretches of ``LANES * T`` rows on a card that holds
+    ``resident_warps`` warps: ``chunk`` rows a range where given, else the
+    rows that make ``WAVES`` waves of warps out of all rows, a whole number
+    of stretches and at least one. A group of at most that many rows is one
+    range; a longer one is cut into ranges of that many rows."""
+    counts = np.asarray(counts, dtype=np.int64)
+    stretch = LANES * T
+    if chunk is not None:
+        L = int(chunk)
+        if L < 1:
+            raise ValueError(f"chunk must be positive, got {L}")
+    else:
+        want = -(-int(counts.sum()) // (WAVES * max(1, int(resident_warps))))
+        L = max(stretch, -(-want // stretch) * stretch)
+    long_g = np.flatnonzero(counts > L)
+    n_ranges = -(-counts[long_g] // L)
+    starts = np.concatenate([[0], np.cumsum(n_ranges)]).astype(np.int64)
+    M = int(starts[-1])
+    within = np.arange(M, dtype=np.int64) - np.repeat(starts[:-1], n_ranges)
+    ranges = np.stack([np.repeat(long_g, n_ranges), within * L], axis=1).astype(np.int64)
+    n_segs = -(-n_ranges // SEGMENT_RANGES)
+    grp_seg = np.concatenate([[0], np.cumsum(n_segs)]).astype(np.int64)
+    seg_in = np.arange(int(grp_seg[-1]), dtype=np.int64) - np.repeat(grp_seg[:-1], n_segs)
+    seg_first = np.repeat(starts[:-1], n_segs) + seg_in * SEGMENT_RANGES
+    seg_first = np.concatenate([seg_first, [M]]).astype(np.int64)
+    range_off = np.full(len(counts), -1, dtype=np.int64)
+    range_off[long_g] = starts[:-1]
+    longest = min(L, int(counts.max())) if len(counts) else 0
+    nsmax = max(1, -(-longest // stretch))
+    return Plan(T, L, ranges, seg_first, grp_seg, range_off, nsmax)
+
+
+def _plan_for(counts, T: int, resident: int, chunk, dev):
+    """(plan, its tables on the device: ranges, seg_first, grp_seg,
+    range_off, or None without long groups), made and uploaded once per
+    (counts, T, card, chunk) and kept: the entry holds ``counts``, its key
+    uses the array's id."""
+    key = (id(counts), T, resident, chunk, str(dev))
+    hit = _PLANS.get(key)
+    if hit is not None and hit[0] is counts:
+        return hit[1], hit[2]
+    plan = plan_ranges(counts, T, resident, chunk)
+    tables = (None,) * 4
+    if plan.M:
+        flat = np.concatenate([plan.ranges.reshape(-1), plan.seg_first, plan.grp_seg, plan.range_off])
+        buf = torch.as_tensor(flat, device=dev)
+        cut = np.cumsum([plan.ranges.size, plan.seg_first.size, plan.grp_seg.size])
+        tables = (buf[: cut[0]], buf[cut[0]: cut[1]], buf[cut[1]: cut[2]], buf[cut[2]:])
+    if len(_PLANS) >= _PLAN_CACHE_SIZE:
+        _PLANS.pop(next(iter(_PLANS)))
+    _PLANS[key] = (counts, plan, tables)
+    return plan, tables
 
 
 def _check(Zp, vp, rows, want: str) -> None:
@@ -156,53 +260,59 @@ def _from_coefs(coefs, Zp, want: str):
     return (Zp[..., 1:] * coefs).sum(dim=-1)
 
 
-def _launch_kernels(Zp, vp, rows, refresh, leaving, rolling, ff, reg0, mean0, want, chunk):
+def _launch_kernels(Zp, vp, rows, refresh, leaving, rolling, ff, reg0, mean0, want, chunk,
+                    counts=None, stretch=None):
     """Queue the kernel family on CUDA tensors, without synchronising:
     (out, flag [G, R] uint8, nflag [1] int32, state) where ``state`` is
     what ``pols_moving_moments_at`` needs again. ``refresh`` [G, R] bool;
     ``leaving`` [G, R] int32 or None (no row ever leaves: the recursive
-    model)."""
+    model); ``counts`` the host copy of ``rows`` (read back where not
+    given: a host sync); ``stretch`` rows a lane (default
+    ``stretch_rows``)."""
     global moving_kernel_launches
     G, R, C = Zp.shape
     K = C - 1
     dev = Zp.device
-    shape = (G, R, K) if want == "coefficients" else (G, R)
-    out = torch.empty(shape, dtype=F64, device=dev)
-    L = int(chunk) if chunk else chunk_rows(int(G * R), _sm_count(dev))
-    if L < 1:
-        raise ValueError(f"chunk must be positive, got {L}")
-    NC = -(-R // L)
-    S = prefix_segments(NC)
+    coefs = want == "coefficients"
+    out = torch.empty((G, R, K) if coefs else (G, R), dtype=F64, device=dev)
+    if counts is None:
+        counts = rows.cpu().numpy()
+    T = int(stretch) if stretch else stretch_rows(K, rolling)
+    plan, tables = _plan_for(counts, T, _resident_warps(dev, K, rolling, T, coefs), chunk, dev)
     E = K * (K + 1) // 2 + K + 1
-    summ = torch.empty((G, NC, E), dtype=F64, device=dev)
-    seed = torch.empty((G, NC, E), dtype=F64, device=dev)
-    comp = segseed = None
-    if S > 1:
-        comp = torch.empty((G, S, E), dtype=F64, device=dev)
-        segseed = torch.empty((G, S, E), dtype=F64, device=dev)
-    tail = torch.empty((G, NC, K), dtype=F64, device=dev)
-    has = torch.empty((G, NC), dtype=torch.uint8, device=dev)
+    M, NS, NL = plan.M, len(plan.seg_first) - 1, len(plan.grp_seg) - 1
+    summ = seed = segtot = segseed = tail = has = None
+    if M:
+        summ = torch.empty((M, E), dtype=F64, device=dev)
+        seed = torch.empty((M, E), dtype=F64, device=dev)
+        if NS > NL:
+            segtot = torch.empty((NS, E), dtype=F64, device=dev)
+            segseed = torch.empty((NS, E), dtype=F64, device=dev)
+        tail = torch.empty((M, K), dtype=F64, device=dev)
+        has = torch.empty(M, dtype=torch.uint8, device=dev)
+    sseed = torch.empty((G + M, plan.nsmax, E), dtype=F64, device=dev)
     flag = torch.zeros((G, R), dtype=torch.uint8, device=dev)
     nflag = torch.zeros(1, dtype=torch.int32, device=dev)
     mean_host = (ctypes.c_double * MAX_K)(*mean0, *([0.0] * (MAX_K - len(mean0))))
     lib = _kernel()
     leaving_ptr = None if leaving is None else leaving.data_ptr()
     model = (int(rolling), float(ff), float(reg0), mean_host)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     with torch.cuda.device(dev):
         rc = lib.pols_moving(
             Zp.data_ptr(), vp.data_ptr(), rows.data_ptr(), refresh.data_ptr(), leaving_ptr,
-            G, R, K, L, NC, *model, S,
-            summ.data_ptr(), seed.data_ptr(),
-            None if comp is None else comp.data_ptr(),
-            None if segseed is None else segseed.data_ptr(),
-            tail.data_ptr(), has.data_ptr(),
-            out.data_ptr() if want == "coefficients" else None,
-            out.data_ptr() if want == "predictions" else None,
+            G, R, K, T, plan.L, *model,
+            ptr(tables[0]), M, ptr(tables[1]), NS, ptr(tables[2]), NL,
+            ptr(summ), ptr(seed), ptr(segtot), ptr(segseed), sseed.data_ptr(), plan.nsmax,
+            ptr(tail), ptr(has), out.data_ptr() if coefs else None, None if coefs else out.data_ptr(),
             flag.data_ptr(), nflag.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(rc, lib, "scan and solve")
     moving_kernel_launches += 1
-    return out, flag, nflag, (leaving_ptr, L, NC, model, seed)
+    return out, flag, nflag, (leaving_ptr, model, plan, tables[3], sseed)
 
 
 def _resolve_flagged(out, flag, state, Zp, vp, rows, refresh, want):
@@ -212,19 +322,30 @@ def _resolve_flagged(out, flag, state, Zp, vp, rows, refresh, want):
     G, R, C = Zp.shape
     K = C - 1
     dev = Zp.device
-    leaving_ptr, L, NC, model, seed = state
+    leaving_ptr, model, plan, range_off, sseed = state
     live = torch.arange(R, device=dev) < rows[:, None]
     flagged = flag.bool() & live
     fg, ft = torch.nonzero(flagged, as_tuple=True)  # host sync; row-major order
     F = int(fg.shape[0])
+    # the walk's item (group, or G + its range) and the stretch of each row
+    item, t0 = fg, torch.zeros_like(ft)
+    if range_off is not None:
+        off = range_off[fg]
+        cut = off >= 0
+        item = torch.where(cut, G + off + ft // plan.L, fg)
+        t0 = torch.where(cut, ft // plan.L * plan.L, t0)
+    stretch = LANES * plan.T
+    st = (ft - t0) // stretch
+    fa = (t0 + st * stretch).contiguous()
+    fseed = (item * plan.nsmax + st).contiguous()
     A = torch.empty((F, K, K), dtype=F64, device=dev)
     rhs = torch.empty((F, K), dtype=F64, device=dev)
     lib = _kernel()
     with torch.cuda.device(dev):
         rc = lib.pols_moving_moments_at(
-            Zp.data_ptr(), vp.data_ptr(), leaving_ptr, G, R, K, L, NC, *model, seed.data_ptr(),
-            fg.data_ptr(), ft.data_ptr(), F, A.data_ptr(), rhs.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
+            Zp.data_ptr(), vp.data_ptr(), leaving_ptr, G, R, K, *model, sseed.data_ptr(),
+            fg.data_ptr(), ft.data_ptr(), fa.data_ptr(), fseed.data_ptr(), F, A.data_ptr(),
+            rhs.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(rc, lib, "moments of the flagged rows")
     beta = eigh_pinv_solve(A, rhs)
@@ -238,7 +359,7 @@ def _resolve_flagged(out, flag, state, Zp, vp, rows, refresh, want):
         out[cg, ct] = (Zp[cg, ct, 1:] * beta[slot]).sum(dim=-1)
 
 
-def _launch(Zp, vp, rows, refresh, leaving, rolling, ff, reg0, mean0, want, chunk):
+def _launch(Zp, vp, rows, refresh, leaving, rolling, ff, reg0, mean0, want, chunk, counts):
     """The kernel family, then the eigh fallback where any row was flagged
     (one host sync to read the count, two more in the fallback)."""
     global moving_host_syncs, moving_flagged_rows
@@ -246,7 +367,7 @@ def _launch(Zp, vp, rows, refresh, leaving, rolling, ff, reg0, mean0, want, chun
         shape = Zp.shape[:2] + ((Zp.shape[2] - 1,) if want == "coefficients" else ())
         return torch.empty(shape, dtype=F64, device=Zp.device)
     out, flag, nflag, state = _launch_kernels(
-        Zp, vp, rows, refresh, leaving, rolling, ff, reg0, mean0, want, chunk
+        Zp, vp, rows, refresh, leaving, rolling, ff, reg0, mean0, want, chunk, counts
     )
     moving_host_syncs += 1
     n_flagged = int(nflag.item())  # host sync: the one read every call makes
@@ -266,11 +387,13 @@ def recursive_least_squares(
     initial_state_mean: Mean0 = None,
     want: str = "coefficients",
     chunk: Optional[int] = None,
+    counts=None,
 ) -> torch.Tensor:
     """RLS coefficient paths [G, R, K] or their predictions [G, R]
     (``want``); the meaning of the arguments is
     ``ops/recursive.py:solve_recursive_least_squares``'s. ``chunk`` sets
-    the rows a chunk (default: chosen from the sizes and the card)."""
+    the rows a range (default: chosen from the sizes and the card);
+    ``counts`` is ``rows`` on the host (numpy), where the caller has it."""
     _check(Zp, vp, rows, want)
     K = Zp.shape[2] - 1
     if Zp.device.type == "cpu":
@@ -283,7 +406,7 @@ def recursive_least_squares(
     c = 10.0 if initial_state_covariance is None else float(initial_state_covariance)
     mean0 = prior_mean(initial_state_mean, K, "cpu").tolist()
     return _launch(
-        Zp, vp, rows, vp, None, False, forgetting_factor(half_life), 1.0 / c, mean0, want, chunk
+        Zp, vp, rows, vp, None, False, forgetting_factor(half_life), 1.0 / c, mean0, want, chunk, counts
     )
 
 
@@ -298,11 +421,13 @@ def rolling_ols(
     want: str = "coefficients",
     chunk: Optional[int] = None,
     indices=None,
+    counts=None,
 ) -> torch.Tensor:
     """Rolling-OLS coefficient paths [G, R, K] (NaN before the first solved
     window) or their predictions [G, R]; the meaning of the arguments is
     ``ops/rolling.py:solve_rolling_ols``'s. ``indices`` takes a prepared
-    ``rolling_indices`` result for these ``vp``, window and semantics."""
+    ``rolling_indices`` result for these ``vp``, window and semantics;
+    ``chunk`` and ``counts`` are ``recursive_least_squares``'s."""
     _check(Zp, vp, rows, want)
     K = Zp.shape[2] - 1
     if Zp.device.type == "cpu":
@@ -318,5 +443,5 @@ def rolling_ols(
     leaving, refresh = indices
     return _launch(
         Zp, vp, rows, refresh.contiguous(), leaving.contiguous(), True, 1.0, float(alpha),
-        [0.0] * K, want, chunk,
+        [0.0] * K, want, chunk, counts,
     )

@@ -34,8 +34,13 @@ sums a window's rows in another order than the plain versions' cumulative
 sums and solves by its own Cholesky: rtol 1e-9 / atol 1e-11 on the
 coefficients where the window holds K + 3 valid rows or alpha > 0 (a
 singular window's branch is decided by round-off), an equal NaN pattern
-everywhere, and the same bits from two launches; chunks of 2 rows make
-the prefix over a group's chunks run in segments.
+everywhere, and the same bits from two launches. ``chunk`` sets the
+rows a range: 32, 7 and 2 cut the groups into ranges (the summary pass,
+the prefix and the fill; at 2 rows the prefix runs in segments). The
+edges of the kernel's shape are held the same way: groups of 32 T - 1,
+32 T and 32 T + 1 rows (a stretch) and T - 1, T, T + 1 (a lane's rows),
+groups of one and of several ranges in one call, and K = 4 / 6 with an
+odd R (rows that start 8 bytes past a 16-byte boundary).
 """
 
 import numpy as np
@@ -482,3 +487,69 @@ def test_moving_slices_on_card_match_cpu(cuda_device, model, mode, monkeypatch):
         np.testing.assert_array_equal(np.isnan(out["cuda"]), np.isnan(out["cpu"]))
         np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=1e-7, atol=1e-9)
     assert moving.moving_kernel_launches == 2
+
+
+def _sized_batch(seed: int, k: int, sizes, R: int, device):
+    """Groups of the given sizes padded to R rows; ~5 % invalid rows."""
+    rng = np.random.default_rng(seed)
+    rows = np.asarray(sizes)
+    G = len(rows)
+    X = rng.normal(size=(G, R, k)) * np.resize([1.0, 3.0, 0.3], k)
+    y = X.sum(-1) + rng.normal(size=(G, R)) * 0.1
+    v = (rng.random((G, R)) > 0.05) & (np.arange(R)[None] < rows[:, None])
+    Z = np.concatenate([y[..., None], X], axis=-1)
+    return (
+        torch.as_tensor(Z, device=device), torch.as_tensor(v, device=device),
+        torch.as_tensor(rows, device=device), rows,
+    )
+
+
+def _moving_both(model, Z, v, rows_t, k, want, chunk):
+    """The kernel's result, the plain version's and where to compare values."""
+    if model == "rls":
+        out = moving.recursive_least_squares(Z, v, rows_t, 20.0, 10.0, 0.5, want=want, chunk=chunk)
+        coefs = recursive.solve_recursive_least_squares(Z[..., 1:], Z[..., 0], v, 20.0, 10.0, 0.5)
+        return out, moving._from_coefs(coefs, Z, want), None
+    out = moving.rolling_ols(Z, v, rows_t, 30, None, 0.0, True, want=want, chunk=chunk)
+    coefs = rolling.solve_rolling_ols(Z[..., 1:], Z[..., 0], v, 30, None, 0.0, True)
+    vn = v.cpu().numpy()
+    r = np.cumsum(vn, axis=1)
+    shifted = np.concatenate([np.zeros((vn.shape[0], 30), dtype=r.dtype), r], axis=1)
+    return out, moving._from_coefs(coefs, Z, want), r - shifted[:, : vn.shape[1]] >= k + 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("want", moving.WANTS)
+@pytest.mark.parametrize("chunk", [None, 200])
+@pytest.mark.parametrize("model", ["rls", "rolling"])
+@pytest.mark.parametrize("k,R", [(5, 331), (4, 331), (6, 333), (8, 201)])
+def test_moving_kernel_stretch_and_range_edges_on_card(cuda_device, k, R, model, chunk, want):
+    T = moving.stretch_rows(k, model == "rolling")
+    S = moving.LANES * T
+    sizes = [min(n, R) for n in (S - 1, S, S + 1, T - 1, T, T + 1, 1, 0, R, 2 * S + 1)]
+    Z, v, rows_t, rows = _sized_batch(300 + k, k, sizes, R, cuda_device)
+    out, ref, settled = _moving_both(model, Z, v, rows_t, k, want, chunk)
+    torch.cuda.synchronize()
+    assert moving.moving_kernel_launches == 1
+    _assert_moving(out, ref, rows, settled)
+    again, _, _ = _moving_both(model, Z, v, rows_t, k, want, chunk)
+    for g, n in enumerate(rows):
+        a, b = out[g, :n], again[g, :n]
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+        assert torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("want", moving.WANTS)
+@pytest.mark.parametrize("model", ["rls", "rolling"])
+def test_moving_kernel_long_and_short_groups_on_card(cuda_device, model, want):
+    # at the planner's own rows a range (one stretch on a frame this small)
+    # the long group is cut into more ranges than a segment of the prefix
+    # holds; most short ones are one range each
+    sizes = [6_000, 100, 0, 3, 161, 1]
+    Z, v, rows_t, rows = _sized_batch(400, 5, sizes, 6_000, cuda_device)
+    plan = moving.plan_ranges(rows, moving.stretch_rows(5, model == "rolling"), 10**9)
+    assert plan.M > moving.SEGMENT_RANGES and (np.asarray(sizes) <= plan.L).sum() >= 3
+    out, ref, settled = _moving_both(model, Z, v, rows_t, 5, want, None)
+    _assert_moving(out, ref, rows, settled)
+

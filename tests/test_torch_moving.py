@@ -292,20 +292,264 @@ def test_rolling_wrapper_runs_the_plain_version_on_cpu_tensors(monkeypatch):
     assert moving.moving_kernel_launches == 0
 
 
-@pytest.mark.parametrize("n_rows,want", [
-    (9_600_000, 32),  # 10,000 groups padded to 960 rows on 132 SMs
-    (2_000_000, 32),  # one series is cut as finely: never below the minimum
-    (80_000_000, 256),
-    (100, 32),
+# --------------------------------------------------------------------------- #
+# the planner of csrc/moving.cu: rows a range and the table of long groups
+# --------------------------------------------------------------------------- #
+RESIDENT = 132 * 12  # warps an H100 holds of the K = 5 walk (132 SMs x 12)
+
+
+def _check_plan(plan, counts):
+    """The plan's invariants: every long group's rows are cut into ranges of
+    L rows, contiguous and in row order, once each; segments never cross a
+    group and hold at most SEGMENT_RANGES ranges."""
+    long_g = np.flatnonzero(counts > plan.L)
+    assert plan.ranges.shape == (plan.M, 2)
+    assert np.array_equal(np.flatnonzero(plan.range_off >= 0), long_g)
+    for g in long_g:
+        first = plan.range_off[g]
+        n = -(-counts[g] // plan.L)
+        assert (plan.ranges[first:first + n, 0] == g).all()
+        assert np.array_equal(plan.ranges[first:first + n, 1], np.arange(n) * plan.L)
+    assert plan.seg_first[0] == 0 and plan.seg_first[-1] == plan.M
+    assert (np.diff(plan.seg_first) >= 1).all() and (np.diff(plan.seg_first) <= moving.SEGMENT_RANGES).all()
+    assert len(plan.grp_seg) == len(long_g) + 1 and plan.grp_seg[-1] == len(plan.seg_first) - 1
+    for j, g in enumerate(long_g):  # a group's segments cover exactly its ranges
+        s0, s1 = plan.grp_seg[j], plan.grp_seg[j + 1]
+        assert plan.seg_first[s0] == plan.range_off[g]
+        assert plan.seg_first[s1] == plan.range_off[g] + -(-counts[g] // plan.L)
+    longest = min(plan.L, int(counts.max())) if len(counts) else 0
+    assert plan.nsmax == max(1, -(-longest // (moving.LANES * plan.T)))
+
+
+@pytest.mark.parametrize("case,T,chunk,want_L,want_M", [
+    # 10,000 groups of up to 960 rows (8,000,000 in all): one range a group
+    ("main", 5, None, 1280, 0),
+    ("main", 3, None, 1344, 0),
+    # one series of 2,000,000 rows: 6,250 ranges of 320 rows, 196 segments
+    ("series", 5, None, 320, 6250),
+    # both at once: the series is cut, the 10,000 groups are not
+    ("mix", 5, None, 1600, 1250),
+    # a small frame: one stretch a range at least, so its two groups of
+    # ~300 rows are cut in two; empty and one-row groups are one range each
+    ("tiny", 5, None, 160, 4),
+    # forced rows a range: every group longer than 7 rows is cut
+    ("tiny", 5, 7, 7, 90),
 ])
-def test_chunk_rows_from_the_sizes(n_rows, want):
-    assert moving.chunk_rows(n_rows, 132) == want
+def test_plan_ranges_from_the_sizes(case, T, chunk, want_L, want_M):
+    rng = np.random.default_rng(0)
+    counts = {
+        "main": np.concatenate([np.full(9_999, 800), [8_000_000 - 9_999 * 800]]),
+        "series": np.asarray([2_000_000]),
+        "mix": np.concatenate([rng.integers(640, 961, 10_000), [2_000_000]]),
+        "tiny": np.asarray([0, 1, 300, 287, 40]),
+    }[case]
+    if case == "main":
+        assert counts.max() <= 960 and counts.sum() == 8_000_000
+    plan = moving.plan_ranges(counts, T, RESIDENT, chunk)
+    assert plan.L == want_L and plan.M == want_M and plan.T == T
+    if chunk is None:  # a whole number of stretches, and WAVES waves of warps
+        assert plan.L % (moving.LANES * T) == 0
+        assert plan.L >= counts.sum() / (moving.WAVES * RESIDENT)
+    _check_plan(plan, counts)
+    if case == "series":
+        assert len(plan.seg_first) - 1 == 196 and plan.nsmax == 2
 
 
-@pytest.mark.parametrize("n_chunks,want", [(1, 1), (8, 1), (64, 1), (65, 8), (3_907, 64), (62_500, 256)])
-def test_prefix_segments_from_the_chunks(n_chunks, want):
-    assert moving.prefix_segments(n_chunks) == want
-    assert 1 <= moving.prefix_segments(n_chunks) <= n_chunks
+@pytest.mark.parametrize("seed,chunk", [(1, None), (2, None), (3, 100), (4, 33)])
+def test_plan_warp_table_of_a_skewed_mix(seed, chunk):
+    # lognormal sizes with a few groups of many ranges and empty groups
+    rng = np.random.default_rng(seed)
+    counts = np.floor(rng.lognormal(5.0, 1.5, 3_000)).astype(np.int64)
+    counts[rng.integers(0, 3_000, 50)] = 0
+    plan = moving.plan_ranges(counts, 5, 256, chunk)
+    assert plan.M > 0
+    _check_plan(plan, counts)
+    # the walk's items: every group of at most L rows, then the table; each
+    # row of each group lies in exactly one item
+    cover = np.zeros(int(counts.sum()), dtype=np.int64)
+    first = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    for g in np.flatnonzero(counts <= plan.L):
+        cover[first[g]:first[g] + counts[g]] += 1
+    for g, t0 in plan.ranges:
+        cover[first[g] + t0:first[g] + min(t0 + plan.L, counts[g])] += 1
+    assert (cover == 1).all()
+
+
+def test_plan_refuses_a_range_of_no_rows():
+    with pytest.raises(ValueError, match="chunk must be positive"):
+        moving.plan_ranges(np.asarray([10]), 5, RESIDENT, 0)
+
+
+@pytest.mark.parametrize("k,rolling,want", [(5, False, 5), (5, True, 3), (8, False, 5), (8, True, 2),
+                                           (16, False, 1), (32, True, 1)])
+def test_stretch_rows_scale_with_the_width(k, rolling, want):
+    assert moving.stretch_rows(k, rolling) == want
+
+
+# --------------------------------------------------------------------------- #
+# the kernel's order of sums: lanes, the shuffle scan, stretches, ranges
+# --------------------------------------------------------------------------- #
+def _entries(z):
+    """A row's state contribution [.., E - 1]: x_i x_j (j <= i, packed),
+    then x_i y (the kernel's order of A and b)."""
+    x, y = z[..., 1:], z[..., 0]
+    i, j = np.tril_indices(x.shape[-1])
+    return torch.cat([x[..., i] * x[..., j], x * y[..., None]], dim=-1)
+
+
+def _compose(c, s):
+    """c o s for s from a zero start: (disc_s body_c + body_s, disc_c disc_s)."""
+    return torch.cat([s[..., -1:] * c[..., :-1] + s[..., :-1], c[..., -1:] * s[..., -1:]], dim=-1)
+
+
+def _identity(n, E):
+    e = torch.zeros((n, E), dtype=torch.float64)
+    e[:, -1] = 1.0
+    return e
+
+
+def _lane_steps(S, Z, v, leaving, ff, rows, record=None):
+    """Every lane advances its state S [32, E] over its rows [32, T] of a
+    stretch (rows < 0: past the range), as csrc/moving.cu:advance does."""
+    for r in range(rows.shape[1]):
+        t = rows[:, r]
+        on = t >= 0
+        tt = torch.as_tensor(np.where(on, t, 0))
+        valid = torch.as_tensor(on & v[np.where(on, t, 0)])
+        lam = torch.where(valid, torch.tensor(ff, dtype=torch.float64), torch.tensor(1.0, dtype=torch.float64))
+        body = torch.where(valid[:, None], S[:, :-1] * lam[:, None] + _entries(Z[tt]), S[:, :-1])
+        if leaving is not None:
+            s = leaving[np.where(on, t, 0)]
+            gone = torch.as_tensor(on & (s >= 0))
+            body = torch.where(gone[:, None], body - _entries(Z[torch.as_tensor(np.maximum(s, 0))]), body)
+        S = torch.cat([body, (S[:, -1] * lam)[:, None]], dim=1)
+        if record is not None:
+            record[t[on]] = S[torch.as_tensor(on)]
+    return S
+
+
+def _scan(S, k):
+    """The inclusive scan over the 32 lanes: Hillis-Steele in 5 steps for
+    K <= 8; for K > 8 the lanes composed in turn (the kernel's shared-memory
+    scan), the discounts as one product in lane order."""
+    if k > 8:
+        run, out = _identity(1, S.shape[1])[0], []
+        for j in range(32):
+            run = torch.cat([S[j, -1] * run[:-1] + S[j, :-1], (run[-1] * S[j, -1])[None]])
+            out.append(run)
+        return torch.stack(out)
+    lane = torch.arange(32)
+    for o in (1, 2, 4, 8, 16):
+        prev = torch.cat([_identity(o, S.shape[1]), S[:-o]])
+        S = torch.where((lane >= o)[:, None], _compose(prev, S), S)
+    return S
+
+
+def _range_pass(Z, v, leaving, ff, t0, n, T, carry, record=None):
+    """One warp over rows [t0, t0 + n) from the state carry [E]: per
+    stretch, the lanes' summaries, the scan, each lane's start state and
+    (with record) its walk; returns the carry after the range (lane 31's
+    walked end state, or without record the carry composed with the
+    scan's total, as the summary pass forms it)."""
+    E = carry.shape[0]
+    for a in range(t0, t0 + n, 32 * T):
+        rows = np.arange(a, a + 32 * T).reshape(32, T)
+        rows = np.where(rows < t0 + n, rows, -1)
+        incl = _scan(_lane_steps(_identity(32, E), Z, v, leaving, ff, rows), Z.shape[1] - 1)
+        if record is None:
+            carry = _compose(carry, incl[31])
+            continue
+        ex = torch.cat([_identity(1, E), incl[:-1]])
+        start = _compose(carry[None], ex)
+        carry = _lane_steps(start, Z, v, leaving, ff, rows, record)[31]
+    return carry
+
+
+def _kernel_order_states(Z, v, leaving, ff, T, L):
+    """The state after every row of one group [n, E], composed in the
+    kernel's order: a group of at most L rows walked by one warp; a longer
+    one cut into ranges of L rows whose summaries go through the segmented
+    prefix (compose each segment, scan the segments, expand)."""
+    n, E = Z.shape[0], _entries(Z[:1]).shape[1] + 1
+    out = torch.zeros((n, E), dtype=torch.float64)
+    if n <= L:
+        _range_pass(Z, v, leaving, ff, 0, n, T, _identity(1, E)[0], out)
+        return out
+    starts = list(range(0, n, L))
+    summ = [_range_pass(Z, v, leaving, ff, t0, min(L, n - t0), T, _identity(1, E)[0]) for t0 in starts]
+    seg = moving.SEGMENT_RANGES
+    segs = [summ[i:i + seg] for i in range(0, len(summ), seg)]
+    tot = []
+    for sg in segs:
+        run = _identity(1, E)[0]
+        for s in sg:
+            run = _compose(run, s)
+        tot.append(run)
+    run, seeds = _identity(1, E)[0], []
+    for sg, t in zip(segs, tot):
+        r = run
+        for s in sg:
+            seeds.append(r)
+            r = _compose(r, s)
+        run = _compose(run, t)
+    for t0, seed in zip(starts, seeds):
+        _range_pass(Z, v, leaving, ff, t0, min(L, n - t0), T, seed, out)
+    return out
+
+
+def _packed(M, b, disc):
+    k = M.shape[-1]
+    i, j = np.tril_indices(k)
+    return torch.cat([M[..., i, j], b, disc[..., None]], dim=-1)
+
+
+def _assert_states(got, want):
+    # the sums differ in order only: rtol 1e-12, atol 1e-12 of the largest entry
+    scale = float(want.abs().max())
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-12, atol=1e-12 * scale)
+
+
+@pytest.mark.parametrize("half_life,null_share,T,L,r,k", [
+    (20.0, 0.1, 5, 10_000, 700, 3),  # one warp, several stretches
+    (252.0, 0.0, 3, 10_000, 500, 3),
+    (None, 0.1, 4, 10_000, 400, 3),  # no forgetting: the expanding window
+    (20.0, 0.1, 5, 64, 700, 3),  # ranges of 64 rows
+    (252.0, 0.1, 3, 16, 700, 3),  # 44 ranges: the prefix in two segments
+    (0.5, 0.05, 5, 1_000, 2_600, 3),  # the discount underflows to 0
+    (20.0, 0.1, 2, 10_000, 400, 9),  # K > 8: the lanes composed in turn
+    (252.0, 0.1, 2, 48, 400, 9),
+])
+def test_scan_order_equals_the_plain_recursion(half_life, null_share, T, L, r, k):
+    X, y, v = _batch(600 + r, k, null_share, r=r)
+    ff = recursive.forgetting_factor(half_life)
+    M, b, disc = recursive.discounted_states(*_t(X, y, v), ff)
+    for g in range(G):
+        Z = torch.as_tensor(np.concatenate([y[g, :, None], X[g]], axis=1))
+        got = _kernel_order_states(Z, v[g], None, ff, T, L)
+        _assert_states(got, _packed(M[g], b[g], disc[g]))
+    if half_life == 0.5:
+        assert float(got[-1, -1]) == 0.0 and float(disc[-1, -1]) == 0.0
+        assert torch.isfinite(got).all()
+
+
+@pytest.mark.parametrize("window,positional,null_share,T,L,k", [
+    (10, True, 0.1, 3, 10_000, 3),  # leaving rows inside the stretch
+    (63, True, 0.0, 5, 10_000, 3),
+    (252, True, 0.1, 3, 100, 3),  # ranges of 100 rows
+    (40, False, 0.3, 3, 10_000, 3),  # a window over valid rows: a longer leaving span
+    (40, False, 0.3, 4, 16, 3),  # and 44 ranges
+    (63, True, 0.1, 2, 10_000, 9),  # K > 8: the lanes composed in turn
+])
+def test_scan_order_equals_the_window_sums(window, positional, null_share, T, L, k):
+    X, y, v = _batch(700 + window, k, null_share, r=700)
+    Xv, yv, vv = _t(np.where(v[..., None], X, 0.0), np.where(v, y, 0.0), v)
+    leaving, _ = rolling.rolling_indices(vv, window, k, positional)
+    W, b = rolling.window_states(Xv, yv, vv, leaving)
+    ones = torch.ones(W.shape[:2], dtype=torch.float64)
+    for g in range(G):
+        Z = torch.cat([yv[g, :, None], Xv[g]], dim=1)
+        got = _kernel_order_states(Z, v[g], leaving[g].numpy(), 1.0, T, L)
+        _assert_states(got, _packed(W[g], b[g], ones[g]))
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():

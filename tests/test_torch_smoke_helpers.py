@@ -219,3 +219,22 @@ def test_ptxas_report_names_each_kernel_with_its_registers():
     ]
     assert got[0][1].startswith("Used 168 registers") and "68 bytes spill stores" in got[0][2]
     assert got[1][2].startswith("0 bytes stack frame") and got[3][1].startswith("Used 59 registers")
+
+
+def test_ptxas_report_names_bool_template_arguments():
+    log = (
+        "ptxas info    : Compiling entry function '_ZN41_GLOBAL__N__6ae40f56_9_moving_cu_76ae805a4walkILi5E"
+        "Lb0ELb1EEEvNS_7ProblemENS_4MeanENS_6LayoutEllPKdPdS6_lS6_PhS6_S6_S7_Pi' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 154 registers, used 0 barriers\n"
+    )
+    got = cs._ptxas(log)
+    assert [e for e, _, _ in got] == ["walk<5,0,1>"]
+    assert got[0][1].startswith("Used 154 registers")
+
+
+@pytest.mark.parametrize("seed,sigma,cap", [(5, 1.0, 4_000), (6, 2.0, 2_000)])
+def test_skewed_counts_hold_the_rows_under_the_cap(seed, sigma, cap):
+    counts = cs._skewed_counts(np.random.default_rng(seed), 800_000, 1_000, sigma, cap)
+    assert counts.sum() == 800_000 and counts.max() <= cap and counts.min() >= 0
+    assert len(counts) == 1_000 and (counts == cap).any()
