@@ -7,7 +7,9 @@ grouped-OLS main path, the static fits (the five null policies, WLS,
 residuals, explicit lu / qr / svd), the statistics and
 coordinate-descent queries (statistics, lasso, elastic net, NNLS, the
 active-set variant) and the moving models (rls, expanding_ols,
-rolling_ols under 'drop_window' and 'drop', weighted, coefficients) once
+rolling_ols under 'drop_window' and 'drop', weighted, coefficients), the
+multi-target queries (struct(y, y2): predictions, residuals, weighted,
+'drop' on the null columns) and predict / from_formula once
 at full width through the public API (8,000,000 rows x 5 features x
 10,000 groups, f64: the workload of bench.py, with ~1 % nulls per column
 in half of the groups and a weight column; the moving models also on the
@@ -34,10 +36,14 @@ take for its work on this run's inputs: the larger of the bytes it must
 move over 3.35 TB/s and its operations over the peak rate of their type
 (f64 34 TFLOP/s outside the tensor cores, f32 67 TFLOP/s). The edge cases
 of the card-only tests (moments at C = 8 / 9, R = 513, empty groups, a grid
-larger than the work; coordinate descent at K = 8 / 9 / 16 / 17) are held
-to the plain versions too, and ``torch.profiler`` reads device busy time,
-launches and host syncs of the main, lasso, statistics, rls and rolling
-queries (and which moving kernels ran). The moving kernel is also timed
+larger than the work; coordinate descent at K = 8 / 9 / 16 / 17; the
+Householder reduction at R < K, with a zero feature column, NaN in masked
+slots, K = 32, and one group of 2,000,000 rows through every level of its
+tree) are held to the plain versions too, and ``torch.profiler`` reads
+device busy time, launches and host syncs of the main, svd,
+multi-target, lasso, statistics, rls and rolling queries (and which
+moving kernels ran). The Householder kernel is also timed beside
+``torch.linalg.qr`` of the same blocks. The moving kernel is also timed
 on a sweep of its shape (rows a lane, rows a range), at K = 8 and 16 on
 the main frame's groups, and on a frame of lognormal group sizes. The
 p-value kernel also gets a latency bound (the dependent f64 operations of
@@ -131,6 +137,21 @@ MOVING_KERNEL_NAMES = {
     "walk": ("walk<", "true>("), "summary": ("walk<", "false>("), "prefix": ("prefix_",),
     "fill": ("fill<",),
 }
+# the Householder kernel: launches a timing sample (~0.2 ms each; the plain
+# version and torch.linalg.qr take tens of ms), and the tolerance against its
+# plain version: each entry of a block's factor within REDUCTION_RTOL of its
+# column's norm over the block's valid rows (the same reflections, sums in
+# another order)
+HOUSEHOLDER_LAUNCHES = 10
+REDUCTION_RTOL = 1e-12
+TREE_RTOL = 1e-11  # a group's factor after three levels against the plain tree
+# the multi-target queries: the reference suite's struct(y, y2) target
+# (benchmarks/suite.py:151-156); y2 and its nulls come from a child stream
+# of seed 0, so that every draw of the earlier phases stays as it was
+Y2_COEFS = (0.5, -1.0, 2.0, 0.0, 1.5)
+# predict of the ols coefficients against the ols predictions (the same
+# coefficients, one dot product a row)
+PREDICT_TOL = dict(rtol=1e-12, atol=1e-12)
 SERIES_ROWS = 2_000_000
 SERIES_HEAD = 20_000  # rows of the series checked against the literal oracles
 SERIES_TAIL = 50  # and its last rows against closed forms
@@ -458,6 +479,77 @@ def _ptxas(log):
     return out
 
 
+def _householder_bound(Z, w, K):
+    """Z and w read once, T [B, K, C] written once; ~4 (C - j) operations a
+    valid row for reflection j (a dot product and an update of each column
+    from the pivot on and of each target)."""
+    S, R, C = Z.shape
+    moved = S * R * (8 * C + 1) + 8 * S * K * C
+    return _bound(moved, 4 * int(w.sum()) * sum(C - j for j in range(K)), PEAK_F64_PER_S)
+
+
+def _reduction_err(T_k, T_p, Z, w, M, torch):
+    """(max abs error on R, on Q^T Y) of the kernel's factors against the
+    plain version's, checked: NaN where the plain version has it, each
+    entry within REDUCTION_RTOL of its column's norm over the block's valid
+    rows."""
+    norm = torch.where(w[..., None], Z, 0.0).square().sum(dim=1, keepdim=True).sqrt()
+    nan = torch.isnan(T_p)
+    if not torch.equal(torch.isnan(T_k), nan):
+        raise AssertionError("Householder kernel: NaN where the plain version has none, or none where it has")
+    err = torch.where(nan, 0.0, (T_k - T_p).abs())
+    if not bool((err <= REDUCTION_RTOL * norm).all()):
+        worst = float((err / norm.clamp_min(1e-300)).max())
+        raise AssertionError(f"Householder kernel: an entry {worst!r} of its column's norm from the plain version")
+    return float(err[..., M:].max()), float(err[..., :M].max())
+
+
+def _check_householder(label, Z, w, K, householder, torch, timed=True):
+    """The Householder kernel against its plain version on the same CUDA
+    blocks (and the same bits from a second launch); timed in turns with
+    the plain version and torch.linalg.qr(mode="r") of the masked blocks
+    with the feature columns first, whose first K rows are the same
+    [R | Q^T Y]. Those two queue their work more slowly than a hold lasts
+    (tens of launches a call; the QR's host side), so each is timed by an
+    event pair around whole calls: their device time is tens of ms a call,
+    far above the host's."""
+    M = Z.shape[-1] - K
+    T_k = householder.householder_blocks(Z, w, K)
+    T_k2 = householder.householder_blocks(Z, w, K)
+    torch.cuda.synchronize()
+    if not torch.equal(torch.nan_to_num(T_k), torch.nan_to_num(T_k2)):
+        raise AssertionError(f"Householder kernel ({label}): two launches differ")
+    T_p = householder.householder_blocks_ref(Z, w, K)
+    err_r, err_q = _reduction_err(T_k, T_p, Z, w, M, torch)
+    S, R, C = Z.shape
+    if R < K and not bool((T_k[:, R:] == 0).all()):
+        raise AssertionError(f"Householder kernel ({label}): rows below the block's last are not zero")
+    if bool(torch.isfinite(torch.where(w[..., None], Z, 0.0)).all()) and not bool(torch.isfinite(T_k).all()):
+        raise AssertionError(f"Householder kernel ({label}): a masked slot's NaN reached the factor")
+    line = (
+        f"kernel householder {label}: B={S} R={R} C={C} K={K} max_abs_err R={err_r!r} "
+        f"Q^T Y={err_q!r} (within {REDUCTION_RTOL} of each column's norm), bit-equal launch to launch"
+    )
+    out = {"max_abs_err": max(err_r, err_q), "max_abs_err_r": err_r, "max_abs_err_qty": err_q}
+    if not timed:
+        print(line)
+        return out
+    Zm = torch.where(w[..., None], Z, 0.0)
+    Zx = torch.cat([Zm[..., M:], Zm[..., :M]], dim=-1)
+    t = _timing_fields(_in_turns({
+        "plain": lambda: householder.householder_blocks_ref(Z, w, K),
+        "kernel": lambda: householder.householder_blocks(Z, w, K),
+        "library": lambda: torch.linalg.qr(Zx, mode="r"),
+    }, HOUSEHOLDER_LAUNCHES, torch, synced=("plain", "library")))
+    bound = _householder_bound(Z, w, K)
+    print(
+        f"{line} kernel_ms={t['ms']!r} per launch, plain_ms={t['plain_ms']!r} library_ms="
+        f"{t['library_ms']!r} (torch.linalg.qr) per call, host_us={t['host_us']!r} "
+        f"plain_host_us={t['plain_host_us']!r}; bound {json.dumps(bound)}"
+    )
+    return {**out, **t, **bound}
+
+
 def _check_kernel(name, Zp, wp, offsets, G, moments, torch, timed=True, library=False):
     """Kernel against plain version on the same CUDA tensors: only the
     summation order differs, so rtol 1e-12 / atol 1e-13 * max|M|; counts
@@ -666,16 +758,17 @@ def _check_cd(label, XtX, Xty, counts, kw, cd, torch, timed=True):
     return err, t, s_k
 
 
-def _profile(fn, torch, named=None):
+def _profile(fn, torch, named=None, top=0):
     """Device busy ms (the union of device intervals), launches (launch API
     calls) and host syncs (stream / device syncs, less the loop's own) per
     query, from torch.profiler over PROFILE_QUERIES queries after a warm
     one, with the host ms per query under the profiler (which inflates it:
     the idle share 1 - busy / wall is an upper bound), and the device ms per
     query of the kernels of each label of ``named`` (those whose names hold
-    all of its strings). Taken again, up to PROFILE_TRIES times, where the
-    device recorded fewer kernels than the host launched. None when the
-    profiler records no device activity."""
+    all of its strings), and the ``top`` device operations by device ms
+    per query. Taken again, up to PROFILE_TRIES times, where the device
+    recorded fewer kernels than the host launched. None when the profiler
+    records no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -720,7 +813,13 @@ def _profile(fn, torch, named=None):
         e.name.split(">(")[0] + ">" for e in events
         if e.device_type == DeviceType.CUDA and any(all(k in e.name for k in keys) for keys in named.values())
     })
+    totals = {}
+    for e in events:
+        if e.device_type == DeviceType.CUDA:
+            name = e.name[:90]
+            totals[name] = totals.get(name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3 / PROFILE_QUERIES
     return {
+        "top_ms": sorted(totals.items(), key=lambda kv: -kv[1])[:top],
         "kernels_ms": by_name, "kernel_names": seen, "tries": tries, "complete": kernels >= launches,
         "busy_ms": busy_ms, "launches": launches / PROFILE_QUERIES,
         "host_syncs": (syncs - PROFILE_QUERIES) / PROFILE_QUERIES,
@@ -1104,7 +1203,7 @@ def main() -> int:
     from polars_ols_tpu_torch.engine import fit, groups
     from polars_ols_tpu_torch.engine.native import native_loaded
     from polars_ols_tpu_torch.ops import (
-        cd, grid_probe, kernels, moments, moving, recursive, rolling, special,
+        cd, grid_probe, householder, kernels, moments, moving, recursive, rolling, special,
     )
     from polars_ols_tpu_torch.ops.direct import grouped_moments
 
@@ -1121,7 +1220,7 @@ def main() -> int:
     )
 
     # 2. build: one nvcc per source, all at once
-    sources = ("moments", "grid_probe", "cd", "t_pvalue", "moving")
+    sources = ("moments", "grid_probe", "cd", "t_pvalue", "moving", "householder")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(kernels.build, sources))
@@ -1163,7 +1262,15 @@ def main() -> int:
           for n, v in zip(names + ["w"], [y, *x.T, w])}
     # the null-masked columns share the uploaded values
     nulled = {f"{n}n": pt.Series(f"{n}n", up[n], valid[:, j]) for j, n in enumerate(names)}
-    df = pt.DataFrame({**up, "group": g, **nulled})
+    # the multi-target queries' second target y2 and its nulls (odd-numbered
+    # groups, row 0 valid), from a child stream of seed 0
+    rng_2 = np.random.default_rng(np.random.SeedSequence(0).spawn(1)[0])
+    y2 = x @ np.asarray(Y2_COEFS) + rng_2.normal(size=N_ROWS) * 0.1
+    y2_valid = (rng_2.random(N_ROWS) >= NULL_RATE) | (g.astype(np.int64) % 2 == 0)
+    y2_valid[0] = True
+    y2_up = torch.as_tensor(y2, dtype=torch.float64, device=dev)
+    nulled["y2n"] = pt.Series("y2n", y2_up, y2_valid)
+    df = pt.DataFrame({**up, "y2": y2_up, "group": g, **nulled})
     features = [col(f"x{i + 1}") for i in range(N_FEATURES)]
     layout = groups.layout_for_columns([df["group"]])
     vals, _ = fit._stack_cached(df["y"], [df[f"x{i + 1}"] for i in range(N_FEATURES)])
@@ -1197,6 +1304,61 @@ def main() -> int:
         ("empty groups", np.asarray([3, 0, 2, 0, 0, 5, 0]), 512, 6, False),
     ):
         _check_kernel(label, *_random_blocks(rng_e, n_blocks, R, C, torch), moments, torch, timed=timed)
+
+    # the Householder kernel against its plain version, at the main frame's
+    # split blocks: C = 6 (the svd query's [y | X]) and C = 7 (the
+    # multi-target query's [y, y2 | X]); then its edges, and one group of
+    # SERIES_ROWS rows through every level of the tree
+    K = N_FEATURES
+    vals_mt, _ = fit._stack_cached(df["y"], [df["y2"]] + [df[f"x{i + 1}"] for i in range(K)])
+    Zmt, wmt, _ = fit._blocks_cached(layout, vals_mt, None, "ignore", m=2)
+    hh = {
+        "svd": _check_householder("main-path blocks, C=6 (the svd query)", Zp, wp, K, householder, torch),
+        "multi_target": _check_householder(
+            "main-path blocks, C=7 (the multi-target query)", Zmt, wmt, K, householder, torch
+        ),
+    }
+    del Zmt, wmt, vals_mt
+    rng_h = np.random.default_rng(3)
+    householder.householder_kernel_launches = 0
+    for label, (B, R, C, k_h, zero_col, nan_masked) in (
+        ("R=3 < K=5 (zero rows below the last)", (300, 3, 8, 5, None, False)),
+        ("a zero feature column", (300, 512, 6, 5, 2, False)),
+        ("NaN in the masked padding slots", (300, 512, 7, 5, None, True)),
+        ("K=32, M=1 (C=33)", (100, 512, 33, 32, None, False)),
+    ):
+        Zh = rng_h.normal(size=(B, R, C)) * np.exp(rng_h.normal(size=(1, 1, C)) * 3)
+        wh = rng_h.random((B, R)) > 0.2
+        if zero_col is not None:
+            Zh[..., C - k_h + zero_col] = 0.0
+        if nan_masked:
+            Zh[~wh] = np.nan
+        _check_householder(
+            label, torch.as_tensor(Zh, device=dev), torch.as_tensor(wh, device=dev), k_h,
+            householder, torch, timed=False,
+        )
+    S2 = SERIES_ROWS
+    df_one = pt.DataFrame({n: up[n][:S2] for n in names})
+    lay1 = groups.single_layout(S2)
+    vals1, _ = fit._stack_cached(df_one["y"], [df_one[f"x{i + 1}"] for i in range(K)])
+    Z1, w1, _ = fit._blocks_cached(lay1, vals1, None, "ignore")
+    plan1 = fit._reduction_plan(lay1, Z1.shape[1], K)
+    T1_k = householder.reduce_groups(Z1, w1, K, plan1)
+    torch.cuda.synchronize()
+    plan1_cpu = householder.plan_reduction(lay1._blocks_per_group(Z1.shape[1]), K)
+    T1_p = householder.reduce_groups(Z1.cpu(), w1.cpu(), K, plan1_cpu)
+    norm1 = torch.where(w1[..., None], Z1, 0.0).square().sum(dim=(0, 1)).sqrt().cpu()
+    tree_err = float((T1_k.cpu() - T1_p).abs().max())
+    if not bool(((T1_k.cpu() - T1_p).abs() <= TREE_RTOL * norm1).all()):
+        raise AssertionError(f"Householder tree of one group of {S2} rows: {tree_err!r} from the plain tree")
+    hh_edges = householder.householder_kernel_launches
+    print(
+        f"kernel householder tree: one group of {S2} rows, {Z1.shape[0]} blocks of {Z1.shape[1]}, "
+        f"{len(plan1.levels) + 1} launches (levels {[tuple(m.shape) for _, m in plan1.levels]}), "
+        f"max_abs_err={tree_err!r} against the plain version's tree (within {TREE_RTOL} of each "
+        f"column's norm); edge launches {hh_edges}"
+    )
+    del T1_k, T1_p, Z1, w1, vals1, df_one
 
     # 4. the main path at full width, through the public API
     expr = col("y").least_squares.ols(*features).over("group")
@@ -1284,7 +1446,7 @@ def main() -> int:
         queries[f"{method}/coef"] = (ols("y", xv, solve_method=method, mode="coefficients"), "coefficients")
     moment_queries = [q for q in queries if not q.startswith("svd")]
 
-    moments.moments_kernel_launches = 0
+    moments.moments_kernel_launches = householder.householder_kernel_launches = 0
     out, first_s = {}, {}
     for label, (q, column) in queries.items():
         t0 = time.perf_counter()
@@ -1292,11 +1454,15 @@ def main() -> int:
         torch.cuda.synchronize()
         first_s[label] = time.perf_counter() - t0
     static_launches = moments.moments_kernel_launches
+    svd_launches = householder.householder_kernel_launches
     if static_launches < len(moment_queries):
         raise AssertionError(
             f"moment kernel launched {static_launches} times for "
             f"{len(moment_queries)} moment-path queries"
         )
+    n_svd = len(queries) - len(moment_queries)
+    if svd_launches < n_svd:
+        raise AssertionError(f"Householder kernel launched {svd_launches} times for {n_svd} svd queries")
 
     # nulls exactly where each policy puts them, over every row
     fit_drop = torch.as_tensor(valid[:, 0] & valid[:, 1:].all(axis=1), device=dev)
@@ -1357,6 +1523,78 @@ def main() -> int:
         "drop-policy", Zd, wd, layout.device_block_offsets(r_cap), layout.num_groups,
         moments, torch,
     )
+    del Zd, wd
+
+    # 5b. multi-target OLS at full width through the public API: the
+    # reference suite's struct(y, y2) target on x1..x5 under .over("group"),
+    # every query once, with the counts of all kernels set to 0 just before
+    # and read just after
+    def mt(targets, feats, **kw):
+        target = pt.struct(*[col(t) for t in targets])
+        return target.least_squares.multi_target_ols(*feats, **kw).over("group").alias("p")
+
+    mt_queries = {
+        "multi_target": mt(("y", "y2"), xv),
+        "multi_target/residuals": mt(("y", "y2"), xv, mode="residuals"),
+        "multi_target/wls": mt(("y", "y2"), xv, sample_weights="w"),
+        "multi_target/drop": mt(("yn", "y2n"), xn, null_policy="drop"),
+    }
+    CONFIG.lazy_row_order = False
+    moments.moments_kernel_launches = cd.cd_kernel_launches = special.t_pvalue_kernel_launches = 0
+    moving.moving_kernel_launches = householder.householder_kernel_launches = 0
+    mtout, first_s_mt = {}, {}
+    for label, q in mt_queries.items():
+        t0 = time.perf_counter()
+        mtout[label] = df.select(q)["p"]
+        torch.cuda.synchronize()
+        first_s_mt[label] = time.perf_counter() - t0
+    mt_launches = householder.householder_kernel_launches
+    others = (moments.moments_kernel_launches, cd.cd_kernel_launches,
+              special.t_pvalue_kernel_launches, moving.moving_kernel_launches)
+    if mt_launches < len(mt_queries) or any(others):
+        raise AssertionError(
+            f"Householder kernel launched {mt_launches} times for {len(mt_queries)} multi-target "
+            f"queries; other kernels {others}"
+        )
+    fit_mt = valid[:, 0] & y2_valid & valid[:, 1:].all(axis=1)
+    for label, s_ in mtout.items():
+        if s_.values.shape != (N_ROWS, 2) or s_.field_names != (
+            ["yn", "y2n"] if label.endswith("drop") else ["y", "y2"]
+        ):
+            raise AssertionError(f"{label}: fields {s_.field_names}, shape {tuple(s_.values.shape)}")
+        if label.endswith("drop"):
+            want_valid = torch.as_tensor(np.repeat(fit_mt[:, None], 2, axis=1), device=dev)
+            if s_.validity is None or not torch.equal(s_.validity, want_valid):
+                raise AssertionError(f"{label}: nulls are not the dropped rows")
+        elif s_.validity is not None:
+            raise AssertionError(f"{label}: predictions carry nulls")
+    mthost = {label: _picked(s_, sel) for label, s_ in mtout.items()}
+    at = 0
+    for _, rows in group_rows:
+        here = slice(at, at + len(rows))
+        at += len(rows)
+        Xg, Yg = x[rows], np.stack([y[rows], y2[rows]], axis=1)
+        preds = Xg @ _lstsq(Xg, Yg)
+        np.testing.assert_allclose(mthost["multi_target"][here], preds, err_msg="multi_target", **PRED_TOL)
+        np.testing.assert_allclose(
+            mthost["multi_target/residuals"][here], Yg - preds, err_msg="residuals", **PRED_TOL
+        )
+        sqw = sq[rows, None]
+        np.testing.assert_allclose(
+            mthost["multi_target/wls"][here], Xg @ _lstsq(Xg * sqw, Yg * sqw), err_msg="wls", **PRED_TOL
+        )
+        f = fit_mt[rows]
+        got = mthost["multi_target/drop"][here]
+        np.testing.assert_array_equal(np.isnan(got), ~np.repeat(f[:, None], 2, axis=1))
+        np.testing.assert_allclose(got[f], (Xg @ _lstsq(Xg[f], Yg[f]))[f], err_msg="drop", **PRED_TOL)
+    print(
+        f"multi_target: {len(mt_queries)} queries ({', '.join(mt_queries)}) of struct(y, y2) at "
+        f"{N_ROWS} rows x {N_FEATURES} features x {N_GROUPS} groups, Householder kernel "
+        f"launches={mt_launches} (no other kernel), nulls where 'drop' puts them, "
+        f"{N_CHECK_GROUPS} groups match numpy lstsq per target"
+    )
+    print("multi_target first-query s: " + json.dumps({k: round(v, 4) for k, v in first_s_mt.items()}))
+    del mtout, mthost
 
     # 6. statistics and coordinate descent at full width, through the
     # public API under .over("group"): every query once, with the counts
@@ -1741,6 +1979,59 @@ def main() -> int:
         sweep={f"L={L}": (L, None) for L in SKEW_RANGE_SWEEP},
     )
 
+    # 7b. predict and the formula API at full width through the public API:
+    # predict of the ols coefficients (with_columns), predict under 'drop'
+    # on the null columns, a static formula with an interaction, and the
+    # formulas of the rls / rolling queries above; the counts of all
+    # kernels set to 0 just before and read just after
+    CONFIG.lazy_row_order = False
+    formula_all = " + ".join(xv) + " - 1"
+    moments.moments_kernel_launches = cd.cd_kernel_launches = special.t_pvalue_kernel_launches = 0
+    moving.moving_kernel_launches = householder.householder_kernel_launches = 0
+    t0 = time.perf_counter()
+    pred = df.with_columns(coef_expr).select(col("coefficients").least_squares.predict(*features))["predictions"]
+    pred_drop = df.with_columns(ols("yn", xn, null_policy="drop", mode="coefficients").alias("cn")).select(
+        col("cn").least_squares.predict(*[col(c) for c in xn], null_policy="drop")
+    )["predictions"]
+    f_static = df.select(col("y").least_squares.from_formula("x1 + x2 + x3:x4").over("group"))["y"]
+    f_rls = df.select(col("y").least_squares.from_formula(formula_all, half_life=HALF_LIFE).over("group"))["y"]
+    f_rolling = df.select(col("y").least_squares.from_formula(formula_all, window_size=WINDOW).over("group"))["y"]
+    torch.cuda.synchronize()
+    pf_s = time.perf_counter() - t0
+    pf_launches = {
+        "grouped_moments": moments.moments_kernel_launches, "moving": moving.moving_kernel_launches,
+        "householder": householder.householder_kernel_launches,
+    }
+    if pf_launches["grouped_moments"] < 3 or pf_launches["moving"] < 2:
+        raise AssertionError(f"kernel launches {pf_launches} for 3 static fits and 2 moving formulas")
+    np.testing.assert_allclose(pred.to_numpy(), preds_mat, **PREDICT_TOL)
+    if not torch.equal(pred_drop.validity, torch.as_tensor(valid[:, 1:].all(axis=1), device=dev)):
+        raise AssertionError("predict/drop: nulls are not the rows with a null feature")
+    fit_d = valid[:, 0] & valid[:, 1:].all(axis=1)
+    np.testing.assert_allclose(pred_drop.to_numpy()[fit_d], out["drop"].to_numpy()[fit_d], **PREDICT_TOL)
+    f_host = _picked(f_static, sel)
+    at = 0
+    for _, rows in group_rows:
+        here = slice(at, at + len(rows))
+        at += len(rows)
+        Xf = np.column_stack([x[rows, 0], x[rows, 1], x[rows, 2] * x[rows, 3], np.ones(len(rows))])
+        np.testing.assert_allclose(f_host[here], Xf @ _lstsq(Xf, y[rows]), err_msg="from_formula", **PRED_TOL)
+    rolling_mat = df.select(moving_queries["rolling"][0])["y"]
+    for label, got, want in (("rls", f_rls, rls_mat), ("rolling", f_rolling, rolling_mat)):
+        # (a rolling warm-up row is a null over a NaN value, and NaN != NaN)
+        same = torch.equal(torch.nan_to_num(got.values), torch.nan_to_num(want.values))
+        if not (same and torch.equal(got.valid_mask(), want.valid_mask())):
+            raise AssertionError(f"from_formula(..., {label}) differs from the {label} query")
+    print(
+        f"predict/formula: predict of the ols coefficients equals the ols predictions "
+        f"(max abs diff {float(np.abs(pred.to_numpy() - preds_mat).max())!r}, {PREDICT_TOL}); "
+        f"predict under 'drop' null exactly on rows with a null feature and equal to the drop fit's "
+        f"predictions; from_formula('x1 + x2 + x3:x4') matches numpy lstsq on {N_CHECK_GROUPS} groups; "
+        f"from_formula('{formula_all}', half_life / window_size) equal the rls / rolling queries bit "
+        f"for bit; kernel launches {json.dumps(pf_launches)}; {pf_s!r} s for the five queries"
+    )
+    del pred, pred_drop, f_static, f_rls, f_rolling, rolling_mat
+
     # 8. steady-state timing, median of TIMING_REPS after one warm call
     for label, lazy in (("materialized", False), ("lazy", True)):
         CONFIG.lazy_row_order = lazy
@@ -1753,6 +2044,12 @@ def main() -> int:
         print(
             f"timing {label} (materialized): median {med * 1e3!r} ms, "
             f"{N_ROWS / med!r} rows/s, first query {first_s[label]!r} s ({smi})"
+        )
+    for label, q in mt_queries.items():
+        med = _timed_median(lambda: df.select(q), torch)
+        print(
+            f"timing {label} (materialized): median {med * 1e3!r} ms, "
+            f"{N_ROWS / med!r} rows/s, first query {first_s_mt[label]!r} s ({smi})"
         )
     timed = {
         "statistics (deferred rows)": lambda: df.select(stat_queries["statistics"][0]),
@@ -1790,6 +2087,8 @@ def main() -> int:
     CONFIG.lazy_row_order = False
     for label, fn in (
         ("main (materialized)", lambda: df.select(expr)),
+        ("svd (materialized)", lambda: df.select(queries["svd"][0])),
+        ("multi_target (materialized)", lambda: df.select(mt_queries["multi_target"])),
         ("lasso (materialized)", timed["lasso (materialized)"]),
         ("statistics (deferred rows)", timed["statistics (deferred rows)"]),
         ("rls (materialized)", lambda: df.select(moving_queries["rls"][0])),
@@ -1797,7 +2096,8 @@ def main() -> int:
         ("series/rolling", lambda: df2.select(series_queries["series/rolling"][0])),
     ):
         named = MOVING_KERNEL_NAMES if "rls" in label or "rolling" in label else {}
-        prof = _profile(fn, torch, named)
+        top = 6 if label.startswith(("svd", "multi_target")) else 0
+        prof = _profile(fn, torch, named, top)
         if prof is None:
             print(f"profile {label}: not measured (the profiler recorded no device activity)")
             continue
@@ -1808,6 +2108,7 @@ def main() -> int:
             f"(try {prof['tries']})"
             + (f"; device ms by kernel {json.dumps(prof['kernels_ms'])}, kernels "
                f"{json.dumps(prof['kernel_names'])}" if named else "")
+            + (f"; top device operations, ms a query: {json.dumps(prof['top_ms'])}" if top else "")
             + f" ({smi})"
         )
 
@@ -1882,6 +2183,24 @@ def main() -> int:
             },
             "wide_k": {str(k): f for k, f in mv_wide.items()},
             "skewed": mv_skew,
+            "floor_ms": floor_ms,
+        },
+        {
+            "name": "householder",
+            "route": "cuda",
+            "source": "polars_ols_tpu_torch/csrc/householder.cu",
+            "replaces": "polars_ols_tpu/ops/linalg.py:382",
+            "replaces_kind": "XLA, not Pallas: _householder_reduce (:382) and its lane-major form "
+                             "householder_lanes (:435) under the shared SVD",
+            "launches": mt_launches + svd_launches,
+            "launches_by_path": {
+                "multi_target": mt_launches, "svd": svd_launches,
+                "edges (kernel checks, not a path)": hh_edges,
+            },
+            **hh["multi_target"],
+            "svd_blocks": hh["svd"],
+            "library_call": "torch.linalg.qr(Zx, mode='r') of the masked blocks with the feature "
+                            "columns first (its first K rows are [R | Q^T Y])",
             "floor_ms": floor_ms,
         },
     ]}))

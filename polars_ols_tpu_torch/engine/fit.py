@@ -15,12 +15,20 @@ row order, deferred (``BlockPermuted``) or materialized.
 - ``cd`` / ``cd_active_set`` (lasso, elastic net, NNLS): the same moments,
   then covariance-form coordinate descent (ops/cd.py, a CUDA kernel on the
   card).
-- ``svd``: the fully padded ``[G, R, K]`` layout, Householder reduction
-  and one batched SVD of the K x K factors (minimum norm, numpy lstsq's
-  cutoff), for any number of groups.
+- ``svd``: the same split-padded blocks, reduced per group to the K x K
+  triangular factor and ``Q^T y`` by the hand-written Householder kernel
+  (ops/householder.py: each block, then a tree over a group's stacked
+  block factors), and one batched SVD of the factors (minimum norm, numpy
+  lstsq's cutoff); groups of at most K rows take the SVD of their rows.
 - ``mode="statistics"``: the split-padded blocks and their moments for
   every solver; the dispatch solver's coefficients with their residual
   metrics, and se / t / p from the normal equations (ops/statistics.py).
+
+A multi-target fit (a struct target of M fields) stacks ``[Y | X]``
+(``[N, M + K]``, cached on the struct's field Series) and runs the ``svd`` path with M target columns: one reduction and one
+SVD per group serve every target; the predictions are a struct of the
+target's fields. ``predict`` dots a row-aligned coefficient struct with
+feature columns (``evaluate_predict``).
 
 The moving models (``rls`` / ``expanding_ols`` / ``rolling_ols``) run on
 the fully padded ``[G, R, 1+K]`` layout under the moving null-policy
@@ -30,9 +38,8 @@ coefficients, or their predictions, from one scan-and-solve kernel family
 on the card; rolling warm-up NaNs become nulls; the output goes back to row
 order like the static fits'.
 
-What is not ported (multi-target, predict, formulas, K > 32, fused select)
-raises ``NotImplementedError`` naming its ROADMAP queue item; nothing falls
-back silently.
+What is not ported (K > 32, fused select) raises ``NotImplementedError``
+naming its ROADMAP queue item; nothing falls back silently.
 """
 
 from __future__ import annotations
@@ -44,7 +51,10 @@ import torch
 from ..config import CONFIG, EPSILON, F64, device
 from ..ops.cd import solve_elastic_net_cov
 from ..ops.direct import grouped_moments, resolve_solve_method
-from ..ops.linalg import MAX_K, psd_solver, solve_lu, solve_psd, solve_psd_cond, svd_lstsq
+from ..ops.householder import plan_reduction, reduce_groups
+from ..ops.linalg import (
+    MAX_K, psd_solver, solve_lu, solve_psd, solve_psd_cond, svd_lstsq, svd_lstsq_from_factor,
+)
 from ..ops.masking import prepare_problem, zero_filled
 from ..ops.moving import recursive_least_squares, rolling_ols
 from ..ops.rolling import default_min_periods, rolling_indices
@@ -150,68 +160,75 @@ def _weighted_stack_cached(target, feat_series, weights):
     return out
 
 
-def _const_series(target, n: int) -> Series:
-    """Engine-side intercept column: a cached all-ones Series."""
-    cache = _cache_of(target)
-    key = ("const", n)
-    if key not in cache:
-        _put(cache, key, Series("const", torch.ones(n, dtype=F64, device=device())))
-    return cache[key]
+def _stack(target, feat_series, weights):
+    """(vals, valid, 1/sqrt(w) or None): the cached column stack of
+    ``target`` and ``feat_series``, scaled by sqrt(w) where weighted."""
+    if weights is None:
+        return _stack_cached(target, feat_series) + (None,)
+    return _weighted_stack_cached(target, feat_series, weights)
 
 
-def _problem(vals, valid, policy: str, moving: bool = False):
-    """(y [N], X [N, K], fit_mask [N] or None, predict_valid [N] or None)
-    of a stack under a null policy (``moving``: a moving model's
-    semantics); fully valid stacks pass through."""
+def _const_series(layout, n: int) -> Series:
+    """Engine-side intercept column: an all-ones Series of the layout's n
+    rows, cached on the layout (the stacks key on its id)."""
+    if "const" not in layout._dev:
+        layout._dev["const"] = Series("const", torch.ones(n, dtype=F64, device=device()))
+    return layout._dev["const"]
+
+
+def _problem(vals, valid, policy: str, moving: bool = False, m: int = 1):
+    """(y [N] or, for m > 1 targets, [N, m], X [N, K], fit_mask [N] or
+    None, predict_valid [N] or None) of a stack (targets in its first m
+    columns) under a null policy (``moving``: a moving model's semantics);
+    fully valid stacks pass through."""
+    ys = slice(0, m) if m > 1 else 0
     if valid is None:
-        return vals[:, 0], vals[:, 1:], None, None
+        return vals[:, ys], vals[:, m:], None, None
     p = prepare_problem(
-        policy, vals[:, 0], valid[:, 0], vals[:, 1:], valid[:, 1:], moving=moving
+        policy, vals[:, ys], valid[:, ys], vals[:, m:], valid[:, m:], moving=moving
     )
     return p.y, p.X, p.fit_mask, p.predict_valid
 
 
-def _gather_layout(vals, valid, policy: str, gather, pmask, moving: bool = False):
+def _gather_layout(vals, valid, policy: str, gather, pmask, moving: bool = False, m: int = 1):
     """Policy pass, then one row gather of ``[y | X]`` (and of the bool
-    fit mask) into a padded layout ``pmask.shape``: (Zp [B, R, 1+K] target
-    in slot 0, wp [B, R] fit mask, predict_valid [N] or None). Padding
-    slots gather row 0 and are masked out."""
-    y, X, fit_mask, predict_valid = _problem(vals, valid, policy, moving)
+    fit mask) into a padded layout ``pmask.shape``: (Zp [B, R, m+K]
+    targets in the first m slots, wp [B, R] fit mask, predict_valid [N] or
+    None). Padding slots gather row 0 and are masked out."""
+    y, X, fit_mask, predict_valid = _problem(vals, valid, policy, moving, m)
     B, R = pmask.shape
-    Z = vals if fit_mask is None else torch.cat([y[:, None], X], dim=1)
+    Z = vals if fit_mask is None else torch.cat([y.reshape(len(X), -1), X], dim=1)
     Zp = Z.index_select(0, gather).reshape(B, R, Z.shape[1])
     wp = pmask if fit_mask is None else pmask & fit_mask.index_select(0, gather).reshape(B, R)
     return Zp, wp, predict_valid
 
 
-def _cache_key(kind: str, vals, valid, policy: str, R: int):
+def _cache_key(kind: str, vals, valid, policy: str, R: int, m: int = 1):
     # the policy matters only with nulls: fully valid stacks share one entry
-    return (kind, id(vals), id(valid), policy if valid is not None else None, R)
+    return (kind, id(vals), id(valid), policy if valid is not None else None, R, m)
 
 
-def _blocks_cached(layout, vals, valid, policy: str):
-    """The split-padded partition (Zp [S, R, 1+K], wp [S, R],
-    predict_valid) of the moment path, cached per (columns, layout,
-    policy). The entry holds vals and valid: the key uses their ids."""
+def _blocks_cached(layout, vals, valid, policy: str, m: int = 1):
+    """The split-padded partition (Zp [S, R, m+K], wp [S, R],
+    predict_valid) of the moment and SVD paths, cached per (columns,
+    layout, policy). The entry holds vals and valid: the key uses their
+    ids."""
     g, pmask, _, _ = _split_layout(layout)
-    key = _cache_key("blocks", vals, valid, policy, pmask.shape[1])
+    key = _cache_key("blocks", vals, valid, policy, pmask.shape[1], m)
     entry = _lru(
         layout._dev, "blocks", key,
-        lambda: _gather_layout(vals, valid, policy, g, pmask) + (vals, valid),
+        lambda: _gather_layout(vals, valid, policy, g, pmask, m=m) + (vals, valid),
     )
     return entry[:3]
 
 
-def _padded_cached(layout, vals, valid, policy: str):
-    """The fully padded layout (Zp [G, R, 1+K], wp [G, R], predict_valid)
-    of the SVD path, cached like ``_blocks_cached``."""
-    gather, pmask, R = layout.device_padded()
-    key = _cache_key("padded", vals, valid, policy, R)
-    entry = _lru(
-        layout._dev, "padded", key,
-        lambda: _gather_layout(vals, valid, policy, gather, pmask) + (vals, valid),
-    )
-    return entry[:3]
+def _reduction_plan(layout, r_cap: int, k: int):
+    """The Householder tree of the layout's split blocks (ops/householder.py:
+    plan_reduction), planned on the host from its counts and cached on it."""
+    key = ("reduction", r_cap, k)
+    if key not in layout._dev:
+        layout._dev[key] = plan_reduction(layout._blocks_per_group(r_cap), k, device())
+    return layout._dev[key]
 
 
 def _moving_layout(layout, vals, valid, policy: str):
@@ -354,18 +371,29 @@ def _fit_moments(layout, vals, valid, policy: str, alpha: float, method: str, cd
     return beta, Xp, block_group, unpad, predict_valid
 
 
-def _fit_svd(layout, vals, valid, policy: str, alpha: float, rcond):
-    """Per-group minimum-norm beta [G, K] on the fully padded layout
-    (``svd_lstsq``: Householder reduction, one batched SVD of the K x K
-    factors). Returns what ``_fit_moments`` returns (block i is group i)."""
-    Zp, wp, predict_valid = _padded_cached(layout, vals, valid, policy)
-    G, R = wp.shape
-    yp, Xp = Zp[..., 0], Zp[..., 1:]
+def _fit_svd(layout, vals, valid, policy: str, alpha: float, rcond, m: int = 1):
+    """Per-group minimum-norm beta [G, K, m] of the m targets on the
+    split-padded blocks: each group's rows reduced by the Householder
+    kernel to its K x K factor and ``Q^T Y`` (the blocks, then the tree
+    over a group's block factors), then one batched SVD of the factors
+    (``svd_lstsq_from_factor``). Where no group has more than K rows (each
+    is one block), the SVD of the rows themselves (``svd_lstsq``). Returns
+    what ``_fit_moments`` returns, beta with its target axis."""
+    block_group = _split_layout(layout)[2]
+    Zp, wp, predict_valid = _blocks_cached(layout, vals, valid, policy, m)
+    G, (S, R, C) = layout.num_groups, Zp.shape
+    k = C - m
     n_valid = wp.sum(dim=1, dtype=F64)
-    Xm = torch.where(wp[..., None], Xp, 0.0)
-    ym = torch.where(wp, yp, 0.0)
-    beta = svd_lstsq(Xm, ym, alpha, rcond, n_valid)
-    return beta, Xp, None, layout.device_unpad(R) if G > 1 else None, predict_valid
+    if S > G:
+        n_valid = torch.segment_reduce(n_valid, "sum", offsets=layout.device_block_offsets(R), axis=0)
+    if int(layout.counts.max()) > k:
+        T = reduce_groups(Zp, wp, k, _reduction_plan(layout, R, k))
+        beta = svd_lstsq_from_factor(T[..., m:], T[..., :m], n_valid, alpha, rcond)
+    else:  # a group's rows sit at the top of its one block
+        Zm = torch.where(wp[:, :k, None], Zp[:, :k], 0.0)
+        beta = svd_lstsq(Zm[..., m:], Zm[..., :m], alpha, rcond, n_valid)
+    unpad = layout.device_split_unpad(R) if G > 1 else None
+    return beta, Zp[..., m:], block_group, unpad, predict_valid
 
 
 def _coef_struct(beta: torch.Tensor, names: List[str]) -> StructSeries:
@@ -399,7 +427,7 @@ def _statistics(layout, vals, valid, policy: str, kwargs, method: str, cd, names
     if cd is not None:
         beta = _solve_cd(XtX, Xty, counts, alpha, cd)
     elif method == "svd":
-        beta = _fit_svd(layout, vals, valid, policy, alpha, kwargs.rcond)[0]
+        beta = _fit_svd(layout, vals, valid, policy, alpha, kwargs.rcond)[0][..., 0]
     else:
         beta = beta_ne
     rm = metrics(beta)
@@ -436,11 +464,7 @@ def _evaluate_moving(function_name, target, feat_series, kwargs, mode, layout, w
     (src/expressions.rs:624-646), and so predictions and residuals run
     with a zero prior mean."""
     n, k, G = len(target), len(feat_series), layout.num_groups
-    inv_w = None
-    if weights is None:
-        vals, valid = _stack_cached(target, feat_series)
-    else:
-        vals, valid, inv_w = _weighted_stack_cached(target, feat_series, weights)
+    vals, valid, inv_w = _stack(target, feat_series, weights)
     policy = kwargs.null_policy
     Zp, vp, predict_valid = _moving_cached(layout, vals, valid, policy)
     rows = layout.device_counts()
@@ -499,6 +523,7 @@ def evaluate_least_squares(
     add_intercept: bool = False,
     weights: Series | None = None,
     function_name: str = "least_squares",
+    multi_target: bool = False,
 ):
     """A least-squares fit of ``target`` on ``feat_series`` per group of
     ``layout_in`` (one group when None), under the kwargs' null policy,
@@ -507,35 +532,39 @@ def evaluate_least_squares(
     moving one (``recursive_least_squares``, ``rolling_least_squares``).
     Predictions come as a Series (unscaled for WLS), coefficients as a
     struct column, statistics (static fits only) as a ``StatisticsSeries``
-    (one row per group without ``.over()``, one per row with it)."""
+    (one row per group without ``.over()``, one per row with it). With
+    ``multi_target`` a struct target's fields share one SVD fit and the
+    predictions come as a struct; a plain target takes the 'svd' fit, as
+    in the JAX engine."""
     n = len(target)
-    if add_intercept:
-        feat_series = list(feat_series) + [_const_series(target, n)]
-    k = len(feat_series)
     layout = layout_in if layout_in is not None else single_layout(n)
-    G = layout.num_groups
+    if add_intercept:
+        feat_series = list(feat_series) + [_const_series(layout, n)]
+    k = len(feat_series)
     if k > MAX_K:
         raise _not_ported(f"K={k} > {MAX_K} features", 12)
+    if isinstance(target, StructSeries):
+        if not (multi_target and function_name == "least_squares" and mode == "predictions"):
+            raise TypeError(
+                "a struct target is fitted by multi_target_ols, in predictions or residuals mode"
+            )
+        return _evaluate_multi_target(target, feat_series, kwargs, layout, weights)
     if function_name != "least_squares":
         return _evaluate_moving(function_name, target, feat_series, kwargs, mode, layout, weights)
     method = _resolve_method(layout, kwargs, k)
 
-    inv_w = None
-    if weights is None:
-        vals, valid = _stack_cached(target, feat_series)
-    else:
-        vals, valid, inv_w = _weighted_stack_cached(target, feat_series, weights)
+    vals, valid, inv_w = _stack(target, feat_series, weights)
     policy = kwargs.null_policy
     alpha = float(kwargs.alpha or 0.0)
     cd = _cd_params(kwargs, method) if method.startswith("cd") else None
     names = [s.name for s in feat_series]
     if mode == "statistics":
         return _statistics(layout, vals, valid, policy, kwargs, method, cd, names, layout_in)
-    row_preds = valid is not None and policy in _ROW_PREDICT_POLICIES
     if method == "svd":
         beta, Xp, block_group, unpad, predict_valid = _fit_svd(
             layout, vals, valid, policy, alpha, kwargs.rcond
         )
+        beta = beta[..., 0]
     else:
         beta, Xp, block_group, unpad, predict_valid = _fit_moments(
             layout, vals, valid, policy, alpha, method, cd
@@ -544,20 +573,90 @@ def evaluate_least_squares(
     if mode == "coefficients":
         rows = beta if layout_in is None else beta.index_select(0, layout.device_gids())
         return _coef_struct(rows, names)
-    if row_preds:
-        # X_predict of the drop family: the zero-filled features of every
-        # row, against each row's group coefficients
-        X_pred = zero_filled(vals[:, 1:], valid[:, 1:])
-        rows = beta if G == 1 else beta.index_select(0, layout.device_gids())
-        preds = (X_pred * rows).sum(dim=1)
-    else:
-        bb = beta if block_group is None else beta.index_select(0, block_group)
-        flat = _block_preds(Xp, bb).reshape(-1)
-        if CONFIG.lazy_row_order and G > 1 and inv_w is None:
-            # block-ordered output with a deferred row-order permutation
-            return Series(target.name, BlockPermuted(flat, unpad), predict_valid)
-        # one group: the layout is row-sequential, so row order is a slice
-        preds = flat[:n] if G == 1 else flat.index_select(0, unpad)
+    preds = _predictions(
+        beta, Xp, block_group, unpad, layout, n, _row_features(vals, valid, policy, 1),
+        lazy=CONFIG.lazy_row_order and inv_w is None,
+    )
     if inv_w is not None:
         preds = preds * inv_w
     return Series(target.name, preds, predict_valid)
+
+
+def _row_features(vals, valid, policy: str, m: int):
+    """X_predict of the drop family, ``drop_zero`` / ``drop_y_zero_x``: the
+    zero-filled features [N, K] of every row (the fit's blocks hold the
+    excluded rows zeroed); None where the blocks' features serve."""
+    if valid is None or policy not in _ROW_PREDICT_POLICIES:
+        return None
+    return zero_filled(vals[:, m:], valid[:, m:])
+
+
+def _predictions(beta, Xp, block_group, unpad, layout, n: int, X_row=None, lazy: bool = False):
+    """Predictions [N] of the coefficients beta [G, K] in row order: from
+    the row features ``X_row`` [N, K] where given (against each row's
+    group coefficients), else from the blocks ``Xp`` [S, R, K] and brought
+    to row order by ``unpad``, or deferred (``BlockPermuted``) with
+    ``lazy``. One group's layout is row-sequential: row order is a slice."""
+    G = layout.num_groups
+    if X_row is not None:
+        rows = beta if G == 1 else beta.index_select(0, layout.device_gids())
+        return (X_row * rows).sum(dim=1)
+    flat = _block_preds(Xp, beta.index_select(0, block_group)).reshape(-1)
+    if G == 1:
+        return flat[:n]
+    return BlockPermuted(flat, unpad) if lazy else flat.index_select(0, unpad)
+
+
+def _evaluate_multi_target(target: StructSeries, feat_series, kwargs, layout, weights):
+    """One shared SVD fit per group of the struct's M targets (the JAX
+    engine's ``_multi_target_fused``, engine/fit.py:1766-1793): the
+    ``[Y | X]`` stack through the ``svd`` path with M target columns, and a
+    struct of predictions named after the target's fields, null on the
+    rows the policy drops (src/expressions.rs:521-591)."""
+    n, m = len(target), len(target.field_names)
+    # the [N, M + K] stack of the fields and the features, cached on the
+    # first field: a query rebuilds its struct, but not the field Series
+    fields = list(target.sources or target.fields())
+    vals, valid, inv_w = _stack(fields[0], fields[1:] + list(feat_series), weights)
+    policy = kwargs.null_policy
+    beta, Xp, block_group, unpad, predict_valid = _fit_svd(
+        layout, vals, valid, policy, float(kwargs.alpha or 0.0), kwargs.rcond, m
+    )
+    X_row = _row_features(vals, valid, policy, m)
+    preds = torch.stack(
+        [_predictions(beta[..., j], Xp, block_group, unpad, layout, n, X_row) for j in range(m)], dim=1
+    )
+    if inv_w is not None:
+        preds = preds * inv_w[:, None]
+    validity = None if predict_valid is None else predict_valid[:, None].expand(n, m).contiguous()
+    return StructSeries("predictions", target.field_names, preds, validity)
+
+
+# --------------------------------------------------------------------------- #
+# predict
+# --------------------------------------------------------------------------- #
+def evaluate_predict(coef, feat_series: List[Series], null_policy: str, name: str) -> Series:
+    """Each row's coefficient struct dotted with its features (the JAX
+    engine's ``evaluate_predict``, engine/fit.py:1856-1877; the reference's
+    predict, src/expressions.rs:706-741). Null features count as zero
+    ('zero', 'drop') or NaN ('ignore'); null coefficient fields are NaN, as
+    the reference's unnest makes them. Under 'drop' a row is null where a
+    feature is, or where every field of its coefficient struct is (a
+    left-join row without coefficients)."""
+    if not isinstance(coef, StructSeries):
+        raise AssertionError("the first input to predict must be a coefficients struct")
+    if len(coef.field_names) != len(feat_series):
+        raise AssertionError(
+            f"coefficient struct has {len(coef.field_names)} fields but "
+            f"{len(feat_series)} feature columns were passed"
+        )
+    X = torch.stack([torch.as_tensor(s.values, dtype=F64, device=device()) for s in feat_series], dim=1)
+    xv = torch.stack([s.valid_mask() for s in feat_series], dim=1)
+    X = torch.where(xv, X, torch.nan if null_policy == "ignore" else 0.0)
+    beta = coef.values if coef.validity is None else torch.where(coef.validity, coef.values, torch.nan)
+    preds = (X * beta).sum(dim=1)
+    validity = None
+    if null_policy == "drop":
+        coef_rows = torch.ones_like(xv[:, 0]) if coef.validity is None else coef.validity.any(dim=1)
+        validity = xv.all(dim=1) & coef_rows
+    return Series(name, preds, validity)

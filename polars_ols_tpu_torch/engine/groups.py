@@ -111,8 +111,10 @@ class GroupLayout:
     """Host-computed layout metadata for a batch of groups.
 
     Device index tensors derived from it are built once and memoized in
-    ``_dev``; layouts are cached per group-key column (`layout_for_columns`),
-    so steady-state queries never re-upload them.
+    ``_dev``, the caches of the configured device (single-group layouts are
+    memoized per row count and outlive a change of ``CONFIG.device``);
+    layouts are cached per group-key column (`layout_for_columns`), so
+    steady-state queries never re-upload them.
     """
 
     gids: np.ndarray  # [N] group id per row
@@ -120,7 +122,12 @@ class GroupLayout:
     counts: np.ndarray  # [G] rows per group
     order: np.ndarray  # [N] stable argsort of gids (rows grouped contiguously)
     rank_in_group: np.ndarray  # [N] 0-based position of each row inside its group
-    _dev: Dict = field(default_factory=dict, repr=False, compare=False)
+    _devs: Dict = field(default_factory=dict, repr=False, compare=False)
+
+    @property
+    def _dev(self) -> Dict:
+        """The device caches of ``CONFIG.device``."""
+        return self._devs.setdefault(str(device()), {})
 
     def _blocks_per_group(self, r_cap: int) -> np.ndarray:
         return np.maximum(1, -(-self.counts // r_cap))
@@ -132,12 +139,10 @@ class GroupLayout:
         return self._dev["gids"]
 
     def device_counts(self) -> torch.Tensor:
-        """Rows per group as a device int64 tensor [G] (keyed by the
-        device: single-group layouts outlive a change of ``CONFIG.device``)."""
-        key = ("counts", str(device()))
-        if key not in self._dev:
-            self._dev[key] = _to_device(self.counts, torch.int64)
-        return self._dev[key]
+        """Rows per group as a device int64 tensor [G]."""
+        if "counts" not in self._dev:
+            self._dev["counts"] = _to_device(self.counts, torch.int64)
+        return self._dev["counts"]
 
     def device_padded(self):
         """(gather [G*R], pad_mask [G,R], R) device tensors, memoized."""

@@ -6,16 +6,22 @@ batched PyTorch engine. WLS scales the engine's column stack by sqrt(w)
 (reference least_squares.py:190-196); residuals are the target minus the
 (unscaled) predictions. The static fits refuse ``null_policy="drop_window"``;
 the recursive and rolling models take all six policies and refuse
-``mode="statistics"``.
+``mode="statistics"``. A multi-target fit (a struct target) solves every
+target through one shared SVD and gives predictions or residuals only;
+``predict`` dots a row-aligned coefficient struct with feature columns;
+``compute_least_squares_from_formula`` parses a patsy-style formula
+(utils.py). Where the JAX package asserts, these functions raise
+``AssertionError`` with its message.
 """
 
 from __future__ import annotations
 
 import logging
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
+from functools import partial
 from typing import List, Literal, Optional, Set, Union, get_args
 
-from .expr import Expr, LeastSquaresExpr, parse_into_expr
+from .expr import Expr, LeastSquaresExpr, PredictExpr, lit, parse_into_expr
 
 logger = logging.getLogger(__name__)
 
@@ -112,6 +118,7 @@ def _build_least_squares_expr(
     function_name: str = "least_squares",
     sample_weights: Optional[ExprOrStr] = None,
     add_intercept: bool = False,
+    multi_target: bool = False,
 ) -> Expr:
     """The least-squares node for ``mode``, with the intercept folded into
     the engine's column stack and the weights into its sqrt(w) scaling
@@ -129,7 +136,7 @@ def _build_least_squares_expr(
     node_mode = "predictions" if mode == "residuals" else mode
     node = LeastSquaresExpr(
         target, features, ols_kwargs, node_mode, add_intercept=add_const, weights=weights,
-        function_name=function_name,
+        function_name=function_name, multi_target=multi_target,
     )
     if mode in ("coefficients", "statistics"):
         return node.alias(mode)
@@ -156,6 +163,41 @@ def compute_least_squares(
         ols_kwargs=ols_kwargs or OLSKwargs(),
         sample_weights=sample_weights,
         add_intercept=add_intercept,
+    )
+
+
+def compute_multi_target_least_squares(
+    targets: ExprOrStr,
+    *features: ExprOrStr,
+    sample_weights: Optional[ExprOrStr] = None,
+    add_intercept: bool = False,
+    mode: str = "predictions",
+    ols_kwargs: Optional[OLSKwargs] = None,
+) -> Expr:
+    """Multi-target regression of a struct target: one shared SVD serves
+    all M targets (reference least_squares.py:282-329). OLS and ridge only,
+    in predictions or residuals mode; the output is a struct of the
+    target's fields."""
+    ols_kwargs = ols_kwargs or OLSKwargs()
+    msg = " Fit each target with its own expression instead."
+    if ols_kwargs.positive or ols_kwargs.l1_ratio not in (None, 0.0):
+        raise AssertionError(
+            "multi-target fits support only unconstrained OLS/Ridge (shared SVD)." + msg
+        )
+    if ols_kwargs.solve_method not in ("svd", None):
+        raise AssertionError(
+            "multi-target fits solve through the shared SVD; pass solve_method='svd' or None"
+        )
+    if mode not in ("predictions", "residuals"):
+        raise NotImplementedError("multi-target mode must be 'predictions' or 'residuals'." + msg)
+    return _build_least_squares_expr(
+        targets,
+        *features,
+        mode=mode,
+        ols_kwargs=replace(ols_kwargs, solve_method="svd"),
+        sample_weights=sample_weights,
+        add_intercept=add_intercept,
+        multi_target=True,
     )
 
 
@@ -210,3 +252,56 @@ def compute_rolling_least_squares(
         # does the same conversion itself
         expr = expr.fill_nan(None)
     return expr
+
+
+def compute_least_squares_from_formula(
+    formula: str,
+    sample_weights: Optional[ExprOrStr] = None,
+    mode: str = "predictions",
+    **kwargs,
+) -> Expr:
+    """A fit from a patsy-style formula ``"y ~ x1 + x2:x3"``: recursive
+    least squares with ``half_life``, rolling with ``window_size``, else a
+    static fit (reference least_squares.py:412-452)."""
+    from .utils import build_expressions_from_patsy_formula
+
+    expressions, add_intercept = build_expressions_from_patsy_formula(
+        formula, include_dependent_variable=True
+    )
+    if kwargs.get("half_life"):
+        func = partial(compute_recursive_least_squares, rls_kwargs=RLSKwargs(**kwargs))
+    elif kwargs.get("window_size"):
+        func = partial(compute_rolling_least_squares, rolling_kwargs=RollingKwargs(**kwargs))
+    else:
+        func = partial(compute_least_squares, ols_kwargs=OLSKwargs(**kwargs))
+    return func(
+        expressions[0],
+        *expressions[1:],
+        add_intercept=add_intercept,
+        sample_weights=sample_weights,
+        mode=mode,
+    )
+
+
+def predict(
+    coefficients: ExprOrStr,
+    *features: ExprOrStr,
+    null_policy: str = "zero",
+    add_intercept: bool = False,
+    name: Optional[str] = None,
+) -> Expr:
+    """Row-aligned coefficient struct dotted with the features (reference
+    least_squares.py:455-491), under the null policies the reference's
+    predict takes: zero, ignore or drop (src/expressions.rs:706-741)."""
+    if null_policy not in ("zero", "ignore", "drop"):
+        raise AssertionError(
+            f"unknown null_policy {null_policy!r}; predict supports drop/ignore/zero"
+        )
+    coefficients = parse_into_expr(coefficients)
+    features = [parse_into_expr(f) for f in features]
+    if add_intercept:
+        if any(f.output_name == "const" for f in features):
+            logger.warning("a 'const' column is present among the features; treating it as the intercept")
+        else:
+            features.append(lit(1.0).alias("const"))
+    return PredictExpr(coefficients, features, null_policy, name or "predictions")

@@ -1,5 +1,7 @@
-"""The `.least_squares` expression namespace: ols, wls, ridge, lasso,
-elastic_net, rls, rolling_ols and expanding_ols so far."""
+"""The `.least_squares` expression namespace, method for method the
+reference's (polars_ols/__init__.py:35-295): ols, wls, ridge, lasso,
+elastic_net, rls, rolling_ols, expanding_ols, multi_target_ols,
+from_formula, predict and predict_from_formula."""
 
 from __future__ import annotations
 
@@ -11,43 +13,26 @@ from .least_squares import (
     RLSKwargs,
     RollingKwargs,
     compute_least_squares,
+    compute_multi_target_least_squares,
     compute_recursive_least_squares,
     compute_rolling_least_squares,
+    predict,
 )
+from .utils import build_expressions_from_patsy_formula
 
 ExprOrStr = Union[Expr, str]
 
-# the reference namespace's other methods -> the ROADMAP.md Queue 1 item
-# that ports them
-_NOT_PORTED = {
-    "multi_target_ols": 8,
-    "from_formula": 8,
-    "predict": 8,
-    "predict_from_formula": 8,
-}
-
-
-def _not_ported(name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"least_squares.{name} is not ported to polars_ols_tpu_torch yet "
-        f"(ROADMAP.md Queue 1 item {_NOT_PORTED[name]})"
-    )
-
 
 class LeastSquares:
-    """Entry points of the ported models, mirroring the reference namespace
+    """Entry points of every model, mirroring the reference namespace
     (polars_ols/__init__.py:35-295): sample_weights, add_intercept,
     mode ∈ {predictions, residuals, coefficients, statistics}, null_policy,
     solve_method; the moving models (rls, rolling_ols, expanding_ols) take
-    every mode but statistics."""
+    every mode but statistics, multi-target fits predictions and residuals
+    only."""
 
     def __init__(self, expr: Expr):
         self._expr = expr
-
-    def __getattr__(self, name: str):
-        if name not in _NOT_PORTED:
-            raise AttributeError(name)
-        raise _not_ported(name)
 
     def least_squares(
         self,
@@ -60,9 +45,8 @@ class LeastSquares:
         multi_target: bool = False,
         **ols_kwargs,
     ) -> Expr:
-        if multi_target:
-            raise _not_ported("multi_target_ols")
-        return compute_least_squares(
+        ols_func = compute_multi_target_least_squares if multi_target else compute_least_squares
+        return ols_func(
             self._expr,
             *features,
             sample_weights=sample_weights,
@@ -74,6 +58,10 @@ class LeastSquares:
     def ols(self, *features: ExprOrStr, **kwargs) -> Expr:
         """Ordinary least squares. Alias for `least_squares`."""
         return self.least_squares(*features, **kwargs)
+
+    def multi_target_ols(self, *features: ExprOrStr, **kwargs) -> Expr:
+        """One shared fit of every field of a struct target."""
+        return self.least_squares(*features, multi_target=True, **kwargs)
 
     def wls(self, *features: ExprOrStr, sample_weights: ExprOrStr, **kwargs) -> Expr:
         """Weighted least squares via sqrt-weight scaling."""
@@ -161,3 +149,36 @@ class LeastSquares:
     def expanding_ols(self, *features: ExprOrStr, **kwargs) -> Expr:
         """``rls`` without forgetting."""
         return self.rls(*features, half_life=None, **kwargs)
+
+    def from_formula(self, formula: str, **kwargs) -> Expr:
+        """A fit of this target on the right-hand side of a patsy-style
+        formula: ``rls`` with ``half_life``, ``rolling_ols`` with
+        ``window_size``, else ``least_squares``."""
+        features, add_intercept = build_expressions_from_patsy_formula(
+            formula, include_dependent_variable=False
+        )
+        if kwargs.get("half_life"):
+            return self.rls(*features, add_intercept=add_intercept, **kwargs)
+        if kwargs.get("window_size"):
+            return self.rolling_ols(*features, add_intercept=add_intercept, **kwargs)
+        return self.least_squares(*features, add_intercept=add_intercept, **kwargs)
+
+    def predict(
+        self,
+        *features: ExprOrStr,
+        name: Optional[str] = None,
+        add_intercept: bool = False,
+        null_policy: str = "zero",
+    ) -> Expr:
+        """This coefficient struct dotted with ``features``, row by row."""
+        return predict(
+            self._expr, *features, add_intercept=add_intercept, name=name, null_policy=null_policy
+        )
+
+    def predict_from_formula(self, formula: str, name: Optional[str] = None) -> Expr:
+        """``predict`` on the right-hand side of a patsy-style formula."""
+        features, add_intercept = build_expressions_from_patsy_formula(
+            formula, include_dependent_variable=False
+        )
+        add_intercept &= not any(f.output_name == "const" for f in features)
+        return self.predict(*features, name=name, add_intercept=add_intercept)

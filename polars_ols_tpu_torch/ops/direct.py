@@ -33,13 +33,14 @@ def resolve_solve_method(
     (src/expressions.rs:361-388): coordinate descent for L1 / positive
     fits, Cholesky for ridge, and for plain OLS the fused normal-equation
     path ('chol') when overdetermined, SVD otherwise. Explicit methods are
-    honored."""
+    honored. A negative alpha, or an L1 / positive fit without a positive
+    alpha, raises ``AssertionError`` as the JAX package's asserts do."""
     if alpha < 0.0:
-        raise ValueError("regularization alpha must be non-negative")
+        raise AssertionError("regularization alpha must be non-negative")
     l1 = l1_ratio or 0.0
     if positive or l1 > 0.0:
         if alpha <= 0.0:
-            raise ValueError(
+            raise AssertionError(
                 "lasso / elastic_net / nnls require alpha > 0 "
                 "(use ols/ridge for an unpenalized fit)"
             )

@@ -1,0 +1,203 @@
+"""Householder reduction of masked row blocks, and the tree that reduces a
+group's blocks to one factor (TSQR).
+
+``householder_blocks`` takes blocks ``Z [B, R, C]`` (the M target columns
+first, then the K feature columns: the port's ``[y | X]``) and their row
+mask ``w [B, R]``, and returns ``T [B, K, C]``: the first K rows after K
+Householder reflections of the feature columns, i.e. the triangular factor
+R of the features (``T[..., M:]``) beside ``Q^T Y`` (``T[..., :M]``). It is
+the reduction under the JAX engine's shared SVD
+(``polars_ols_tpu/ops/linalg.py:_householder_reduce`` :382,
+``householder_lanes`` :435; XLA, no Pallas kernel), which every
+multi-target fit and every explicit 'svd' solve runs.
+
+On a CUDA tensor it always launches the hand-written kernel
+``csrc/householder.cu`` and counts the launch in
+``householder_kernel_launches``; a failed build or launch raises. On a CPU
+tensor it runs the plain version ``householder_blocks_ref``; nothing falls
+back from one to the other. Both select the masked rows away (a padding
+slot gathers row 0, whose NaN must not reach another group), and both use
+the reflections of ``ops/linalg.py:_householder_reduce``, so they agree
+entry for entry.
+
+A group whose rows span several blocks is reduced as a tree:
+``plan_reduction`` (host-side, from the blocks per group) stacks each
+group's ``[n, K, C]`` partial factors, ``MAX_ROWS // K`` to a block, and
+``reduce_groups`` reduces the stacks with the same kernel until one factor
+is left per group. Stacked factors are genuine rows, so the last factor is
+the reduction of all of the group's rows (up to the signs of its rows,
+which the SVD that consumes it does not see).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..config import F64
+from . import kernels
+from .linalg import _householder_reduce
+
+# kernel launches made by householder_blocks since the last reset
+householder_kernel_launches = 0
+
+# C = M + K columns; the port's fits take K <= 32
+MAX_COLS = 33
+# rows a block of the reduction tree holds (the split layout's default cap)
+MAX_ROWS = 512
+# the dynamic shared memory a block may use on sm_90 (the panel, R x odd C
+# doubles, and C dot products)
+_SMEM_BYTES = 232_448
+
+_BOUND = None
+
+
+def _kernel():
+    global _BOUND
+    if _BOUND is None:
+        lib = kernels.load("householder")
+        vp, i64 = ctypes.c_void_p, ctypes.c_int64
+        lib.pols_householder_blocks.argtypes = [vp, vp, i64, i64, i64, i64, vp, vp]
+        lib.pols_householder_blocks.restype = ctypes.c_int
+        lib.pols_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.pols_cuda_error_string.restype = ctypes.c_char_p
+        _BOUND = lib
+    return _BOUND
+
+
+def _check(Z, w, K: int) -> None:
+    if Z.dtype != F64 or Z.dim() != 3:
+        raise TypeError(f"Z must be a [B, R, C] float64 tensor, got {Z.dtype} {tuple(Z.shape)}")
+    B, R, C = Z.shape
+    if not 2 <= C <= MAX_COLS or not 1 <= K < C or R < 1:
+        raise ValueError(
+            f"Z has C={C}, R={R} with K={K}; the reduction takes 1 <= K < C <= {MAX_COLS}, R >= 1"
+        )
+    if (R * (C | 1) + C) * 8 > _SMEM_BYTES:
+        raise ValueError(f"a block of R={R} rows and C={C} columns does not fit shared memory")
+    if w.dtype != torch.bool or tuple(w.shape) != (B, R):
+        raise TypeError(f"w must be a [{B}, {R}] bool tensor, got {w.dtype} {tuple(w.shape)}")
+    if Z.device != w.device:
+        raise ValueError("Z and w must be on one device")
+    if not (Z.is_contiguous() and w.is_contiguous()):
+        raise ValueError("Z and w must be contiguous")
+
+
+def householder_blocks_ref(Z: torch.Tensor, w: torch.Tensor, K: int) -> torch.Tensor:
+    """Plain version: ``_householder_reduce`` over the batch of selected
+    blocks (a block of fewer than K rows padded with zero rows first)."""
+    _check(Z, w, K)
+    B, R, C = Z.shape
+    Zs = torch.where(w[..., None], Z, torch.zeros((), dtype=F64, device=Z.device))
+    if R < K:
+        Zs = torch.cat([Zs, Zs.new_zeros((B, K - R, C))], dim=1)
+    M = C - K
+    Rf, QtY = _householder_reduce(Zs[..., M:], Zs[..., :M])
+    return torch.cat([QtY, Rf], dim=-1)
+
+
+def householder_blocks(Z: torch.Tensor, w: torch.Tensor, K: int) -> torch.Tensor:
+    """``T [B, K, C]``: the first K rows of each block ``Z [B, R, C]`` f64
+    (targets first) under the row mask ``w [B, R]`` bool after K Householder
+    reflections of its last K columns."""
+    global householder_kernel_launches
+    _check(Z, w, K)
+    if Z.device.type == "cpu":
+        return householder_blocks_ref(Z, w, K)
+    if Z.device.type != "cuda":
+        raise ValueError(f"no Householder kernel for device {Z.device}")
+    B, R, C = Z.shape
+    T = torch.empty((B, K, C), dtype=F64, device=Z.device)
+    lib = _kernel()
+    with torch.cuda.device(Z.device):
+        rc = lib.pols_householder_blocks(
+            Z.data_ptr(), w.data_ptr(), B, R, C, K, T.data_ptr(),
+            torch.cuda.current_stream(Z.device).cuda_stream,
+        )
+    if rc != 0:
+        msg = lib.pols_cuda_error_string(rc).decode()
+        raise RuntimeError(f"Householder kernel launch failed: CUDA error {rc} ({msg})")
+    householder_kernel_launches += 1
+    return T
+
+
+@dataclass
+class ReductionPlan:
+    """The reduction tree of one layout (host arrays; ``on`` moves them to a
+    device).
+
+    Attributes:
+        levels: for each level after the first, (gather [S, R] int64 into
+            the previous level's factor rows ``[S_prev * K]``, mask [S, R]
+            bool); a block holds up to ``MAX_ROWS // K`` factors of one
+            group.
+        final: [G] index of each group's last factor into all levels'
+            factors concatenated, or None where the last level's blocks are
+            the groups in order.
+    """
+
+    levels: List[Tuple[torch.Tensor, torch.Tensor]]
+    final: Optional[torch.Tensor]
+
+
+def plan_reduction(blocks_per_group: np.ndarray, K: int, device=None) -> ReductionPlan:
+    """The tree that reduces each group's ``blocks_per_group[g]`` factors
+    (contiguous, in group order) to one. Groups with one factor are done;
+    the others stack theirs, ``MAX_ROWS // K`` to a block, level by level."""
+    per = max(2, MAX_ROWS // K)
+    units = np.asarray(blocks_per_group, dtype=np.int64).copy()
+    G = len(units)
+    first = np.zeros(G, dtype=np.int64)
+    np.cumsum(units[:-1], out=first[1:])
+    final = np.full(G, -1, dtype=np.int64)
+    done = units == 1
+    final[done] = first[done]
+    base, size = 0, int(units.sum())  # the current level's offset and factor count
+    levels = []
+    while not done.all():
+        active = np.flatnonzero(~done)
+        nb = -(-units[active] // per)  # the next level's blocks of each active group
+        S = int(nb.sum())
+        width = int(min(per, units[active].max())) * K
+        blk_group = np.repeat(active, nb)
+        blk_first = np.zeros(len(active), dtype=np.int64)
+        np.cumsum(nb[:-1], out=blk_first[1:])
+        f_lo = (np.arange(S) - np.repeat(blk_first, nb)) * per
+        f_cnt = np.minimum(per, units[blk_group] - f_lo)
+        slot = np.arange(width)
+        mask = slot[None, :] // K < f_cnt[:, None]
+        src = (first[blk_group][:, None] + f_lo[:, None] + slot[None, :] // K) * K + slot[None, :] % K
+        levels.append((np.where(mask, src, 0), mask))
+        base += size
+        size = S
+        units = np.zeros(G, dtype=np.int64)
+        units[active] = nb
+        first[active] = blk_first
+        newly = np.zeros(G, dtype=bool)
+        newly[active] = nb == 1
+        final[newly] = base + first[newly]
+        done |= newly
+    in_order = size == G and np.array_equal(final, base + np.arange(G))
+    dev = device if device is not None else torch.device("cpu")
+    return ReductionPlan(
+        [(torch.as_tensor(g, device=dev), torch.as_tensor(m, device=dev)) for g, m in levels],
+        None if in_order else torch.as_tensor(final, device=dev),
+    )
+
+
+def reduce_groups(Z: torch.Tensor, w: torch.Tensor, K: int, plan: ReductionPlan) -> torch.Tensor:
+    """Each group's factor ``[G, K, C]`` of its blocks ``Z [S, R, C]`` under
+    ``w [S, R]``: the blocks' reduction, then the plan's levels (one
+    launch each, on the stacked factors)."""
+    outs = [householder_blocks(Z, w, K)]
+    C = Z.shape[-1]
+    for gather, mask in plan.levels:
+        rows = outs[-1].reshape(-1, C).index_select(0, gather.reshape(-1))
+        outs.append(householder_blocks(rows.reshape(*mask.shape, C), mask, K))
+    if plan.final is None:
+        return outs[-1]
+    return torch.cat(outs).index_select(0, plan.final)

@@ -5,8 +5,10 @@ column-recurrence Cholesky (factor and substitution as O(K) whole-batch
 tensor ops), its squared-pivot condition estimate and the eigh
 pseudo-inverse fallback for lanes whose factor is not finite; the
 partial-pivot LU of explicit 'lu'; and the SVD least squares of explicit
-'svd' (Householder reduction to the K x K factor, then one batched
-``torch.linalg.svd``, with numpy lstsq's cutoff). The JAX engine's
+'svd' and of multi-target fits (one batched ``torch.linalg.svd`` of the
+K x K factor of a Householder reduction, with numpy lstsq's cutoff;
+``_householder_reduce`` is the plain version of the engine's reduction
+kernel, ops/householder.py). The JAX engine's
 lane-major Householder + Jacobi form of its grouped fits is not ported:
 on the H100 the batched SVD was faster at every measured shape.
 
@@ -331,6 +333,38 @@ def _svd_nan_lanes(M: torch.Tensor):
     )
 
 
+def svd_lstsq_from_factor(
+    R: torch.Tensor,
+    QtY: torch.Tensor,
+    n_valid: torch.Tensor,
+    alpha: float = 0.0,
+    rcond: float | None = None,
+) -> torch.Tensor:
+    """Minimum-norm (ridge-shrunk) least squares from a Householder
+    reduction X = Q [R; 0]: the SVD of the K x K factor ``R [..., K, K]``
+    has X's singular values, and ``Q^T Y [..., K, M]`` carries the targets.
+
+    The reference's ``solve_ridge_svd`` (src/least_squares.rs:106-168):
+    singular values at or below ``rcond * sigma_max`` are cut (numpy's
+    default ``rcond = eps * max(n_valid, k)``, per problem) and the rest
+    shrunk by ``sigma / (sigma^2 + alpha)``. Returns beta [..., K, M]."""
+    u_r, s, vt = _svd_nan_lanes(R)
+    uty = torch.einsum("...ji,...jm->...im", u_r, QtY)
+    return _shrink(s, vt, uty, R.shape[-1], R.shape[-1], n_valid, alpha, rcond)
+
+
+def _shrink(s, vt, uty, n: int, k: int, n_valid, alpha: float, rcond):
+    """beta [..., K, M] from the SVD's singular values, V^T and U^T Y, with
+    numpy lstsq's cutoff and the ridge shrink."""
+    rc = _default_rcond(n, k, n_valid) if rcond is None else rcond
+    if isinstance(rc, torch.Tensor):
+        rc = rc[..., None]
+    cut = rc * s.amax(dim=-1, keepdim=True)
+    denom = s * s + alpha
+    d = torch.where(s > cut, s / torch.where(denom == 0, 1.0, denom), 0.0)
+    return torch.einsum("...ik,...im->...km", vt, d[..., None] * uty)
+
+
 def svd_lstsq(
     X: torch.Tensor,
     y: torch.Tensor,
@@ -340,12 +374,10 @@ def svd_lstsq(
 ) -> torch.Tensor:
     """Minimum-norm (ridge-shrunk) least squares via SVD, batched.
 
-    The reference's ``solve_ridge_svd`` (src/least_squares.rs:106-168):
-    singular values at or below ``rcond * sigma_max`` are cut (numpy's
-    default ``rcond = eps * max(n, k)``, per problem with ``n_valid``) and
-    the rest shrunk by ``sigma / (sigma^2 + alpha)``. Tall problems take
-    the SVD of the K x K factor of a Householder reduction, which keeps the
-    singular values.
+    Tall problems (N > K) take ``_householder_reduce`` and
+    ``svd_lstsq_from_factor``; wide ones the SVD of X itself. The cutoff
+    is numpy's ``eps * max(n, k)``, with each problem's own count of valid
+    rows for n where ``n_valid`` is given.
 
     Args:
         X: [..., N, K] (zero rows are masked out).
@@ -356,16 +388,11 @@ def svd_lstsq(
     Y = y[..., None] if squeeze else y
     if n > k:
         R, QtY = _householder_reduce(X, Y)
-        u_r, s, vt = _svd_nan_lanes(R)
-        uty = torch.einsum("...ji,...jm->...im", u_r, QtY)
+        if n_valid is None:
+            n_valid = torch.full(X.shape[:-2], float(n), dtype=F64, device=X.device)
+        beta = svd_lstsq_from_factor(R, QtY, n_valid, alpha, rcond)
     else:
         u, s, vt = _svd_nan_lanes(X)
         uty = torch.einsum("...ni,...nm->...im", u, Y)
-    rc = _default_rcond(n, k, n_valid) if rcond is None else rcond
-    if isinstance(rc, torch.Tensor):
-        rc = rc[..., None]
-    cut = rc * s.amax(dim=-1, keepdim=True)
-    denom = s * s + alpha
-    d = torch.where(s > cut, s / torch.where(denom == 0, 1.0, denom), 0.0)
-    beta = torch.einsum("...ik,...im->...km", vt, d[..., None] * uty)
+        beta = _shrink(s, vt, uty, n, k, n_valid, alpha, rcond)
     return beta[..., 0] if squeeze else beta

@@ -23,8 +23,9 @@ class MaskedProblem:
     """Fit and prediction tensors of one least-squares call.
 
     Attributes:
-        y: [N] target prepared for the fit (rows excluded from the fit are
-           zeroed; 'ignore' turns nulls into NaN values).
+        y: [N] target, or [N, M] targets of a multi-target fit, prepared
+           for the fit (rows excluded from the fit are zeroed; 'ignore'
+           turns nulls into NaN values).
         X: [N, K] features prepared for the fit.
         fit_mask: [N] bool, the rows that take part in the fit.
         X_predict: [N, K] features the predictions are formed from
@@ -42,10 +43,13 @@ class MaskedProblem:
 
 
 def is_valid_mask(policy: str, y_valid: torch.Tensor, x_valid: torch.Tensor) -> torch.Tensor:
-    """Row validity under ``policy`` (src/expressions.rs:201-228)."""
+    """Row validity under ``policy`` (src/expressions.rs:201-228). A row's
+    target is valid when every one of its fields is (``y_valid`` [N] or,
+    multi-target, [N, M])."""
+    yv = y_valid if y_valid.dim() == 1 else y_valid.all(dim=1)
     if policy == "drop_y_zero_x":
-        return y_valid
-    return y_valid & x_valid.all(dim=1)
+        return yv
+    return yv & x_valid.all(dim=1)
 
 
 def zero_filled(values: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -66,7 +70,8 @@ def prepare_problem(
 
     Args:
         policy: one of VALID_NULL_POLICIES.
-        y_values / y_valid: [N] f64 / bool; values at null slots are arbitrary.
+        y_values / y_valid: [N] f64 / bool, or [N, M] for the targets of a
+            multi-target fit; values at null slots are arbitrary.
         x_values / x_valid: [N, K] f64 / bool.
         moving: the recursive and rolling models fit on zero-filled data
             with the validity carried apart (src/expressions.rs:656,683) and
@@ -94,7 +99,7 @@ def prepare_problem(
 
     # drop family: zero the excluded rows so they drop out of the fit
     mask = is_valid_mask(policy, y_valid, x_valid)
-    y_fit = torch.where(mask, y_zero, 0.0)
+    y_fit = torch.where(mask if y_values.dim() == 1 else mask[:, None], y_zero, 0.0)
     x_fit = torch.where(mask[:, None], x_zero, 0.0)
     predict_valid = mask if policy in ("drop", "drop_window") else None
     return MaskedProblem(y_fit, x_fit, mask, x_zero, predict_valid)

@@ -122,10 +122,16 @@ class Series:
 
 class StructSeries:
     """A struct column: named fields over a shared [N, K] f64 matrix with
-    per-field validity (NaN coefficients become nulls, like the
-    reference's coefficient structs, src/expressions.rs:114-143)."""
+    per-field validity [N, K] or None (NaN coefficients become nulls, like
+    the reference's coefficient structs, src/expressions.rs:114-143; a
+    multi-target fit's targets and predictions are structs too).
 
-    __slots__ = ("name", "field_names", "values", "validity")
+    ``sources`` holds the field Series a ``struct(...)`` expression stacked
+    (None otherwise): a query rebuilds its struct, so the engine keys its
+    caches on these Series, which stay the same from query to query.
+    """
+
+    __slots__ = ("name", "field_names", "values", "validity", "sources")
 
     def __init__(
         self,
@@ -133,6 +139,7 @@ class StructSeries:
         field_names: Sequence[str],
         values: torch.Tensor,
         validity: Optional[torch.Tensor] = None,
+        sources: Optional[Tuple["Series", ...]] = None,
     ) -> None:
         self.name = name
         self.field_names: List[str] = list(field_names)
@@ -141,14 +148,33 @@ class StructSeries:
                 f"struct values must be [N, {len(self.field_names)}] float64, "
                 f"got {values.dtype} {tuple(values.shape)}"
             )
+        if validity is not None and tuple(validity.shape) != tuple(values.shape):
+            raise ValueError(
+                f"struct validity must be {tuple(values.shape)}, got {tuple(validity.shape)}"
+            )
         self.values = values
         self.validity = validity
+        self.sources = sources
 
     def __len__(self) -> int:
         return int(self.values.shape[0])
 
     def alias(self, name: str) -> "StructSeries":
-        return StructSeries(name, self.field_names, self.values, self.validity)
+        return StructSeries(name, self.field_names, self.values, self.validity, self.sources)
+
+    def valid_mask(self) -> torch.Tensor:
+        """Row validity [N]: a row is valid when every field is."""
+        if self.validity is None:
+            return torch.ones(len(self), dtype=torch.bool, device=self.values.device)
+        return self.validity.all(dim=1)
+
+    def field(self, name: str) -> Series:
+        """The field ``name`` as a Series."""
+        j = self.field_names.index(name)
+        return Series(name, self.values[:, j], None if self.validity is None else self.validity[:, j])
+
+    def fields(self) -> List[Series]:
+        return [self.field(n) for n in self.field_names]
 
     def to_numpy(self) -> np.ndarray:
         vals = self.values.cpu().numpy()

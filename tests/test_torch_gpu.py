@@ -40,7 +40,13 @@ the prefix and the fill; at 2 rows the prefix runs in segments). The
 edges of the kernel's shape are held the same way: groups of 32 T - 1,
 32 T and 32 T + 1 rows (a stretch) and T - 1, T, T + 1 (a lane's rows),
 groups of one and of several ranges in one call, and K = 4 / 6 with an
-odd R (rows that start 8 bytes past a 16-byte boundary).
+odd R (rows that start 8 bytes past a 16-byte boundary). The Householder
+kernel runs the plain version's reflections with its sums in another
+order: each entry of the factor within 1e-12 of its column's norm over the
+block's valid rows, NaN exactly where the plain version has it, the same
+bits from two launches; at R < K, with a zero feature column, NaN in
+masked slots, K = 32, and through the tree of a group of many blocks. The
+multi-target and 'svd' slices on the card match the CPU at rtol 1e-10.
 """
 
 import numpy as np
@@ -50,7 +56,9 @@ torch = pytest.importorskip("torch")
 
 import polars_ols_tpu_torch as pt  # noqa: E402
 from polars_ols_tpu_torch import CONFIG, col  # noqa: E402
-from polars_ols_tpu_torch.ops import cd, grid_probe, moments, moving, recursive, rolling, special  # noqa: E402
+from polars_ols_tpu_torch.ops import (  # noqa: E402
+    cd, grid_probe, householder, moments, moving, recursive, rolling, special,
+)
 
 
 @pytest.fixture
@@ -61,6 +69,7 @@ def cuda_device(monkeypatch):
     monkeypatch.setattr(cd, "cd_kernel_launches", 0)
     monkeypatch.setattr(special, "t_pvalue_kernel_launches", 0)
     monkeypatch.setattr(moving, "moving_kernel_launches", 0)
+    monkeypatch.setattr(householder, "householder_kernel_launches", 0)
     return torch.device("cuda")
 
 
@@ -553,3 +562,98 @@ def test_moving_kernel_long_and_short_groups_on_card(cuda_device, model, want):
     out, ref, settled = _moving_both(model, Z, v, rows_t, 5, want, None)
     _assert_moving(out, ref, rows, settled)
 
+
+
+HOUSEHOLDER_CASES = {
+    # id: (blocks, R, C, K, zero feature column, NaN in the masked slots)
+    "main_path_c6": (2_000, 512, 6, 5, None, False),
+    "multi_target_c7": (2_000, 512, 7, 5, None, False),
+    "r_below_k": (300, 3, 8, 5, None, False),
+    "zero_feature_column": (300, 512, 6, 5, 3, False),
+    "nan_in_masked_slots": (300, 512, 7, 5, None, True),
+    "k32_m1": (100, 512, 33, 32, None, False),
+    "r37_c9": (300, 37, 9, 7, None, False),
+    "r10_tree_level": (1_000, 10, 6, 5, None, False),
+}
+
+
+def _assert_reduction(T_k, T_p, Z, w):
+    """Kernel against plain version: the same reflections, sums in another
+    order: each entry within 1e-12 of its column's norm over the block's
+    valid rows, NaN where the plain version has it."""
+    norm = torch.where(w[..., None], Z, 0.0).square().sum(dim=1, keepdim=True).sqrt()
+    nan = torch.isnan(T_p)
+    assert torch.equal(torch.isnan(T_k), nan)
+    err = torch.where(nan, 0.0, (T_k - T_p).abs())
+    assert bool((err <= 1e-12 * norm).all()), float((err / norm.clamp_min(1e-300)).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(HOUSEHOLDER_CASES))
+def test_householder_kernel_matches_plain_on_card(cuda_device, case):
+    B, R, C, K, zero_col, nan_masked = HOUSEHOLDER_CASES[case]
+    rng = np.random.default_rng(len(case))
+    Z = rng.normal(size=(B, R, C)) * np.exp(rng.normal(size=(1, 1, C)) * 3)
+    W = rng.random((B, R)) > 0.2
+    if zero_col is not None:
+        Z[:, :, C - K + zero_col] = 0.0
+    if nan_masked:
+        Z[~W] = np.nan
+    Zt, wt = torch.as_tensor(Z, device=cuda_device), torch.as_tensor(W, device=cuda_device)
+    T_k = householder.householder_blocks(Zt, wt, K)
+    T_k2 = householder.householder_blocks(Zt, wt, K)
+    torch.cuda.synchronize()
+    assert householder.householder_kernel_launches == 2
+    assert torch.equal(T_k, T_k2) or torch.equal(torch.isnan(T_k), torch.isnan(T_k2))
+    T_p = householder.householder_blocks_ref(Zt, wt, K)
+    _assert_reduction(T_k, T_p, Zt, wt)
+    if nan_masked:
+        assert bool(torch.isfinite(T_k).all())
+    if R < K:
+        assert bool((T_k[:, R:] == 0).all())
+
+
+@pytest.mark.gpu
+def test_householder_tree_matches_plain_on_card(cuda_device):
+    # one group of 200,000 rows (391 blocks of 512: three launches) and
+    # groups of one, two and 150 blocks
+    rng = np.random.default_rng(3)
+    n_blocks = np.asarray([391, 1, 2, 150, 1])
+    S, K, C = int(n_blocks.sum()), 5, 7
+    Z = torch.as_tensor(rng.normal(size=(S, 512, C)), device=cuda_device)
+    w = torch.as_tensor(rng.random((S, 512)) > 0.1, device=cuda_device)
+    plan = householder.plan_reduction(n_blocks, K, cuda_device)
+    assert len(plan.levels) == 2
+    T_k = householder.reduce_groups(Z, w, K, plan)
+    torch.cuda.synchronize()
+    assert householder.householder_kernel_launches == 3
+    plan_cpu = householder.plan_reduction(n_blocks, K)
+    T_p = householder.reduce_groups(Z.cpu(), w.cpu(), K, plan_cpu)
+    norm = torch.where(w[..., None], Z, 0.0).square().sum(dim=(0, 1)).sqrt().cpu()
+    assert bool(((T_k.cpu() - T_p).abs() <= 1e-11 * norm).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("query", ["multi_target", "multi_target_drop_weighted", "svd", "svd_single"])
+def test_householder_slices_on_card_match_cpu(cuda_device, query, monkeypatch):
+    feats = [col(f"x{i + 1}") for i in range(4)]
+    target = pt.struct(col("y"), col("w"))
+    expr = {
+        "multi_target": target.least_squares.multi_target_ols(*feats).over("g"),
+        "multi_target_drop_weighted": target.least_squares.multi_target_ols(
+            *feats, null_policy="drop", sample_weights="w", mode="residuals"
+        ).over("g"),
+        "svd": col("y").least_squares.ols(*feats, solve_method="svd", null_policy="zero").over("g"),
+        "svd_single": col("y").least_squares.ols(*feats, solve_method="svd", null_policy="drop"),
+    }[query]
+    monkeypatch.setattr(CONFIG, "moment_chunk_rows", 128)
+    monkeypatch.setattr(CONFIG, "lazy_row_order", False)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        monkeypatch.setattr(CONFIG, "device", dev)
+        s = pt.DataFrame(_static_frame()).select(expr)
+        c = s[s.columns[0]]
+        out[dev] = (c.to_numpy(), None if c.validity is None else c.validity.cpu().numpy())
+    assert householder.householder_kernel_launches >= 1
+    np.testing.assert_array_equal(out["cuda"][1], out["cpu"][1])
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-10, atol=1e-12)

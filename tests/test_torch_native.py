@@ -89,6 +89,13 @@ def _imports_and_names(path: Path):
             yield "string", node.value
 
 
+def test_the_check_covers_every_module_of_the_port():
+    # among them the formula parser (a plain Python copy of the JAX
+    # package's) and the Householder reduction's wrapper
+    for rel in ("polars_ols_tpu_torch/utils.py", "polars_ols_tpu_torch/ops/householder.py"):
+        assert rel in PORT_FILES
+
+
 @pytest.mark.parametrize("rel", PORT_FILES)
 def test_the_port_stands_without_the_jax_package(rel):
     for kind, name in _imports_and_names(REPO / rel):

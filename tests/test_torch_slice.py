@@ -147,18 +147,31 @@ def _ols2(**kw):
     return lambda c: c("y").least_squares.ols("x1", "x2", **kw)
 
 
-NOT_PORTED = {
+# the three queries test_unported_paths_raise once pinned as unported: each
+# now runs in both engines and must agree, or (predict of a plain column) be
+# refused as the JAX engine refuses it
+ONCE_UNPORTED = {
     "multi_target": _ols2(multi_target=True),
     "from_formula": lambda c: c("y").least_squares.from_formula("y ~ x1 + x2", half_life=20),
     "predict": lambda c: c("y").least_squares.predict("x1", "x2"),
 }
 
 
-@pytest.mark.parametrize("case", sorted(NOT_PORTED))
+@pytest.mark.parametrize("case", sorted(ONCE_UNPORTED))
 def test_unported_paths_raise(case):
+    """The once unported paths: the port gives what the JAX engine gives,
+    results or its refusal."""
     cols, *_ = _data(seed=7)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
-        pt.DataFrame(cols).select(NOT_PORTED[case](pt.col))
+    if case == "predict":
+        for mod in (pj, pt):
+            with pytest.raises(AssertionError, match="must be a coefficients struct"):
+                mod.DataFrame(cols).select(ONCE_UNPORTED[case](mod.col))
+        return
+    _, t, j = _both(cols, ONCE_UNPORTED[case], "y")
+    if case == "multi_target":  # a plain target: the 'svd' fit
+        np.testing.assert_allclose(t, j, rtol=RTOL, atol=ATOL)
+    else:  # rls with an intercept: from K + 3 rows on (round-off picks a singular window's branch)
+        np.testing.assert_allclose(t[6:], j[6:], rtol=1e-8, atol=1e-10)
 
 
 def test_lasso_above_32_features_raises_item_12():

@@ -238,3 +238,38 @@ def test_skewed_counts_hold_the_rows_under_the_cap(seed, sigma, cap):
     counts = cs._skewed_counts(np.random.default_rng(seed), 800_000, 1_000, sigma, cap)
     assert counts.sum() == 800_000 and counts.max() <= cap and counts.min() >= 0
     assert len(counts) == 1_000 and (counts == cap).any()
+
+
+def test_householder_bound_at_the_multi_target_width():
+    # S = 20,000 blocks of R = 512, C = 7, K = 5: 0.573 GB of panel, 10 MB
+    # of mask and 5.6 MB of factors (0.176 ms at 3.35 TB/s) against ~1
+    # GFLOP (~0.03 ms at 34 TFLOP/s): bytes bound it
+    S, R, C, K = 20_000, 512, 7, 5
+    Z = torch.zeros((1, 1, C), dtype=torch.float64).expand(S, R, C)
+    w = torch.ones((1, 1), dtype=torch.bool).expand(S, R)
+    b = cs._householder_bound(Z, w, K)
+    moved = S * R * (8 * C + 1) + 8 * S * K * C
+    assert b["bound_by"] == "bytes"
+    assert b["bound_ms"] == pytest.approx(moved / cs.PEAK_BYTES_PER_S * 1e3)
+    assert b["bound_ms"] == pytest.approx(0.1759, rel=1e-3)
+    flops = 4 * S * R * sum(C - j for j in range(K))
+    assert flops == pytest.approx(1.0e9, rel=0.05)
+
+
+def test_reduction_err_reports_and_checks_against_column_norms():
+    rng = np.random.default_rng(0)
+    Z = torch.as_tensor(rng.normal(size=(4, 16, 6)) * [1.0, 1e3, 1.0, 1e-3, 1.0, 1.0])
+    w = torch.as_tensor(rng.random((4, 16)) > 0.2)
+    T = torch.as_tensor(rng.normal(size=(4, 3, 6)))
+    close = T.clone()
+    close[..., 1] += 1e-11  # within 1e-12 of the 1e3-scaled column's norm
+    err_r, err_q = cs._reduction_err(close, T, Z, w, 2, torch)
+    assert err_q == pytest.approx(1e-11, rel=1e-3) and err_r == 0.0
+    far = T.clone()
+    far[..., 3] += 1e-13  # not within 1e-12 of the 1e-3-scaled column's norm
+    with pytest.raises(AssertionError, match="column's norm"):
+        cs._reduction_err(far, T, Z, w, 2, torch)
+    nan = T.clone()
+    nan[0, 0, 0] = float("nan")
+    with pytest.raises(AssertionError, match="NaN"):
+        cs._reduction_err(nan, T, Z, w, 2, torch)
