@@ -5,8 +5,8 @@ source, all at once), runs the probe kernel's entry point, checks each
 kernel against its plain PyTorch version on the card, drives the
 grouped-OLS main path, the static fits (the five null policies, WLS,
 residuals, explicit lu / qr / svd), the statistics and
-coordinate-descent queries (statistics, lasso, elastic net, NNLS, the
-active-set variant) and the moving models (rls, expanding_ols,
+coordinate-descent queries (statistics, also with svd, lasso, elastic
+net, NNLS, the active-set variant) and the moving models (rls, expanding_ols,
 rolling_ols under 'drop_window' and 'drop', weighted, coefficients), the
 multi-target queries (struct(y, y2): predictions, residuals, weighted,
 'drop' on the null columns) and predict / from_formula once
@@ -39,11 +39,17 @@ of the card-only tests (moments at C = 8 / 9, R = 513, empty groups, a grid
 larger than the work; coordinate descent at K = 8 / 9 / 16 / 17; the
 Householder reduction at R < K, with a zero feature column, NaN in masked
 slots, K = 32, and one group of 2,000,000 rows through every level of its
-tree) are held to the plain versions too, and ``torch.profiler`` reads
-device busy time, launches and host syncs of the main, svd,
-multi-target, lasso, statistics, rls and rolling queries (and which
-moving kernels ran). The Householder kernel is also timed beside
-``torch.linalg.qr`` of the same blocks. The moving kernel is also timed
+tree; the Jacobi SVD at K = 1 / 8 / 16 / 32, rank-deficient and NaN
+factors, alpha > 0 with a user rcond, and general square matrices) are
+held to the plain versions too, and ``torch.profiler`` reads device busy
+time, launches and host syncs of the main, svd, multi-target, lasso,
+statistics, rls and rolling queries (and which moving kernels ran). The
+Householder kernel is also timed beside ``torch.linalg.qr`` of the same
+blocks and stopped after 0, 1 and K reflections (its phases); the Jacobi
+SVD kernel beside the ``torch.linalg.svd`` route the port ran before it,
+with numpy lstsq on sampled groups and a latency bound (its longest
+group's sweeps x pairs x one pair's dependent operations). The moving
+kernel is also timed
 on a sweep of its shape (rows a lane, rows a range), at K = 8 and 16 on
 the main frame's groups, and on a frame of lognormal group sizes. The
 p-value kernel also gets a latency bound (the dependent f64 operations of
@@ -145,6 +151,14 @@ MOVING_KERNEL_NAMES = {
 HOUSEHOLDER_LAUNCHES = 10
 REDUCTION_RTOL = 1e-12
 TREE_RTOL = 1e-11  # a group's factor after three levels against the plain tree
+# the Jacobi SVD kernel: launches a timing sample (tens of microseconds
+# each), its tolerance against the plain version (each entry of a group's
+# beta within JACOBI_RTOL of the group's largest |beta|: the same rotations,
+# shuffle sums in another order), the edge batches' group count, and the
+# groups held to the torch.linalg.svd route and numpy lstsq (COEF_TOL)
+JACOBI_LAUNCHES = 50
+JACOBI_RTOL = 1e-12
+JACOBI_EDGE_GROUPS = 2_000
 # the multi-target queries: the reference suite's struct(y, y2) target
 # (benchmarks/suite.py:151-156); y2 and its nulls come from a child stream
 # of seed 0, so that every draw of the earlier phases stays as it was
@@ -550,6 +564,188 @@ def _check_householder(label, Z, w, K, householder, torch, timed=True):
     return {**out, **t, **bound}
 
 
+def _householder_phases(label, Z, w, K, householder, torch, smi):
+    """Device ms per launch of the Householder kernel stopped after the load
+    (0 reflections), after one reflection and after all K, in turns: the
+    load, the first reflection and the rest apart."""
+    steps = sorted({0, 1, K})
+    times = _in_turns({
+        f"{r} reflections": (lambda r=r: householder._launch(Z, w, K, r)) for r in steps
+    }, HOUSEHOLDER_LAUNCHES, torch)
+    ms = {name: t[0] for name, t in times.items()}
+    print(f"kernel householder phases {label}: ms per launch {json.dumps(ms)} ({smi})")
+    return ms
+
+
+def _jacobi_pair_path(K):
+    """The dependent f64 operations from one rotated pair of columns to a
+    later pair that shares a column with it: the product and the segment's
+    log2(KB) shuffle adds of apq, 2 apq, tau's division, t's multiply-add,
+    square root, add and division, c's multiply-add, square root and
+    division, s, and the rotation's multiply and multiply-add. The
+    shuffles' own latency is left out, so the bound stays a bound."""
+    kb = 8 if K <= 8 else (16 if K <= 16 else 32)
+    return {"fma": 8 + kb.bit_length() - 1, "div": 3, "sqrt": 2}
+
+
+def _jacobi_test_path(K):
+    """The dependent f64 operations of a pair's test alone (a sweep that
+    rotates nothing): the product and log2(KB) shuffle adds of a dot, its
+    square root and the two multiplies of the threshold."""
+    kb = 8 if K <= 8 else (16 if K <= 16 else 32)
+    return {"fma": 3 + kb.bit_length() - 1, "sqrt": 1}
+
+
+def _jacobi_chain(rotated, K):
+    """Each group's longest chain of dependent rotations (pairs rotated in
+    turn, each sharing a column with the one before: a rotation reads the
+    columns the last rotations of p and q wrote) and its count of rotated
+    pairs, from ``jacobi_ref``'s record ``rotated [G, sweeps, pairs]``.
+    Pairs that rotate nothing write nothing and start no chain. A full
+    sweep in cyclic order is 2 K - 3 rotations deep, not K(K-1)/2: (0, 4)
+    and (1, 2) share no column."""
+    rot = rotated.cpu().numpy()
+    G, S, _ = rot.shape
+    pairs = [(p, q) for p in range(K - 1) for q in range(p + 1, K)]
+    ready = np.zeros((G, K), dtype=np.int64)
+    for sweep in range(S):
+        for i, (p, q) in enumerate(pairs):
+            r = rot[:, sweep, i]
+            depth = np.maximum(ready[:, p], ready[:, q]) + 1
+            ready[r, p] = ready[r, q] = depth[r]
+    return ready.max(axis=1, initial=0), rot.sum(axis=(1, 2))
+
+
+def _jacobi_bound(F, QtY, sweeps, rotated, op_ms):
+    """F's K x K entries, Q^T Y and n_valid read once, beta written once;
+    18 K + 20 operations a rotated pair (three K-term dots, the angle, two
+    columns of W and of V) and 6 K + 6 a pair tested and not rotated (the
+    three dots and the test), counted from this run's groups (the plain
+    version's record: the kernel's may differ by a rotation where
+    round-off puts |apq| at the threshold), and K^2 (2 M + 2) around them.
+    Beside it the latency bound: the longest group's chain of dependent
+    rotations (``_jacobi_chain``) times ``_jacobi_pair_path``, plus the
+    last sweep's test where that sweep rotated nothing, each operation at
+    the time one of its kind takes in a chain on this card, every warp
+    resident at once (the main path's 2,500 warps fit the card)."""
+    G, K, M = QtY.shape
+    pairs = K * (K - 1) // 2
+    depth, rotations = _jacobi_chain(rotated, K)
+    sweeps = sweeps.cpu().numpy()
+    tested = int(sweeps.sum()) * pairs
+    ops = int(rotations.sum()) * (18 * K + 20) + (tested - int(rotations.sum())) * (6 * K + 6)
+    ops += G * K * K * (2 * M + 2)
+    last = rotated.cpu().numpy()[np.arange(G), np.maximum(sweeps - 1, 0)].any(axis=-1)
+    converged = (sweeps > 0) & ~last
+    chain = depth * _path_ms(_jacobi_pair_path(K), op_ms) + converged * _path_ms(_jacobi_test_path(K), op_ms)
+    return {
+        **_bound(8 * (G * K * K + 2 * G * K * M + G), ops, PEAK_F64_PER_S),
+        "latency_bound_ms": float(chain.max(initial=0.0)), "chain_pairs_max": int(depth.max(initial=0)),
+        "sweeps_max": int(sweeps.max(initial=0)), "sweeps_median": float(np.median(sweeps)),
+    }
+
+
+def _svd_route(F, QtY, n_valid, alpha, rcond, torch):
+    """The torch.linalg.svd route the port ran before this kernel: the
+    batched SVD of the factors (NaN on a non-finite factor, which
+    torch.linalg.svd would refuse), numpy's cutoff and the ridge shrink."""
+    bad = ~torch.isfinite(F).all(dim=-1).all(dim=-1)
+    u, s, vt = torch.linalg.svd(torch.where(bad[:, None, None], 0.0, F), full_matrices=False)
+    s = torch.where(bad[:, None], torch.nan, s)
+    uty = torch.einsum("gji,gjm->gim", u, QtY)
+    K = F.shape[-1]
+    rc = 2.0 ** -52 * torch.clamp(n_valid, min=float(K)) if rcond is None else torch.full_like(n_valid, rcond)
+    denom = s * s + alpha
+    d = torch.where(s > (rc * s.amax(dim=-1))[:, None], s / torch.where(denom == 0, 1.0, denom), 0.0)
+    beta = torch.einsum("gik,gim->gkm", vt, d[..., None] * uty)
+    return torch.where(bad[:, None, None], torch.nan, beta)
+
+
+def _jacobi_edge(rng, G, K, M, kind, torch, device="cuda"):
+    """(F, QtY, n_valid) on the card: the triangular factors of G tall
+    problems of 3 K + 2 rows, columns scaled by exp(normal) (kind
+    "factor"); a third of them with a duplicate column and a third with a
+    zero one ("deficient"); NaN in every seventh factor and in a target of
+    others ("nan"); or general square matrices ("square", svd_lstsq's
+    branch for groups of K rows)."""
+    n = 3 * K + 2
+    if kind == "square":
+        F = rng.normal(size=(G, K, K))
+    else:
+        F = np.linalg.qr(rng.normal(size=(G, n, K)) * np.exp(rng.normal(size=(G, 1, K))), mode="r")
+    if kind == "deficient":
+        F[0::3, :, K - 1] = F[0::3, :, 0]
+        F[1::3, :, K // 2] = 0.0
+    Y = rng.normal(size=(G, K, M))
+    if kind == "nan":
+        F[0::7, 0, K - 1] = np.nan
+        Y[3::7, K - 1, M - 1] = np.nan
+    return (torch.as_tensor(F, device=device), torch.as_tensor(Y, device=device),
+            torch.full((G,), float(n), dtype=torch.float64, device=device))
+
+
+def _check_jacobi(label, F, QtY, n_valid, jacobi, torch, op_ms, alpha=0.0, rcond=None, timed=False):
+    """The Jacobi SVD kernel against its plain version on the same CUDA
+    factors (each entry of a group's beta within JACOBI_RTOL of the group's
+    largest |beta|, NaN exactly where the plain version has it, the same
+    bits from a second launch), and against the torch.linalg.svd route and
+    numpy lstsq (alpha 0) on N_CHECK_GROUPS sampled finite groups at
+    COEF_TOL; timed in turns with both, with its bounds."""
+    b_k = jacobi.factor_lstsq(F, QtY, n_valid, alpha, rcond)
+    b_k2 = jacobi.factor_lstsq(F, QtY, n_valid, alpha, rcond)
+    torch.cuda.synchronize()
+    if not torch.equal(torch.nan_to_num(b_k), torch.nan_to_num(b_k2)):
+        raise AssertionError(f"Jacobi kernel ({label}): two launches differ")
+    b_p = jacobi.factor_lstsq_ref(F, QtY, n_valid, alpha, rcond)
+    nan = torch.isnan(b_p)
+    if not torch.equal(torch.isnan(b_k), nan):
+        raise AssertionError(f"Jacobi kernel ({label}): NaN where the plain version has none, or none where it has")
+    err = torch.where(nan, 0.0, (b_k - b_p).abs())
+    scale = torch.where(nan, 0.0, b_p.abs()).amax(dim=(1, 2), keepdim=True)
+    if not bool((err <= JACOBI_RTOL * scale).all()):
+        worst = float((err / scale.clamp_min(1e-300)).max())
+        raise AssertionError(f"Jacobi kernel ({label}): an entry {worst!r} of its group's largest |beta| off")
+    b_l = _svd_route(F, QtY, n_valid, alpha, rcond, torch)
+    G, K, M = QtY.shape
+    finite = torch.isfinite(F).all(dim=-1).all(dim=-1) & torch.isfinite(QtY).all(dim=-1).all(dim=-1)
+    if not torch.equal(torch.isnan(b_l), nan):
+        raise AssertionError(f"Jacobi kernel ({label}): NaN pattern differs from the torch.linalg.svd route")
+    pick = torch.nonzero(finite).flatten().cpu().numpy()
+    pick = np.random.default_rng(G).choice(pick, size=min(N_CHECK_GROUPS, len(pick)), replace=False)
+    Fh, Yh, nh = F[pick].cpu().numpy(), QtY[pick].cpu().numpy(), n_valid[pick].cpu().numpy()
+    bk, bl = b_k[pick].cpu().numpy(), b_l[pick].cpu().numpy()
+    np.testing.assert_allclose(bk, bl, err_msg=f"{label}: vs torch.linalg.svd", **COEF_TOL)
+    if alpha == 0.0:
+        for i in range(len(pick)):
+            rc = 2.0 ** -52 * max(nh[i], K) if rcond is None else rcond
+            want = np.linalg.lstsq(Fh[i], Yh[i], rcond=rc)[0]
+            np.testing.assert_allclose(bk[i], want, err_msg=f"{label}: vs numpy lstsq", **COEF_TOL)
+    _, _, sweeps, rotated = jacobi.jacobi_ref(F)
+    out = {"max_abs_err": float(err.max()), "max_abs_err_vs_library": float(np.abs(bk - bl).max())}
+    line = (
+        f"kernel jacobi_svd {label}: G={G} K={K} M={M} alpha={alpha} rcond={rcond} "
+        f"max_abs_err={out['max_abs_err']!r} vs plain (within {JACOBI_RTOL} of each group's largest "
+        f"|beta|), NaN where the plain version has it, bit-equal launch to launch; {len(pick)} groups "
+        f"match torch.linalg.svd{' and numpy lstsq' if alpha == 0.0 else ''} ({COEF_TOL}); sweeps "
+        f"median {float(sweeps.double().median())!r} max {int(sweeps.max())}"
+    )
+    if not timed:
+        print(line)
+        return out
+    t = _timing_fields(_in_turns({
+        "plain": lambda: jacobi.factor_lstsq_ref(F, QtY, n_valid, alpha, rcond),
+        "kernel": lambda: jacobi.factor_lstsq(F, QtY, n_valid, alpha, rcond),
+        "library": lambda: _svd_route(F, QtY, n_valid, alpha, rcond, torch),
+    }, JACOBI_LAUNCHES, torch, synced=("plain", "library")))
+    bound = _jacobi_bound(F, QtY, sweeps, rotated, op_ms)
+    print(
+        f"{line}; kernel_ms={t['ms']!r} per launch, plain_ms={t['plain_ms']!r} library_ms="
+        f"{t['library_ms']!r} (torch.linalg.svd route) per call, host_us={t['host_us']!r}; "
+        f"bound {json.dumps(bound)}"
+    )
+    return {**out, **t, **bound}
+
+
 def _check_kernel(name, Zp, wp, offsets, G, moments, torch, timed=True, library=False):
     """Kernel against plain version on the same CUDA tensors: only the
     summation order differs, so rtol 1e-12 / atol 1e-13 * max|M|; counts
@@ -861,7 +1057,26 @@ def _pvalue_inputs(t_query, dof_query, torch):
     return t, dof
 
 
-def _check_pvalue(t_query, dof_query, special, torch):
+def _dependent_op_ms(special, torch):
+    """Device ms of one dependent f64 operation of each kind of
+    ops/special.py:CHAIN_OPS, from chains of two lengths on one warp (their
+    difference cancels the launch)."""
+    seed = torch.full((1,), 0.5, dtype=torch.float64, device="cuda")
+    chain = _in_turns({
+        (kind, n): (lambda kind=kind, n=n: special.f64_chain(n, seed, kind))
+        for kind in special.CHAIN_OPS for n in CHAIN_LENGTHS
+    }, CHAIN_LAUNCHES, torch)
+    short, long_ = CHAIN_LENGTHS
+    op_ms = {
+        kind: (chain[(kind, long_)][0] - chain[(kind, short)][0]) / (long_ - short)
+        for kind in special.CHAIN_OPS
+    }
+    for kind in special.CHAIN_OPS[1:]:  # their steps carry one more add or multiply
+        op_ms[kind] -= op_ms["fma"]
+    return op_ms
+
+
+def _check_pvalue(t_query, dof_query, special, torch, op_ms):
     """The p-value kernel against its plain version (rtol 1e-12, NaN where
     it has NaN) and scipy.special.betainc (rtol 1e-12) on the statistics
     query's t, the same t / 100 and edge rows; timed at the query's shape."""
@@ -887,24 +1102,12 @@ def _check_pvalue(t_query, dof_query, special, torch):
     err = float(np.nanmax(np.abs(p_k - p_p)))
     scipy_rel = float(np.max(np.abs(p_k[ok] - ref) / np.maximum(ref, 1e-300)))
     G = t_query.shape[0]
-    seed = torch.full((1,), 0.5, dtype=torch.float64, device=t.device)
     raw = _in_turns({
         "plain": lambda: special.t_two_sided_p_value_ref(t_query, dof_query),
         "kernel": lambda: special.t_two_sided_p_value(t_query, dof_query),
         "load_store": lambda: special.t_pvalue_timing_stage(t_query, dof_query, "load_store"),
         "front": lambda: special.t_pvalue_timing_stage(t_query, dof_query, "front"),
     }, PVALUE_LAUNCHES, torch, synced=("plain",))
-    chain = _in_turns({
-        (kind, n): (lambda kind=kind, n=n: special.f64_chain(n, seed, kind))
-        for kind in special.CHAIN_OPS for n in CHAIN_LENGTHS
-    }, CHAIN_LAUNCHES, torch)
-    short, long_ = CHAIN_LENGTHS
-    op_ms = {
-        kind: (chain[(kind, long_)][0] - chain[(kind, short)][0]) / (long_ - short)
-        for kind in special.CHAIN_OPS
-    }
-    for kind in special.CHAIN_OPS[1:]:  # their steps carry one more add or multiply
-        op_ms[kind] -= op_ms["fma"]
     times = _timing_fields(raw)
     times["load_store_ms"], times["front_ms"] = raw["load_store"][0], raw["front"][0]
     times["dependent_op_ns"] = {kind: ms * 1e6 for kind, ms in op_ms.items()}
@@ -1203,7 +1406,7 @@ def main() -> int:
     from polars_ols_tpu_torch.engine import fit, groups
     from polars_ols_tpu_torch.engine.native import native_loaded
     from polars_ols_tpu_torch.ops import (
-        cd, grid_probe, householder, kernels, moments, moving, recursive, rolling, special,
+        cd, grid_probe, householder, jacobi, kernels, moments, moving, recursive, rolling, special,
     )
     from polars_ols_tpu_torch.ops.direct import grouped_moments
 
@@ -1220,7 +1423,7 @@ def main() -> int:
     )
 
     # 2. build: one nvcc per source, all at once
-    sources = ("moments", "grid_probe", "cd", "t_pvalue", "moving", "householder")
+    sources = ("moments", "grid_probe", "cd", "t_pvalue", "moving", "householder", "jacobi_svd")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(kernels.build, sources))
@@ -1243,6 +1446,7 @@ def main() -> int:
     dev = torch.device("cuda")
     floor_ms = _in_turns({"empty": lambda: grid_probe.empty_launch(dev)}, PROBE_LAUNCHES, torch)["empty"][0]
     print(f"floor: an empty kernel (one 32-thread block) {floor_ms!r} ms per launch ({smi})")
+    op_ms = _dependent_op_ms(special, torch)
 
     rng = np.random.default_rng(0)
     x = rng.normal(size=(N_ROWS, N_FEATURES))
@@ -1318,7 +1522,37 @@ def main() -> int:
             "main-path blocks, C=7 (the multi-target query)", Zmt, wmt, K, householder, torch
         ),
     }
-    del Zmt, wmt, vals_mt
+    hh_phases = {
+        "svd": _householder_phases("C=6 (the svd query)", Zp, wp, K, householder, torch, smi),
+        "multi_target": _householder_phases("C=7 (the multi-target query)", Zmt, wmt, K, householder, torch, smi),
+    }
+    # the Jacobi SVD kernel at the same queries' factors: the tree's last
+    # level, as the engine hands it over (strided views of T)
+    jc = {}
+    for key, label, (Zb, wb, m) in (
+        ("svd", "the svd query's factors", (Zp, wp, 1)),
+        ("multi_target", "the multi-target query's factors", (Zmt, wmt, 2)),
+    ):
+        T = householder.reduce_groups(Zb, wb, K, fit._reduction_plan(layout, Zb.shape[1], K))
+        nv = torch.segment_reduce(wb.sum(dim=1, dtype=torch.float64), "sum",
+                                  offsets=layout.device_block_offsets(Zb.shape[1]), axis=0)
+        jc[key] = _check_jacobi(label, T[..., m:], T[..., :m], nv, jacobi, torch, op_ms, timed=True)
+    del Zmt, wmt, vals_mt, T
+    rng_j = np.random.default_rng(4)
+    jacobi.jacobi_kernel_launches = 0
+    for label, (k_j, m_j, alpha_j, rcond_j, kind) in (
+        ("K=1", (1, 2, 0.0, None, "factor")),
+        ("K=8", (8, 1, 0.0, None, "factor")),
+        ("K=16", (16, 3, 0.0, None, "factor")),
+        ("K=32", (32, 1, 0.0, None, "factor")),
+        ("rank-deficient (a duplicate or a zero column)", (5, 2, 0.0, None, "deficient")),
+        ("NaN lanes (in factors and in targets)", (5, 2, 0.0, None, "nan")),
+        ("alpha > 0 and a user rcond", (5, 2, 0.3, 1e-6, "factor")),
+        ("the square branch (general square X)", (5, 2, 0.0, None, "square")),
+    ):
+        _check_jacobi(label, *_jacobi_edge(rng_j, JACOBI_EDGE_GROUPS, k_j, m_j, kind, torch),
+                      jacobi, torch, op_ms, alpha_j, rcond_j)
+    jc_edges = jacobi.jacobi_kernel_launches
     rng_h = np.random.default_rng(3)
     householder.householder_kernel_launches = 0
     for label, (B, R, C, k_h, zero_col, nan_masked) in (
@@ -1447,6 +1681,7 @@ def main() -> int:
     moment_queries = [q for q in queries if not q.startswith("svd")]
 
     moments.moments_kernel_launches = householder.householder_kernel_launches = 0
+    jacobi.jacobi_kernel_launches = 0
     out, first_s = {}, {}
     for label, (q, column) in queries.items():
         t0 = time.perf_counter()
@@ -1455,14 +1690,17 @@ def main() -> int:
         first_s[label] = time.perf_counter() - t0
     static_launches = moments.moments_kernel_launches
     svd_launches = householder.householder_kernel_launches
+    svd_jacobi = jacobi.jacobi_kernel_launches
     if static_launches < len(moment_queries):
         raise AssertionError(
             f"moment kernel launched {static_launches} times for "
             f"{len(moment_queries)} moment-path queries"
         )
     n_svd = len(queries) - len(moment_queries)
-    if svd_launches < n_svd:
-        raise AssertionError(f"Householder kernel launched {svd_launches} times for {n_svd} svd queries")
+    if svd_launches < n_svd or svd_jacobi != n_svd:
+        raise AssertionError(
+            f"Householder / Jacobi kernels launched {svd_launches} / {svd_jacobi} times for {n_svd} svd queries"
+        )
 
     # nulls exactly where each policy puts them, over every row
     fit_drop = torch.as_tensor(valid[:, 0] & valid[:, 1:].all(axis=1), device=dev)
@@ -1542,6 +1780,7 @@ def main() -> int:
     CONFIG.lazy_row_order = False
     moments.moments_kernel_launches = cd.cd_kernel_launches = special.t_pvalue_kernel_launches = 0
     moving.moving_kernel_launches = householder.householder_kernel_launches = 0
+    jacobi.jacobi_kernel_launches = 0
     mtout, first_s_mt = {}, {}
     for label, q in mt_queries.items():
         t0 = time.perf_counter()
@@ -1549,12 +1788,13 @@ def main() -> int:
         torch.cuda.synchronize()
         first_s_mt[label] = time.perf_counter() - t0
     mt_launches = householder.householder_kernel_launches
+    mt_jacobi = jacobi.jacobi_kernel_launches
     others = (moments.moments_kernel_launches, cd.cd_kernel_launches,
               special.t_pvalue_kernel_launches, moving.moving_kernel_launches)
-    if mt_launches < len(mt_queries) or any(others):
+    if mt_launches < len(mt_queries) or mt_jacobi != len(mt_queries) or any(others):
         raise AssertionError(
-            f"Householder kernel launched {mt_launches} times for {len(mt_queries)} multi-target "
-            f"queries; other kernels {others}"
+            f"Householder / Jacobi kernels launched {mt_launches} / {mt_jacobi} times for "
+            f"{len(mt_queries)} multi-target queries; other kernels {others}"
         )
     fit_mt = valid[:, 0] & y2_valid & valid[:, 1:].all(axis=1)
     for label, s_ in mtout.items():
@@ -1590,7 +1830,8 @@ def main() -> int:
     print(
         f"multi_target: {len(mt_queries)} queries ({', '.join(mt_queries)}) of struct(y, y2) at "
         f"{N_ROWS} rows x {N_FEATURES} features x {N_GROUPS} groups, Householder kernel "
-        f"launches={mt_launches} (no other kernel), nulls where 'drop' puts them, "
+        f"launches={mt_launches}, Jacobi kernel launches={mt_jacobi} (no other kernel), nulls where "
+        f"'drop' puts them, "
         f"{N_CHECK_GROUPS} groups match numpy lstsq per target"
     )
     print("multi_target first-query s: " + json.dumps({k: round(v, 4) for k, v in first_s_mt.items()}))
@@ -1609,6 +1850,7 @@ def main() -> int:
             "statistics",
         ),
         "drop/statistics": (ols("yn", xn, null_policy="drop", mode="statistics"), "statistics"),
+        "svd/statistics": (ols("y", xv, solve_method="svd", mode="statistics"), "statistics"),
         "lasso": (lasso("y", xv), "y"),
         "lasso/coef": (lasso("y", xv, mode="coefficients"), "coefficients"),
         "lasso/statistics": (lasso("y", xv, mode="statistics"), "statistics"),
@@ -1627,6 +1869,7 @@ def main() -> int:
     moments.moments_kernel_launches = 0
     cd.cd_kernel_launches = 0
     special.t_pvalue_kernel_launches = 0
+    householder.householder_kernel_launches = jacobi.jacobi_kernel_launches = 0
     sout, first_s_stat = {}, {}
     for label, (q, column) in stat_queries.items():
         t0 = time.perf_counter()
@@ -1637,12 +1880,15 @@ def main() -> int:
         "grouped_moments": moments.moments_kernel_launches,
         "cd_cov": cd.cd_kernel_launches,
         "t_pvalue": special.t_pvalue_kernel_launches,
+        "householder": householder.householder_kernel_launches,
+        "jacobi_svd": jacobi.jacobi_kernel_launches,
     }
     n_stat = sum(label.endswith("statistics") for label in stat_queries)
     n_cd = sum(label.split("/")[0] in ("lasso", "elastic_net", "nnls", "cd_active_set")
                for label in stat_queries)
     if (stat_launches["grouped_moments"] < len(stat_queries) or stat_launches["cd_cov"] < n_cd
-            or stat_launches["t_pvalue"] < n_stat):
+            or stat_launches["t_pvalue"] < n_stat or stat_launches["jacobi_svd"] != 1
+            or stat_launches["householder"] < 1):
         raise AssertionError(
             f"kernel launches {stat_launches} for {len(stat_queries)} queries, {n_cd} by "
             f"coordinate descent and {n_stat} with statistics"
@@ -1671,6 +1917,7 @@ def main() -> int:
             "statistics": _stats_numpy(Xg, yg, 0.0),
             "ridge/statistics": _stats_numpy(Xg, yg, RIDGE_ALPHA),
             "drop/statistics": _stats_numpy(Xg[fit_rows], yg[fit_rows], 0.0),
+            "svd/statistics": _stats_numpy(Xg, yg, 0.0),
             "lasso/statistics": _stats_numpy(Xg, yg, LASSO_ALPHA, beta=w_lasso),
         }
         for label, ref in want.items():
@@ -1731,7 +1978,7 @@ def main() -> int:
     first_of_group = torch.as_tensor(np.unique(g.astype(np.int64), return_index=True)[1], device=dev)
     t_query = sout["statistics"].gather(first_of_group).arrays["t_values"].contiguous()
     dof_query = torch.as_tensor(layout.counts - N_FEATURES, dtype=torch.float64, device=dev)
-    p_err, p_times = _check_pvalue(t_query, dof_query, special, torch)
+    p_err, p_times = _check_pvalue(t_query, dof_query, special, torch, op_ms)
     p_bound = _pvalue_bound(
         t_query, dof_query, {kind: ns * 1e-6 for kind, ns in p_times["dependent_op_ns"].items()}
     )
@@ -1988,6 +2235,7 @@ def main() -> int:
     formula_all = " + ".join(xv) + " - 1"
     moments.moments_kernel_launches = cd.cd_kernel_launches = special.t_pvalue_kernel_launches = 0
     moving.moving_kernel_launches = householder.householder_kernel_launches = 0
+    jacobi.jacobi_kernel_launches = 0
     t0 = time.perf_counter()
     pred = df.with_columns(coef_expr).select(col("coefficients").least_squares.predict(*features))["predictions"]
     pred_drop = df.with_columns(ols("yn", xn, null_policy="drop", mode="coefficients").alias("cn")).select(
@@ -2001,6 +2249,7 @@ def main() -> int:
     pf_launches = {
         "grouped_moments": moments.moments_kernel_launches, "moving": moving.moving_kernel_launches,
         "householder": householder.householder_kernel_launches,
+        "jacobi_svd": jacobi.jacobi_kernel_launches,
     }
     if pf_launches["grouped_moments"] < 3 or pf_launches["moving"] < 2:
         raise AssertionError(f"kernel launches {pf_launches} for 3 static fits and 2 moving formulas")
@@ -2198,9 +2447,28 @@ def main() -> int:
                 "edges (kernel checks, not a path)": hh_edges,
             },
             **hh["multi_target"],
-            "svd_blocks": hh["svd"],
+            "phases_ms": hh_phases["multi_target"],
+            "svd_blocks": {**hh["svd"], "phases_ms": hh_phases["svd"]},
             "library_call": "torch.linalg.qr(Zx, mode='r') of the masked blocks with the feature "
                             "columns first (its first K rows are [R | Q^T Y])",
+            "floor_ms": floor_ms,
+        },
+        {
+            "name": "jacobi_svd",
+            "route": "cuda",
+            "source": "polars_ols_tpu_torch/csrc/jacobi_svd.cu",
+            "replaces": "polars_ols_tpu/ops/linalg.py:463",
+            "replaces_kind": "XLA, not Pallas: jacobi_svd_lanes (:463) with the shrink of svd_lstsq_lanes "
+                             "(:499); in the port it takes the place of cuSOLVER's batched SVD",
+            "launches": mt_jacobi + svd_jacobi + stat_launches["jacobi_svd"],
+            "launches_by_path": {
+                "multi_target": mt_jacobi, "svd": svd_jacobi, "statistics": stat_launches["jacobi_svd"],
+                "edges (kernel checks, not a path)": jc_edges,
+            },
+            **jc["multi_target"],
+            "svd_factors": jc["svd"],
+            "library_call": "torch.linalg.svd of the factors with numpy's cutoff and the ridge shrink "
+                            "(the port's route before this kernel)",
             "floor_ms": floor_ms,
         },
     ]}))

@@ -23,22 +23,41 @@
 //
 // What bounds it: device-memory bytes. A block is read once (R C doubles
 // and R mask bytes) for ~4 R sum_j (C - j) flops: at the reference suite's
-// multi-target width (S = 20,000 blocks of R = 512, C = 7) 0.57 GB against
-// ~1 GFLOP, 0.17 ms at 3.35 TB/s against 0.03 ms at 34 TFLOP/s.
+// multi-target width (S = 20,000 blocks of R = 512, C = 7) 0.59 GB against
+// ~1 GFLOP, 0.18 ms at 3.35 TB/s against 0.03 ms at 34 TFLOP/s.
 //
-// The design (a first one: right and simple):
-// - One thread block a row block. The masked panel lives in shared memory
-//   (R x ld doubles, ld = C rounded up to an odd count, so that the rows of
-//   one column fall on distinct banks); up to 135 KB at R = 512, C = 33,
-//   which needs the dynamic shared-memory opt-in above 48 KB. A thread
-//   has kLoads values and their mask bytes in flight before the first
-//   lands (one load at a time cost ~5 % more at the main path's blocks).
-// - Reflection j: every warp forms the pivot column's squared norm from
-//   shared memory by itself (so no barrier is spent on it) and derives
-//   alpha, v_j and beta; then one warp a column forms v^T a_k for the
-//   targets and the features from the pivot on (lanes stride the rows,
-//   a shuffle tree sums them); after a barrier each thread updates whole
-//   rows, a_rk -= beta v_r (v^T a_k). Two barriers a reflection.
+// The design (an earlier one kept the panel in shared memory and spent
+// three passes over it and two barriers a reflection, the load and the
+// reflections in series; ~25 % of the bound):
+// - The panel lives in registers. A thread owns RPT rows (t, t + T, ...)
+//   of all the columns, a template bucket of NC columns: NC = 8 with RPT = 4
+//   (C <= 8, 128 threads at R = 512), 16 and 33 with 2 (256 threads; at
+//   one row a thread and 512 threads, 128 registers, C = 33 spilled).
+//   In the registers the feature columns come first and the targets after
+//   them, and the reflections are unrolled, so that reflection j's pivot is
+//   register column j and the columns it updates (j on) are known at
+//   compile time: no per-column selects or branches in the loop (the first
+//   form of this design, in Z's column order with a runtime pivot, took
+//   about 1.6 times as long; PERF.md has both forms' times).
+// - The load: persistent blocks (as many as the card holds at once) walk
+//   the row blocks; a block's panel and mask bytes arrive by two
+//   cp.async.bulk copies on an mbarrier into one shared-memory stage
+//   (rounded out to 16-byte words, as csrc/moments.cu's), each thread
+//   takes its rows from there into registers, and behind one barrier the
+//   next row block's copy is started, so it runs under the current one's
+//   reflections. (Per-warp contiguous loads staged through 2.3 KB a warp,
+//   tried first, left the load in series with the reflections.)
+// - One pass and one barrier a reflection. With g_k = sum_{r >= j} a_rj a_rk
+//   over the targets and the features from the pivot on (g of the pivot
+//   column is sigma), the plain version's dot products are
+//   v^T a_k = g_k - alpha a_jk. Each thread forms its rows' g, a warp sums
+//   them by reduce-scatters of shuffles (8 columns: 9 shuffles in place of
+//   40; wider buckets 8 columns at a time) and posts them to shared
+//   memory, as the owner of row j posts that row; behind one barrier (the
+//   partials are double-buffered, so the next reflection needs no second
+//   one) every thread sums the warps' partials in one order, derives
+//   sigma, alpha, beta and the dots, and updates its own rows in
+//   registers.
 // - Feature columns left of the pivot are not touched again (the plain
 //   version subtracts round-off from them); the pivot column itself is
 //   updated like the others, so R's diagonal is alpha and its entries
@@ -50,12 +69,32 @@
 
 namespace {
 
-constexpr int kMaxThreads = 256;
-constexpr int kLoads = 8;
+constexpr int kMaxRows = 512;
 constexpr int kMaxCols = 33;
 constexpr unsigned kFull = 0xffffffffu;
 // the most dynamic shared memory a block can opt in to on sm_90
 constexpr size_t kMaxSmem = 232448;
+
+// Warp totals of v[0..N) (N a power of two <= 32): xor offset O halves the
+// values a lane keeps while N > 1 (the lane with bit O set keeps the upper
+// half), then plain xor steps finish. Lane l ends with the total of column
+// l / (32 / N); lanes of one column hold the same bits.
+template <int N, int O>
+__device__ __forceinline__ void scatter_sum(double* v, int lane) {
+  if constexpr (N > 1) {
+    const bool hi = (lane & O) != 0;
+#pragma unroll
+    for (int k = 0; k < N / 2; ++k) {
+      const double send = hi ? v[k] : v[k + N / 2];
+      const double keep = hi ? v[k + N / 2] : v[k];
+      v[k] = keep + __shfl_xor_sync(kFull, send, O);
+    }
+    scatter_sum<N / 2, O / 2>(v, lane);
+  } else if constexpr (O > 0) {
+    v[0] += __shfl_xor_sync(kFull, v[0], O);
+    scatter_sum<1, O / 2>(v, lane);
+  }
+}
 
 __device__ __forceinline__ double warp_sum(double v) {
 #pragma unroll
@@ -63,84 +102,227 @@ __device__ __forceinline__ double warp_sum(double v) {
   return v;
 }
 
-__global__ void __launch_bounds__(kMaxThreads)
-householder_blocks(const double* __restrict__ z, const uint8_t* __restrict__ w,
-                   int R, int C, int K, int ld, double* __restrict__ t) {
-  extern __shared__ double smem[];
-  double* a = smem;                                   // [R][ld] the panel
-  double* dots = smem + static_cast<size_t>(R) * ld;  // [C] v^T a_k
-  const int64_t b = blockIdx.x;
-  const double* zb = z + b * R * C;
-  const uint8_t* wb = w + b * R;
-  const int n = R * C;
-  for (int e0 = threadIdx.x; e0 < n; e0 += kLoads * blockDim.x) {
-    double v[kLoads];
-    uint8_t keep[kLoads];
-#pragma unroll
-    for (int u = 0; u < kLoads; ++u) {
-      const int e = e0 + u * blockDim.x;
-      v[u] = e < n ? zb[e] : 0.0;
-      keep[u] = e < n ? wb[e / C] : 0;
-    }
-#pragma unroll
-    for (int u = 0; u < kLoads; ++u) {
-      const int e = e0 + u * blockDim.x;
-      if (e < n) {
-        const int r = e / C;
-        a[r * ld + (e - r * C)] = keep[u] ? v[u] : 0.0;
-      }
-    }
+__device__ __forceinline__ uint32_t shared_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void wait_parity(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__host__ __device__ __forceinline__ int round16(int v) { return (v + 15) & ~15; }
+
+// Thread 0: arm the barrier with block b's bytes (its panel and its mask
+// bytes, each rounded out to 16-byte words) and start the two bulk copies
+// into the stage.
+__device__ __forceinline__ void issue(const double* z, const uint8_t* w, int64_t b, int R, int C,
+                                      uint32_t stage, int z_bytes, uint32_t bar) {
+  const uint8_t* zb = reinterpret_cast<const uint8_t*>(z + b * R * C);
+  const uint8_t* mb = w + b * R;
+  const int z_shift = static_cast<int>(reinterpret_cast<uintptr_t>(zb) & 15);
+  const int m_shift = static_cast<int>(reinterpret_cast<uintptr_t>(mb) & 15);
+  const uint32_t zn = static_cast<uint32_t>(round16(z_shift + 8 * R * C));
+  const uint32_t mn = static_cast<uint32_t>(round16(m_shift + R));
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(zn + mn) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(stage), "l"(zb - z_shift), "r"(zn), "r"(bar) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(stage + z_bytes), "l"(mb - m_shift), "r"(mn), "r"(bar) : "memory");
+}
+
+// The block's layout in dynamic shared memory: the bulk copies' barrier,
+// the warps' partial g (double-buffered), row j (double-buffered), and the
+// stage that one row block's panel and mask bytes land in.
+struct Smem {
+  int part, prow, stage, z_bytes, bytes;  // byte offsets and sizes
+  __host__ __device__ Smem(int W, int NC, int R, int C) {
+    part = 16;
+    prow = part + 8 * 2 * W * NC;
+    stage = round16(prow + 8 * 2 * NC);
+    z_bytes = round16(8 + 8 * R * C);
+    bytes = stage + z_bytes + round16(15 + R);
+  }
+};
+
+// N columns in the shuffle reductions (8 at a time), X one more column
+// (index N) summed by a plain butterfly, RPT rows a thread. Persistent: a
+// block reduces row blocks blockIdx.x, + gridDim.x, ...; the next one's
+// bulk copy runs behind the current one's reflections.
+template <int N, bool X, int RPT>
+__global__ void __launch_bounds__(kMaxRows / RPT)
+householder_blocks(const double* __restrict__ z, const uint8_t* __restrict__ w, int64_t B, int R,
+                   int C, int K, int reflections, double* __restrict__ t) {
+  constexpr int NC = N + (X ? 1 : 0);  // columns a thread holds
+  constexpr int NG = 8;                // columns a reduce-scatter takes
+  constexpr int PS = NC;               // a warp's partials: stride
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int T = blockDim.x;
+  const int W = T >> 5;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const Smem lay(W, NC, R, C);
+  double* part = reinterpret_cast<double*>(smem + lay.part);  // [2][W][PS] the warps' g
+  double* prow = reinterpret_cast<double*>(smem + lay.prow);  // [2][NC] row j
+  unsigned char* stage = smem + lay.stage;
+  const uint32_t bar = shared_addr(smem);
+  const uint32_t stage_addr = shared_addr(stage);
+
+  if (tid == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(bar) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    issue(z, w, blockIdx.x, R, C, stage_addr, lay.z_bytes, bar);
   }
   __syncthreads();
 
   const int M = C - K;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int warps = blockDim.x >> 5;
-  const int steps = K < R ? K : R;  // reflections past the last row are the identity
-  for (int j = 0; j < steps; ++j) {
-    const int cj = M + j;  // the pivot column
-    double s = 0.0;
-#pragma unroll 4
-    for (int r = j + lane; r < R; r += 32) {
-      const double x = a[r * ld + cj];
-      s += x * x;
+  int steps = K < R ? K : R;  // reflections past the last row are the identity
+  if (reflections < steps) steps = reflections;
+  uint32_t parity = 0;
+  for (int64_t b = blockIdx.x; b < B; b += gridDim.x) {
+    // this block's rows from the stage, masked rows selected away. In the
+    // registers the K feature columns come first and the M targets after
+    // them, so that reflection j's pivot is register column j: a
+    // compile-time index once the reflections are unrolled
+    wait_parity(bar, parity);
+    parity ^= 1u;
+    const uint8_t* zb = reinterpret_cast<const uint8_t*>(z + b * R * C);
+    const double* zs = reinterpret_cast<const double*>(stage + (reinterpret_cast<uintptr_t>(zb) & 15));
+    const uint8_t* ms = stage + lay.z_bytes + (reinterpret_cast<uintptr_t>(w + b * R) & 15);
+    double a[RPT][NC];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int r = tid + i * T;
+      const bool keep = r < R && ms[r] != 0;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) a[i][c] = keep && c < C ? zs[r * C + (c < K ? M + c : c - K)] : 0.0;
     }
-    const double sigma = warp_sum(s);
-    const double piv = a[j * ld + cj];
-    const double alpha = -(piv >= 0.0 ? 1.0 : -1.0) * sqrt(sigma);
-    const double vj = piv - alpha;
-    const double denom = sigma - piv * alpha;  // = ||v||^2 / 2
-    const double beta = denom > 0.0 ? 1.0 / denom : 0.0;
+    __syncthreads();  // the stage is read: the next block's copy may land
+    if (tid == 0 && b + gridDim.x < B) {
+      issue(z, w, b + gridDim.x, R, C, stage_addr, lay.z_bytes, bar);
+    }
 
-    // v^T a_k: the M targets, then the features from the pivot on
-    const int ncols = M + K - j;
-    for (int q = warp; q < ncols; q += warps) {
-      const int k = q < M ? q : cj + (q - M);
-      double d = 0.0;
-#pragma unroll 4
-      for (int r = j + lane; r < R; r += 32) {
-        const double v = r == j ? vj : a[r * ld + cj];
-        d += v * a[r * ld + k];
+#pragma unroll
+    for (int j = 0; j < NC - 1; ++j) {
+      if (j >= steps) break;
+      double* pb = part + (j & 1) * W * PS;
+      double* rb = prow + (j & 1) * NC;
+      // this thread's rows' g over rows r >= j and register columns from j
+      // on (the features from the pivot on, then the targets), then the
+      // warp's, NG columns at a time
+      double pm[RPT];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) pm[i] = tid + i * T >= j ? a[i][j] : 0.0;
+#pragma unroll
+      for (int h = 0; h < N / NG; ++h) {
+        double v[NG];
+#pragma unroll
+        for (int c = 0; c < NG; ++c) {
+          v[c] = 0.0;
+          if (h * NG + c >= j) {
+#pragma unroll
+            for (int i = 0; i < RPT; ++i) v[c] += pm[i] * a[i][h * NG + c];
+          }
+        }
+        scatter_sum<NG, 16>(v, lane);
+        if ((lane & (32 / NG - 1)) == 0) pb[warp * PS + h * NG + lane / (32 / NG)] = v[0];
       }
-      d = warp_sum(d);
-      if (lane == 0) dots[k] = d;
-    }
-    __syncthreads();
-    for (int r = j + threadIdx.x; r < R; r += blockDim.x) {
-      double* row = a + r * ld;
-      const double bv = beta * (r == j ? vj : row[cj]);
-      for (int k = 0; k < M; ++k) row[k] -= bv * dots[k];
-      for (int k = cj; k < C; ++k) row[k] -= bv * dots[k];
-    }
-    __syncthreads();
-  }
+      if constexpr (X) {
+        double vx = 0.0;
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) vx += pm[i] * a[i][N];
+        vx = warp_sum(vx);
+        if (lane == 0) pb[warp * PS + N] = vx;
+      }
+      if (tid == j) {
+#pragma unroll
+        for (int c = j; c < NC; ++c) rb[c] = a[0][c];
+      }
+      __syncthreads();
 
-  double* tb = t + b * K * C;
-  for (int e = threadIdx.x; e < K * C; e += blockDim.x) {
-    const int r = e / C;
-    tb[e] = r < R ? a[r * ld + (e - r * C)] : 0.0;
+      // the block's g: lane c sums column c over the warps, in warp order
+      double gl = 0.0;
+      for (int q = 0; q < W; ++q) gl += pb[q * PS + (lane & (N - 1))];
+      double gx = 0.0;
+      if constexpr (X) {
+        for (int q = 0; q < W; ++q) gx += pb[q * PS + N];
+      }
+      const double sigma = __shfl_sync(kFull, gl, j);
+      const double piv = rb[j];
+      const double alpha = -(piv >= 0.0 ? 1.0 : -1.0) * sqrt(sigma);
+      const double vj = piv - alpha;
+      const double denom = sigma - piv * alpha;  // = ||v||^2 / 2
+      const double beta = denom > 0.0 ? 1.0 / denom : 0.0;
+      // a_rk -= beta v_r (g_k - alpha a_jk) for register columns from j on;
+      // rows above j have v_r = 0 (a frozen row is left as it is)
+      double bv[RPT];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        const int r = tid + i * T;
+        bv[i] = r < j ? 0.0 : beta * (r == j ? vj : a[i][j]);
+      }
+#pragma unroll
+      for (int c = j; c < NC; ++c) {
+        const double g = c < N ? __shfl_sync(kFull, gl, c) : gx;
+        const double dot = g - alpha * rb[c];
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) a[i][c] -= bv[i] * dot;
+      }
+    }
+
+    // row r < K of T is thread r's first row, back in Z's column order
+    if (tid < K) {
+      double* tr = t + (b * K + tid) * C;
+      const bool real = tid < R;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        if (c < C) tr[c < K ? M + c : c - K] = real ? a[0][c] : 0.0;
+      }
+    }
   }
+}
+
+template <int N, bool X, int RPT>
+int launch(const double* z, const uint8_t* w, int64_t B, int64_t R, int64_t C, int64_t K,
+           int reflections, double* t, cudaStream_t stream) {
+  constexpr int NC = N + (X ? 1 : 0);
+  const int rows = 32 * RPT;
+  const int threads = static_cast<int>((R + rows - 1) / rows) * 32;
+  const Smem lay(threads / 32, NC, static_cast<int>(R), static_cast<int>(C));
+  const size_t smem = static_cast<size_t>(lay.bytes);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = householder_blocks<N, X, RPT>;
+  cudaError_t err = cudaSuccess;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  // persistent: as many blocks as the card holds at once, at most B
+  int dev = 0, sms = 0, per_sm = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t resident = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
+  const unsigned grid = static_cast<unsigned>(B < resident ? B : resident);
+  kernel<<<grid, threads, smem, stream>>>(z, w, B, static_cast<int>(R), static_cast<int>(C),
+                                          static_cast<int>(K), reflections, t);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -148,28 +330,23 @@ householder_blocks(const double* __restrict__ z, const uint8_t* __restrict__ w,
 extern "C" {
 
 // The first K rows T [B, K, C] of each block of Z [B, R, C] (contiguous f64,
-// targets first) under the row mask w [B, R] (bool bytes), after K
-// Householder reflections of the feature columns. Launches on `stream`
-// without synchronising; returns the CUDA error code of the launch (0 on
-// success).
+// targets first, R <= 512, C <= 33) under the row mask w [B, R] (bool
+// bytes), after the first `reflections` Householder reflections of the
+// feature columns: K for the reduction; fewer (0: the load and the store
+// alone) time the kernel's phases apart. Launches on `stream` without
+// synchronising; returns the CUDA error code of the launch (0 on success).
 int pols_householder_blocks(const double* z, const uint8_t* w, int64_t B, int64_t R,
-                            int64_t C, int64_t K, double* t, void* stream) {
-  if (B < 0 || B > INT32_MAX || R < 1 || C < 2 || C > kMaxCols || K < 1 || K >= C) {
+                            int64_t C, int64_t K, int64_t reflections, double* t, void* stream) {
+  if (B < 0 || B > INT32_MAX || R < 1 || R > kMaxRows || C < 2 || C > kMaxCols || K < 1 || K >= C ||
+      reflections < 0 || reflections > K) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (B == 0) return 0;
-  const int ld = static_cast<int>(C) | 1;
-  const size_t smem = (static_cast<size_t>(R) * ld + C) * sizeof(double);
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        householder_blocks, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int threads = R >= 256 ? 256 : (R >= 128 ? 128 : 64);
-  householder_blocks<<<static_cast<unsigned>(B), threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      z, w, static_cast<int>(R), static_cast<int>(C), static_cast<int>(K), ld, t);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int r = static_cast<int>(reflections);
+  if (C <= 8) return launch<8, false, 4>(z, w, B, R, C, K, r, t, s);
+  if (C <= 16) return launch<16, false, 2>(z, w, B, R, C, K, r, t, s);
+  return launch<32, true, 2>(z, w, B, R, C, K, r, t, s);
 }
 
 // Message for an error code returned above.

@@ -18,8 +18,9 @@ row order, deferred (``BlockPermuted``) or materialized.
 - ``svd``: the same split-padded blocks, reduced per group to the K x K
   triangular factor and ``Q^T y`` by the hand-written Householder kernel
   (ops/householder.py: each block, then a tree over a group's stacked
-  block factors), and one batched SVD of the factors (minimum norm, numpy
-  lstsq's cutoff); groups of at most K rows take the SVD of their rows.
+  block factors), then the one-sided Jacobi SVD of the factors (minimum
+  norm, numpy lstsq's cutoff; ops/jacobi.py, a CUDA kernel on the card);
+  groups of at most K rows take the SVD of their rows.
 - ``mode="statistics"``: the split-padded blocks and their moments for
   every solver; the dispatch solver's coefficients with their residual
   metrics, and se / t / p from the normal equations (ops/statistics.py).
@@ -375,10 +376,12 @@ def _fit_svd(layout, vals, valid, policy: str, alpha: float, rcond, m: int = 1):
     """Per-group minimum-norm beta [G, K, m] of the m targets on the
     split-padded blocks: each group's rows reduced by the Householder
     kernel to its K x K factor and ``Q^T Y`` (the blocks, then the tree
-    over a group's block factors), then one batched SVD of the factors
-    (``svd_lstsq_from_factor``). Where no group has more than K rows (each
-    is one block), the SVD of the rows themselves (``svd_lstsq``). Returns
-    what ``_fit_moments`` returns, beta with its target axis."""
+    over a group's block factors), then the Jacobi SVD kernel on the
+    factors (``svd_lstsq_from_factor``, one launch; the factors and ``Q^T
+    Y`` go to it as strided views of the tree's last level, not copies).
+    Where no group has more than K rows (each is one block), the SVD of
+    the rows themselves (``svd_lstsq``). Returns what ``_fit_moments``
+    returns, beta with its target axis."""
     block_group = _split_layout(layout)[2]
     Zp, wp, predict_valid = _blocks_cached(layout, vals, valid, policy, m)
     G, (S, R, C) = layout.num_groups, Zp.shape

@@ -47,11 +47,9 @@ householder_kernel_launches = 0
 
 # C = M + K columns; the port's fits take K <= 32
 MAX_COLS = 33
-# rows a block of the reduction tree holds (the split layout's default cap)
+# rows a block holds: the kernel's limit (a thread block of at most 512
+# threads holds the panel in registers) and the split layout's default cap
 MAX_ROWS = 512
-# the dynamic shared memory a block may use on sm_90 (the panel, R x odd C
-# doubles, and C dot products)
-_SMEM_BYTES = 232_448
 
 _BOUND = None
 
@@ -61,7 +59,7 @@ def _kernel():
     if _BOUND is None:
         lib = kernels.load("householder")
         vp, i64 = ctypes.c_void_p, ctypes.c_int64
-        lib.pols_householder_blocks.argtypes = [vp, vp, i64, i64, i64, i64, vp, vp]
+        lib.pols_householder_blocks.argtypes = [vp, vp, i64, i64, i64, i64, i64, vp, vp]
         lib.pols_householder_blocks.restype = ctypes.c_int
         lib.pols_cuda_error_string.argtypes = [ctypes.c_int]
         lib.pols_cuda_error_string.restype = ctypes.c_char_p
@@ -77,8 +75,8 @@ def _check(Z, w, K: int) -> None:
         raise ValueError(
             f"Z has C={C}, R={R} with K={K}; the reduction takes 1 <= K < C <= {MAX_COLS}, R >= 1"
         )
-    if (R * (C | 1) + C) * 8 > _SMEM_BYTES:
-        raise ValueError(f"a block of R={R} rows and C={C} columns does not fit shared memory")
+    if R > MAX_ROWS:
+        raise ValueError(f"a block of R={R} rows: the kernel takes at most {MAX_ROWS} rows a block")
     if w.dtype != torch.bool or tuple(w.shape) != (B, R):
         raise TypeError(f"w must be a [{B}, {R}] bool tensor, got {w.dtype} {tuple(w.shape)}")
     if Z.device != w.device:
@@ -104,10 +102,16 @@ def householder_blocks(Z: torch.Tensor, w: torch.Tensor, K: int) -> torch.Tensor
     """``T [B, K, C]``: the first K rows of each block ``Z [B, R, C]`` f64
     (targets first) under the row mask ``w [B, R]`` bool after K Householder
     reflections of its last K columns."""
-    global householder_kernel_launches
     _check(Z, w, K)
     if Z.device.type == "cpu":
         return householder_blocks_ref(Z, w, K)
+    return _launch(Z, w, K, K)
+
+
+def _launch(Z: torch.Tensor, w: torch.Tensor, K: int, reflections: int) -> torch.Tensor:
+    """The kernel's ``T`` after its first ``reflections`` reflections (K for
+    the reduction; fewer times the kernel's phases)."""
+    global householder_kernel_launches
     if Z.device.type != "cuda":
         raise ValueError(f"no Householder kernel for device {Z.device}")
     B, R, C = Z.shape
@@ -115,7 +119,7 @@ def householder_blocks(Z: torch.Tensor, w: torch.Tensor, K: int) -> torch.Tensor
     lib = _kernel()
     with torch.cuda.device(Z.device):
         rc = lib.pols_householder_blocks(
-            Z.data_ptr(), w.data_ptr(), B, R, C, K, T.data_ptr(),
+            Z.data_ptr(), w.data_ptr(), B, R, C, K, reflections, T.data_ptr(),
             torch.cuda.current_stream(Z.device).cuda_stream,
         )
     if rc != 0:
@@ -192,9 +196,20 @@ def plan_reduction(blocks_per_group: np.ndarray, K: int, device=None) -> Reducti
 def reduce_groups(Z: torch.Tensor, w: torch.Tensor, K: int, plan: ReductionPlan) -> torch.Tensor:
     """Each group's factor ``[G, K, C]`` of its blocks ``Z [S, R, C]`` under
     ``w [S, R]``: the blocks' reduction, then the plan's levels (one
-    launch each, on the stacked factors)."""
+    launch each, on the stacked factors). Blocks of more than ``MAX_ROWS``
+    rows (a larger ``CONFIG.moment_chunk_rows``) are first cut into pieces
+    of ``MAX_ROWS``, and each block's stacked piece factors stand in for
+    its rows."""
+    S, R, C = Z.shape
+    while R > MAX_ROWS:
+        n = -(-R // MAX_ROWS)
+        pad = n * MAX_ROWS - R
+        Z = torch.cat([Z, Z.new_zeros((S, pad, C))], dim=1).reshape(S * n, MAX_ROWS, C)
+        w = torch.cat([w, w.new_zeros((S, pad))], dim=1).reshape(S * n, MAX_ROWS)
+        R = n * K
+        Z = householder_blocks(Z, w, K).reshape(S, R, C)
+        w = torch.ones((S, R), dtype=torch.bool, device=Z.device)
     outs = [householder_blocks(Z, w, K)]
-    C = Z.shape[-1]
     for gather, mask in plan.levels:
         rows = outs[-1].reshape(-1, C).index_select(0, gather.reshape(-1))
         outs.append(householder_blocks(rows.reshape(*mask.shape, C), mask, K))

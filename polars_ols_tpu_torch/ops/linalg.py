@@ -5,12 +5,10 @@ column-recurrence Cholesky (factor and substitution as O(K) whole-batch
 tensor ops), its squared-pivot condition estimate and the eigh
 pseudo-inverse fallback for lanes whose factor is not finite; the
 partial-pivot LU of explicit 'lu'; and the SVD least squares of explicit
-'svd' and of multi-target fits (one batched ``torch.linalg.svd`` of the
-K x K factor of a Householder reduction, with numpy lstsq's cutoff;
-``_householder_reduce`` is the plain version of the engine's reduction
-kernel, ops/householder.py). The JAX engine's
-lane-major Householder + Jacobi form of its grouped fits is not ported:
-on the H100 the batched SVD was faster at every measured shape.
+'svd' and of multi-target fits (the one-sided Jacobi SVD of the K x K
+factor of a Householder reduction, ``ops/jacobi.py``, with numpy lstsq's
+cutoff; ``_householder_reduce`` is the plain version of the engine's
+reduction kernel, ops/householder.py).
 
 Where the JAX engine branches inside the device program with
 ``lax.cond(ok.all(), ...)``, this module branches in Python on a bool read
@@ -22,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from ..config import F64
+from .jacobi import factor_lstsq
 
 _EPS64 = float(torch.finfo(torch.float64).eps)
 
@@ -312,27 +311,6 @@ def _householder_reduce(X: torch.Tensor, Y: torch.Tensor):
     return A[..., :K, :], B[..., :K, :]
 
 
-def _default_rcond(n: int, k: int, n_valid):
-    """numpy lstsq's cutoff eps * max(n, k), with each problem's own count
-    of valid rows where given (not the padded row count)."""
-    if n_valid is None:
-        return _EPS64 * max(n, k)
-    return _EPS64 * torch.clamp(n_valid.to(F64), min=float(k))
-
-
-def _svd_nan_lanes(M: torch.Tensor):
-    """torch.linalg.svd of a batch, NaN on lanes whose M is not finite (as
-    ``jnp.linalg.svd`` gives them; torch's would raise)."""
-    bad = ~torch.isfinite(M).all(dim=-1).all(dim=-1)
-    u, s, vt = torch.linalg.svd(torch.where(bad[..., None, None], 0.0, M), full_matrices=False)
-    nan2 = bad[..., None, None]
-    return (
-        torch.where(nan2, torch.nan, u),
-        torch.where(bad[..., None], torch.nan, s),
-        torch.where(nan2, torch.nan, vt),
-    )
-
-
 def svd_lstsq_from_factor(
     R: torch.Tensor,
     QtY: torch.Tensor,
@@ -341,28 +319,16 @@ def svd_lstsq_from_factor(
     rcond: float | None = None,
 ) -> torch.Tensor:
     """Minimum-norm (ridge-shrunk) least squares from a Householder
-    reduction X = Q [R; 0]: the SVD of the K x K factor ``R [..., K, K]``
-    has X's singular values, and ``Q^T Y [..., K, M]`` carries the targets.
+    reduction X = Q [R; 0]: the SVD of the K x K factor ``R [G, K, K]``
+    has X's singular values, and ``Q^T Y [G, K, M]`` carries the targets.
 
     The reference's ``solve_ridge_svd`` (src/least_squares.rs:106-168):
     singular values at or below ``rcond * sigma_max`` are cut (numpy's
     default ``rcond = eps * max(n_valid, k)``, per problem) and the rest
-    shrunk by ``sigma / (sigma^2 + alpha)``. Returns beta [..., K, M]."""
-    u_r, s, vt = _svd_nan_lanes(R)
-    uty = torch.einsum("...ji,...jm->...im", u_r, QtY)
-    return _shrink(s, vt, uty, R.shape[-1], R.shape[-1], n_valid, alpha, rcond)
-
-
-def _shrink(s, vt, uty, n: int, k: int, n_valid, alpha: float, rcond):
-    """beta [..., K, M] from the SVD's singular values, V^T and U^T Y, with
-    numpy lstsq's cutoff and the ridge shrink."""
-    rc = _default_rcond(n, k, n_valid) if rcond is None else rcond
-    if isinstance(rc, torch.Tensor):
-        rc = rc[..., None]
-    cut = rc * s.amax(dim=-1, keepdim=True)
-    denom = s * s + alpha
-    d = torch.where(s > cut, s / torch.where(denom == 0, 1.0, denom), 0.0)
-    return torch.einsum("...ik,...im->...km", vt, d[..., None] * uty)
+    shrunk by ``sigma / (sigma^2 + alpha)``, through the one-sided Jacobi
+    SVD of ``ops/jacobi.py`` (its kernel on CUDA tensors). Returns beta
+    [G, K, M]."""
+    return factor_lstsq(R, QtY, n_valid.to(F64), alpha, rcond)
 
 
 def svd_lstsq(
@@ -375,9 +341,10 @@ def svd_lstsq(
     """Minimum-norm (ridge-shrunk) least squares via SVD, batched.
 
     Tall problems (N > K) take ``_householder_reduce`` and
-    ``svd_lstsq_from_factor``; wide ones the SVD of X itself. The cutoff
-    is numpy's ``eps * max(n, k)``, with each problem's own count of valid
-    rows for n where ``n_valid`` is given.
+    ``svd_lstsq_from_factor``; square ones the Jacobi SVD of X itself, and
+    wide ones (N < K) that of X padded with zero rows to K (the same V and
+    singular values). The cutoff is numpy's ``eps * max(n, k)``, with each
+    problem's own count of valid rows for n where ``n_valid`` is given.
 
     Args:
         X: [..., N, K] (zero rows are masked out).
@@ -386,13 +353,15 @@ def svd_lstsq(
     n, k = X.shape[-2], X.shape[-1]
     squeeze = y.dim() == X.dim() - 1
     Y = y[..., None] if squeeze else y
+    batch = X.shape[:-2]
+    if n_valid is None:
+        n_valid = torch.full(batch, float(n), dtype=F64, device=X.device)
     if n > k:
-        R, QtY = _householder_reduce(X, Y)
-        if n_valid is None:
-            n_valid = torch.full(X.shape[:-2], float(n), dtype=F64, device=X.device)
-        beta = svd_lstsq_from_factor(R, QtY, n_valid, alpha, rcond)
-    else:
-        u, s, vt = _svd_nan_lanes(X)
-        uty = torch.einsum("...ni,...nm->...im", u, Y)
-        beta = _shrink(s, vt, uty, n, k, n_valid, alpha, rcond)
+        X, Y = _householder_reduce(X, Y)
+    elif n < k:
+        X = torch.cat([X, X.new_zeros((*batch, k - n, k))], dim=-2)
+        Y = torch.cat([Y, Y.new_zeros((*batch, k - n, Y.shape[-1]))], dim=-2)
+    beta = factor_lstsq(
+        X.reshape(-1, k, k), Y.reshape(-1, k, Y.shape[-1]), n_valid.to(F64).reshape(-1), alpha, rcond
+    ).reshape(*batch, k, Y.shape[-1])
     return beta[..., 0] if squeeze else beta

@@ -45,19 +45,32 @@ kernel runs the plain version's reflections with its sums in another
 order: each entry of the factor within 1e-12 of its column's norm over the
 block's valid rows, NaN exactly where the plain version has it, the same
 bits from two launches; at R < K, with a zero feature column, NaN in
-masked slots, K = 32, and through the tree of a group of many blocks. The
-multi-target and 'svd' slices on the card match the CPU at rtol 1e-10.
+masked slots, K = 32, and through the tree of a group of many blocks, and
+at the register panel's edges (R = 510 and 37, each column bucket's ends,
+R < K at K = 32). The Jacobi SVD kernel makes the plain version's
+rotations with its sums in another order: each entry of a group's beta
+within 1e-12 of the group's largest |beta|, NaN where the plain version
+has it, the same bits from two launches; at K = 1 / 2 / 5 / 8 / 9 / 16 /
+17 / 32, warps with empty segments, rank-deficient and NaN factors, alpha
+and rcond, square factors and the tree's strided views. The multi-target
+and 'svd' slices on the card match the CPU at rtol 1e-10.
 """
+
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke as cs  # noqa: E402
+
 import polars_ols_tpu_torch as pt  # noqa: E402
 from polars_ols_tpu_torch import CONFIG, col  # noqa: E402
 from polars_ols_tpu_torch.ops import (  # noqa: E402
-    cd, grid_probe, householder, moments, moving, recursive, rolling, special,
+    cd, grid_probe, householder, jacobi, moments, moving, recursive, rolling, special,
 )
 
 
@@ -70,6 +83,7 @@ def cuda_device(monkeypatch):
     monkeypatch.setattr(special, "t_pvalue_kernel_launches", 0)
     monkeypatch.setattr(moving, "moving_kernel_launches", 0)
     monkeypatch.setattr(householder, "householder_kernel_launches", 0)
+    monkeypatch.setattr(jacobi, "jacobi_kernel_launches", 0)
     return torch.device("cuda")
 
 
@@ -574,6 +588,17 @@ HOUSEHOLDER_CASES = {
     "k32_m1": (100, 512, 33, 32, None, False),
     "r37_c9": (300, 37, 9, 7, None, False),
     "r10_tree_level": (1_000, 10, 6, 5, None, False),
+    # the register panel's edges: the tree's second level (R = 510, not a
+    # multiple of the 128 threads' rows), rows that leave threads without a
+    # row, each column bucket (C <= 8, <= 16, <= 33) at its ends, R < K at K = 32
+    "r510_second_level": (500, 510, 7, 5, None, False),
+    "r37_c7": (300, 37, 7, 5, None, False),
+    "c2_k1": (300, 512, 2, 1, None, False),
+    "c9_k8": (300, 300, 9, 8, 7, False),
+    "c16_k14": (300, 256, 16, 14, None, True),
+    "c17_k16": (200, 512, 17, 16, None, False),
+    "c33_r37": (100, 37, 33, 32, 31, False),
+    "c33_r20_below_k": (100, 20, 33, 32, None, True),
 }
 
 
@@ -654,6 +679,80 @@ def test_householder_slices_on_card_match_cpu(cuda_device, query, monkeypatch):
         s = pt.DataFrame(_static_frame()).select(expr)
         c = s[s.columns[0]]
         out[dev] = (c.to_numpy(), None if c.validity is None else c.validity.cpu().numpy())
-    assert householder.householder_kernel_launches >= 1
+    assert householder.householder_kernel_launches >= 1 and jacobi.jacobi_kernel_launches >= 1
     np.testing.assert_array_equal(out["cuda"][1], out["cpu"][1])
     np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("reflections", [0, 1, 3])
+def test_householder_phases_stop_after_their_reflections(cuda_device, reflections):
+    # the phase entry (chip_smoke.py times it): after 0 reflections, the
+    # load and the store alone give the masked panel's first K rows; after
+    # r, rows 0 .. r - 1 are final, the full reduction's first r rows
+    rng = np.random.default_rng(reflections)
+    B, R, C, K = 200, 300, 7, 5
+    Z = torch.as_tensor(rng.normal(size=(B, R, C)), device=cuda_device)
+    w = torch.as_tensor(rng.random((B, R)) > 0.2, device=cuda_device)
+    T = householder._launch(Z, w, K, reflections)
+    torch.cuda.synchronize()
+    if reflections == 0:
+        assert torch.equal(T, torch.where(w[:, :K, None], Z[:, :K], 0.0))
+    else:
+        T_p = householder.householder_blocks_ref(Z, w, K)
+        _assert_reduction(T[:, :reflections], T_p[:, :reflections], Z, w)
+
+
+JACOBI_CASES = {
+    # id: (groups, K, M, alpha, rcond, kind)
+    "k5_m1_main": (10_000, 5, 1, 0.0, None, "factor"),
+    "k5_m2_ragged_warp": (1_001, 5, 2, 0.0, None, "factor"),
+    "k1": (37, 1, 2, 0.0, None, "factor"),
+    "k2": (300, 2, 1, 0.0, None, "factor"),
+    "k8": (300, 8, 3, 0.0, None, "factor"),
+    "k9": (300, 9, 1, 0.0, None, "factor"),
+    "k16": (300, 16, 2, 0.0, None, "factor"),
+    "k17": (100, 17, 1, 0.0, None, "factor"),
+    "k32": (100, 32, 2, 0.0, None, "factor"),
+    "alpha_rcond": (500, 5, 2, 0.3, 1e-6, "factor"),
+    "deficient": (600, 5, 2, 0.0, None, "deficient"),
+    "deficient_k16": (300, 16, 1, 0.0, None, "deficient"),
+    "nan_lanes": (700, 5, 2, 0.0, None, "nan"),
+    "square": (500, 5, 2, 0.0, None, "square"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(JACOBI_CASES))
+def test_jacobi_kernel_matches_plain_on_card(cuda_device, case):
+    # the same rotations, sums in another order: each entry within 1e-12 of
+    # its group's largest |beta|, NaN where the plain version has it, the
+    # same bits from two launches
+    G, K, M, alpha, rcond, kind = JACOBI_CASES[case]
+    F, Y, n_valid = cs._jacobi_edge(np.random.default_rng(len(case)), G, K, M, kind, torch, cuda_device)
+    b_k = jacobi.factor_lstsq(F, Y, n_valid, alpha, rcond)
+    b_k2 = jacobi.factor_lstsq(F, Y, n_valid, alpha, rcond)
+    torch.cuda.synchronize()
+    assert jacobi.jacobi_kernel_launches == 2
+    assert torch.equal(torch.nan_to_num(b_k), torch.nan_to_num(b_k2))
+    b_p = jacobi.factor_lstsq_ref(F, Y, n_valid, alpha, rcond)
+    nan = torch.isnan(b_p)
+    assert torch.equal(torch.isnan(b_k), nan)
+    scale = torch.where(nan, 0.0, b_p.abs()).amax(dim=(1, 2), keepdim=True)
+    err = torch.where(nan, 0.0, (b_k - b_p).abs())
+    assert bool((err <= 1e-12 * scale).all()), float((err / scale.clamp_min(1e-300)).max())
+    if kind == "nan":
+        assert bool(torch.isnan(b_k[0::7]).all()) and bool(torch.isnan(b_k[3::7, :, M - 1]).all())
+    if kind == "deficient":  # the zero column's coefficient is exactly zero
+        assert bool((b_k[1::3, K // 2] == 0).all())
+
+
+@pytest.mark.gpu
+def test_jacobi_kernel_takes_the_trees_strided_views(cuda_device):
+    rng = np.random.default_rng(5)
+    T = torch.as_tensor(rng.normal(size=(2_000, 5, 7)), device=cuda_device)
+    n_valid = torch.full((2_000,), 40.0, dtype=torch.float64, device=cuda_device)
+    a = jacobi.factor_lstsq(T[..., 2:], T[..., :2], n_valid)
+    b = jacobi.factor_lstsq(T[..., 2:].contiguous(), T[..., :2].contiguous(), n_valid)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)

@@ -115,6 +115,55 @@ def test_blocks_match_the_jax_reduction():
 
 
 @pytest.mark.parametrize(
+    "B,R,C,k,nan_masked",
+    [
+        (30, 510, 7, 5, False),  # the tree's second level: 102 factors of K = 5
+        (40, 37, 7, 5, True),  # rows that leave threads of the kernel without one
+        (40, 200, 2, 1, False),  # C = 2: one feature, one target
+        (10, 300, 33, 32, True),  # C = 33: K = 32, one target
+        (20, 20, 33, 32, False),  # R < K at K = 32: zero rows below the last
+        (40, 3, 8, 5, True),  # R < K at K = 5
+    ],
+)
+def test_block_edges_match_the_jax_reduction(B, R, C, k, nan_masked):
+    # the register panel's edges through the wrapper (its plain version on
+    # the CPU; the kernel is held to it on the card): R and Q^T Y against
+    # the JAX package's _householder_reduce of the selected rows, a block
+    # of fewer than K rows padded with zero rows as the kernel pads it
+    rng = np.random.default_rng(R + C)
+    Z = rng.normal(size=(B, R, C)) * np.exp(rng.normal(size=C))
+    w = rng.random((B, R)) > 0.2
+    if nan_masked:
+        Z[~w] = np.nan
+    T = householder.householder_blocks(torch.as_tensor(Z), torch.as_tensor(w), k).numpy()
+    assert T.shape == (B, k, C) and np.isfinite(T).all()
+    Zs = np.where(w[..., None], Z, 0.0)
+    if R < k:
+        Zs = np.concatenate([Zs, np.zeros((B, k - R, C))], axis=1)
+        assert (T[:, R:] == 0).all()
+    m = C - k
+    Rj, Qj = jlinalg._householder_reduce(jnp.asarray(Zs[..., m:]), jnp.asarray(Zs[..., :m]))
+    norm = np.sqrt((Zs * Zs).sum(axis=1, keepdims=True))
+    assert (np.abs(T[..., m:] - np.asarray(Rj)) <= 1e-12 * norm[..., m:]).all()
+    assert (np.abs(T[..., :m] - np.asarray(Qj)) <= 1e-12 * norm[..., :m]).all()
+
+
+def test_blocks_of_more_rows_than_the_kernel_takes_are_cut_first(monkeypatch):
+    # a row cap above MAX_ROWS (CONFIG.moment_chunk_rows): each block is cut
+    # into pieces of MAX_ROWS, reduced, and its pieces' factors stand in for
+    # its rows; the factor equals one reduction of the group up to row signs
+    monkeypatch.setattr(householder, "MAX_ROWS", 64)
+    rng = np.random.default_rng(12)
+    blocks = [_group_blocks(rng, n, R=150) for n in (400, 90, 150)]
+    T, _ = _tree(blocks)
+    for g, (_, _, Zv) in enumerate(blocks):
+        R1, Q1 = linalg._householder_reduce(torch.as_tensor(Zv[None, :, M:]), torch.as_tensor(Zv[None, :, :M]))
+        one = torch.cat([Q1, R1], dim=-1)[0].numpy()
+        sign = np.sign(np.diagonal(T[g][:, M:]) * np.diagonal(one[:, M:]))
+        assert (np.abs(T[g] * sign[:, None] - one) <= 1e-12 * np.linalg.norm(Zv, axis=0)).all()
+
+
+@pytest.mark.parametrize(
     "n_blocks,k,levels",
     [([1, 1, 1], 5, 0), ([2, 1, 3], 5, 1), ([15_625], 5, 3), ([3_907], 5, 2), ([200, 1], 32, 2)],
 )
@@ -149,7 +198,7 @@ def test_wrapper_checks_its_inputs():
         householder.householder_blocks(Z, w, 6)
     with pytest.raises(ValueError, match="contiguous"):
         householder.householder_blocks(Z.transpose(0, 1).contiguous().transpose(0, 1), w, 5)
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="at most 512 rows"):
         householder.householder_blocks(torch.zeros((1, 2_000, 33), dtype=torch.float64),
                                        torch.ones((1, 2_000), dtype=torch.bool), 5)
 

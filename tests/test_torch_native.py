@@ -91,8 +91,10 @@ def _imports_and_names(path: Path):
 
 def test_the_check_covers_every_module_of_the_port():
     # among them the formula parser (a plain Python copy of the JAX
-    # package's) and the Householder reduction's wrapper
-    for rel in ("polars_ols_tpu_torch/utils.py", "polars_ols_tpu_torch/ops/householder.py"):
+    # package's) and the wrappers of the Householder reduction and the
+    # Jacobi SVD
+    for rel in ("polars_ols_tpu_torch/utils.py", "polars_ols_tpu_torch/ops/householder.py",
+                "polars_ols_tpu_torch/ops/jacobi.py"):
         assert rel in PORT_FILES
 
 

@@ -273,3 +273,97 @@ def test_reduction_err_reports_and_checks_against_column_norms():
     nan[0, 0, 0] = float("nan")
     with pytest.raises(AssertionError, match="NaN"):
         cs._reduction_err(nan, T, Z, w, 2, torch)
+
+
+@pytest.mark.parametrize("K,fma", [(1, 11), (5, 11), (8, 11), (9, 12), (16, 12), (17, 13), (32, 13)])
+def test_jacobi_pair_path_counts_the_segment_shuffle_adds(K, fma):
+    assert cs._jacobi_pair_path(K) == {"fma": fma, "div": 3, "sqrt": 2}
+
+
+@pytest.mark.parametrize("K,fma", [(5, 6), (9, 7), (32, 8)])
+def test_jacobi_test_path_is_a_dot_its_root_and_the_threshold(K, fma):
+    assert cs._jacobi_test_path(K) == {"fma": fma, "sqrt": 1}
+
+
+@pytest.mark.parametrize("K,sweeps,pairs,depth", [
+    (2, 3, None, 3),  # one pair: each rotation waits for the last
+    (5, 1, None, 7),  # a full cyclic sweep is 2 K - 3 deep, not 10
+    (5, 2, None, 12),  # the next sweep's (0, 1) waits for (1, 4)
+    (5, 1, [3, 4], 1),  # (0, 4) and (1, 2) share no column
+    (5, 1, [0, 4], 2),  # (0, 1) then (1, 2)
+    (5, 2, [], 0),  # nothing rotated
+    (8, 1, None, 13),
+])
+def test_jacobi_chain_follows_the_shared_columns(K, sweeps, pairs, depth):
+    P = K * (K - 1) // 2
+    rotated = torch.zeros((3, sweeps, P), dtype=torch.bool)
+    rotated[1, :, list(range(P)) if pairs is None else pairs] = True
+    got, rotations = cs._jacobi_chain(rotated, K)
+    assert got.tolist() == [0, depth, 0]
+    assert rotations.tolist() == [0, int(rotated[1].sum()), 0]
+
+
+def test_jacobi_bound_at_the_multi_target_factors():
+    # 10,000 factors of K = 5 and targets of M = 2: ~3.7 MB (~1.1 us at
+    # 3.35 TB/s) against ~0.04 GFLOP (~1.2 us at 34 TFLOP/s): operations
+    # bound it. Every group rotates every pair for 4 sweeps, one for 6, and
+    # then takes a sweep that rotates nothing: the latency bound is the
+    # longest chain, 7 + 5 x 5 = 32 rotations, and one test
+    G, K, M = 10_000, 5, 2
+    F = torch.zeros((G, K, K), dtype=torch.float64)
+    Y = torch.zeros((G, K, M), dtype=torch.float64)
+    sweeps = torch.full((G,), 5, dtype=torch.int64)
+    sweeps[3] = 7
+    rotated = torch.zeros((G, 7, 10), dtype=torch.bool)
+    rotated[:, :4] = True
+    rotated[3, :6] = True
+    op_ms = {"fma": 2e-6, "div": 3e-5, "sqrt": 2e-5}
+    b = cs._jacobi_bound(F, Y, sweeps, rotated, op_ms)
+    moved = 8 * (G * K * K + 2 * G * K * M + G)
+    assert moved / cs.PEAK_BYTES_PER_S * 1e3 == pytest.approx(0.0011, rel=0.01)
+    rot = (G - 1) * 40 + 60
+    tested = (5 * (G - 1) + 7) * 10
+    ops = rot * (18 * K + 20) + (tested - rot) * (6 * K + 6) + G * K * K * (2 * M + 2)
+    assert b["bound_by"] == "operations"
+    assert b["bound_ms"] == pytest.approx(ops / cs.PEAK_F64_PER_S * 1e3)
+    assert b["sweeps_max"] == 7 and b["sweeps_median"] == 5.0 and b["chain_pairs_max"] == 32
+    pair = 11 * 2e-6 + 3 * 3e-5 + 2 * 2e-5
+    test = 6 * 2e-6 + 2e-5
+    assert b["latency_bound_ms"] == pytest.approx(32 * pair + test)
+    # a group stopped by the cap (its last sweep rotated) takes no test
+    rotated[3, 6] = True
+    b = cs._jacobi_bound(F, Y, sweeps, rotated, op_ms)
+    assert b["chain_pairs_max"] == 37 and b["latency_bound_ms"] == pytest.approx(37 * pair)
+
+
+@pytest.mark.parametrize("kind,K,alpha,rcond", [
+    ("factor", 5, 0.0, None), ("factor", 1, 0.0, None), ("deficient", 5, 0.0, None),
+    ("nan", 5, 0.0, None), ("factor", 5, 0.3, 1e-6), ("square", 5, 0.0, None), ("factor", 16, 0.0, None),
+])
+def test_svd_route_agrees_with_the_jacobi_plain_version(kind, K, alpha, rcond):
+    # the smoke's library yardstick (torch.linalg.svd with the cutoff and
+    # shrink) and the kernel's plain version on the smoke's edge inputs:
+    # the same NaN pattern, beta at rtol 1e-9 (two SVD methods)
+    from polars_ols_tpu_torch.ops import jacobi
+
+    F, Y, nv = cs._jacobi_edge(np.random.default_rng(4), 60, K, 2, kind, torch, device="cpu")
+    want = jacobi.factor_lstsq_ref(F, Y, nv, alpha, rcond)
+    got = cs._svd_route(F, Y, nv, alpha, rcond, torch)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    if kind == "nan":
+        assert bool(torch.isnan(want[0::7]).all()) and bool(torch.isnan(want[3::7, :, 1]).all())
+    ok = ~torch.isnan(want)
+    np.testing.assert_allclose(got[ok].numpy(), want[ok].numpy(), rtol=1e-9, atol=1e-11)
+
+
+def test_check_jacobi_runs_its_gates_on_cpu_tensors(monkeypatch, capsys):
+    # a rehearsal of the smoke's Jacobi phase: on CPU tensors the wrapper is
+    # the plain version, so every gate passes and the line is printed
+    from polars_ols_tpu_torch.ops import jacobi
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    for kind in ("deficient", "nan"):
+        F, Y, nv = cs._jacobi_edge(np.random.default_rng(7), 300, 5, 2, kind, torch, device="cpu")
+        out = cs._check_jacobi(kind, F, Y, nv, jacobi, torch, {})
+        assert out["max_abs_err"] == 0.0 and out["max_abs_err_vs_library"] < 1e-9
+    assert "kernel jacobi_svd nan: G=300 K=5 M=2" in capsys.readouterr().out
