@@ -47,8 +47,12 @@ statistics, rls and rolling queries (and which moving kernels ran). The
 Householder kernel is also timed beside ``torch.linalg.qr`` of the same
 blocks and stopped after 0, 1 and K reflections (its phases); the Jacobi
 SVD kernel beside the ``torch.linalg.svd`` route the port ran before it,
-with numpy lstsq on sampled groups and a latency bound (its longest
-group's sweeps x pairs x one pair's dependent operations). The moving
+stopped after 0, 1 and all sweeps (its phases, each held to the plain
+version under the same cap), at K = 8 / 16 / 32 too (its thread form at 8,
+its segment form at 16 / 32), with numpy lstsq on sampled groups and a
+latency bound (its longest group's chain of dependent rotations). The
+coordinate-descent kernel gets a latency bound too (its longest group's
+sweeps x K dependent coordinate steps and a stop test). The moving
 kernel is also timed
 on a sweep of its shape (rows a lane, rows a range), at K = 8 and 16 on
 the main frame's groups, and on a frame of lognormal group sizes. The
@@ -159,6 +163,7 @@ TREE_RTOL = 1e-11  # a group's factor after three levels against the plain tree
 JACOBI_LAUNCHES = 50
 JACOBI_RTOL = 1e-12
 JACOBI_EDGE_GROUPS = 2_000
+JACOBI_TIMED_K = (8, 16, 32)  # edge batches timed beside the main path's K = 5
 # the multi-target queries: the reference suite's struct(y, y2) target
 # (benchmarks/suite.py:151-156); y2 and its nulls come from a child stream
 # of seed 0, so that every draw of the earlier phases stays as it was
@@ -176,7 +181,7 @@ MOVING_KERNEL_TOL = dict(rtol=1e-9, atol=1e-11)  # kernel against its plain vers
 # singular and round-off picks the branch
 SETTLED_EXTRA = 3
 # the latency yardstick: chains of dependent f64 operations of each kind
-# the p-value kernel's critical path holds (ops/special.py:CHAIN_OPS), at
+# the p-value and Jacobi kernels' critical paths hold (ops/special.py:CHAIN_OPS), at
 # two lengths whose difference cancels the launch
 CHAIN_LAUNCHES = 5
 CHAIN_LENGTHS = (20_000, 40_000)
@@ -260,12 +265,14 @@ def _in_turns(fns, n, torch, synced=()):
 
 
 def _timing_fields(times):
-    """The kernels-line fields of an _in_turns result over plain, kernel and
-    (where one PyTorch call computes the same function) library."""
+    """The kernels-line fields of an _in_turns result over kernel, plain
+    (None where it was not timed) and (where one PyTorch call computes the
+    same function) library."""
+    plain = times.get("plain", (None, None))
     return {
-        "ms": times["kernel"][0], "plain_ms": times["plain"][0],
+        "ms": times["kernel"][0], "plain_ms": plain[0],
         "library_ms": times["library"][0] if "library" in times else None,
-        "host_us": times["kernel"][1], "plain_host_us": times["plain"][1],
+        "host_us": times["kernel"][1], "plain_host_us": plain[1],
     }
 
 
@@ -287,13 +294,41 @@ def _moment_bound(Zp, wp, G):
     return _bound(moved, int(wp.sum()) * C * (C + 1), PEAK_F64_PER_S)
 
 
-def _cd_bound(G, K, sweeps):
+def _cd_step_path():
+    """The dependent f64 operations from one coordinate's new w_j to the
+    next coordinate's: the product with its XtX entry and the add that
+    brings it into the row's sum, rho (b - sum, + XtX_jj w_j), the soft
+    threshold (|rho| - a_l1, the clamp at 0, the sign's multiply) and the
+    division. The shared-memory store and load between them are left out,
+    so the bound stays a bound."""
+    return {"fma": 7, "div": 1}
+
+
+def _cd_test_path():
+    """The stop test after a sweep's last coordinate: w_new - w_old, its
+    square, the add that brings it into the norm, the square root and the
+    comparison with tol (the shuffles left out)."""
+    return {"fma": 4, "sqrt": 1}
+
+
+def _cd_bound(G, K, sweeps, op_ms):
     """XtX, Xty and n_valid read once, w and the sweep counts written once;
     per sweep of a group K coordinate steps of 2K + 6 operations (the
     K-term dot, rho, the threshold, the division) and 3K for the step norm,
-    over the sweeps this run's groups took."""
+    over the sweeps this run's groups took. Beside it the latency bound:
+    the most sweeps any group took, each K coordinate steps
+    (``_cd_step_path``) and the stop test (``_cd_test_path``), each
+    operation at the time one of its kind takes in a chain on this card,
+    every warp resident at once."""
     moved = 8 * (G * K * K + G * K + G) + 8 * G * K + 4 * G
-    return _bound(moved, int(sweeps.sum()) * K * (2 * K + 9), PEAK_F64_PER_S)
+    most = int(np.max(sweeps, initial=0))
+    chain = {kind: most * K * n for kind, n in _cd_step_path().items()}
+    for kind, n in _cd_test_path().items():
+        chain[kind] = chain.get(kind, 0) + most * n
+    return {
+        **_bound(moved, int(sweeps.sum()) * K * (2 * K + 9), PEAK_F64_PER_S),
+        "latency_bound_ms": _path_ms(chain, op_ms), "longest_path": chain, "sweeps_max": most,
+    }
 
 
 def _cf_iterations(p, q, z):
@@ -577,23 +612,37 @@ def _householder_phases(label, Z, w, K, householder, torch, smi):
     return ms
 
 
-def _jacobi_pair_path(K):
+# the dependent f64 operations of a rotation's angle in csrc/jacobi_svd.cu
+# (``angle``, both forms), from the three dots to the rotated columns: 2 apq
+# (or aqq - app); tau's Newton division (an rcp estimate and 6 multiply-adds);
+# 1 + tau^2, its Newton root (an rsqrt estimate and 7), |tau| + that root and
+# t's division (an estimate and 6); 1 + t^2 and c's reciprocal root (an
+# estimate and 4); s = c t; and the rotation's multiply and multiply-add
+JACOBI_ANGLE_PATH = {"fma": 1 + 6 + 1 + 7 + 1 + 6 + 1 + 4 + 1 + 2, "rcp": 2, "rsqrt": 2}
+
+
+def _jacobi_dot_path(K, form):
+    """The dependent f64 operations of a pair's dot products: a chain of K
+    multiply-adds in a thread (the thread form), or a product and log2(KB)
+    shuffle adds in a segment of KB lanes (the segment form; the shuffles'
+    own latency is left out, so the bound stays a bound)."""
+    if form == "thread":
+        return K
+    return 1 + (16 if K <= 16 else 32).bit_length() - 1
+
+
+def _jacobi_pair_path(K, form):
     """The dependent f64 operations from one rotated pair of columns to a
-    later pair that shares a column with it: the product and the segment's
-    log2(KB) shuffle adds of apq, 2 apq, tau's division, t's multiply-add,
-    square root, add and division, c's multiply-add, square root and
-    division, s, and the rotation's multiply and multiply-add. The
-    shuffles' own latency is left out, so the bound stays a bound."""
-    kb = 8 if K <= 8 else (16 if K <= 16 else 32)
-    return {"fma": 8 + kb.bit_length() - 1, "div": 3, "sqrt": 2}
+    later pair that shares a column with it, in the kernel's ``form``: the
+    dots, then ``JACOBI_ANGLE_PATH``."""
+    return {**JACOBI_ANGLE_PATH, "fma": _jacobi_dot_path(K, form) + JACOBI_ANGLE_PATH["fma"]}
 
 
-def _jacobi_test_path(K):
+def _jacobi_test_path(K, form):
     """The dependent f64 operations of a pair's test alone (a sweep that
-    rotates nothing): the product and log2(KB) shuffle adds of a dot, its
-    square root and the two multiplies of the threshold."""
-    kb = 8 if K <= 8 else (16 if K <= 16 else 32)
-    return {"fma": 3 + kb.bit_length() - 1, "sqrt": 1}
+    rotates nothing), on squares and without a root: the dots, then apq^2
+    against K eps^2 app aqq (two multiplies deep)."""
+    return {"fma": _jacobi_dot_path(K, form) + 2}
 
 
 def _jacobi_chain(rotated, K):
@@ -616,7 +665,7 @@ def _jacobi_chain(rotated, K):
     return ready.max(axis=1, initial=0), rot.sum(axis=(1, 2))
 
 
-def _jacobi_bound(F, QtY, sweeps, rotated, op_ms):
+def _jacobi_bound(F, QtY, sweeps, rotated, op_ms, form):
     """F's K x K entries, Q^T Y and n_valid read once, beta written once;
     18 K + 20 operations a rotated pair (three K-term dots, the angle, two
     columns of W and of V) and 6 K + 6 a pair tested and not rotated (the
@@ -624,10 +673,11 @@ def _jacobi_bound(F, QtY, sweeps, rotated, op_ms):
     version's record: the kernel's may differ by a rotation where
     round-off puts |apq| at the threshold), and K^2 (2 M + 2) around them.
     Beside it the latency bound: the longest group's chain of dependent
-    rotations (``_jacobi_chain``) times ``_jacobi_pair_path``, plus the
-    last sweep's test where that sweep rotated nothing, each operation at
-    the time one of its kind takes in a chain on this card, every warp
-    resident at once (the main path's 2,500 warps fit the card)."""
+    rotations (``_jacobi_chain``) times ``_jacobi_pair_path`` of the
+    kernel's ``form``, plus the last sweep's test where that sweep rotated
+    nothing, each operation at the time one of its kind takes in a chain on
+    this card, every warp resident at once (the main path's 313 warps fit
+    the card)."""
     G, K, M = QtY.shape
     pairs = K * (K - 1) // 2
     depth, rotations = _jacobi_chain(rotated, K)
@@ -635,13 +685,17 @@ def _jacobi_bound(F, QtY, sweeps, rotated, op_ms):
     tested = int(sweeps.sum()) * pairs
     ops = int(rotations.sum()) * (18 * K + 20) + (tested - int(rotations.sum())) * (6 * K + 6)
     ops += G * K * K * (2 * M + 2)
-    last = rotated.cpu().numpy()[np.arange(G), np.maximum(sweeps - 1, 0)].any(axis=-1)
+    rot = rotated.cpu().numpy()
+    last = (rot[np.arange(G), np.maximum(sweeps - 1, 0)].any(axis=-1) if rot.shape[1]
+            else np.zeros(G, dtype=bool))
     converged = (sweeps > 0) & ~last
-    chain = depth * _path_ms(_jacobi_pair_path(K), op_ms) + converged * _path_ms(_jacobi_test_path(K), op_ms)
+    pair, test = _jacobi_pair_path(K, form), _jacobi_test_path(K, form)
+    chain = depth * _path_ms(pair, op_ms) + converged * _path_ms(test, op_ms)
     return {
         **_bound(8 * (G * K * K + 2 * G * K * M + G), ops, PEAK_F64_PER_S),
         "latency_bound_ms": float(chain.max(initial=0.0)), "chain_pairs_max": int(depth.max(initial=0)),
         "sweeps_max": int(sweeps.max(initial=0)), "sweeps_median": float(np.median(sweeps)),
+        "pair_path": pair, "test_path": test,
     }
 
 
@@ -684,19 +738,10 @@ def _jacobi_edge(rng, G, K, M, kind, torch, device="cuda"):
             torch.full((G,), float(n), dtype=torch.float64, device=device))
 
 
-def _check_jacobi(label, F, QtY, n_valid, jacobi, torch, op_ms, alpha=0.0, rcond=None, timed=False):
-    """The Jacobi SVD kernel against its plain version on the same CUDA
-    factors (each entry of a group's beta within JACOBI_RTOL of the group's
-    largest |beta|, NaN exactly where the plain version has it, the same
-    bits from a second launch), and against the torch.linalg.svd route and
-    numpy lstsq (alpha 0) on N_CHECK_GROUPS sampled finite groups at
-    COEF_TOL; timed in turns with both, with its bounds."""
-    b_k = jacobi.factor_lstsq(F, QtY, n_valid, alpha, rcond)
-    b_k2 = jacobi.factor_lstsq(F, QtY, n_valid, alpha, rcond)
-    torch.cuda.synchronize()
-    if not torch.equal(torch.nan_to_num(b_k), torch.nan_to_num(b_k2)):
-        raise AssertionError(f"Jacobi kernel ({label}): two launches differ")
-    b_p = jacobi.factor_lstsq_ref(F, QtY, n_valid, alpha, rcond)
+def _jacobi_err(label, b_k, b_p, torch):
+    """Max abs error of the Jacobi kernel's beta against the plain
+    version's, checked: NaN exactly where the plain version has it, each
+    entry within JACOBI_RTOL of the group's largest |beta|."""
     nan = torch.isnan(b_p)
     if not torch.equal(torch.isnan(b_k), nan):
         raise AssertionError(f"Jacobi kernel ({label}): NaN where the plain version has none, or none where it has")
@@ -705,8 +750,30 @@ def _check_jacobi(label, F, QtY, n_valid, jacobi, torch, op_ms, alpha=0.0, rcond
     if not bool((err <= JACOBI_RTOL * scale).all()):
         worst = float((err / scale.clamp_min(1e-300)).max())
         raise AssertionError(f"Jacobi kernel ({label}): an entry {worst!r} of its group's largest |beta| off")
-    b_l = _svd_route(F, QtY, n_valid, alpha, rcond, torch)
+    return float(err.max())
+
+
+def _check_jacobi(label, F, QtY, n_valid, jacobi, torch, op_ms, alpha=0.0, rcond=None, timed=()):
+    """The Jacobi SVD kernel against its plain version on the same CUDA
+    factors (each entry of a group's beta within JACOBI_RTOL of the group's
+    largest |beta|, NaN exactly where the plain version has it, the same
+    bits from a second launch), and against the torch.linalg.svd route and
+    numpy lstsq (alpha 0) on N_CHECK_GROUPS sampled finite groups at
+    COEF_TOL. ``timed`` names what is timed in turns, with the bounds: of
+    "kernel" (in the form its C entry picks, ``jacobi.kernel_form``),
+    "plain" and "library" (the torch.linalg.svd route)."""
+    b_k = jacobi.factor_lstsq(F, QtY, n_valid, alpha, rcond)
+    b_k2 = jacobi.factor_lstsq(F, QtY, n_valid, alpha, rcond)
+    torch.cuda.synchronize()
+    if not torch.equal(torch.nan_to_num(b_k), torch.nan_to_num(b_k2)):
+        raise AssertionError(f"Jacobi kernel ({label}): two launches differ")
+    b_p = jacobi.factor_lstsq_ref(F, QtY, n_valid, alpha, rcond)
     G, K, M = QtY.shape
+    form = jacobi.kernel_form(K)
+    out = {"max_abs_err": _jacobi_err(label, b_k, b_p, torch), "form": form[0],
+           "threads_per_block": form[1], "groups_per_block": form[2]}
+    nan = torch.isnan(b_p)
+    b_l = _svd_route(F, QtY, n_valid, alpha, rcond, torch)
     finite = torch.isfinite(F).all(dim=-1).all(dim=-1) & torch.isfinite(QtY).all(dim=-1).all(dim=-1)
     if not torch.equal(torch.isnan(b_l), nan):
         raise AssertionError(f"Jacobi kernel ({label}): NaN pattern differs from the torch.linalg.svd route")
@@ -720,30 +787,51 @@ def _check_jacobi(label, F, QtY, n_valid, jacobi, torch, op_ms, alpha=0.0, rcond
             rc = 2.0 ** -52 * max(nh[i], K) if rcond is None else rcond
             want = np.linalg.lstsq(Fh[i], Yh[i], rcond=rc)[0]
             np.testing.assert_allclose(bk[i], want, err_msg=f"{label}: vs numpy lstsq", **COEF_TOL)
+    out["max_abs_err_vs_library"] = float(np.abs(bk - bl).max())
     _, _, sweeps, rotated = jacobi.jacobi_ref(F)
-    out = {"max_abs_err": float(err.max()), "max_abs_err_vs_library": float(np.abs(bk - bl).max())}
     line = (
-        f"kernel jacobi_svd {label}: G={G} K={K} M={M} alpha={alpha} rcond={rcond} "
-        f"max_abs_err={out['max_abs_err']!r} vs plain (within {JACOBI_RTOL} of each group's largest "
-        f"|beta|), NaN where the plain version has it, bit-equal launch to launch; {len(pick)} groups "
-        f"match torch.linalg.svd{' and numpy lstsq' if alpha == 0.0 else ''} ({COEF_TOL}); sweeps "
-        f"median {float(sweeps.double().median())!r} max {int(sweeps.max())}"
+        f"kernel jacobi_svd {label}: G={G} K={K} M={M} alpha={alpha} rcond={rcond} {form[0]} form "
+        f"({form[1]} threads, {form[2]} groups a block) max_abs_err={out['max_abs_err']!r} vs plain "
+        f"(within {JACOBI_RTOL} of each group's largest |beta|), NaN where the plain version has it, "
+        f"bit-equal launch to launch; {len(pick)} groups match torch.linalg.svd"
+        f"{' and numpy lstsq' if alpha == 0.0 else ''} ({COEF_TOL}); sweeps median "
+        f"{float(sweeps.double().median())!r} max {int(sweeps.max())}"
     )
     if not timed:
         print(line)
         return out
-    t = _timing_fields(_in_turns({
+    fns = {
         "plain": lambda: jacobi.factor_lstsq_ref(F, QtY, n_valid, alpha, rcond),
         "kernel": lambda: jacobi.factor_lstsq(F, QtY, n_valid, alpha, rcond),
         "library": lambda: _svd_route(F, QtY, n_valid, alpha, rcond, torch),
-    }, JACOBI_LAUNCHES, torch, synced=("plain", "library")))
-    bound = _jacobi_bound(F, QtY, sweeps, rotated, op_ms)
+    }
+    t = _timing_fields(_in_turns({name: fns[name] for name in fns if name in timed}, JACOBI_LAUNCHES,
+                                 torch, synced=("plain", "library")))
+    bound = _jacobi_bound(F, QtY, sweeps, rotated, op_ms, form[0])
     print(
-        f"{line}; kernel_ms={t['ms']!r} per launch, plain_ms={t['plain_ms']!r} library_ms="
-        f"{t['library_ms']!r} (torch.linalg.svd route) per call, host_us={t['host_us']!r}; "
-        f"bound {json.dumps(bound)}"
+        f"{line}; kernel_ms={t['ms']!r} per launch, "
+        f"plain_ms={t['plain_ms']!r} library_ms={t['library_ms']!r} (torch.linalg.svd route) per "
+        f"call, host_us={t['host_us']!r}; bound {json.dumps(bound)}"
     )
     return {**out, **t, **bound}
+
+
+def _jacobi_phases(label, F, QtY, n_valid, jacobi, torch, smi):
+    """Device ms per launch of the Jacobi SVD kernel stopped after 0 sweeps
+    (the loads, the cutoff, the shrink and the stores), after 1 and after
+    all it needs (the cap MAX_SWEEPS), in turns; each capped launch first
+    held to the plain version under the same cap."""
+    steps = sorted({0, 1, jacobi.MAX_SWEEPS})
+    for n in steps:
+        b_p = jacobi.factor_lstsq_ref(F, QtY, n_valid, max_sweeps=n)
+        _jacobi_err(f"{label}, {n} sweeps", jacobi.factor_lstsq(F, QtY, n_valid, max_sweeps=n), b_p, torch)
+    times = _in_turns({
+        f"{n} sweeps": (lambda n=n: jacobi.factor_lstsq(F, QtY, n_valid, max_sweeps=n)) for n in steps
+    }, JACOBI_LAUNCHES, torch)
+    ms = {name: t[0] for name, t in times.items()}
+    print(f"kernel jacobi_svd phases {label}: ms per launch {json.dumps(ms)}, each held to the "
+          f"plain version under its cap ({smi})")
+    return ms
 
 
 def _check_kernel(name, Zp, wp, offsets, G, moments, torch, timed=True, library=False):
@@ -1527,8 +1615,9 @@ def main() -> int:
         "multi_target": _householder_phases("C=7 (the multi-target query)", Zmt, wmt, K, householder, torch, smi),
     }
     # the Jacobi SVD kernel at the same queries' factors: the tree's last
-    # level, as the engine hands it over (strided views of T)
-    jc = {}
+    # level, as the engine hands it over (strided views of T); timed, and
+    # stopped after 0 / 1 / all sweeps (the kernel's phases)
+    jc, jc_phases = {}, {}
     for key, label, (Zb, wb, m) in (
         ("svd", "the svd query's factors", (Zp, wp, 1)),
         ("multi_target", "the multi-target query's factors", (Zmt, wmt, 2)),
@@ -1536,10 +1625,16 @@ def main() -> int:
         T = householder.reduce_groups(Zb, wb, K, fit._reduction_plan(layout, Zb.shape[1], K))
         nv = torch.segment_reduce(wb.sum(dim=1, dtype=torch.float64), "sum",
                                   offsets=layout.device_block_offsets(Zb.shape[1]), axis=0)
-        jc[key] = _check_jacobi(label, T[..., m:], T[..., :m], nv, jacobi, torch, op_ms, timed=True)
+        jc[key] = _check_jacobi(label, T[..., m:], T[..., :m], nv, jacobi, torch, op_ms,
+                                timed=("plain", "kernel", "library"))
+        jc_phases[key] = _jacobi_phases(label, T[..., m:], T[..., :m], nv, jacobi, torch, smi)
     del Zmt, wmt, vals_mt, T
+    # the edges; K = 8 / 16 / 32 timed too (the kernel, in the thread form
+    # at K = 8 and the segment form at 16 / 32, and the torch.linalg.svd
+    # route: the plain version takes seconds a call there)
     rng_j = np.random.default_rng(4)
     jacobi.jacobi_kernel_launches = 0
+    jc_wide = {}
     for label, (k_j, m_j, alpha_j, rcond_j, kind) in (
         ("K=1", (1, 2, 0.0, None, "factor")),
         ("K=8", (8, 1, 0.0, None, "factor")),
@@ -1550,8 +1645,11 @@ def main() -> int:
         ("alpha > 0 and a user rcond", (5, 2, 0.3, 1e-6, "factor")),
         ("the square branch (general square X)", (5, 2, 0.0, None, "square")),
     ):
-        _check_jacobi(label, *_jacobi_edge(rng_j, JACOBI_EDGE_GROUPS, k_j, m_j, kind, torch),
-                      jacobi, torch, op_ms, alpha_j, rcond_j)
+        timed_j = ("kernel", "library") if k_j in JACOBI_TIMED_K else ()
+        out_j = _check_jacobi(label, *_jacobi_edge(rng_j, JACOBI_EDGE_GROUPS, k_j, m_j, kind, torch),
+                              jacobi, torch, op_ms, alpha_j, rcond_j, timed=timed_j)
+        if timed_j:
+            jc_wide[str(k_j)] = out_j
     jc_edges = jacobi.jacobi_kernel_launches
     rng_h = np.random.default_rng(3)
     householder.householder_kernel_launches = 0
@@ -1957,7 +2055,7 @@ def main() -> int:
     cd_err, cd_times, cd_sweeps = _check_cd(
         "main-path lasso", XtX_m, Xty_m, counts_m, dict(alpha=LASSO_ALPHA, l1_ratio=1.0), cd, torch
     )
-    cd_bound = _cd_bound(N_GROUPS, N_FEATURES, cd_sweeps)
+    cd_bound = _cd_bound(N_GROUPS, N_FEATURES, cd_sweeps, op_ms)
     print(f"kernel cd main-path lasso bound: {json.dumps(cd_bound)}")
     for label, kw in (
         ("main-path active_set", dict(alpha=LASSO_ALPHA, l1_ratio=1.0, active_set=True)),
@@ -2463,10 +2561,12 @@ def main() -> int:
             "launches": mt_jacobi + svd_jacobi + stat_launches["jacobi_svd"],
             "launches_by_path": {
                 "multi_target": mt_jacobi, "svd": svd_jacobi, "statistics": stat_launches["jacobi_svd"],
-                "edges (kernel checks, not a path)": jc_edges,
+                "edges (kernel checks and their timing, not a path)": jc_edges,
             },
             **jc["multi_target"],
-            "svd_factors": jc["svd"],
+            "phases_ms": jc_phases["multi_target"],
+            "svd_factors": {**jc["svd"], "phases_ms": jc_phases["svd"]},
+            "edges_timed": jc_wide,
             "library_call": "torch.linalg.svd of the factors with numpy's cutoff and the ridge shrink "
                             "(the port's route before this kernel)",
             "floor_ms": floor_ms,

@@ -190,6 +190,20 @@ t_pvalue(const double* __restrict__ t, const double* __restrict__ dof,
   p[i] = value;
 }
 
+// The hardware's f64 reciprocal and reciprocal-square-root estimates, on
+// which the Jacobi SVD kernel's Newton divisions and roots start.
+__device__ __forceinline__ double rcp_approx(double x) {
+  double r;
+  asm volatile("rcp.approx.ftz.f64 %0, %1;" : "=d"(r) : "d"(x));
+  return r;
+}
+
+__device__ __forceinline__ double rsqrt_approx(double x) {
+  double r;
+  asm volatile("rsqrt.approx.ftz.f64 %0, %1;" : "=d"(r) : "d"(x));
+  return r;
+}
+
 // One step of a chain of dependent f64 operations of one kind; every map
 // keeps its value in a bounded positive range. All but the multiply-add
 // carry one more dependent add or multiply.
@@ -202,7 +216,9 @@ __device__ double chain_step(double acc) {
     case 3: return log(acc + 2.0);
     case 4: return log1p(acc + 0.5);
     case 5: return exp(-0.5 * acc);
-    default: return erfc(0.5 * acc);
+    case 6: return erfc(0.5 * acc);
+    case 7: return rcp_approx(acc + 0.5);
+    default: return rsqrt_approx(acc + 0.5);
   }
 }
 
@@ -246,10 +262,10 @@ int pols_t_pvalue(const double* t, const double* dof, int64_t G, int64_t K,
 }
 
 // Runs n dependent f64 operations of kind op (0 multiply-add, 1 divide,
-// 2 sqrt, 3 log, 4 log1p, 5 exp, 6 erfc) on one warp, seeded from out[0] (in
-// [0, 1]); writes nothing. For timing only.
+// 2 sqrt, 3 log, 4 log1p, 5 exp, 6 erfc, 7 rcp.approx, 8 rsqrt.approx) on
+// one warp, seeded from out[0] (in [0, 1]); writes nothing. For timing only.
 int pols_f64_chain(int op, int64_t n, double* out, void* stream) {
-  if (n < 0 || op < 0 || op > 6) return static_cast<int>(cudaErrorInvalidValue);
+  if (n < 0 || op < 0 || op > 8) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (op) {
     case 0: f64_chain<0><<<1, 32, 0, st>>>(n, out); break;
@@ -258,7 +274,9 @@ int pols_f64_chain(int op, int64_t n, double* out, void* stream) {
     case 3: f64_chain<3><<<1, 32, 0, st>>>(n, out); break;
     case 4: f64_chain<4><<<1, 32, 0, st>>>(n, out); break;
     case 5: f64_chain<5><<<1, 32, 0, st>>>(n, out); break;
-    default: f64_chain<6><<<1, 32, 0, st>>>(n, out); break;
+    case 6: f64_chain<6><<<1, 32, 0, st>>>(n, out); break;
+    case 7: f64_chain<7><<<1, 32, 0, st>>>(n, out); break;
+    default: f64_chain<8><<<1, 32, 0, st>>>(n, out); break;
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -14,14 +14,18 @@ Pallas kernel), which its grouped 'svd' and multi-target fits run.
 
 The rotations are the JAX function's (cyclic order p < q, ``tau = (aqq -
 app) / (2 apq)``, ``t = sign(tau) / (|tau| + sqrt(1 + tau^2))`` with
-sign(0) = +1, ``c = 1 / sqrt(1 + t^2)``, ``s = c t``), but where that
-function runs a fixed 8 sweeps, each group here sweeps until a sweep
-rotates none of its pairs. A pair is rotated only while ``|apq| > sqrt(K)
-eps sqrt(app) sqrt(aqq)`` (a K-term dot product rounds to ~sqrt(K) eps of
-the norms' product, so a tighter test may never end; LAPACK's dgesvj uses
-the same) and while neither column is below eps of the other (such a
-column is rounding noise, below any cutoff, and its rotations shrink it by
-eps a sweep without ending; leaving it changes the other by eps^2).
+sign(0) = +1, ``s = c t``), with ``c = rsqrt(1 + t^2)`` (one root where
+that function takes a root and a division), but where that function runs
+a fixed 8 sweeps, each group here sweeps until a sweep rotates none of its
+pairs. A pair is rotated only while ``apq^2 > K eps^2 app aqq`` (``|apq| >
+sqrt(K) eps |wp| |wq|``: a K-term dot product rounds to ~sqrt(K) eps of the
+norms' product, so a tighter test may never end; LAPACK's dgesvj uses the
+same) and while ``min(app, aqq) > eps^2 max(app, aqq)`` (neither column
+below eps of the other: such a column is rounding noise, below any cutoff,
+and its rotations shrink it by eps a sweep without ending; leaving it
+changes the other by eps^2). The tests take no root; so that no square
+over- or underflows, each group is first scaled by a power of two, its
+largest entry in [1, 2) (exact: the rotations are the unscaled group's).
 ``MAX_SWEEPS`` caps the sweeps (8 do not converge at K = 32; random and
 rank-deficient factors took at most 10 there, 7 at K = 5). A group whose
 factor holds a non-finite value gets NaN in every entry of beta; a
@@ -31,8 +35,14 @@ does.
 On a CUDA tensor ``factor_lstsq`` always launches the hand-written kernel
 ``csrc/jacobi_svd.cu`` and counts the launch in ``jacobi_kernel_launches``;
 a failed build or launch raises. On a CPU tensor it runs the plain version
-``factor_lstsq_ref``, the same arithmetic, sweep rule and cap in torch ops;
-nothing falls back from one to the other.
+``factor_lstsq_ref``, the same scaling, formulas, sweep rule and cap in
+torch ops (the kernel's angle takes its divisions and roots as Newton steps
+from the hardware's estimates, within an ulp); nothing falls back from one
+to the other. The kernel has two forms, which its C entry picks by K (one
+thread a group, W and V in its registers, up to K = 8; a segment of 16 /
+32 lanes a group above): ``kernel_form`` reads the choice back.
+``max_sweeps`` below ``MAX_SWEEPS`` stops the rotations early (both
+versions), which times the kernel's phases.
 """
 
 from __future__ import annotations
@@ -52,6 +62,8 @@ jacobi_kernel_launches = 0
 MAX_K = 32
 # sweeps a group may take before its rotations stop, converged or not
 MAX_SWEEPS = 30
+# the kernel's forms, as pols_factor_lstsq_form numbers them
+FORMS = ("thread", "segment")
 
 _EPS64 = float(torch.finfo(torch.float64).eps)
 
@@ -62,18 +74,31 @@ def _kernel():
     global _BOUND
     if _BOUND is None:
         lib = kernels.load("jacobi_svd")
-        vp, i64, f64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
+        vp, i64, f64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double, ctypes.c_int
         lib.pols_factor_lstsq.argtypes = [
-            vp, i64, i64, i64, vp, i64, i64, i64, vp, i64, i64, i64, f64, f64, ctypes.c_int, vp, vp,
+            vp, i64, i64, i64, vp, i64, i64, i64, vp, i64, i64, i64, f64, f64, i32, i32, vp, vp,
         ]
         lib.pols_factor_lstsq.restype = ctypes.c_int
+        ip = ctypes.POINTER(ctypes.c_int)
+        lib.pols_factor_lstsq_form.argtypes = [i64, ip, ip]
+        lib.pols_factor_lstsq_form.restype = ctypes.c_int
         lib.pols_cuda_error_string.argtypes = [ctypes.c_int]
         lib.pols_cuda_error_string.restype = ctypes.c_char_p
         _BOUND = lib
     return _BOUND
 
 
-def _check(F, QtY, n_valid) -> None:
+def kernel_form(K: int):
+    """(form, threads a block, groups a block) that the kernel launches at
+    K, as its C entry picks them (builds the kernel)."""
+    if not 1 <= K <= MAX_K:
+        raise ValueError(f"the Jacobi SVD kernel takes 1 <= K <= {MAX_K}, got K={K}")
+    threads, groups = ctypes.c_int(), ctypes.c_int()
+    form = _kernel().pols_factor_lstsq_form(K, ctypes.byref(threads), ctypes.byref(groups))
+    return FORMS[form], threads.value, groups.value
+
+
+def _check(F, QtY, n_valid, max_sweeps) -> None:
     if F.dtype != F64 or F.dim() != 3 or F.shape[1] != F.shape[2]:
         raise TypeError(f"F must be a [G, K, K] float64 tensor, got {F.dtype} {tuple(F.shape)}")
     G, K, _ = F.shape
@@ -85,23 +110,25 @@ def _check(F, QtY, n_valid) -> None:
         raise TypeError(f"n_valid must be a [{G}] float64 tensor, got {n_valid.dtype} {tuple(n_valid.shape)}")
     if not (F.device == QtY.device == n_valid.device):
         raise ValueError("F, QtY and n_valid must be on one device")
+    if isinstance(max_sweeps, bool) or not isinstance(max_sweeps, int) or not 0 <= max_sweeps <= MAX_SWEEPS:
+        raise ValueError(f"max_sweeps must be an int in 0..{MAX_SWEEPS}, got {max_sweeps!r}")
 
 
-def jacobi_ref(F: torch.Tensor):
-    """(W, V, sweeps, rotated): the one-sided Jacobi rotations of F's
-    columns (W = F V), the sweeps each group ran (the last one rotated
-    nothing, unless the cap stopped it) and which pairs each group rotated,
-    ``rotated [G, sweeps run, K(K-1)/2]`` bool in the cyclic pair order.
-    Groups whose F is not finite are not rotated (0 sweeps). Synchronises
-    once a sweep (whether any group still rotates)."""
+def _rotations(F: torch.Tensor, max_sweeps: int):
+    """(W, V, sweeps, rotated, ex): ``jacobi_ref``'s rotations of the scaled
+    group F 2^-ex (its largest entry in [1, 2), ex clamped to [-1000, 999]
+    as the kernel clamps it), W left scaled."""
     G, K, _ = F.shape
-    W = F.clone()
-    V = torch.eye(K, dtype=F64, device=F.device).expand(G, K, K).clone()
     active = torch.isfinite(F).all(dim=-1).all(dim=-1)
-    tol = math.sqrt(K) * _EPS64
+    amax = torch.where(active, F.abs().amax(dim=(-2, -1)), 1.0)
+    _, e = torch.frexp(amax)
+    ex = torch.where(e < -1000, -1000, torch.clamp(e, max=1000) - 1)
+    W = F * torch.ldexp(torch.ones_like(amax), -ex)[:, None, None]
+    V = torch.eye(K, dtype=F64, device=F.device).expand(G, K, K).clone()
+    tol2 = K * _EPS64 * _EPS64
     sweeps = torch.zeros(G, dtype=torch.int64, device=F.device)
     record = []
-    for _ in range(MAX_SWEEPS if K > 1 else 0):
+    for _ in range(max_sweeps if K > 1 else 0):
         if not bool(active.any()):
             break
         rotated = torch.zeros_like(active)
@@ -112,12 +139,11 @@ def jacobi_ref(F: torch.Tensor):
                 app = (wp * wp).sum(dim=-1)
                 aqq = (wq * wq).sum(dim=-1)
                 apq = (wp * wq).sum(dim=-1)
-                na, nq = app.sqrt(), aqq.sqrt()
-                rot = active & (apq.abs() > tol * na * nq)
-                rot &= torch.minimum(na, nq) > _EPS64 * torch.maximum(na, nq)
+                rot = active & (apq * apq > tol2 * app * aqq)
+                rot &= torch.minimum(app, aqq) > _EPS64 * _EPS64 * torch.maximum(app, aqq)
                 tau = (aqq - app) / (2.0 * torch.where(apq == 0, 1.0, apq))
                 t = torch.where(tau >= 0, 1.0, -1.0).to(F64) / (tau.abs() + torch.sqrt(1.0 + tau * tau))
-                c = 1.0 / torch.sqrt(1.0 + t * t)
+                c = torch.rsqrt(1.0 + t * t)
                 s = (c * t)[:, None]
                 c = c[:, None]
                 r = rot[:, None]
@@ -133,16 +159,31 @@ def jacobi_ref(F: torch.Tensor):
     pairs = K * (K - 1) // 2
     rotated = (torch.stack([torch.stack(r, dim=-1) for r in record], dim=1) if record
                else torch.zeros((G, 0, pairs), dtype=torch.bool, device=F.device))
-    return W, V, sweeps, rotated
+    return W, V, sweeps, rotated, ex
 
 
-def factor_lstsq_ref(F, QtY, n_valid, alpha: float = 0.0, rcond: float | None = None) -> torch.Tensor:
-    """Plain version: ``jacobi_ref``, then the kernel's cutoff and shrink."""
-    _check(F, QtY, n_valid)
+def jacobi_ref(F: torch.Tensor, max_sweeps: int = MAX_SWEEPS):
+    """(W, V, sweeps, rotated): the one-sided Jacobi rotations of F's
+    columns (W = F V), the sweeps each group ran (the last one rotated
+    nothing, unless the cap ``max_sweeps`` stopped it) and which pairs each
+    group rotated,
+    ``rotated [G, sweeps run, K(K-1)/2]`` bool in the cyclic pair order.
+    Groups whose F is not finite are not rotated (0 sweeps). Synchronises
+    once a sweep (whether any group still rotates)."""
+    W, V, sweeps, rotated, ex = _rotations(F, max_sweeps)
+    return W * torch.ldexp(torch.ones_like(W[:, 0, 0]), ex)[:, None, None], V, sweeps, rotated
+
+
+def factor_lstsq_ref(F, QtY, n_valid, alpha: float = 0.0, rcond: float | None = None,
+                     max_sweeps: int = MAX_SWEEPS) -> torch.Tensor:
+    """Plain version: ``jacobi_ref``'s rotations, then the kernel's cutoff
+    and shrink (U and sigma from the scaled W, sigma then unscaled)."""
+    _check(F, QtY, n_valid, max_sweeps)
     K = F.shape[-1]
-    W, V, _, _ = jacobi_ref(F)
-    sigma = torch.sqrt((W * W).sum(dim=-2))  # [G, K]
-    U = W / torch.where(sigma == 0, 1.0, sigma)[:, None, :]
+    W, V, _, _, ex = _rotations(F, max_sweeps)
+    sigma_s = torch.sqrt((W * W).sum(dim=-2))  # [G, K]
+    U = W / torch.where(sigma_s == 0, 1.0, sigma_s)[:, None, :]
+    sigma = sigma_s * torch.ldexp(torch.ones_like(sigma_s[:, 0]), ex)[:, None]
     uty = torch.einsum("gij,gim->gjm", U, QtY)
     rc = _EPS64 * torch.clamp(n_valid, min=float(K)) if rcond is None else torch.full_like(n_valid, rcond)
     cut = rc * sigma.amax(dim=-1)
@@ -153,25 +194,32 @@ def factor_lstsq_ref(F, QtY, n_valid, alpha: float = 0.0, rcond: float | None = 
     return torch.where(bad[:, None, None], torch.nan, beta)
 
 
-def factor_lstsq(F, QtY, n_valid, alpha: float = 0.0, rcond: float | None = None) -> torch.Tensor:
+def factor_lstsq(F, QtY, n_valid, alpha: float = 0.0, rcond: float | None = None,
+                 max_sweeps: int = MAX_SWEEPS) -> torch.Tensor:
     """``beta [G, K, M]`` from the factors ``F [G, K, K]`` f64 and their
     targets ``QtY [G, K, M]`` (views of any strides), ``n_valid [G]`` f64
     valid rows a group (numpy's default cutoff), ridge ``alpha`` and
-    ``rcond`` (None: numpy's default)."""
-    global jacobi_kernel_launches
-    _check(F, QtY, n_valid)
+    ``rcond`` (None: numpy's default), after at most ``max_sweeps``
+    sweeps."""
+    _check(F, QtY, n_valid, max_sweeps)
     if F.device.type == "cpu":
-        return factor_lstsq_ref(F, QtY, n_valid, alpha, rcond)
+        return factor_lstsq_ref(F, QtY, n_valid, alpha, rcond, max_sweeps)
+    return _launch(F, QtY, n_valid, alpha, rcond, max_sweeps)
+
+
+def _launch(F, QtY, n_valid, alpha, rcond, max_sweeps: int) -> torch.Tensor:
+    """The kernel's beta, in the form its C entry picks by K."""
+    global jacobi_kernel_launches
+    G, K, M = QtY.shape
     if F.device.type != "cuda":
         raise ValueError(f"no Jacobi SVD kernel for device {F.device}")
-    G, K, M = QtY.shape
     beta = torch.empty((G, K, M), dtype=F64, device=F.device)
     n_valid = n_valid.contiguous()
     lib = _kernel()
     with torch.cuda.device(F.device):
         rc = lib.pols_factor_lstsq(
             F.data_ptr(), *F.stride(), QtY.data_ptr(), *QtY.stride(), n_valid.data_ptr(), G, K, M,
-            float(alpha), -1.0 if rcond is None else float(rcond), int(rcond is None),
+            float(alpha), -1.0 if rcond is None else float(rcond), int(rcond is None), max_sweeps,
             beta.data_ptr(), torch.cuda.current_stream(F.device).cuda_stream,
         )
     if rc != 0:

@@ -279,14 +279,15 @@ def t_pvalue_timing_stage(t: torch.Tensor, dof: torch.Tensor, stage: str) -> tor
     return _launch(t, dof, TIMING_STAGES[stage])
 
 
-CHAIN_OPS = ("fma", "div", "sqrt", "log", "log1p", "exp", "erfc")
+CHAIN_OPS = ("fma", "div", "sqrt", "log", "log1p", "exp", "erfc", "rcp", "rsqrt")
 
 
 def f64_chain(n: int, seed: torch.Tensor, op: str = "fma") -> None:
     """Run ``n`` dependent f64 operations of kind ``op`` (one of
     ``CHAIN_OPS``) on one warp of the card, seeded from ``seed[0]`` (a CUDA
     f64 tensor holding a value in [0, 1]): the yardstick of the p-value
-    kernel's latency bound. Every kind but ``fma`` carries one more
+    and Jacobi SVD kernels' latency bounds (``rcp`` and ``rsqrt`` are the
+    hardware's f64 estimates, ``rcp.approx`` / ``rsqrt.approx``). Every kind but ``fma`` carries one more
     dependent add or multiply a step. Nothing it computes is kept; two chain
     lengths timed against each other give the time of one step."""
     if seed.device.type != "cuda" or seed.dtype != F64 or seed.numel() < 1:

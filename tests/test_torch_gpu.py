@@ -52,8 +52,12 @@ rotations with its sums in another order: each entry of a group's beta
 within 1e-12 of the group's largest |beta|, NaN where the plain version
 has it, the same bits from two launches; at K = 1 / 2 / 5 / 8 / 9 / 16 /
 17 / 32, warps with empty segments, rank-deficient and NaN factors, alpha
-and rcond, square factors and the tree's strided views. The multi-target
-and 'svd' slices on the card match the CPU at rtol 1e-10.
+and rcond, square factors and the tree's strided views; the form its C
+entry picks at each K; in its thread form at every K it takes (1 .. 8) and
+the segment form's first (9), with each edge kind, more targets than a
+staging holds and a ragged last block; and a sweep cap at or above what
+the groups need leaves the bits as they were. The multi-target and 'svd'
+slices on the card match the CPU at rtol 1e-10.
 """
 
 import sys
@@ -716,6 +720,9 @@ JACOBI_CASES = {
     "k32": (100, 32, 2, 0.0, None, "factor"),
     "alpha_rcond": (500, 5, 2, 0.3, 1e-6, "factor"),
     "deficient": (600, 5, 2, 0.0, None, "deficient"),
+    "deficient_k6": (600, 6, 2, 0.0, None, "deficient"),
+    "deficient_k7": (600, 7, 2, 0.0, None, "deficient"),
+    "deficient_k8": (600, 8, 2, 0.0, None, "deficient"),
     "deficient_k16": (300, 16, 1, 0.0, None, "deficient"),
     "nan_lanes": (700, 5, 2, 0.0, None, "nan"),
     "square": (500, 5, 2, 0.0, None, "square"),
@@ -756,3 +763,111 @@ def test_jacobi_kernel_takes_the_trees_strided_views(cuda_device):
     b = jacobi.factor_lstsq(T[..., 2:].contiguous(), T[..., :2].contiguous(), n_valid)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
+
+
+# the thread form's cases: (M, alpha, rcond, _jacobi_edge kind); 12 targets
+# take three stagings of the block's target columns at K = 5
+JACOBI_FORM_KINDS = {
+    "factor": (2, 0.0, None, "factor"),
+    "deficient": (2, 0.0, None, "deficient"),
+    "nan": (2, 0.0, None, "nan"),
+    "square": (1, 0.0, None, "square"),
+    "alpha_rcond": (3, 0.3, 1e-6, "factor"),
+    "targets": (12, 0.0, None, "factor"),
+}
+
+
+def _conditioned_err(label, b_k, b_p, F, n_valid, rcond):
+    """Each group of the kernel's beta within 1e-12 of its largest |beta|
+    from the plain version's where the part of F the cutoff keeps has
+    condition <= 1e3 (sigma_max over the smallest sigma above rcond *
+    sigma_max), within 1e-12 x that condition / 1e3 above: two roundings of
+    one solve differ by up to ~cond eps in beta, and general square factors
+    reach cond 6e4 at K = 7 / 8, where LAPACK's lstsq is itself 7.4e-12 of a
+    group's largest |beta| from the plain version (on the card, NVIDIA H100
+    80GB HBM3). A rank-deficient group is held to the condition of what it
+    keeps, not to cond(F) (infinite with a zero column). NaN exactly where
+    the plain version has it."""
+    nan = torch.isnan(b_p)
+    assert torch.equal(torch.isnan(b_k), nan), label
+    Fh, nh = F.cpu().numpy(), n_valid.cpu().numpy()
+    K = Fh.shape[-1]
+    ok = np.isfinite(Fh).all(axis=(1, 2))
+    cond = np.ones(len(Fh))
+    sv = np.linalg.svd(Fh[ok], compute_uv=False)  # descending
+    rc = 2.0 ** -52 * np.maximum(nh[ok], K) if rcond is None else np.full(int(ok.sum()), rcond)
+    kept = np.where(sv > (rc * sv[:, 0])[:, None], sv, np.inf).min(axis=1)
+    cond[ok] = np.where(np.isfinite(kept), sv[:, 0] / kept, 1.0)
+    allow = torch.as_tensor(1e-12 * np.maximum(1.0, cond / 1e3), device=b_k.device)
+    err = torch.where(nan, 0.0, (b_k - b_p).abs()).amax(dim=(1, 2))
+    scale = torch.where(nan, 0.0, b_p.abs()).amax(dim=(1, 2))
+    assert bool((err <= allow * scale).all()), (label, float((err / scale.clamp_min(1e-300)).max()))
+
+
+def _tree_views(F, Y):
+    """F and Y as the strided views of one [G, K, M + K] tensor, as the
+    engine hands over the tree's last level."""
+    T = torch.cat([Y, F], dim=-1)
+    M = Y.shape[-1]
+    return T[..., M:], T[..., :M]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", sorted(JACOBI_FORM_KINDS))
+@pytest.mark.parametrize("K", list(range(1, 10)))
+def test_jacobi_thread_form_matches_plain_on_card(cuda_device, K, kind):
+    # every K of the thread form and the segment form's first, at 1,001
+    # groups (a ragged last block), on strided views: within 1e-12 of each
+    # group's largest |beta| (more where the factor is ill-conditioned:
+    # _conditioned_err), NaN where the plain version has it, the same bits
+    # from two launches
+    M, alpha, rcond, edge = JACOBI_FORM_KINDS[kind]
+    F, Y, n_valid = cs._jacobi_edge(np.random.default_rng(10 * K + M), 1_001, K, M, edge, torch, cuda_device)
+    F, Y = _tree_views(F, Y)
+    assert jacobi.kernel_form(K)[0] == ("thread" if K <= 8 else "segment")
+    b_k = jacobi.factor_lstsq(F, Y, n_valid, alpha, rcond)
+    b_k2 = jacobi.factor_lstsq(F, Y, n_valid, alpha, rcond)
+    torch.cuda.synchronize()
+    assert jacobi.jacobi_kernel_launches == 2
+    assert torch.equal(torch.nan_to_num(b_k), torch.nan_to_num(b_k2))
+    _conditioned_err(f"K={K} {kind}", b_k, jacobi.factor_lstsq_ref(F, Y, n_valid, alpha, rcond), F, n_valid, rcond)
+    if edge == "nan":
+        assert bool(torch.isnan(b_k[0::7]).all()) and bool(torch.isnan(b_k[3::7, :, M - 1]).all())
+    if edge == "deficient":  # the zero column's coefficient is exactly zero
+        assert bool((b_k[1::3, K // 2] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["factor", "deficient"])
+@pytest.mark.parametrize("K", [1, 5, 6, 7, 16])
+def test_jacobi_sweep_cap_at_or_above_the_need_changes_nothing(cuda_device, K, kind):
+    # every cap from the sweeps the kernel's groups need (the first cap that
+    # gives the uncapped bits) up to MAX_SWEEPS gives those bits; that need
+    # is the plain version's rotating sweeps, give or take one where
+    # round-off puts a pair at the threshold. One capped sweep of the full
+    # rank factors is the plain version's capped result (a deficient
+    # group's noise column may still sit at the cutoff after one sweep,
+    # where round-off decides whether its 1 / sigma enters beta)
+    F, Y, n_valid = cs._jacobi_edge(np.random.default_rng(K), 1_001, K, 2, kind, torch, cuda_device)
+    _, _, sweeps, _ = jacobi.jacobi_ref(F)
+    need = max(int(sweeps.max()) - 1, 0)
+    full = jacobi.factor_lstsq(F, Y, n_valid)
+    same = [torch.equal(jacobi.factor_lstsq(F, Y, n_valid, max_sweeps=cap), full)
+            for cap in range(jacobi.MAX_SWEEPS + 1)]
+    first = same.index(True)
+    assert all(same[first:]) and abs(first - need) <= 1, (need, same)
+    if kind == "factor":
+        capped = jacobi.factor_lstsq(F, Y, n_valid, max_sweeps=1)
+        cs._jacobi_err(f"K={K} one sweep", capped, jacobi.factor_lstsq_ref(F, Y, n_valid, max_sweeps=1), torch)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,want", [
+    (1, ("thread", 32, 32)), (5, ("thread", 32, 32)), (6, ("thread", 32, 32)), (8, ("thread", 32, 32)),
+    (9, ("segment", 64, 4)), (16, ("segment", 64, 4)), (17, ("segment", 64, 2)), (32, ("segment", 64, 2)),
+])
+def test_kernel_form_by_k(cuda_device, K, want):
+    # the kernel's C entry picks the form: a thread a group up to K = 8, W
+    # and V in its registers, 32 threads a block; a segment of 16 / 32 lanes
+    # a group above it, two warps a block
+    assert jacobi.kernel_form(K) == want

@@ -16,6 +16,8 @@ tests/test_torch_linalg.py), and against numpy lstsq at rtol 1e-9 / atol
 duplicate columns, which both packages and numpy cut.
 """
 
+import math
+
 import numpy as np
 import pytest
 
@@ -196,3 +198,111 @@ def test_cpu_tensors_launch_no_kernel(monkeypatch):
     X, Y = _problems(rng, 6, 30, 5, 2, "plain")
     linalg.svd_lstsq(torch.as_tensor(X), torch.as_tensor(Y))
     assert jacobi.jacobi_kernel_launches == 0
+
+
+@pytest.mark.parametrize("bad", [-1, jacobi.MAX_SWEEPS + 1, 2.0, True, None])
+def test_wrapper_checks_max_sweeps(bad):
+    F = torch.as_tensor(_factors(np.random.default_rng(0), 2, 3))
+    Y = torch.ones((2, 3, 1), dtype=torch.float64)
+    n = torch.full((2,), 11.0, dtype=torch.float64)
+    with pytest.raises(ValueError, match="max_sweeps"):
+        jacobi.factor_lstsq(F, Y, n, max_sweeps=bad)
+    with pytest.raises(ValueError, match="max_sweeps"):
+        jacobi.factor_lstsq_ref(F, Y, n, max_sweeps=bad)
+
+
+def test_launch_names_the_forms_it_has():
+    # the kernel's C entry picks its form by K (tests/test_torch_gpu.py:
+    # test_kernel_form_by_k); the wrapper refuses a K it has no form for
+    # before it builds anything, and launches nothing on a CPU tensor
+    F = torch.zeros((2, 9, 9), dtype=torch.float64)
+    Y = torch.zeros((2, 9, 1), dtype=torch.float64)
+    n = torch.ones(2, dtype=torch.float64)
+    for K in (0, jacobi.MAX_K + 1):
+        with pytest.raises(ValueError, match=f"1 <= K <= {jacobi.MAX_K}, got K={K}"):
+            jacobi.kernel_form(K)
+    assert jacobi.FORMS == ("thread", "segment")
+    with pytest.raises(ValueError, match="no Jacobi SVD kernel"):
+        jacobi._launch(F, Y, n, 0.0, None, jacobi.MAX_SWEEPS)
+
+
+@pytest.mark.parametrize("ex", [-500, 500])
+@pytest.mark.parametrize("K", [2, 5, 16])
+def test_plain_version_scales_each_group_by_a_power_of_two(K, ex):
+    # the rotation tests are taken on squares, which at entries of 2^+-500
+    # would over- or underflow: each group is scaled to a largest entry in
+    # [1, 2) first, so F 2^ex rotates exactly as F does and beta is beta
+    # 2^-ex up to the shrink's rounding
+    rng = np.random.default_rng(50 + K)
+    F = torch.as_tensor(_factors(rng, 6, K))
+    Y = torch.as_tensor(rng.normal(size=(6, K, 2)))
+    n = torch.full((6,), 3.0 * K + 2, dtype=torch.float64)
+    big = F * 2.0 ** ex
+    W, V, sweeps, rotated = jacobi.jacobi_ref(F)
+    Wb, Vb, sweeps_b, rotated_b = jacobi.jacobi_ref(big)
+    assert torch.equal(sweeps_b, sweeps) and torch.equal(rotated_b, rotated) and int(sweeps.min()) > 1
+    assert torch.equal(Vb, V) and torch.equal(Wb, W * 2.0 ** ex)
+    want = jacobi.factor_lstsq_ref(F, Y, n) * 2.0 ** -ex
+    np.testing.assert_allclose(jacobi.factor_lstsq_ref(big, Y, n).numpy(), want.numpy(), rtol=1e-13, atol=0)
+
+
+@pytest.mark.parametrize("K", [3, 5, 8])
+def test_plain_version_tests_on_squares_as_the_roots_would(K):
+    # apq^2 > K eps^2 app aqq is |apq| > sqrt(K) eps |wp| |wq| away from its
+    # threshold: on well-conditioned factors every pair of the first sweep
+    # rotates and a converged sweep rotates none, as under the root-based
+    # rule
+    rng = np.random.default_rng(60 + K)
+    F = torch.as_tensor(_factors(rng, 8, K))
+    W, V, sweeps, rotated = jacobi.jacobi_ref(F)
+    assert bool(rotated[:, 0].all()) and not bool(rotated[torch.arange(8), sweeps - 1].any())
+    Wn = W / W.norm(dim=-2, keepdim=True)
+    off = (Wn.mT @ Wn - torch.eye(K, dtype=torch.float64)).abs().amax()
+    assert float(off) <= (math.sqrt(K) + 2 * K) * 2.0 ** -52  # the test's threshold and our own sums' rounding
+
+
+@pytest.mark.parametrize("n_sweeps", [1, 2])
+def test_capped_sweeps_match_the_jax_sweeps(n_sweeps):
+    # the first sweeps of well-conditioned factors rotate every pair under
+    # both rules, so the capped plain version is jacobi_svd_lanes run for as
+    # many sweeps: V and the column norms at rtol 1e-12
+    rng = np.random.default_rng(30 + n_sweeps)
+    F = _factors(rng, 6, 5)
+    W, V, sweeps, rotated = jacobi.jacobi_ref(torch.as_tensor(F), max_sweeps=n_sweeps)
+    assert sweeps.tolist() == [n_sweeps] * 6 and bool(rotated.all())
+    _, sj, vj = jlinalg.jacobi_svd_lanes(jnp.asarray(F.transpose(1, 2, 0)), n_sweeps=n_sweeps)
+    np.testing.assert_allclose(V.numpy(), np.asarray(vj).transpose(2, 0, 1), rtol=1e-12, atol=1e-12)
+    s = np.sqrt((W.numpy() ** 2).sum(axis=-2))
+    np.testing.assert_allclose(s, np.asarray(sj).T, rtol=1e-12)
+
+
+def test_zero_sweeps_shrink_the_unrotated_columns():
+    # no rotation: W = F, V = I, and beta_j = d_j (F_j . y) / sigma_j with
+    # sigma_j = |F_j| (the kernel's load-and-epilogue phase)
+    rng = np.random.default_rng(12)
+    F = torch.as_tensor(_factors(rng, 4, 5))
+    Y = torch.as_tensor(rng.normal(size=(4, 5, 2)))
+    n = torch.full((4,), 17.0, dtype=torch.float64)
+    W, V, sweeps, rotated = jacobi.jacobi_ref(F, max_sweeps=0)
+    assert torch.equal(W, F) and torch.equal(V, torch.eye(5, dtype=torch.float64).expand(4, 5, 5))
+    assert sweeps.tolist() == [0] * 4 and rotated.shape == (4, 0, 10)
+    sigma = F.square().sum(dim=-2).sqrt()
+    want = torch.einsum("gij,gim->gjm", F, Y) / (sigma * sigma)[..., None]
+    np.testing.assert_allclose(jacobi.factor_lstsq(F, Y, n, max_sweeps=0).numpy(), want.numpy(), rtol=1e-12)
+
+
+@pytest.mark.parametrize("K", [1, 5, 16])
+def test_a_cap_at_or_above_the_rotating_sweeps_changes_nothing(K):
+    # the plain version: every cap from the sweeps that rotate up gives the
+    # uncapped bits; one below them stops some group short
+    rng = np.random.default_rng(40 + K)
+    F = torch.as_tensor(_factors(rng, 5, K))
+    Y = torch.as_tensor(rng.normal(size=(5, K, 2)))
+    n = torch.full((5,), 3.0 * K + 2, dtype=torch.float64)
+    _, _, sweeps, _ = jacobi.jacobi_ref(F)
+    need = max(int(sweeps.max()) - 1, 0)
+    full = jacobi.factor_lstsq(F, Y, n)
+    for cap in (need, need + 1, jacobi.MAX_SWEEPS):
+        assert torch.equal(jacobi.factor_lstsq(F, Y, n, max_sweeps=cap), full)
+    if need:
+        assert not torch.equal(jacobi.factor_lstsq(F, Y, n, max_sweeps=need - 1), full)

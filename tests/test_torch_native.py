@@ -4,8 +4,8 @@ The port compiles its own copy of the helpers,
 ``polars_ols_tpu_torch/engine/native/factorize.cpp``, never a file of the
 JAX package. Every map the helpers build is an integer array, so the
 port's must equal the JAX package's exactly. No module of the port, and
-not ``chip_smoke.py``, imports jax or the JAX package or builds a path
-into it.
+not ``chip_smoke.py`` or ``chip_ab_jacobi.py``, imports jax or the JAX
+package or builds a path into it.
 """
 
 import ast
@@ -22,7 +22,7 @@ from polars_ols_tpu_torch.engine import native as tnative  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "polars_ols_tpu_torch"
-PORT_FILES = sorted(p.relative_to(REPO).as_posix() for p in PORT.rglob("*.py")) + ["chip_smoke.py"]
+PORT_FILES = sorted(p.relative_to(REPO).as_posix() for p in PORT.rglob("*.py")) + ["chip_smoke.py", "chip_ab_jacobi.py"]
 
 
 def test_source_is_the_ports_own_copy():

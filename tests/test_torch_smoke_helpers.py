@@ -21,6 +21,10 @@ import chip_smoke as cs
 import oracles  # tests/oracles.py  # noqa: E402
 
 
+OP_MS = {"fma": 4e-6, "div": 30e-6, "sqrt": 30e-6, "log": 80e-6, "log1p": 90e-6, "exp": 60e-6, "erfc": 120e-6,
+         "rcp": 10e-6, "rsqrt": 12e-6}
+
+
 @pytest.mark.parametrize(
     "moved,ops,rate,by",
     [(3.35e9, 1.0, cs.PEAK_F64_PER_S, "bytes"), (1.0, 34e9, cs.PEAK_F64_PER_S, "operations")],
@@ -49,14 +53,37 @@ def test_moment_bound_at_the_main_paths_shape():
 
 def test_cd_bound_counts_the_sweeps_taken():
     sweeps = np.array([3, 4, 5, 1])
-    b = cs._cd_bound(4, 5, sweeps)
+    b = cs._cd_bound(4, 5, sweeps, OP_MS)
     assert b["bound_by"] == "bytes"
     moved = 8 * (4 * 25 + 4 * 5 + 4) + 8 * 4 * 5 + 4 * 4
     assert b["bound_ms"] == moved / 3.35e12 * 1e3
     # many sweeps of wide groups: the operations bound it
-    heavy = cs._cd_bound(1, 32, np.array([10**6]))
+    heavy = cs._cd_bound(1, 32, np.array([10**6]), OP_MS)
     assert heavy["bound_by"] == "operations"
     assert heavy["bound_ms"] == 10**6 * 32 * (2 * 32 + 9) / 34e12 * 1e3
+
+
+def test_cd_step_path_counts_one_coordinate_by_hand():
+    # the product and its add into the row's sum, rho's subtract and add,
+    # |rho| - a_l1, the clamp and the sign's multiply, then the division
+    assert cs._cd_step_path() == {"fma": 2 + 2 + 3, "div": 1}
+    # the stop test: the difference, its square, one add, the root, the compare
+    assert cs._cd_test_path() == {"fma": 4, "sqrt": 1}
+
+
+@pytest.mark.parametrize("K,sweeps,fma,div,sqrt", [
+    (5, [3, 4, 5, 1], 5 * (5 * 7 + 4), 5 * 5, 5),  # the main path's lasso: at most 5 sweeps
+    (1, [2], 2 * (7 + 4), 2, 2),
+    (32, [10, 2], 10 * (32 * 7 + 4), 10 * 32, 10),
+    (5, [0, 0], 0, 0, 0),  # no group swept: no chain
+])
+def test_cd_chain_counts_the_longest_path_by_hand(K, sweeps, fma, div, sqrt):
+    # the group with the most sweeps sets the chain: K dependent coordinate
+    # steps and the stop test a sweep
+    b = cs._cd_bound(len(sweeps), K, np.asarray(sweeps), OP_MS)
+    assert b["longest_path"] == {"fma": fma, "div": div, "sqrt": sqrt}
+    assert b["sweeps_max"] == max(sweeps)
+    assert b["latency_bound_ms"] == pytest.approx(fma * OP_MS["fma"] + div * OP_MS["div"] + sqrt * OP_MS["sqrt"])
 
 
 def _cf_scalar(p, q, z):
@@ -88,9 +115,6 @@ def test_lentz_replica_counts_the_kernels_iterations():
     want = [_cf_scalar(*args) for args in zip(p, q, z)]
     np.testing.assert_array_equal(got, want)
     assert got.min() >= 1 and got.max() > 5
-
-
-OP_MS = {"fma": 4e-6, "div": 30e-6, "sqrt": 30e-6, "log": 80e-6, "log1p": 90e-6, "exp": 60e-6, "erfc": 120e-6}
 
 
 def test_pvalue_bound_reads_t_and_dof_once():
@@ -275,14 +299,36 @@ def test_reduction_err_reports_and_checks_against_column_norms():
         cs._reduction_err(nan, T, Z, w, 2, torch)
 
 
-@pytest.mark.parametrize("K,fma", [(1, 11), (5, 11), (8, 11), (9, 12), (16, 12), (17, 13), (32, 13)])
+# the angle by hand (csrc/jacobi_svd.cu:angle): 2 apq; tau = div_fast (rcp,
+# then e, e + e^2, r, q, the residual, q's fix: 6); 1 + tau^2; sqrt_fast
+# (rsqrt, then x y, e, y e, the fix, g, the residual, g's fix: 7); |tau| +
+# the root; t = div_fast (rcp and 6); 1 + t^2; rsqrt_fast (rsqrt, then x y,
+# e, y e, the fix: 4); s = c t; the rotation's multiply and multiply-add
+ANGLE_FMA = 1 + 6 + 1 + 7 + 1 + 6 + 1 + 4 + 1 + 2
+
+
+def test_jacobi_angle_path_counts_the_newton_steps_by_hand():
+    assert ANGLE_FMA == 30
+    assert cs.JACOBI_ANGLE_PATH == {"fma": ANGLE_FMA, "rcp": 2, "rsqrt": 2}
+
+
+@pytest.mark.parametrize("K,fma", [(9, 1 + 4), (16, 1 + 4), (17, 1 + 5), (32, 1 + 5)])
 def test_jacobi_pair_path_counts_the_segment_shuffle_adds(K, fma):
-    assert cs._jacobi_pair_path(K) == {"fma": fma, "div": 3, "sqrt": 2}
+    # a product and log2(KB) shuffle adds (KB = 16 / 32 lanes), then the angle
+    assert cs._jacobi_pair_path(K, "segment") == {"fma": fma + ANGLE_FMA, "rcp": 2, "rsqrt": 2}
 
 
-@pytest.mark.parametrize("K,fma", [(5, 6), (9, 7), (32, 8)])
+@pytest.mark.parametrize("K", [1, 2, 5, 6, 8])
+def test_jacobi_pair_path_counts_the_thread_forms_dot_chain(K):
+    # a K-term chain of multiply-adds in the thread, then the angle
+    assert cs._jacobi_pair_path(K, "thread") == {"fma": K + ANGLE_FMA, "rcp": 2, "rsqrt": 2}
+
+
+@pytest.mark.parametrize("K,fma", [(5, 7), (9, 7), (32, 8)])
 def test_jacobi_test_path_is_a_dot_its_root_and_the_threshold(K, fma):
-    assert cs._jacobi_test_path(K) == {"fma": fma, "sqrt": 1}
+    # the dots, then apq^2 against K eps^2 app aqq: on squares, no root
+    form = "thread" if K <= 8 else "segment"
+    assert cs._jacobi_test_path(K, form) == {"fma": fma}
 
 
 @pytest.mark.parametrize("K,sweeps,pairs,depth", [
@@ -317,8 +363,8 @@ def test_jacobi_bound_at_the_multi_target_factors():
     rotated = torch.zeros((G, 7, 10), dtype=torch.bool)
     rotated[:, :4] = True
     rotated[3, :6] = True
-    op_ms = {"fma": 2e-6, "div": 3e-5, "sqrt": 2e-5}
-    b = cs._jacobi_bound(F, Y, sweeps, rotated, op_ms)
+    op_ms = {"fma": 2e-6, "rcp": 1e-5, "rsqrt": 2e-5}
+    b = cs._jacobi_bound(F, Y, sweeps, rotated, op_ms, "thread")
     moved = 8 * (G * K * K + 2 * G * K * M + G)
     assert moved / cs.PEAK_BYTES_PER_S * 1e3 == pytest.approx(0.0011, rel=0.01)
     rot = (G - 1) * 40 + 60
@@ -327,12 +373,13 @@ def test_jacobi_bound_at_the_multi_target_factors():
     assert b["bound_by"] == "operations"
     assert b["bound_ms"] == pytest.approx(ops / cs.PEAK_F64_PER_S * 1e3)
     assert b["sweeps_max"] == 7 and b["sweeps_median"] == 5.0 and b["chain_pairs_max"] == 32
-    pair = 11 * 2e-6 + 3 * 3e-5 + 2 * 2e-5
-    test = 6 * 2e-6 + 2e-5
+    pair = (5 + ANGLE_FMA) * 2e-6 + 2 * 1e-5 + 2 * 2e-5
+    test = (5 + 2) * 2e-6
     assert b["latency_bound_ms"] == pytest.approx(32 * pair + test)
+    assert b["pair_path"] == {"fma": 35, "rcp": 2, "rsqrt": 2} and b["test_path"] == {"fma": 7}
     # a group stopped by the cap (its last sweep rotated) takes no test
     rotated[3, 6] = True
-    b = cs._jacobi_bound(F, Y, sweeps, rotated, op_ms)
+    b = cs._jacobi_bound(F, Y, sweeps, rotated, op_ms, "thread")
     assert b["chain_pairs_max"] == 37 and b["latency_bound_ms"] == pytest.approx(37 * pair)
 
 
@@ -358,12 +405,90 @@ def test_svd_route_agrees_with_the_jacobi_plain_version(kind, K, alpha, rcond):
 
 def test_check_jacobi_runs_its_gates_on_cpu_tensors(monkeypatch, capsys):
     # a rehearsal of the smoke's Jacobi phase: on CPU tensors the wrapper is
-    # the plain version, so every gate passes and the line is printed
+    # the plain version, so every gate passes and the line is printed (the
+    # form is the kernel's C entry's to say: a stand-in answers here)
     from polars_ols_tpu_torch.ops import jacobi
 
     monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(jacobi, "kernel_form", lambda K: ("thread", 32, 32))
     for kind in ("deficient", "nan"):
         F, Y, nv = cs._jacobi_edge(np.random.default_rng(7), 300, 5, 2, kind, torch, device="cpu")
         out = cs._check_jacobi(kind, F, Y, nv, jacobi, torch, {})
         assert out["max_abs_err"] == 0.0 and out["max_abs_err_vs_library"] < 1e-9
     assert "kernel jacobi_svd nan: G=300 K=5 M=2" in capsys.readouterr().out
+
+
+def _fake_in_turns(calls):
+    """An _in_turns that calls each function once (on CPU tensors) and
+    reports 1 ms a launch and 2 us of host time."""
+    def fake(fns, n, torch_, synced=()):
+        calls.append((sorted(fns), n, tuple(synced)))
+        for fn in fns.values():
+            fn()
+        return {name: (1.0, 2.0) for name in fns}
+    return fake
+
+
+def test_jacobi_phases_run_their_gates_on_cpu_tensors(monkeypatch, capsys):
+    # a rehearsal of the smoke's phase timing: each capped launch is held to
+    # the plain version under the same cap, then 0 / 1 / all sweeps are
+    # timed in turns through the one wrapper
+    from polars_ols_tpu_torch.ops import jacobi
+
+    calls = []
+    monkeypatch.setattr(cs, "_in_turns", _fake_in_turns(calls))
+    F, Y, nv = cs._jacobi_edge(np.random.default_rng(8), 200, 5, 2, "factor", torch, device="cpu")
+    ms = cs._jacobi_phases("rehearsal", F, Y, nv, jacobi, torch, "card, 700 W")
+    assert ms == {"0 sweeps": 1.0, "1 sweeps": 1.0, f"{jacobi.MAX_SWEEPS} sweeps": 1.0}
+    assert calls == [(sorted(ms), cs.JACOBI_LAUNCHES, ())]
+    assert "kernel jacobi_svd phases rehearsal" in capsys.readouterr().out
+
+
+def test_jacobi_phase_gate_catches_a_wrong_cap(monkeypatch):
+    # a wrapper that ignored its cap would give the converged beta at 0
+    # sweeps: the gate against the capped plain version refuses it
+    from polars_ols_tpu_torch.ops import jacobi
+
+    class Uncapped:
+        MAX_SWEEPS = jacobi.MAX_SWEEPS
+        factor_lstsq_ref = staticmethod(jacobi.factor_lstsq_ref)
+
+        @staticmethod
+        def factor_lstsq(F, Y, nv, alpha=0.0, rcond=None, max_sweeps=None):
+            return jacobi.factor_lstsq(F, Y, nv, alpha, rcond)
+
+    monkeypatch.setattr(cs, "_in_turns", _fake_in_turns([]))
+    F, Y, nv = cs._jacobi_edge(np.random.default_rng(9), 100, 5, 2, "factor", torch, device="cpu")
+    with pytest.raises(AssertionError, match="0 sweeps"):
+        cs._jacobi_phases("wrong", F, Y, nv, Uncapped, torch, "")
+
+
+def test_check_jacobi_times_what_it_is_asked(monkeypatch, capsys):
+    # the edge batches time the kernel and the torch.linalg.svd route only
+    # (the plain version takes seconds a call at K = 32): plain_ms is None,
+    # the form and the bounds are reported
+    from polars_ols_tpu_torch.ops import jacobi
+
+    calls = []
+    monkeypatch.setattr(cs, "_in_turns", _fake_in_turns(calls))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(jacobi, "kernel_form", lambda K: ("segment", 64, 4))
+    F, Y, nv = cs._jacobi_edge(np.random.default_rng(10), 150, 16, 1, "factor", torch, device="cpu")
+    out = cs._check_jacobi("K=16", F, Y, nv, jacobi, torch, OP_MS, timed=("kernel", "library"))
+    assert calls == [(["kernel", "library"], cs.JACOBI_LAUNCHES, ("plain", "library"))]
+    assert out["ms"] == out["library_ms"] == 1.0 and out["plain_ms"] is None and "segment_ms" not in out
+    assert (out["form"], out["threads_per_block"], out["groups_per_block"]) == ("segment", 64, 4)
+    assert out["latency_bound_ms"] > 0 and out["sweeps_max"] >= 2
+    assert out["pair_path"] == cs._jacobi_pair_path(16, "segment")
+    assert "segment form (64 threads, 4 groups a block)" in capsys.readouterr().out
+
+
+def test_jacobi_bound_of_groups_that_never_sweep():
+    # K = 1 has no pair: no sweep is recorded, and the bound has no chain
+    G = 50
+    F = torch.ones((G, 1, 1), dtype=torch.float64)
+    Y = torch.ones((G, 1, 2), dtype=torch.float64)
+    b = cs._jacobi_bound(F, Y, torch.zeros(G, dtype=torch.int64), torch.zeros((G, 0, 0), dtype=torch.bool), OP_MS,
+                         "thread")
+    assert b["latency_bound_ms"] == 0.0 and b["chain_pairs_max"] == 0 and b["sweeps_max"] == 0
+    assert b["bound_by"] == "bytes"
