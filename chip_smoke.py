@@ -34,7 +34,9 @@ host gaps included. An empty kernel timed the same way gives the floor
 under every launch. Each kernel's bound is the least time the card could
 take for its work on this run's inputs: the larger of the bytes it must
 move over 3.35 TB/s and its operations over the peak rate of their type
-(f64 34 TFLOP/s outside the tensor cores, f32 67 TFLOP/s). The edge cases
+(f64 67 TFLOP/s on the tensor cores for the products of matrices that
+the moments and the Householder updates are, f64 34 TFLOP/s outside them
+for the rest, f32 67 TFLOP/s). The edge cases
 of the card-only tests (moments at C = 8 / 9, R = 513, empty groups, a grid
 larger than the work; coordinate descent at K = 8 / 9 / 16 / 17; the
 Householder reduction at R < K, with a zero feature column, NaN in masked
@@ -58,7 +60,17 @@ on a sweep of its shape (rows a lane, rows a range), at K = 8 and 16 on
 the main frame's groups, and on a frame of lognormal group sizes. The
 p-value kernel also gets a latency bound (the dependent f64 operations of
 its longest thread times the measured time of one) and a breakdown of its
-time by stage. The line before the last is a JSON object with the
+time by stage. Last, the reference suite's two wide configurations run at
+full size (benchmarks/suite.py:274-288): "large", one group of 10,000 rows
+x 100 features, and "grouped_largek", 500,000 rows x 40 features x 1,000
+groups (with the multi-target query of 40 seeded targets on 3 features),
+each query checked on sampled groups against numpy lstsq and
+scipy.stats.t, timed and profiled; and the kernels' wide forms (the
+moments above 33 columns, the Householder reduction above 33 columns with
+its panel in shared or device memory, the Jacobi SVD above K = 32 and its
+rows mode for fewer rows than features) are held to their plain versions
+at the shapes those configurations give them and at their edges, and
+timed beside their bounds and library calls. The line before the last is a JSON object with the
 kernels' names, sources, launch counts on their paths, errors, times and
 bounds; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -108,9 +120,12 @@ LASSO_ALPHA = 1.0
 ENET_ALPHA = 1.0
 RIDGE_ALPHA = 10.0
 # the H100 SXM's peaks at 700 W (NVIDIA's data sheet): device memory, f64
-# outside the tensor cores, f32 outside the tensor cores
+# outside the tensor cores, f64 on the tensor cores (DMMA: products of
+# matrices, such as the moments' Z^T Z and the Householder panel updates),
+# f32 outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F64_PER_S = 34e12
+PEAK_F64_TC_PER_S = 67e12
 PEAK_F32_PER_S = 67e12
 PROFILE_QUERIES = 5
 # profiles taken again where the device recorded fewer kernels than the host
@@ -288,10 +303,11 @@ def _bound(moved_bytes, ops, ops_per_s):
 
 def _moment_bound(Zp, wp, G):
     """Zp, wp and the offsets read once, M and counts written once; one
-    multiply and one add per upper-triangle entry of each valid row."""
+    multiply and one add per upper-triangle entry of each valid row, at the
+    tensor cores' f64 rate (a block's moments are a product of matrices)."""
     S, R, C = Zp.shape
     moved = S * R * (8 * C + 1) + 8 * (G + 1) + 8 * G * C * C + 8 * G
-    return _bound(moved, int(wp.sum()) * C * (C + 1), PEAK_F64_PER_S)
+    return _bound(moved, int(wp.sum()) * C * (C + 1), PEAK_F64_TC_PER_S)
 
 
 def _cd_step_path():
@@ -531,10 +547,11 @@ def _ptxas(log):
 def _householder_bound(Z, w, K):
     """Z and w read once, T [B, K, C] written once; ~4 (C - j) operations a
     valid row for reflection j (a dot product and an update of each column
-    from the pivot on and of each target)."""
+    from the pivot on and of each target), at the tensor cores' f64 rate
+    (blocked reflections are products of matrices)."""
     S, R, C = Z.shape
     moved = S * R * (8 * C + 1) + 8 * S * K * C
-    return _bound(moved, 4 * int(w.sum()) * sum(C - j for j in range(K)), PEAK_F64_PER_S)
+    return _bound(moved, 4 * int(w.sum()) * sum(C - j for j in range(K)), PEAK_F64_TC_PER_S)
 
 
 def _reduction_err(T_k, T_p, Z, w, M, torch):
@@ -625,9 +642,13 @@ def _jacobi_dot_path(K, form):
     """The dependent f64 operations of a pair's dot products: a chain of K
     multiply-adds in a thread (the thread form), or a product and log2(KB)
     shuffle adds in a segment of KB lanes (the segment form; the shuffles'
-    own latency is left out, so the bound stays a bound)."""
+    own latency is left out, so the bound stays a bound). The wide form's
+    pair takes a warp or a half-warp: the shorter of a lane's ceil(K / 32)
+    multiply-adds and 5 shuffle adds, and ceil(K / 16) and 4."""
     if form == "thread":
         return K
+    if form == "wide":
+        return min(-(-K // 32) + 5, -(-K // 16) + 4)
     return 1 + (16 if K <= 16 else 32).bit_length() - 1
 
 
@@ -645,17 +666,20 @@ def _jacobi_test_path(K, form):
     return {"fma": _jacobi_dot_path(K, form) + 2}
 
 
-def _jacobi_chain(rotated, K):
+def _jacobi_chain(rotated, K, pairs=None):
     """Each group's longest chain of dependent rotations (pairs rotated in
     turn, each sharing a column with the one before: a rotation reads the
     columns the last rotations of p and q wrote) and its count of rotated
-    pairs, from ``jacobi_ref``'s record ``rotated [G, sweeps, pairs]``.
+    pairs, from ``jacobi_ref``'s record ``rotated [G, sweeps, pairs]``,
+    whose pairs go in the order ``pairs`` (default: the cyclic order).
     Pairs that rotate nothing write nothing and start no chain. A full
     sweep in cyclic order is 2 K - 3 rotations deep, not K(K-1)/2: (0, 4)
-    and (1, 2) share no column."""
+    and (1, 2) share no column; in the wide form's rounds it is K - 1 deep
+    (K even), a round's pairs sharing no column."""
     rot = rotated.cpu().numpy()
     G, S, _ = rot.shape
-    pairs = [(p, q) for p in range(K - 1) for q in range(p + 1, K)]
+    if pairs is None:
+        pairs = [(p, q) for p in range(K - 1) for q in range(p + 1, K)]
     ready = np.zeros((G, K), dtype=np.int64)
     for sweep in range(S):
         for i, (p, q) in enumerate(pairs):
@@ -665,7 +689,7 @@ def _jacobi_chain(rotated, K):
     return ready.max(axis=1, initial=0), rot.sum(axis=(1, 2))
 
 
-def _jacobi_bound(F, QtY, sweeps, rotated, op_ms, form):
+def _jacobi_bound(F, QtY, sweeps, rotated, op_ms, form, order=None):
     """F's K x K entries, Q^T Y and n_valid read once, beta written once;
     18 K + 20 operations a rotated pair (three K-term dots, the angle, two
     columns of W and of V) and 6 K + 6 a pair tested and not rotated (the
@@ -673,14 +697,14 @@ def _jacobi_bound(F, QtY, sweeps, rotated, op_ms, form):
     version's record: the kernel's may differ by a rotation where
     round-off puts |apq| at the threshold), and K^2 (2 M + 2) around them.
     Beside it the latency bound: the longest group's chain of dependent
-    rotations (``_jacobi_chain``) times ``_jacobi_pair_path`` of the
-    kernel's ``form``, plus the last sweep's test where that sweep rotated
-    nothing, each operation at the time one of its kind takes in a chain on
-    this card, every warp resident at once (the main path's 313 warps fit
-    the card)."""
+    rotations (``_jacobi_chain``, the record's pairs in the order
+    ``order``) times ``_jacobi_pair_path`` of the kernel's ``form``, plus
+    the last sweep's test where that sweep rotated nothing, each operation
+    at the time one of its kind takes in a chain on this card, every warp
+    resident at once (the main path's 313 warps fit the card)."""
     G, K, M = QtY.shape
     pairs = K * (K - 1) // 2
-    depth, rotations = _jacobi_chain(rotated, K)
+    depth, rotations = _jacobi_chain(rotated, K, order)
     sweeps = sweeps.cpu().numpy()
     tested = int(sweeps.sum()) * pairs
     ops = int(rotations.sum()) * (18 * K + 20) + (tested - int(rotations.sum())) * (6 * K + 6)
@@ -753,7 +777,8 @@ def _jacobi_err(label, b_k, b_p, torch):
     return float(err.max())
 
 
-def _check_jacobi(label, F, QtY, n_valid, jacobi, torch, op_ms, alpha=0.0, rcond=None, timed=()):
+def _check_jacobi(label, F, QtY, n_valid, jacobi, torch, op_ms, alpha=0.0, rcond=None, timed=(),
+                  plain_once=False):
     """The Jacobi SVD kernel against its plain version on the same CUDA
     factors (each entry of a group's beta within JACOBI_RTOL of the group's
     largest |beta|, NaN exactly where the plain version has it, the same
@@ -761,15 +786,20 @@ def _check_jacobi(label, F, QtY, n_valid, jacobi, torch, op_ms, alpha=0.0, rcond
     numpy lstsq (alpha 0) on N_CHECK_GROUPS sampled finite groups at
     COEF_TOL. ``timed`` names what is timed in turns, with the bounds: of
     "kernel" (in the form its C entry picks, ``jacobi.kernel_form``),
-    "plain" and "library" (the torch.linalg.svd route)."""
+    "plain" and "library" (the torch.linalg.svd route). With
+    ``plain_once`` the plain version's time is its one checked call (at K
+    = 40 / 100 its rounds launch some 10^4 small operations a call)."""
     b_k = jacobi.factor_lstsq(F, QtY, n_valid, alpha, rcond)
     b_k2 = jacobi.factor_lstsq(F, QtY, n_valid, alpha, rcond)
     torch.cuda.synchronize()
     if not torch.equal(torch.nan_to_num(b_k), torch.nan_to_num(b_k2)):
         raise AssertionError(f"Jacobi kernel ({label}): two launches differ")
+    t0 = time.perf_counter()
     b_p = jacobi.factor_lstsq_ref(F, QtY, n_valid, alpha, rcond)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
     G, K, M = QtY.shape
-    form = jacobi.kernel_form(K)
+    form = jacobi.kernel_form(K, G)
     out = {"max_abs_err": _jacobi_err(label, b_k, b_p, torch), "form": form[0],
            "threads_per_block": form[1], "groups_per_block": form[2]}
     nan = torch.isnan(b_p)
@@ -805,9 +835,13 @@ def _check_jacobi(label, F, QtY, n_valid, jacobi, torch, op_ms, alpha=0.0, rcond
         "kernel": lambda: jacobi.factor_lstsq(F, QtY, n_valid, alpha, rcond),
         "library": lambda: _svd_route(F, QtY, n_valid, alpha, rcond, torch),
     }
-    t = _timing_fields(_in_turns({name: fns[name] for name in fns if name in timed}, JACOBI_LAUNCHES,
-                                 torch, synced=("plain", "library")))
-    bound = _jacobi_bound(F, QtY, sweeps, rotated, op_ms, form[0])
+    in_turns = [name for name in fns if name in timed and not (plain_once and name == "plain")]
+    times = _in_turns({name: fns[name] for name in in_turns}, JACOBI_LAUNCHES, torch, synced=("plain", "library"))
+    if plain_once and "plain" in timed:
+        times["plain"] = (plain_s * 1e3, plain_s * 1e6)
+    t = _timing_fields(times)
+    order = [pq for rnd in jacobi.sweep_rounds(K, form[0] == "wide") for pq in rnd]
+    bound = _jacobi_bound(F, QtY, sweeps, rotated, op_ms, form[0], order)
     print(
         f"{line}; kernel_ms={t['ms']!r} per launch, "
         f"plain_ms={t['plain_ms']!r} library_ms={t['library_ms']!r} (torch.linalg.svd route) per "
@@ -877,13 +911,13 @@ def _check_kernel(name, Zp, wp, offsets, G, moments, torch, timed=True, library=
     return err, t
 
 
-def _random_blocks(rng, n_blocks, R, C, torch):
+def _random_blocks(rng, n_blocks, R, C, torch, device="cuda"):
     """Blocks with column scales spread over decades and ~20% masked rows."""
     S = int(n_blocks.sum())
     Zp = rng.normal(size=(S, R, C)) * np.exp(rng.normal(size=(1, 1, C)) * 3)
     wp = rng.random((S, R)) > 0.2
     offsets = np.concatenate([[0], np.cumsum(n_blocks)])
-    dev = torch.device("cuda")
+    dev = torch.device(device)
     return (
         torch.as_tensor(Zp, dtype=torch.float64, device=dev),
         torch.as_tensor(wp, dtype=torch.bool, device=dev),
@@ -1480,6 +1514,294 @@ def _stats_numpy(X, y, alpha, beta=None):
         "mse": float(r @ r) / n,
         "mae": float(np.abs(r).sum()) / n,
     }
+
+
+# the reference suite's two wide configurations (benchmarks/suite.py:274-288,
+# its frame _make_df :67), not cut in size: "large", one group of 10,000 rows
+# x 100 features, and "grouped_largek", 500,000 rows x 40 features x 1,000
+# groups; the latter also with the multi-target fault query (40 seeded
+# targets on 3 features: blocks of 43 columns)
+LARGE_SHAPE = (10_000, 100, None)
+LARGEK_SHAPE = (500_000, 40, 1_000)
+FAULT_TARGETS, FAULT_K = 40, 3
+WIDE_ALPHA = 0.1  # the suite's ridge alpha
+WIDE_CHECK_GROUPS = 50
+
+
+def _suite_frame(pt, torch, n, k, groups, seed=0):
+    """benchmarks/suite.py:_make_df(n, k, groups, seed) on the card (its
+    draws in its order): y = sum x + noise, y2, w, and g where grouped.
+    Returns (frame, x, y, y2, w, g)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, k))
+    y = x.sum(axis=1) + rng.normal(size=n, scale=0.1)
+    y2 = x @ rng.normal(size=k) + rng.normal(size=n, scale=0.1)
+    w = rng.random(n) + 0.1
+    g = rng.integers(groups, size=n).astype(float) if groups else None
+    dev = torch.device("cuda")
+    cols = {"y": y, **{f"x{i + 1}": x[:, i] for i in range(k)}, "y2": y2, "w": w}
+    frame = {name: torch.as_tensor(v, dtype=torch.float64, device=dev) for name, v in cols.items()}
+    if g is not None:
+        frame["g"] = g
+    return pt.DataFrame(frame), x, y, y2, w, g
+
+
+def _wide_queries(pt, col, k, grouped, fault=None):
+    """label -> (expression, output column) of the suite's static queries
+    (benchmarks/suite.py:119-157) at k features, under .over("g") where
+    grouped, with the multi-target struct(y, y2) and ``fault``'s targets."""
+    feats = [col(f"x{i + 1}") for i in range(k)]
+    ls = col("y").least_squares
+    q = {
+        "ols_qr": ls.ols(*feats, solve_method="qr"),
+        "ols_svd": ls.ols(*feats, solve_method="svd"),
+        "ridge_chol": ls.ridge(*feats, alpha=WIDE_ALPHA),
+        "ridge_svd": ls.ridge(*feats, alpha=WIDE_ALPHA, solve_method="svd"),
+        "wls": ls.wls(*feats, sample_weights="w"),
+        "ols": ls.ols(*feats),
+        "statistics": ls.ols(*feats, mode="statistics"),
+    }
+    if grouped:
+        q["multi_target"] = pt.struct(col("y"), col("y2")).least_squares.multi_target_ols(*feats)
+    if fault is not None:
+        q["fault_multi_target"] = pt.struct(*[col(t) for t in fault]).least_squares.multi_target_ols(
+            *feats[:FAULT_K]
+        )
+    out = {}
+    for label, e in q.items():
+        e = e.over("g") if grouped else e
+        column = "statistics" if label == "statistics" else ("p" if "multi_target" in label else "y")
+        out[label] = (e.alias("p") if column == "p" else e, column)
+    return out
+
+
+def _wide_expected(label, X, y, w):
+    """numpy's coefficients of one group for a _wide_queries label."""
+    if label.startswith("ridge"):
+        return np.linalg.solve(X.T @ X + WIDE_ALPHA * np.eye(X.shape[1]), X.T @ y)
+    if label == "wls":
+        sq = np.sqrt(w)
+        return _lstsq(X * sq[:, None], y * sq)
+    return _lstsq(X, y)
+
+
+def _wide_config(name, shape, pt, col, torch, smi, kernels_mod):
+    """One wide configuration through the public API: every query once with
+    the counts of the moment, Householder and Jacobi kernels set to 0 just
+    before and read just after (the fault query's Jacobi launches apart: at
+    K = 3 it takes the thread form), checked on sampled groups against numpy
+    lstsq and scipy.stats.t, then timed (median of TIMING_REPS) and profiled.
+    Returns the frame and its shape for the kernel checks, and the counts."""
+    moments, householder, jacobi = kernels_mod
+    n, k, groups = shape
+    t0 = time.perf_counter()
+    frame, x, y, y2, w, g = _suite_frame(pt, torch, n, k, groups)
+    fault = None
+    if groups:
+        rng_f = np.random.default_rng(11)
+        T = x[:, :FAULT_K] @ rng_f.normal(size=(FAULT_K, FAULT_TARGETS)) + 0.1 * rng_f.normal(
+            size=(n, FAULT_TARGETS)
+        )
+        fault = [f"t{j}" for j in range(FAULT_TARGETS)]
+        frame = frame.with_columns(**{
+            t: pt.Series(t, torch.as_tensor(T[:, j], device="cuda")) for j, t in enumerate(fault)
+        })
+    setup_s = time.perf_counter() - t0
+    queries = _wide_queries(pt, col, k, bool(groups), fault)
+    moments.moments_kernel_launches = householder.householder_kernel_launches = 0
+    jacobi.jacobi_kernel_launches = 0
+    out, first_s = {}, {}
+    fault_jacobi = 0
+    for label, (q, column) in queries.items():
+        before = jacobi.jacobi_kernel_launches
+        t1 = time.perf_counter()
+        out[label] = frame.select(q)[column]
+        torch.cuda.synchronize()
+        first_s[label] = time.perf_counter() - t1
+        if label == "fault_multi_target":
+            fault_jacobi = jacobi.jacobi_kernel_launches - before
+    launches = {
+        "grouped_moments": moments.moments_kernel_launches,
+        "householder": householder.householder_kernel_launches,
+        "jacobi_svd": jacobi.jacobi_kernel_launches - fault_jacobi,
+        "jacobi_svd (thread form, the fault query's K = 3)": fault_jacobi,
+    }
+    for kname in ("grouped_moments", "householder", "jacobi_svd"):
+        if launches[kname] < 1:
+            raise AssertionError(f"{name}: the {kname} kernel's wide form launched no time")
+
+    # the sampled groups (one group: all of it) against numpy and scipy
+    gid = np.zeros(n, dtype=np.int64) if g is None else g.astype(np.int64)
+    n_groups = groups or 1
+    pick = np.random.default_rng(5).choice(n_groups, size=min(WIDE_CHECK_GROUPS, n_groups), replace=False)
+    group_rows = _group_rows(gid, pick)
+    first = torch.as_tensor(np.asarray([rows[0] for _, rows in group_rows]), device="cuda")
+    stats = out["statistics"]
+    stats = stats.gather(first) if groups else stats
+    got_stats = {key: v.cpu().numpy() for key, v in stats.arrays.items()}
+    for i, (_, rows) in enumerate(group_rows):
+        Xg, yg = x[rows], y[rows]
+        sel = torch.as_tensor(rows, device="cuda")
+        for label, s in out.items():
+            if label == "statistics":
+                continue
+            if label == "multi_target":
+                got = _picked(s, sel)
+                for j, yt in enumerate((yg, y2[rows])):
+                    np.testing.assert_allclose(got[:, j], Xg @ _lstsq(Xg, yt), err_msg=label, **PRED_TOL)
+            elif label == "fault_multi_target":
+                got = _picked(s, sel)
+                Tg = T[rows]
+                want = x[rows, :FAULT_K] @ np.linalg.lstsq(x[rows, :FAULT_K], Tg, rcond=None)[0]
+                np.testing.assert_allclose(got, want, err_msg=label, **PRED_TOL)
+            else:
+                want = Xg @ _wide_expected(label, Xg, yg, w[rows])
+                np.testing.assert_allclose(_picked(s, sel), want, err_msg=f"{name} {label}", **PRED_TOL)
+        ref = _stats_numpy(Xg, yg, 0.0)
+        np.testing.assert_allclose(got_stats["coefficients"][i], ref["coefficients"], **COEF_TOL)
+        for key in ("standard_errors", "t_values"):
+            np.testing.assert_allclose(got_stats[key][i], ref[key], err_msg=key, **SE_T_TOL)
+        np.testing.assert_allclose(got_stats["p_values"][i], ref["p_values"], **P_TOL)
+        for key in ("r2", "mse", "mae"):
+            np.testing.assert_allclose(got_stats[key][i], ref[key], err_msg=key, **METRIC_TOL)
+    print(
+        f"wide {name}: {n} rows x {k} features x {n_groups} groups (set-up {setup_s!r} s), "
+        f"{len(queries)} queries ({', '.join(queries)}), launches {json.dumps(launches)}; "
+        f"{len(group_rows)} sampled groups match numpy lstsq and scipy.stats.t "
+        f"(predictions {PRED_TOL}, statistics {COEF_TOL} / {SE_T_TOL} / {P_TOL})"
+    )
+    print(f"wide {name} first-query s: " + json.dumps({key: round(v, 4) for key, v in first_s.items()}))
+    for label, (q, column) in queries.items():
+        fn = (lambda q=q, column=column: frame.select(q)[column].arrays) if column == "statistics" else (
+            lambda q=q: frame.select(q))
+        med = _timed_median(fn, torch)
+        prof = _profile(fn, torch)
+        print(
+            f"timing wide {name} {label}: median {med * 1e3!r} ms, {n / med!r} rows/s; "
+            + (f"device busy {prof['busy_ms']!r} ms, {prof['launches']!r} launches, {prof['host_syncs']!r} "
+               f"host syncs a query, idle share <= {prof['idle_share']!r}" if prof else "profile not measured")
+            + f" ({smi})"
+        )
+    return {"frame": frame, "k": k, "grouped": bool(groups), "launches": launches, "fault": fault}
+
+
+def _wide_blocks(fit, groups_mod, frame, k, grouped, m=1, targets=None):
+    """(layout, Zp, wp, offsets) of the configuration's split blocks, as
+    the engine builds them (targets first)."""
+    layout = (groups_mod.layout_for_columns([frame["g"]]) if grouped
+              else groups_mod.single_layout(len(frame["y"])))
+    names = targets or (["y", "y2"][:m])
+    vals, _ = fit._stack_cached(frame[names[0]], [frame[t] for t in names[1:]]
+                                + [frame[f"x{i + 1}"] for i in range(k)])
+    Zp, wp, _ = fit._blocks_cached(layout, vals, None, "ignore", m=len(names))
+    return layout, Zp, wp, layout.device_block_offsets(Zp.shape[1])
+
+
+def _wide_kernels(pt, torch, smi, op_ms, mods, large, largek):
+    """The wide forms against their plain versions at the blocks and factors
+    that the two configurations give them, and at their edges; timed (in
+    turns, with the library call that computes the same function) beside
+    their bounds. Returns the kernels-line fields of each form."""
+    fit, groups_mod, moments, householder, jacobi = mods
+    res = {"grouped_moments": {}, "householder": {}, "jacobi_svd": {}}
+    rng = np.random.default_rng(7)
+    # the moments: B's blocks (headline), A's, and the edges
+    for key, cfg in (("grouped_largek", largek), ("large", large)):
+        layout, Zp, wp, offsets = _wide_blocks(fit, groups_mod, cfg["frame"], cfg["k"], cfg["grouped"])
+        err, t = _check_kernel(f"wide form, {key} blocks", Zp, wp, offsets, layout.num_groups, moments, torch,
+                               library=True)
+        bound = _moment_bound(Zp, wp, layout.num_groups)
+        print(f"kernel wide form, {key} blocks bound: {json.dumps(bound)} ({smi})")
+        res["grouped_moments"][key] = {"max_abs_err": err, **t, **bound, "S": Zp.shape[0], "R": Zp.shape[1],
+                                       "C": Zp.shape[2]}
+    for label, n_blocks, R, C in (("C=34", rng.integers(1, 4, size=300), 512, 34),
+                                  ("C=64", rng.integers(1, 4, size=100), 512, 64),
+                                  ("C=1001 (test_fit_wide's ridge)", np.asarray([1]), 16, 1001)):
+        _check_kernel(f"wide form, {label}", *_random_blocks(rng, n_blocks, R, C, torch, "cuda"), moments,
+                      torch, timed=False)
+    # NaN in masked slots and views at odd offsets (rows 8 bytes past 16)
+    S, R, C = 120, 37, 65
+    Z = rng.normal(size=(S, R, C))
+    W = rng.random((S, R)) > 0.2
+    Z[~W] = np.nan
+    Zv = torch.empty(S * R * C + 1, dtype=torch.float64, device="cuda")[1:].view(S, R, C)
+    wv = torch.empty(S * R + 3, dtype=torch.bool, device="cuda")[3:].view(S, R)
+    Zv.copy_(torch.as_tensor(Z))
+    wv.copy_(torch.as_tensor(W))
+    offs = torch.arange(0, S + 1, 3, dtype=torch.int64, device="cuda")
+    M_k, _ = moments.grouped_moments_blocks(Zv, wv, offs, S // 3)
+    if not bool(torch.isfinite(M_k).all()):
+        raise AssertionError("moment kernel, wide form: a masked slot's NaN reached the moments")
+    _check_kernel("wide form, NaN in masked slots, views at odd offsets", Zv, wv, offs, S // 3, moments, torch,
+                  timed=False)
+
+    # the Householder reduction: B's svd blocks (headline), A's, B's
+    # multi-target and fault blocks, and the edges
+    for key, cfg, k, m, targets in (
+        ("grouped_largek", largek, largek["k"], 1, None),
+        ("large", large, large["k"], 1, None),
+        ("grouped_largek_fault", largek, FAULT_K, FAULT_TARGETS, largek["fault"]),
+        ("grouped_largek_multi_target", largek, largek["k"], 2, None),
+    ):
+        _, Zb, wb, _ = _wide_blocks(fit, groups_mod, cfg["frame"], k, cfg["grouped"], m, targets)
+        form = householder.kernel_form(Zb.shape[1], Zb.shape[2])
+        out = _check_householder(f"wide form ({form}), {key} blocks", Zb, wb, k, householder, torch,
+                                 timed=key != "grouped_largek_multi_target")
+        res["householder"][key] = {**out, "form": form, "S": Zb.shape[0], "R": Zb.shape[1], "C": Zb.shape[2],
+                                   "K": k}
+        del Zb, wb
+    for label, (B, R, C, k_h, zero_col) in (
+        ("R=60 < K=100 (zero rows below the last)", (40, 60, 101, 100, None)),
+        ("a zero feature column, K=40", (200, 512, 42, 40, 3)),
+        ("R=2000, C=41 (panel in device memory)", (20, 2_000, 41, 40, None)),
+    ):
+        Zh = rng.normal(size=(B, R, C)) * np.exp(rng.normal(size=(1, 1, C)) * 3)
+        wh = rng.random((B, R)) > 0.2
+        Zh[~wh] = np.nan
+        if zero_col is not None:
+            Zh[..., C - k_h + zero_col] = 0.0
+        _check_householder(f"wide form, {label}", torch.as_tensor(Zh, device="cuda"),
+                           torch.as_tensor(wh, device="cuda"), k_h, householder, torch, timed=False)
+
+    # the Jacobi SVD: B's factors (headline, the svd query's), A's, the
+    # multi-target query's, and the edges (the rows mode among them)
+    for key, cfg, m in (("grouped_largek", largek, 1), ("large", large, 1), ("grouped_largek_multi_target", largek, 2)):
+        k = cfg["k"]
+        layout, Zb, wb, offsets = _wide_blocks(fit, groups_mod, cfg["frame"], k, cfg["grouped"], m)
+        T = householder.reduce_groups(Zb, wb, k, fit._reduction_plan(layout, Zb.shape[1], k))
+        nv = wb.sum(dim=1, dtype=torch.float64)
+        if Zb.shape[0] > layout.num_groups:
+            nv = torch.segment_reduce(nv, "sum", offsets=offsets, axis=0)
+        timed = ("plain", "kernel", "library") if key != "grouped_largek_multi_target" else ()
+        res["jacobi_svd"][key] = _check_jacobi(f"wide form, {key} factors", T[..., m:], T[..., :m], nv, jacobi,
+                                               torch, op_ms, timed=timed, plain_once=True)
+        del Zb, wb, T
+    for label, (G, k_j, m_j, alpha_j, rcond_j, kind) in (
+        ("K=33", (300, 33, 2, 0.0, None, "factor")),
+        ("K=40 rank-deficient", (200, 40, 1, 0.0, None, "deficient")),
+        ("K=40 NaN lanes", (140, 40, 2, 0.0, None, "nan")),
+    ):
+        _check_jacobi(f"wide form, {label}", *_jacobi_edge(rng, G, k_j, m_j, kind, torch), jacobi,
+                      torch, op_ms, alpha_j, rcond_j)
+    rows_mode = {}
+    for K_r, n_r, G_r in ((1_000, 10, 100), (100, 20, 1_000)):
+        X = rng.normal(size=(G_r, n_r, K_r))
+        Yr = rng.normal(size=(G_r, n_r, 1))
+        Xt = torch.as_tensor(X, device="cuda").mT
+        Yt = torch.as_tensor(Yr, device="cuda")
+        nv = torch.full((G_r,), float(n_r), dtype=torch.float64, device="cuda")
+        b_k = jacobi.rows_lstsq(Xt, Yt, nv)
+        b_p = jacobi.rows_lstsq_ref(Xt, Yt, nv)
+        err = _jacobi_err(f"rows mode K={K_r} n={n_r}", b_k, b_p, torch)
+        bh = b_k.cpu().numpy()
+        for i in range(min(G_r, 20)):
+            np.testing.assert_allclose(bh[i], np.linalg.lstsq(X[i], Yr[i], rcond=None)[0], **COEF_TOL)
+        t = _timing_fields(_in_turns({"kernel": lambda: jacobi.rows_lstsq(Xt, Yt, nv)}, JACOBI_LAUNCHES, torch))
+        rows_mode[f"K={K_r},n={n_r},G={G_r}"] = {"max_abs_err": err, "ms": t["ms"]}
+        print(f"kernel jacobi_svd wide form, rows mode: G={G_r} K={K_r} n={n_r} max_abs_err={err!r} vs plain, "
+              f"20 problems match numpy lstsq ({COEF_TOL}); kernel_ms={t['ms']!r} per launch ({smi})")
+    res["jacobi_svd"]["rows_mode"] = rows_mode
+    return res
 
 
 def main() -> int:
@@ -2459,6 +2781,17 @@ def main() -> int:
             + f" ({smi})"
         )
 
+    # 10. the reference suite's wide configurations at full size, through
+    # the public API, then the wide forms against their plain versions
+    mods = (moments, householder, jacobi)
+    large = _wide_config("large", LARGE_SHAPE, pt, col, torch, smi, mods)
+    largek = _wide_config("grouped_largek", LARGEK_SHAPE, pt, col, torch, smi, mods)
+    wide = _wide_kernels(pt, torch, smi, op_ms, (fit, groups, moments, householder, jacobi), large, largek)
+    wide_launches = {
+        kname: {"large": large["launches"][kname], "grouped_largek": largek["launches"][kname]}
+        for kname in ("grouped_moments", "householder", "jacobi_svd")
+    }
+
     print(json.dumps({"kernels": [
         {
             "name": "grouped_moments",
@@ -2569,6 +2902,56 @@ def main() -> int:
             "edges_timed": jc_wide,
             "library_call": "torch.linalg.svd of the factors with numpy's cutoff and the ridge shrink "
                             "(the port's route before this kernel)",
+            "floor_ms": floor_ms,
+        },
+        {
+            "name": "grouped_moments, wide form (C > 33)",
+            "route": "cuda",
+            "source": "polars_ols_tpu_torch/csrc/moments.cu",
+            "replaces": "polars_ols_tpu/ops/pallas_moments.py:78",
+            "launches": sum(wide_launches["grouped_moments"].values()),
+            "launches_by_path": wide_launches["grouped_moments"],
+            **wide["grouped_moments"]["grouped_largek"],
+            "large_blocks": wide["grouped_moments"]["large"],
+            "library_call": "torch.bmm(Zm.mT, Zm) on the pre-masked blocks: block products only, no "
+                            "mask, no segment sum",
+            "floor_ms": floor_ms,
+        },
+        {
+            "name": "householder, wide form (C > 33)",
+            "route": "cuda",
+            "source": "polars_ols_tpu_torch/csrc/householder.cu",
+            "replaces": "polars_ols_tpu/ops/linalg.py:382",
+            "replaces_kind": "XLA, not Pallas: _householder_reduce (:382; K <= 32, or at most 4 problems "
+                             "up to K = 128) and jnp.linalg.qr beyond (svd_lstsq :573)",
+            "launches": sum(wide_launches["householder"].values()),
+            "launches_by_path": wide_launches["householder"],
+            **wide["householder"]["grouped_largek"],
+            "large_blocks": wide["householder"]["large"],
+            "fault_blocks": wide["householder"]["grouped_largek_fault"],
+            "multi_target_blocks": wide["householder"]["grouped_largek_multi_target"],
+            "library_call": "torch.linalg.qr(Zx, mode='r') of the masked blocks with the feature "
+                            "columns first",
+            "floor_ms": floor_ms,
+        },
+        {
+            "name": "jacobi_svd, wide form (K > 32, and its rows mode)",
+            "route": "cuda",
+            "source": "polars_ols_tpu_torch/csrc/jacobi_svd.cu",
+            "replaces": "polars_ols_tpu/ops/linalg.py:575",
+            "replaces_kind": "XLA, not Pallas: jnp.linalg.svd of the K x K factor in svd_lstsq (:575) "
+                             "and of X itself where n <= K (:578)",
+            "launches": sum(wide_launches["jacobi_svd"].values()),
+            "launches_by_path": {
+                **wide_launches["jacobi_svd"],
+                "grouped_largek fault query (thread form, K = 3)":
+                    largek["launches"]["jacobi_svd (thread form, the fault query's K = 3)"],
+            },
+            **wide["jacobi_svd"]["grouped_largek"],
+            "large_factor": wide["jacobi_svd"]["large"],
+            "multi_target_factors": wide["jacobi_svd"]["grouped_largek_multi_target"],
+            "rows_mode": wide["jacobi_svd"]["rows_mode"],
+            "library_call": "torch.linalg.svd of the factors with numpy's cutoff and the ridge shrink",
             "floor_ms": floor_ms,
         },
     ]}))

@@ -63,6 +63,30 @@
 //   updated like the others, so R's diagonal is alpha and its entries
 //   below the diagonal are the same round-off as the plain version's.
 
+//
+// The wide form (C > 33: more than 32 features, or targets beside the
+// features past 33 columns) cannot keep a thread's rows of all columns in
+// registers, and a 512-row panel of 101 columns (414 KB) fits neither the
+// registers nor a block's 227 KB of shared memory. One block of 1,024
+// threads reduces one row block of up to kWideMaxRows = 8,192 rows (the
+// wrapper cuts longer ones; the tree stacks two factors a block, so K <=
+// 4,096); the panel [R, C] (Z's column order)
+// lives in shared memory where it fits beside the scratch, else in a
+// device-memory workspace [B, R, C] that the wrapper allocates (read back
+// from L2; the same code through a generic pointer). A reflection is three
+// passes with a barrier each: the pivot column v and row j staged in shared
+// memory; the dots g_q = sum_{r >= j} v_r a_rq of the active columns (the
+// targets and the features from the pivot on), lanes over columns and
+// warps over rows, kWideChunk columns a pass, the warps' partials summed in
+// warp order; then every (row >= j, active column) updated as
+// a_rq -= beta v_r (g_q - alpha a_jq), coalesced along the row. The
+// arithmetic is the register form's (the same sigma, alpha, beta, the
+// same zero-pivot identity, the columns left of the pivot untouched), so
+// it too agrees with the plain version entry for entry up to the order of
+// the sums. What bounds it: the panel is read and written once a
+// reflection, so its traffic is ~3 K R C doubles against a shared-memory
+// or L2 rate, not the R C doubles that device memory must bring once.
+
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -71,6 +95,11 @@ namespace {
 
 constexpr int kMaxRows = 512;
 constexpr int kMaxCols = 33;
+// the wide form
+constexpr int kWideThreads = 1024;  // 32 warps: a block an SM must hide its own latency
+constexpr int kWideWarps = kWideThreads / 32;
+constexpr int kWideChunk = 128;  // columns a pass of the dots: 4 a lane
+constexpr int64_t kWideMaxRows = 8192;
 constexpr unsigned kFull = 0xffffffffu;
 // the most dynamic shared memory a block can opt in to on sm_90
 constexpr size_t kMaxSmem = 232448;
@@ -297,6 +326,134 @@ householder_blocks(const double* __restrict__ z, const uint8_t* __restrict__ w, 
   }
 }
 
+// The wide form's dynamic shared memory: the dots g [C], row j [C], the
+// pivot column v [R], the warps' partial dots [kWideWarps][kWideChunk] and,
+// where it fits, the panel [R][C] (byte offsets).
+struct WideSmem {
+  int64_t g, prow, v, part, panel, bytes;
+  __host__ __device__ WideSmem(int64_t R, int64_t C, bool panel_here) {
+    g = 0;
+    prow = g + 8 * C;
+    v = prow + 8 * C;
+    part = v + 8 * R;
+    panel = part + 8 * kWideWarps * kWideChunk;
+    bytes = panel + (panel_here ? 8 * R * C : 0);
+  }
+};
+
+// The form at (R, C): 0 the register form, 1 the wide form with the panel
+// in shared memory, 2 the wide form with the panel in device memory, -1
+// none (C < 2, R < 1, R > 512 at C <= 33, R > 8,192 above, or the wide
+// form's scratch past shared memory).
+int form_of(int64_t R, int64_t C) {
+  if (C < 2 || R < 1) return -1;
+  if (C <= kMaxCols) return R <= kMaxRows ? 0 : -1;
+  if (R > kWideMaxRows) return -1;
+  if (WideSmem(R, C, true).bytes <= static_cast<int64_t>(kMaxSmem)) return 1;
+  return WideSmem(R, C, false).bytes <= static_cast<int64_t>(kMaxSmem) ? 2 : -1;
+}
+
+// Block b's reflections on its panel a (shared or device memory): see the
+// wide form above. Active column q is target q (q < M) or feature column
+// M + j + (q - M) at reflection j.
+__global__ void __launch_bounds__(kWideThreads)
+householder_wide(const double* __restrict__ z, const uint8_t* __restrict__ w, int R, int C, int K,
+                 int reflections, int panel_here, double* work, double* __restrict__ t) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const WideSmem lay(R, C, panel_here != 0);
+  double* g = reinterpret_cast<double*>(smem + lay.g);
+  double* prow = reinterpret_cast<double*>(smem + lay.prow);
+  double* v = reinterpret_cast<double*>(smem + lay.v);
+  double* part = reinterpret_cast<double*>(smem + lay.part);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int M = C - K;
+  int steps = K < R ? K : R;  // reflections past the last row are the identity
+  if (reflections < steps) steps = reflections;
+  const int64_t b = blockIdx.x;  // one block a row block
+  double* a = panel_here ? reinterpret_cast<double*>(smem + lay.panel) : work + b * R * C;
+  const double* zb = z + b * R * C;
+  const uint8_t* mb = w + b * R;
+  for (int r = warp; r < R; r += kWideWarps) {  // masked rows selected away
+    const bool keep = mb[r] != 0;
+    for (int c = lane; c < C; c += 32) a[static_cast<int64_t>(r) * C + c] = keep ? zb[static_cast<int64_t>(r) * C + c] : 0.0;
+  }
+  __syncthreads();
+
+  for (int j = 0; j < steps; ++j) {
+    const int jc = M + j;      // the pivot column
+    const int nq = M + K - j;  // the active columns
+    for (int r = j + tid; r < R; r += kWideThreads) v[r] = a[static_cast<int64_t>(r) * C + jc];
+    for (int q = tid; q < nq; q += kWideThreads) prow[q] = a[static_cast<int64_t>(j) * C + (q < M ? q : jc + q - M)];
+    __syncthreads();
+    for (int q0 = 0; q0 < nq; q0 += kWideChunk) {
+      double acc[kWideChunk / 32];
+      int cq[kWideChunk / 32];
+#pragma unroll
+      for (int u = 0; u < kWideChunk / 32; ++u) {
+        const int q = q0 + 32 * u + lane;
+        acc[u] = 0.0;
+        cq[u] = q < nq ? (q < M ? q : jc + q - M) : -1;
+      }
+      for (int r = j + warp; r < R; r += kWideWarps) {
+        const double vr = v[r];
+        const double* ar = a + static_cast<int64_t>(r) * C;
+#pragma unroll
+        for (int u = 0; u < kWideChunk / 32; ++u) {
+          if (cq[u] >= 0) acc[u] = fma(vr, ar[cq[u]], acc[u]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kWideChunk / 32; ++u) part[warp * kWideChunk + 32 * u + lane] = acc[u];
+      __syncthreads();
+      if (tid < kWideChunk && q0 + tid < nq) {
+        double sum = 0.0;
+        for (int k = 0; k < kWideWarps; ++k) sum += part[k * kWideChunk + tid];
+        g[q0 + tid] = sum;
+      }
+      __syncthreads();
+    }
+    const double sigma = g[M];
+    const double piv = prow[M];
+    const double alpha = -(piv >= 0.0 ? 1.0 : -1.0) * sqrt(sigma);
+    const double vj = piv - alpha;
+    const double denom = sigma - piv * alpha;  // = ||v||^2 / 2
+    const double beta = denom > 0.0 ? 1.0 / denom : 0.0;
+    for (int r = j + warp; r < R; r += kWideWarps) {
+      const double bv = beta * (r == j ? vj : v[r]);
+      double* ar = a + static_cast<int64_t>(r) * C;
+      for (int q = lane; q < nq; q += 32) ar[q < M ? q : jc + q - M] -= bv * (g[q] - alpha * prow[q]);
+    }
+    __syncthreads();
+  }
+
+  // rows r < K of T, in Z's column order; zero below a block's last row
+  double* tb = t + b * K * C;
+  for (int r = warp; r < K; r += kWideWarps) {
+    for (int c = lane; c < C; c += 32) {
+      tb[static_cast<int64_t>(r) * C + c] = r < R ? a[static_cast<int64_t>(r) * C + c] : 0.0;
+    }
+  }
+}
+
+int launch_wide(const double* z, const uint8_t* w, int64_t B, int64_t R, int64_t C, int64_t K,
+                int reflections, int form, double* work, double* t, cudaStream_t stream) {
+  const bool here = form == 1;
+  if (!here && work == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = static_cast<size_t>(WideSmem(R, C, here).bytes);
+  cudaError_t err = cudaSuccess;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(householder_wide, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  householder_wide<<<static_cast<unsigned>(B), kWideThreads, smem, stream>>>(
+      z, w, static_cast<int>(R), static_cast<int>(C), static_cast<int>(K), reflections, here ? 1 : 0,
+      work, t);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int N, bool X, int RPT>
 int launch(const double* z, const uint8_t* w, int64_t B, int64_t R, int64_t C, int64_t K,
            int reflections, double* t, cudaStream_t stream) {
@@ -329,21 +486,32 @@ int launch(const double* z, const uint8_t* w, int64_t B, int64_t R, int64_t C, i
 
 extern "C" {
 
+// The form pols_householder_blocks takes at (R, C): 0 the register form
+// (C <= 33, R <= 512), 1 the wide form with the panel in shared memory, 2
+// the wide form with the panel in a device-memory workspace of B * R * C
+// doubles, -1 none.
+int pols_householder_form(int64_t R, int64_t C) { return form_of(R, C); }
+
 // The first K rows T [B, K, C] of each block of Z [B, R, C] (contiguous f64,
-// targets first, R <= 512, C <= 33) under the row mask w [B, R] (bool
-// bytes), after the first `reflections` Householder reflections of the
-// feature columns: K for the reduction; fewer (0: the load and the store
-// alone) time the kernel's phases apart. Launches on `stream` without
-// synchronising; returns the CUDA error code of the launch (0 on success).
+// targets first) under the row mask w [B, R] (bool bytes), after the first
+// `reflections` Householder reflections of the feature columns: K for the
+// reduction; fewer (0: the load and the store alone) time the kernel's
+// phases apart. `work` is the wide form's panel workspace (B * R * C
+// doubles) where pols_householder_form says 2, else unused. Launches on
+// `stream` without synchronising; returns the CUDA error code of the launch
+// (0 on success).
 int pols_householder_blocks(const double* z, const uint8_t* w, int64_t B, int64_t R,
-                            int64_t C, int64_t K, int64_t reflections, double* t, void* stream) {
-  if (B < 0 || B > INT32_MAX || R < 1 || R > kMaxRows || C < 2 || C > kMaxCols || K < 1 || K >= C ||
+                            int64_t C, int64_t K, int64_t reflections, double* work, double* t,
+                            void* stream) {
+  const int form = form_of(R, C);
+  if (B < 0 || B > INT32_MAX || R > INT32_MAX || form < 0 || K < 1 || K >= C ||
       reflections < 0 || reflections > K) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (B == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int r = static_cast<int>(reflections);
+  if (form > 0) return launch_wide(z, w, B, R, C, K, r, form, work, t, s);
   if (C <= 8) return launch<8, false, 4>(z, w, B, R, C, K, r, t, s);
   if (C <= 16) return launch<16, false, 2>(z, w, B, R, C, K, r, t, s);
   return launch<32, true, 2>(z, w, B, R, C, K, r, t, s);

@@ -55,13 +55,45 @@
 //   the products below the diagonal, so at small C entries are faster.
 //   Above C = 8 chunks are smaller (~2 KB), so that more warps share an SM.
 //
+// - C > 33 (K > 32 features): the wide form, block_moments_wide. The forms
+//   above keep a tile of the C x C square in each lane's registers and
+//   already take 168 registers at C = 33, so they cannot grow. Here a CTA
+//   computes one T x T tile (ti <= tj) of the upper triangle over one row
+//   block, T = 8 MT picked from C so that the tiles cover C with little to
+//   spare: the fewest tiles of at most 32 columns, n = ceil(C / 32), each
+//   ceil(C / n) columns rounded up to 8 (C = 41 / 43: two tiles of 24, 3
+//   tile pairs and 1,728 products a row where 32 x 32 tiles take 3,072; C
+//   = 101: four of 32). Where the tiles are many (at least 4 an SM) the CTA
+//   is one part of 64 threads and stages 32 rows at a time; where they are
+//   few (one group of 10,000 rows: 20 blocks), four parts of 64 take turns
+//   at the block's stages of 16 rows (part p the stages p, p + 4, ...),
+//   four times the warps a tile. A part stages its rows of the tile's two
+//   T-column slabs in shared memory by plain coalesced loads (the mask
+//   selects a row there, as a zero row: it is never multiplied, so a NaN in
+//   a masked row stays out), and each of its threads sums an MT x MT
+//   micro-tile, rows i = ty + 8a and columns j = tx + 8b, so that a warp's
+//   loads of a row are 4 broadcast addresses and 8 consecutive doubles (no
+//   bank conflicts): 2 MT shared loads for MT^2 multiply-adds a row. At the
+//   end part 0 adds the other parts' sums in part order (through shared
+//   memory). The tile that holds entry (0, 0) also counts the block's
+//   valid rows (__syncthreads_count). No bulk copies, so none of the
+//   16-byte rules above apply to it. Work items (block, tile) go
+//   block-major over a grid-stride loop, so consecutive CTAs read one
+//   block's rows and the block's other tiles find them in L2. What bounds
+//   it: a row costs 8C + 1 bytes and C(C + 1) operations, so operations
+//   over the tensor cores' 67 TFLOP/s pass bytes over 3.35 TB/s near C =
+//   160 (at C = 41-101 bytes bound it); tiles read a block's row up to
+//   tiles times (from L2), and a diagonal or ragged tile computes entries
+//   it drops. The FP64 tensor-core product (DMMA) is the later redesign.
+//
 // Two passes, no atomics, so results are identical run to run:
-//   1. block_moments: the block partials [S, C(C+1)/2 + 1] as above.
+//   1. block_moments / block_moments_wide: the block partials [S, C(C+1)/2
+//      + 1] as above.
 //   2. group_sums: one thread per (group, entry) adds its group's block
 //      partials in block order and writes both triangles of M (zeros for a
 //      group without blocks).
-// Supports 1 <= C <= 33 (K <= 32 features, the range of the batched
-// Cholesky that consumes M).
+// Supports 1 <= C <= kMaxWideCols (entry indices are 32-bit): C <= 33 takes
+// the register forms, larger C the wide form.
 
 #include <cstdint>
 
@@ -76,6 +108,13 @@ constexpr int kStages = 4;
 constexpr int kRowChunkBytes = 8192;
 constexpr int kEntryChunkBytes = 2048;
 constexpr int kMaxCols = 33;
+// the wide form: a tile of 8 MT x 8 MT (MT = 3 or 4) a CTA of P parts of
+// 64 threads (P = 4 where the tiles are fewer than kFewTilesPerSm an SM,
+// else 1), a part's stage 32 rows at P = 1 and 16 at P = 4; C(C + 1) / 2 +
+// 1 entries must fit an int
+constexpr int kWidePart = 64;
+constexpr int kFewTilesPerSm = 4;
+constexpr int64_t kMaxWideCols = 65534;
 // CTAs an SM must hold: caps the registers at 168 a thread, so that the
 // tiles of wide C fit three CTAs an SM
 constexpr int kMinBlocks = 3;
@@ -382,6 +421,97 @@ block_moments(const double* __restrict__ zp, const uint8_t* __restrict__ wp,
   }
 }
 
+// C > 33: work item q = (block q / n_tiles, tile q % n_tiles of the upper
+// triangle of tiles x tiles), a tile 8 MT columns wide. Part p of the CTA's
+// P takes the stages p, p + P, ... of the block's rows; its thread (ty, tx)
+// = (t / 8, t % 8) sums the tile's entries (ty + 8a, tx + 8b), a, b < MT,
+// over its rows in row order, and part 0 adds the other parts' sums in
+// part order.
+template <int MT, int P>
+__global__ void __launch_bounds__(kWidePart * P)
+block_moments_wide(const double* __restrict__ zp, const uint8_t* __restrict__ wp,
+                   int64_t S, int64_t R, int C, int tiles, int slots,
+                   double* __restrict__ partial) {
+  constexpr int T = 8 * MT;
+  constexpr int Rows = P == 1 ? 32 : 16;  // a part's stage
+  // the parts' stages: the tile's two slabs (sa, sb); the parts' sums
+  // reuse them at the end
+  __shared__ double stage[2][P][Rows][T];
+  static_assert((P - 1) * kWidePart * MT * MT <= 2 * P * Rows * T, "the parts' sums fit the stages");
+  auto& sa = stage[0];
+  auto& sb = stage[1];
+  double* sums = &stage[0][0][0][0];
+  const int tid = static_cast<int>(threadIdx.x);
+  const int part = tid / kWidePart, t = tid % kWidePart;
+  const int tx = t % 8, ty = t / 8;
+  const int64_t n_tiles = static_cast<int64_t>(tiles) * (tiles + 1) / 2;
+  for (int64_t q = blockIdx.x; q < S * n_tiles; q += gridDim.x) {
+    const int64_t s = q / n_tiles;
+    int ti, tj;
+    entry_ij(static_cast<int>(q - s * n_tiles), tiles, &ti, &tj);
+    const int i0 = ti * T, j0 = tj * T;
+    const double* zb = zp + s * R * C;
+    const uint8_t* mb = wp + s * R;
+    double acc[MT][MT];
+#pragma unroll
+    for (int a = 0; a < MT; ++a) {
+#pragma unroll
+      for (int b = 0; b < MT; ++b) acc[a][b] = 0.0;
+    }
+    int cnt = 0;
+    for (int64_t r00 = 0; r00 < R; r00 += P * Rows) {
+      const int64_t r0 = r00 + part * Rows;
+      const int rows = static_cast<int>(R - r0 < 0 ? 0 : (R - r0 < Rows ? R - r0 : Rows));
+      for (int e = t; e < Rows * T; e += kWidePart) {
+        const int r = e / T, c = e % T;
+        const bool ok = r < rows && mb[r0 + r] != 0;  // selected, not multiplied
+        const double* row = zb + (r0 + r) * C;
+        sa[part][r][c] = ok && i0 + c < C ? row[i0 + c] : 0.0;
+        sb[part][r][c] = ok && j0 + c < C ? row[j0 + c] : 0.0;
+      }
+      // the barrier that publishes the stages counts their valid rows
+      cnt += __syncthreads_count(t < rows && mb[r0 + t] != 0);
+      for (int r = 0; r < rows; ++r) {
+        double x[MT], y[MT];
+#pragma unroll
+        for (int a = 0; a < MT; ++a) x[a] = sa[part][r][ty + 8 * a];
+#pragma unroll
+        for (int b = 0; b < MT; ++b) y[b] = sb[part][r][tx + 8 * b];
+#pragma unroll
+        for (int a = 0; a < MT; ++a) {
+#pragma unroll
+          for (int b = 0; b < MT; ++b) acc[a][b] = fma(x[a], y[b], acc[a][b]);
+        }
+      }
+      __syncthreads();  // the stages are read before the next ones land
+    }
+    if (P > 1 && part > 0) {
+#pragma unroll
+      for (int a = 0; a < MT; ++a) {
+#pragma unroll
+        for (int b = 0; b < MT; ++b) sums[((part - 1) * MT * MT + a * MT + b) * kWidePart + t] = acc[a][b];
+      }
+    }
+    if (P > 1) __syncthreads();
+    if (part == 0) {
+      double* out = partial + s * slots;
+#pragma unroll
+      for (int a = 0; a < MT; ++a) {
+        const int i = i0 + ty + 8 * a;
+#pragma unroll
+        for (int b = 0; b < MT; ++b) {
+          const int j = j0 + tx + 8 * b;
+          double v = acc[a][b];
+          for (int k = 1; k < P; ++k) v += sums[((k - 1) * MT * MT + a * MT + b) * kWidePart + t];
+          if (i <= j && j < C) out[static_cast<int64_t>(i) * C - static_cast<int64_t>(i) * (i - 1) / 2 + (j - i)] = v;
+        }
+      }
+      if (ti == 0 && tj == 0 && t == 0) out[slots - 1] = static_cast<double>(cnt);
+    }
+    if (P > 1) __syncthreads();  // the sums are read before the next item's stages land
+  }
+}
+
 __global__ void __launch_bounds__(256)
 group_sums(const double* __restrict__ partial,
            const int64_t* __restrict__ offsets, int64_t G, int C, int slots,
@@ -401,8 +531,8 @@ group_sums(const double* __restrict__ partial,
   int i, j;
   entry_ij(e, C, &i, &j);
   double* Mg = M + g * C * C;
-  Mg[i * C + j] = sum;
-  Mg[j * C + i] = sum;
+  Mg[static_cast<int64_t>(i) * C + j] = sum;
+  Mg[static_cast<int64_t>(j) * C + i] = sum;
 }
 
 using MomentKernel = void (*)(const double*, const uint8_t*, int64_t, int64_t, int,
@@ -449,19 +579,36 @@ extern "C" {
 // Per-group moments M [G, C, C] and counts [G] of the blocks Zp [S, R, C]
 // (contiguous f64), wp [S, R] (bool bytes) and CSR block offsets [G+1]
 // (int64). `partial` is caller-allocated scratch of S * (C(C+1)/2 + 1)
-// doubles. Launches on `stream` without synchronising; returns the CUDA
-// error code of the launches (0 on success).
+// doubles. C <= 33 takes the register forms, 33 < C <= 65,534 the wide
+// form. Launches on `stream` without synchronising; returns the CUDA error
+// code of the launches (0 on success).
 int pols_grouped_moments(const double* zp, const uint8_t* wp,
                          const int64_t* offsets, int64_t S, int64_t R,
                          int64_t C, int64_t G, double* partial, double* M,
                          double* counts, void* stream) {
-  if (C < 1 || C > kMaxCols || S < 0 || S > INT32_MAX || R < 1 || G < 0) {
+  if (C < 1 || C > kMaxWideCols || S < 0 || S > INT32_MAX || R < 1 || G < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int c = static_cast<int>(C);
-  const int slots = c * (c + 1) / 2 + 1;
-  if (S > 0) {
+  const int slots = static_cast<int>(C * (C + 1) / 2 + 1);
+  if (S > 0 && C > kMaxCols) {
+    // the fewest tiles of at most 32 columns, each a multiple of 8 wide
+    const int64_t n = (C + 31) / 32;
+    const int mt = static_cast<int>((C + 8 * n - 1) / (8 * n));
+    const int tiles = static_cast<int>((C + 8 * mt - 1) / (8 * mt));
+    const int64_t items = S * (static_cast<int64_t>(tiles) * (tiles + 1) / 2);
+    const int64_t cap = int64_t{1} << 20;  // the grid-stride loop takes the rest
+    const unsigned grid = static_cast<unsigned>(items < cap ? items : cap);
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const bool few = items < static_cast<int64_t>(kFewTilesPerSm) * sms;
+    auto kernel = mt == 3 ? (few ? block_moments_wide<3, 4> : block_moments_wide<3, 1>)
+                          : (few ? block_moments_wide<4, 4> : block_moments_wide<4, 1>);
+    kernel<<<grid, kWidePart * (few ? 4 : 1), 0, st>>>(zp, wp, S, R, c, tiles, slots, partial);
+  } else if (S > 0) {
     const int rows = chunk_rows_for(R, c);
     // room for a chunk's bytes rounded out to 16-byte words
     const int z_bytes = round16(rows * c * 8 + 8);
@@ -484,7 +631,7 @@ int pols_grouped_moments(const double* zp, const uint8_t* wp,
         zp, wp, S, R, c, rows, stage_bytes, z_bytes, slots, partial);
   }
   if (G > 0) {
-    const int64_t n = G * slots;
+    const int64_t n = G * static_cast<int64_t>(slots);
     const unsigned blocks = static_cast<unsigned>((n + 255) / 256);
     group_sums<<<blocks, 256, 0, st>>>(partial, offsets, G, c, slots, M, counts);
   }

@@ -39,8 +39,13 @@ coefficients, or their predictions, from one scan-and-solve kernel family
 on the card; rolling warm-up NaNs become nulls; the output goes back to row
 order like the static fits'.
 
-What is not ported (K > 32, fused select) raises ``NotImplementedError``
-naming its ROADMAP queue item; nothing falls back silently.
+The static fits and multi-target run at any K: above K = 32 the moments
+take the moment kernel's wide form, the Cholesky the library's batched
+factorization (ops/linalg.py: ``chol_factor``), the reduction and the SVD
+the Householder and Jacobi kernels' wide forms. What is not ported
+(coordinate descent and the moving models above K = 32, fused select)
+raises ``NotImplementedError`` naming its ROADMAP queue item; nothing
+falls back silently.
 """
 
 from __future__ import annotations
@@ -50,14 +55,14 @@ from typing import List
 import torch
 
 from ..config import CONFIG, EPSILON, F64, device
-from ..ops.cd import solve_elastic_net_cov
+from ..ops.cd import MAX_K as CD_MAX_K, solve_elastic_net_cov
 from ..ops.direct import grouped_moments, resolve_solve_method
 from ..ops.householder import plan_reduction, reduce_groups
 from ..ops.linalg import (
-    MAX_K, psd_solver, solve_lu, solve_psd, solve_psd_cond, svd_lstsq, svd_lstsq_from_factor,
+    psd_solver, solve_lu, solve_psd, solve_psd_cond, svd_lstsq, svd_lstsq_from_factor,
 )
 from ..ops.masking import prepare_problem, zero_filled
-from ..ops.moving import recursive_least_squares, rolling_ols
+from ..ops.moving import MAX_K as MOVING_MAX_K, recursive_least_squares, rolling_ols
 from ..ops.rolling import default_min_periods, rolling_indices
 from ..ops.statistics import feature_metrics, residual_metrics
 from ..series import BlockPermuted, Series, StatisticsSeries, StructSeries
@@ -74,7 +79,7 @@ _ROW_PREDICT_POLICIES = ("drop_zero", "drop_y_zero_x")
 _STACK_CACHE_LIMIT = 8
 
 
-def _not_ported(what: str, item: int):
+def _not_ported(what: str, item):
     return NotImplementedError(
         f"{what} is not ported to polars_ols_tpu_torch yet "
         f"(ROADMAP.md Queue 1 item {item})"
@@ -544,8 +549,6 @@ def evaluate_least_squares(
     if add_intercept:
         feat_series = list(feat_series) + [_const_series(layout, n)]
     k = len(feat_series)
-    if k > MAX_K:
-        raise _not_ported(f"K={k} > {MAX_K} features", 12)
     if isinstance(target, StructSeries):
         if not (multi_target and function_name == "least_squares" and mode == "predictions"):
             raise TypeError(
@@ -553,8 +556,12 @@ def evaluate_least_squares(
             )
         return _evaluate_multi_target(target, feat_series, kwargs, layout, weights)
     if function_name != "least_squares":
+        if k > MOVING_MAX_K:
+            raise _not_ported(f"a moving model of K={k} > {MOVING_MAX_K} features", "12c")
         return _evaluate_moving(function_name, target, feat_series, kwargs, mode, layout, weights)
     method = _resolve_method(layout, kwargs, k)
+    if method.startswith("cd") and k > CD_MAX_K:
+        raise _not_ported(f"coordinate descent of K={k} > {CD_MAX_K} features", "12b")
 
     vals, valid, inv_w = _stack(target, feat_series, weights)
     policy = kwargs.null_policy

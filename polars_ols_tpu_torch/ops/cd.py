@@ -22,7 +22,7 @@ and the squared step norm as sequential sums in k-order from separately
 rounded products, so the two give the same bits and the same sweep counts.
 
 K > 32 (the JAX engine's FISTA with an active-set polish) is ROADMAP.md
-Queue 1 item 12; the row form ``solve_elastic_net`` waits for the sharded
+Queue 1 item 12b; the row form ``solve_elastic_net`` waits for the sharded
 path (item 11).
 """
 
@@ -67,7 +67,7 @@ def _check(XtX, Xty, n_valid) -> None:
     if K > MAX_K:
         raise NotImplementedError(
             f"K={K} features: the port's coordinate descent covers K <= {MAX_K} "
-            "(larger K is ROADMAP.md Queue 1 item 12)"
+            "(larger K is ROADMAP.md Queue 1 item 12b)"
         )
     if Xty.dtype != F64 or tuple(Xty.shape) != (G, K):
         raise TypeError(f"Xty must be a [{G}, {K}] float64 tensor, got {Xty.dtype} {tuple(Xty.shape)}")

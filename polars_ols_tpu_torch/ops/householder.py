@@ -20,6 +20,16 @@ slot gathers row 0, whose NaN must not reach another group), and both use
 the reflections of ``ops/linalg.py:_householder_reduce``, so they agree
 entry for entry.
 
+The kernel has two forms, which its C entry picks by the block's shape
+(``kernel_form`` reads the choice back): up to ``MAX_COLS`` columns a
+thread holds its rows of the panel in registers (blocks of at most
+``MAX_ROWS`` rows); above, the wide form (more than 32 features, or
+targets beside the features past 33 columns) gives a block of at most
+``MAX_WIDE_ROWS`` rows to 1,024 threads, its panel in shared memory where
+it fits, else in a device-memory workspace that ``_launch`` allocates.
+``max_rows(C)`` is the form's row limit; ``reduce_groups`` cuts longer
+blocks to it.
+
 A group whose rows span several blocks is reduced as a tree:
 ``plan_reduction`` (host-side, from the blocks per group) stacks each
 group's ``[n, K, C]`` partial factors, ``MAX_ROWS // K`` to a block, and
@@ -45,11 +55,16 @@ from .linalg import _householder_reduce
 # kernel launches made by householder_blocks since the last reset
 householder_kernel_launches = 0
 
-# C = M + K columns; the port's fits take K <= 32
+# C = M + K columns of the register form; wider blocks take the wide form
 MAX_COLS = 33
-# rows a block holds: the kernel's limit (a thread block of at most 512
-# threads holds the panel in registers) and the split layout's default cap
+# rows a block holds: the register form's limit (a thread block of at most
+# 512 threads holds the panel in registers) and the split layout's default
+# cap; the wide form's (its pivot column in shared memory), which the
+# tree's levels need at twice K: K <= MAX_WIDE_ROWS / 2
 MAX_ROWS = 512
+MAX_WIDE_ROWS = 8192
+# the kernel's forms, as pols_householder_form numbers them
+FORMS = ("register", "wide (panel in shared memory)", "wide (panel in device memory)")
 
 _BOUND = None
 
@@ -59,24 +74,39 @@ def _kernel():
     if _BOUND is None:
         lib = kernels.load("householder")
         vp, i64 = ctypes.c_void_p, ctypes.c_int64
-        lib.pols_householder_blocks.argtypes = [vp, vp, i64, i64, i64, i64, i64, vp, vp]
+        lib.pols_householder_blocks.argtypes = [vp, vp, i64, i64, i64, i64, i64, vp, vp, vp]
         lib.pols_householder_blocks.restype = ctypes.c_int
+        lib.pols_householder_form.argtypes = [i64, i64]
+        lib.pols_householder_form.restype = ctypes.c_int
         lib.pols_cuda_error_string.argtypes = [ctypes.c_int]
         lib.pols_cuda_error_string.restype = ctypes.c_char_p
         _BOUND = lib
     return _BOUND
 
 
+def kernel_form(R: int, C: int) -> str:
+    """The form the kernel launches for blocks of R rows and C columns, as
+    its C entry picks it (builds the kernel)."""
+    form = _kernel().pols_householder_form(R, C)
+    if form < 0:
+        raise ValueError(f"the Householder kernel has no form for blocks of R={R}, C={C}")
+    return FORMS[form]
+
+
+def max_rows(C: int) -> int:
+    """The most rows a block of C columns may have: ``MAX_ROWS`` in the
+    register form (C <= ``MAX_COLS``), ``MAX_WIDE_ROWS`` in the wide form."""
+    return MAX_ROWS if C <= MAX_COLS else MAX_WIDE_ROWS
+
+
 def _check(Z, w, K: int) -> None:
     if Z.dtype != F64 or Z.dim() != 3:
         raise TypeError(f"Z must be a [B, R, C] float64 tensor, got {Z.dtype} {tuple(Z.shape)}")
     B, R, C = Z.shape
-    if not 2 <= C <= MAX_COLS or not 1 <= K < C or R < 1:
-        raise ValueError(
-            f"Z has C={C}, R={R} with K={K}; the reduction takes 1 <= K < C <= {MAX_COLS}, R >= 1"
-        )
-    if R > MAX_ROWS:
-        raise ValueError(f"a block of R={R} rows: the kernel takes at most {MAX_ROWS} rows a block")
+    if C < 2 or not 1 <= K < C or R < 1:
+        raise ValueError(f"Z has C={C}, R={R} with K={K}; the reduction takes 1 <= K < C, R >= 1")
+    if R > max_rows(C):
+        raise ValueError(f"a block of R={R} rows and C={C} columns: the kernel takes at most {max_rows(C)} rows")
     if w.dtype != torch.bool or tuple(w.shape) != (B, R):
         raise TypeError(f"w must be a [{B}, {R}] bool tensor, got {w.dtype} {tuple(w.shape)}")
     if Z.device != w.device:
@@ -117,10 +147,15 @@ def _launch(Z: torch.Tensor, w: torch.Tensor, K: int, reflections: int) -> torch
     B, R, C = Z.shape
     T = torch.empty((B, K, C), dtype=F64, device=Z.device)
     lib = _kernel()
+    form = lib.pols_householder_form(R, C)
+    if form < 0:
+        raise ValueError(f"the Householder kernel has no form for blocks of R={R}, C={C}")
+    # the wide form's panels, where they do not fit in shared memory
+    work = torch.empty((B, R, C) if form == 2 else (0,), dtype=F64, device=Z.device)
     with torch.cuda.device(Z.device):
         rc = lib.pols_householder_blocks(
-            Z.data_ptr(), w.data_ptr(), B, R, C, K, reflections, T.data_ptr(),
-            torch.cuda.current_stream(Z.device).cuda_stream,
+            Z.data_ptr(), w.data_ptr(), B, R, C, K, reflections, work.data_ptr() if form == 2 else None,
+            T.data_ptr(), torch.cuda.current_stream(Z.device).cuda_stream,
         )
     if rc != 0:
         msg = lib.pols_cuda_error_string(rc).decode()
@@ -196,16 +231,19 @@ def plan_reduction(blocks_per_group: np.ndarray, K: int, device=None) -> Reducti
 def reduce_groups(Z: torch.Tensor, w: torch.Tensor, K: int, plan: ReductionPlan) -> torch.Tensor:
     """Each group's factor ``[G, K, C]`` of its blocks ``Z [S, R, C]`` under
     ``w [S, R]``: the blocks' reduction, then the plan's levels (one
-    launch each, on the stacked factors). Blocks of more than ``MAX_ROWS``
+    launch each, on the stacked factors). Blocks of more than ``max_rows(C)``
     rows (a larger ``CONFIG.moment_chunk_rows``) are first cut into pieces
-    of ``MAX_ROWS``, and each block's stacked piece factors stand in for
-    its rows."""
+    of that many, and each block's stacked piece factors stand in for its
+    rows."""
     S, R, C = Z.shape
-    while R > MAX_ROWS:
-        n = -(-R // MAX_ROWS)
-        pad = n * MAX_ROWS - R
-        Z = torch.cat([Z, Z.new_zeros((S, pad, C))], dim=1).reshape(S * n, MAX_ROWS, C)
-        w = torch.cat([w, w.new_zeros((S, pad))], dim=1).reshape(S * n, MAX_ROWS)
+    limit = max_rows(C)
+    if 2 * K > limit:  # a level stacks at least two factors a block
+        raise ValueError(f"the Householder reduction takes K <= {limit // 2} features at C={C}, got K={K}")
+    while R > limit:
+        n = -(-R // limit)
+        pad = n * limit - R
+        Z = torch.cat([Z, Z.new_zeros((S, pad, C))], dim=1).reshape(S * n, limit, C)
+        w = torch.cat([w, w.new_zeros((S, pad))], dim=1).reshape(S * n, limit)
         R = n * K
         Z = householder_blocks(Z, w, K).reshape(S, R, C)
         w = torch.ones((S, R), dtype=torch.bool, device=Z.device)

@@ -2,13 +2,15 @@
 
 The JAX engine's ``ops/linalg.py`` as plain torch ops: the batched K <= 32
 column-recurrence Cholesky (factor and substitution as O(K) whole-batch
-tensor ops), its squared-pivot condition estimate and the eigh
-pseudo-inverse fallback for lanes whose factor is not finite; the
-partial-pivot LU of explicit 'lu'; and the SVD least squares of explicit
-'svd' and of multi-target fits (the one-sided Jacobi SVD of the K x K
-factor of a Householder reduction, ``ops/jacobi.py``, with numpy lstsq's
-cutoff; ``_householder_reduce`` is the plain version of the engine's
-reduction kernel, ops/householder.py).
+tensor ops) and, above K = 32, the library's batched Cholesky
+(``torch.linalg.cholesky_ex`` / ``torch.cholesky_solve``, where the JAX
+engine calls ``jnp.linalg.cholesky`` / ``cho_solve``); its squared-pivot
+condition estimate and the eigh pseudo-inverse fallback for lanes whose
+factor is not finite; the partial-pivot LU of explicit 'lu'; and the SVD
+least squares of explicit 'svd' and of multi-target fits (the one-sided
+Jacobi SVD of the K x K factor of a Householder reduction,
+``ops/jacobi.py``, with numpy lstsq's cutoff; ``_householder_reduce`` is
+the plain version of the engine's reduction kernel, ops/householder.py).
 
 Where the JAX engine branches inside the device program with
 ``lax.cond(ok.all(), ...)``, this module branches in Python on a bool read
@@ -20,12 +22,12 @@ from __future__ import annotations
 import torch
 
 from ..config import F64
-from .jacobi import factor_lstsq
+from .jacobi import factor_lstsq, rows_lstsq
 
 _EPS64 = float(torch.finfo(torch.float64).eps)
 
 # largest K of the column-recurrence Cholesky (the JAX engine's unroll
-# limit); the port has no larger-K factorization yet
+# limit, ``_UNROLL_MAX_K``); above it the library's batched Cholesky
 MAX_K = 32
 
 
@@ -113,12 +115,24 @@ def chol_substitute_vectorized(L: torch.Tensor, rhs: torch.Tensor) -> torch.Tens
     return torch.stack(xs, dim=-2)
 
 
-def _check_k(A: torch.Tensor) -> None:
-    if A.shape[-1] > MAX_K:
-        raise NotImplementedError(
-            f"K={A.shape[-1]} features: the port's Cholesky covers K <= {MAX_K} "
-            "(larger K is ROADMAP.md Queue 1 item 12)"
-        )
+def chol_factor(A: torch.Tensor):
+    """(L, ok): the column recurrence up to K = 32, the library's batched
+    Cholesky above (the JAX engine's ``chol_factor``). A lane the library
+    cannot factor (``info != 0``) gets a NaN factor, as XLA's Cholesky
+    gives it, so ``ok`` is false there and its squared pivots are NaN."""
+    if A.shape[-1] <= MAX_K:
+        return chol_factor_vectorized(A)
+    L, info = torch.linalg.cholesky_ex(A)
+    ok = (info == 0) & torch.isfinite(L).all(dim=-1).all(dim=-1)
+    return torch.where(ok[..., None, None], L, torch.nan), ok
+
+
+def chol_substitute(L: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """Forward + back substitution against a batched lower factor: the
+    vectorized form up to K = 32, ``torch.cholesky_solve`` above."""
+    if L.shape[-1] <= MAX_K:
+        return chol_substitute_vectorized(L, rhs)
+    return torch.cholesky_solve(rhs, L)
 
 
 def _with_fallback(A, rhs, sol, ok):
@@ -141,15 +155,14 @@ def psd_solver(A: torch.Tensor):
     (the CSNE sweeps). Failed lanes are identity-substituted so the
     substitution stays finite, then take the eigh fallback on every call.
     Host sync: ``ok.all()``, read once per factor."""
-    _check_k(A)
     k = A.shape[-1]
-    L, ok = chol_factor_vectorized(A)
+    L, ok = chol_factor(A)
     Ls = torch.where(ok[..., None, None], L, torch.eye(k, dtype=F64, device=A.device))
     all_ok = bool(ok.all())
 
     def solve(b: torch.Tensor) -> torch.Tensor:
         rhs = b[..., None] if b.dim() == A.dim() - 1 else b
-        sol = chol_substitute_vectorized(Ls, rhs)
+        sol = chol_substitute(Ls, rhs)
         sol = torch.where(torch.isfinite(sol), sol, 0.0)
         if not all_ok:
             sol = torch.where(ok[..., None, None], sol, eigh_pinv_solve(A, rhs))
@@ -161,9 +174,8 @@ def psd_solver(A: torch.Tensor):
 def _solve_psd_inner(A: torch.Tensor, rhs: torch.Tensor):
     """(sol, ok, d2): the solve, the finite-factor lanes and the squared
     Cholesky pivots L_jj^2 (NaN on failed lanes) from the same factor."""
-    _check_k(A)
-    L, ok = chol_factor_vectorized(A)
-    sol = chol_substitute_vectorized(L, rhs)
+    L, ok = chol_factor(A)
+    sol = chol_substitute(L, rhs)
     sol = torch.where(torch.isfinite(sol), sol, 0.0)
     out = _with_fallback(A, rhs, sol, ok)
     d2 = torch.square(torch.diagonal(L, dim1=-2, dim2=-1))
@@ -274,7 +286,6 @@ def solve_lu(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched partial-pivot LU solve with the eigh pseudo-solve on lanes
     whose pivots are not finite and nonzero (the reference's fallback
     chain, src/least_squares.rs:264-328). Host sync: ``ok.all()``."""
-    _check_k(A)
     rhs = b[..., None] if b.dim() == A.dim() - 1 else b
     sol, ok = _lu_solve_vectorized(A, rhs)
     sol = torch.where(torch.isfinite(sol), sol, 0.0)
@@ -341,9 +352,11 @@ def svd_lstsq(
     """Minimum-norm (ridge-shrunk) least squares via SVD, batched.
 
     Tall problems (N > K) take ``_householder_reduce`` and
-    ``svd_lstsq_from_factor``; square ones the Jacobi SVD of X itself, and
-    wide ones (N < K) that of X padded with zero rows to K (the same V and
-    singular values). The cutoff is numpy's ``eps * max(n, k)``, with each
+    ``svd_lstsq_from_factor``; square ones the Jacobi SVD of X itself; wide
+    ones (N < K) that of X padded with zero rows to K (the same V and
+    singular values) up to K = 32, and above it the Jacobi rotations of the
+    N columns of X^T (``ops/jacobi.py:rows_lstsq``), whose work scales with
+    N, not K. The cutoff is numpy's ``eps * max(n, k)``, with each
     problem's own count of valid rows for n where ``n_valid`` is given.
 
     Args:
@@ -358,6 +371,11 @@ def svd_lstsq(
         n_valid = torch.full(batch, float(n), dtype=F64, device=X.device)
     if n > k:
         X, Y = _householder_reduce(X, Y)
+    elif n < k and k > MAX_K:
+        beta = rows_lstsq(
+            X.reshape(-1, n, k).mT, Y.reshape(-1, n, Y.shape[-1]), n_valid.to(F64).reshape(-1), alpha, rcond
+        ).reshape(*batch, k, Y.shape[-1])
+        return beta[..., 0] if squeeze else beta
     elif n < k:
         X = torch.cat([X, X.new_zeros((*batch, k - n, k))], dim=-2)
         Y = torch.cat([Y, Y.new_zeros((*batch, k - n, Y.shape[-1]))], dim=-2)

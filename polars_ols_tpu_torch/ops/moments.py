@@ -8,7 +8,10 @@ f64 einsum form (``ops/direct.py:grouped_moments``).
 
 On a CUDA tensor it always launches the hand-written kernel
 ``csrc/moments.cu`` and counts the launch in ``moments_kernel_launches``;
-a failed build or launch raises. On a CPU tensor it runs the plain torch
+a failed build or launch raises. The kernel keeps each lane's sums in
+registers up to ``MAX_REGISTER_COLS`` columns (K = 32) and takes its wide
+form above (a CTA a tile of one block's square, 24 or 32 columns wide as C
+asks, rows staged in shared memory), up to ``MAX_COLS``. On a CPU tensor it runs the plain torch
 version ``grouped_moments_blocks_ref`` (used by the CPU tests); nothing
 falls back from one to the other.
 """
@@ -26,8 +29,10 @@ from . import kernels
 # kernel launches made by grouped_moments_blocks since the last reset
 moments_kernel_launches = 0
 
-# C = 1 + K columns; the kernel and the batched Cholesky take K <= 32
-MAX_COLS = 33
+# C = 1 + K columns: the register forms up to 33, the wide form above, whose
+# C(C + 1) / 2 + 1 entries a block are indexed by 32-bit ints
+MAX_REGISTER_COLS = 33
+MAX_COLS = 65_534
 
 _BOUND = None
 

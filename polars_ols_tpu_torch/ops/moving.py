@@ -232,7 +232,7 @@ def _check(Zp, vp, rows, want: str) -> None:
     if C - 1 > MAX_K:
         raise NotImplementedError(
             f"K={C - 1} features: the port's moving models cover K <= {MAX_K} "
-            "(larger K is ROADMAP.md Queue 1 item 12)"
+            "(larger K is ROADMAP.md Queue 1 item 12c)"
         )
     if vp.dtype != torch.bool or tuple(vp.shape) != (G, R):
         raise TypeError(f"vp must be a [{G}, {R}] bool tensor, got {vp.dtype} {tuple(vp.shape)}")

@@ -6,8 +6,10 @@ ridge-aware feature metrics from the normal equations, ``sigma^2 = RSS /
 df`` with ``df = n - trace((XtX + alpha I)^-1)`` when alpha > 0
 and ``n - K`` otherwise, ``se = sqrt(sigma^2 |diag((XtX + alpha I)^-1)|)``,
 ``t = beta / se`` and two-sided p-values (ops/special.py, a CUDA kernel on
-the card). Groups whose ``XtX + alpha I`` has no finite Cholesky factor get
-NaN feature metrics. Rows outside the fit mask are selected away, never
+the card). The inverse comes from the Cholesky factor (ops/linalg.py:
+``chol_factor``; the library's above K = 32, as in the JAX engine). Groups
+whose ``XtX + alpha I`` has no finite Cholesky factor get NaN feature
+metrics. Rows outside the fit mask are selected away, never
 multiplied by zero.
 """
 
@@ -18,7 +20,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..config import F64
-from .linalg import _check_k, chol_factor_vectorized, chol_substitute_vectorized
+from .linalg import chol_factor, chol_substitute
 from .special import t_two_sided_p_value
 
 
@@ -59,12 +61,10 @@ def feature_metrics(
     [G, K]; any ``alpha > 0`` takes the ridge degrees of freedom. RSS must
     come from per-row residuals: the moment identity cancels for good fits
     (src/statistics.rs:119-123)."""
-    _check_k(XtX)
     G, k, _ = XtX.shape
     eye = torch.eye(k, dtype=F64, device=XtX.device)
-    L, ok = chol_factor_vectorized(XtX + alpha * eye)
-    A_inv = chol_substitute_vectorized(L, eye.expand(G, k, k))
-    A_inv = torch.where(ok[:, None, None], A_inv, eye)
+    L, ok = chol_factor(XtX + alpha * eye)
+    A_inv = torch.where(ok[:, None, None], chol_substitute(L, eye.expand(G, k, k)), eye)
     beta = torch.einsum("gkl,gl->gk", A_inv, Xty)
     if alpha > 0.0:
         df = n - torch.diagonal(A_inv, dim1=-2, dim2=-1).sum(dim=-1)

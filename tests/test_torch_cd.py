@@ -181,7 +181,7 @@ def test_cd_wrapper_checks_its_inputs():
     with pytest.raises(ValueError, match="contiguous"):
         cd.solve_elastic_net_cov(XtX.transpose(1, 2), Xty, n, alpha=0.1)
     big = torch.zeros((2, 33, 33), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12b"):
         cd.solve_elastic_net_cov(big, torch.zeros((2, 33), dtype=torch.float64),
                                  torch.ones(2, dtype=torch.float64), alpha=0.1)
 

@@ -58,6 +58,16 @@ the segment form's first (9), with each edge kind, more targets than a
 staging holds and a ragged last block; and a sweep cap at or above what
 the groups need leaves the bits as they were. The multi-target and 'svd'
 slices on the card match the CPU at rtol 1e-10.
+The wide forms (more than 33 columns, K > 32) are held the same way: the
+moments at C = 34 / 43 / 64 / 65 / 101 / 1,001 (NaN in masked slots,
+views at odd offsets, groups without blocks); the Householder reduction
+at the multi-target shapes that raised before (M = 40 / K = 3, M = 2 /
+K = 32, M = 3 / K = 31, M = 2 / K = 40), at K = 100 with its panel in
+device memory, at R < K and at R = 2,000, and through a tree; the Jacobi
+SVD at K = 33 / 40 / 100 / 125 (W and V in device memory at 125) with
+each edge kind, and its rows mode against numpy lstsq (rtol 1e-9). Static
+fits and multi-target above 33 columns on the card match the CPU at rtol
+1e-10, with identical null masks.
 """
 
 import sys
@@ -871,3 +881,251 @@ def test_kernel_form_by_k(cuda_device, K, want):
     # and V in its registers, 32 threads a block; a segment of 16 / 32 lanes
     # a group above it, two warps a block
     assert jacobi.kernel_form(K) == want
+
+
+# --------------------------------------------------------------------------- #
+# the wide forms: K > 32 features, and multi-target blocks past 33 columns
+# --------------------------------------------------------------------------- #
+MOMENT_WIDE = {
+    # id: (blocks per group, R, C, element offset of Zp, byte offset of wp, NaN in masked slots)
+    "c34": (np.full(40, 2), 512, 34, 0, 0, False),
+    "c43_grouped": (np.full(300, 2), 512, 43, 0, 0, False),
+    "c64_views_at_odd_offsets": (np.full(50, 3), 37, 64, 1, 3, True),
+    "c101_one_group": (np.asarray([20]), 512, 101, 0, 0, False),
+    "c101_nan_masked": (np.full(10, 2), 300, 101, 0, 0, True),
+    "c1001_one_block": (np.asarray([1]), 16, 1001, 0, 0, False),
+    "c65_empty_groups": (np.asarray([0, 3, 0, 2, 0]), 200, 65, 0, 0, False),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(MOMENT_WIDE))
+def test_moment_wide_form_matches_plain_on_card(cuda_device, case):
+    # the wide form (C > 33): a CTA a tile of a block's square, 24 columns
+    # wide (C = 34 / 43 / 65) or 32 (C = 64 / 101 / 1,001), its rows staged
+    # in shared memory; the sums in another order than the
+    # plain version's, as the register forms': rtol 1e-12 / atol 1e-13 *
+    # max|M|, counts exact, the same bits from two launches
+    n_blocks, R, C, z_off, w_off, nan_masked = MOMENT_WIDE[case]
+    rng = np.random.default_rng(len(case) + C)
+    S, G = int(n_blocks.sum()), len(n_blocks)
+    Z = rng.normal(size=(S, R, C)) * np.exp(rng.normal(size=(1, 1, C)) * 3)
+    W = rng.random((S, R)) > 0.2
+    if nan_masked:
+        Z[~W] = np.nan
+    Zp = torch.empty(S * R * C + z_off, dtype=torch.float64, device=cuda_device)[z_off:].view(S, R, C)
+    wp = torch.empty(S * R + w_off, dtype=torch.bool, device=cuda_device)[w_off:].view(S, R)
+    Zp.copy_(torch.as_tensor(Z))
+    wp.copy_(torch.as_tensor(W))
+    offsets = torch.as_tensor(np.concatenate([[0], np.cumsum(n_blocks)]), device=cuda_device)
+    M_k, c_k = moments.grouped_moments_blocks(Zp, wp, offsets, G)
+    M_k2, _ = moments.grouped_moments_blocks(Zp, wp, offsets, G)
+    torch.cuda.synchronize()
+    assert moments.moments_kernel_launches == 2 and torch.equal(M_k, M_k2)
+    M_p, c_p = moments.grouped_moments_blocks_ref(Zp, wp, offsets, G)
+    M_k, M_p = M_k.cpu().numpy(), M_p.cpu().numpy()
+    assert np.isfinite(M_k).all()
+    np.testing.assert_allclose(M_k, M_p, rtol=1e-12, atol=1e-13 * float(np.abs(M_p).max()))
+    np.testing.assert_array_equal(c_k.cpu().numpy(), c_p.cpu().numpy())
+    assert (M_k[n_blocks == 0] == 0).all()
+
+
+HOUSEHOLDER_WIDE = {
+    # id: (B, R, C, K, zero feature column, NaN in masked slots)
+    "m40_k3": (300, 512, 43, 3, None, False),
+    "m2_k32": (200, 512, 34, 32, None, False),
+    "m3_k31": (200, 512, 34, 31, None, True),
+    "m2_k40": (200, 512, 42, 40, 7, False),
+    "m1_k100_panel_in_device_memory": (20, 512, 101, 100, None, False),
+    "m1_k100_below_k": (20, 60, 101, 100, None, True),
+    "m1_k40_r2000_panel_in_device_memory": (10, 2_000, 41, 40, None, False),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(HOUSEHOLDER_WIDE))
+def test_householder_wide_form_matches_plain_on_card(cuda_device, case):
+    # the wide form takes C > 33 and R up to 8,192; the reflections are the plain
+    # version's, the sums in another order: _assert_reduction's 1e-12 of
+    # each column's norm, NaN where the plain version has it, zero rows
+    # below a block's last, the same bits from two launches
+    B, R, C, K, zero_col, nan_masked = HOUSEHOLDER_WIDE[case]
+    rng = np.random.default_rng(len(case) + C)
+    Z = rng.normal(size=(B, R, C)) * np.exp(rng.normal(size=(1, 1, C)) * 3)
+    W = rng.random((B, R)) > 0.2
+    if zero_col is not None:
+        Z[:, :, C - K + zero_col] = 0.0
+    if nan_masked:
+        Z[~W] = np.nan
+    Zt, wt = torch.as_tensor(Z, device=cuda_device), torch.as_tensor(W, device=cuda_device)
+    want = "device memory" if case.endswith("panel_in_device_memory") else "shared memory"
+    assert want in householder.kernel_form(R, C)
+    T_k = householder.householder_blocks(Zt, wt, K)
+    T_k2 = householder.householder_blocks(Zt, wt, K)
+    torch.cuda.synchronize()
+    assert householder.householder_kernel_launches == 2 and torch.equal(T_k, T_k2)
+    _assert_reduction(T_k, householder.householder_blocks_ref(Zt, wt, K), Zt, wt)
+    assert bool(torch.isfinite(T_k).all())
+    if R < K:
+        assert bool((T_k[:, R:] == 0).all())
+
+
+@pytest.mark.gpu
+def test_householder_wide_tree_matches_plain_on_card(cuda_device):
+    # groups of one, two and 30 blocks of 512 at K = 40 (12 factors a
+    # stacked block): the wide form through every level of the tree
+    rng = np.random.default_rng(13)
+    n_blocks = np.asarray([30, 1, 2, 1])
+    S, K, C = int(n_blocks.sum()), 40, 42
+    Z = torch.as_tensor(rng.normal(size=(S, 512, C)), device=cuda_device)
+    w = torch.as_tensor(rng.random((S, 512)) > 0.1, device=cuda_device)
+    plan = householder.plan_reduction(n_blocks, K, cuda_device)
+    T_k = householder.reduce_groups(Z, w, K, plan)
+    torch.cuda.synchronize()
+    assert householder.householder_kernel_launches == 1 + len(plan.levels)
+    T_p = householder.reduce_groups(Z.cpu(), w.cpu(), K, householder.plan_reduction(n_blocks, K))
+    norm = torch.where(w[..., None], Z, 0.0).square().sum(dim=(0, 1)).sqrt().cpu()
+    assert bool(((T_k.cpu() - T_p).abs() <= 1e-11 * norm).all())
+
+
+JACOBI_WIDE = {
+    # id: (groups, K, M, alpha, rcond, kind)
+    "k33": (300, 33, 2, 0.0, None, "factor"),
+    "k33_deficient": (300, 33, 1, 0.0, None, "deficient"),
+    "k33_nan": (140, 33, 2, 0.0, None, "nan"),
+    "k33_square": (100, 33, 1, 0.0, None, "square"),
+    "k40_alpha_rcond": (200, 40, 3, 0.3, 1e-6, "factor"),
+    "k40_m40": (50, 40, 40, 0.0, None, "factor"),
+    "k100": (4, 100, 2, 0.0, None, "factor"),
+    "k125_workspace": (2, 125, 1, 0.0, None, "factor"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(JACOBI_WIDE))
+def test_jacobi_wide_form_matches_plain_on_card(cuda_device, case):
+    # the wide form (K > 32): a block of warps a group, W and V in shared
+    # memory (in device memory at K = 125); the plain version's rotations
+    # (the same rounds of the circle method) with the
+    # sums in another order: _conditioned_err (1e-12 of a group's largest
+    # |beta|, more where the factor is ill-conditioned), NaN where the plain
+    # version has it, the same bits from two launches
+    G, K, M, alpha, rcond, kind = JACOBI_WIDE[case]
+    F, Y, n_valid = cs._jacobi_edge(np.random.default_rng(K + M), G, K, M, kind, torch, cuda_device)
+    F, Y = _tree_views(F, Y)
+    assert jacobi.kernel_form(K, G)[0] == "wide"
+    b_k = jacobi.factor_lstsq(F, Y, n_valid, alpha, rcond)
+    b_k2 = jacobi.factor_lstsq(F, Y, n_valid, alpha, rcond)
+    torch.cuda.synchronize()
+    assert jacobi.jacobi_kernel_launches == 2
+    assert torch.equal(torch.nan_to_num(b_k), torch.nan_to_num(b_k2))
+    _conditioned_err(case, b_k, jacobi.factor_lstsq_ref(F, Y, n_valid, alpha, rcond), F, n_valid, rcond)
+    if kind == "nan":
+        assert bool(torch.isnan(b_k[0::7]).all()) and bool(torch.isnan(b_k[3::7, :, M - 1]).all())
+    if kind == "deficient":
+        assert bool((b_k[1::3, K // 2] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,n,G", [(100, 10, 50), (1_000, 10, 3), (301, 100, 2), (40, 33, 100)])
+def test_jacobi_rows_mode_matches_plain_and_numpy_on_card(cuda_device, K, n, G):
+    # the rows mode: X [n, K] with n < K as its transpose's n columns; held
+    # to the plain version (1e-12 of a group's largest |beta|) and to numpy
+    # lstsq (rtol 1e-9, the JAX suite's coefficient tolerance, on these
+    # well-conditioned problems); a NaN problem gives NaN
+    rng = np.random.default_rng(K + n)
+    X = rng.normal(size=(G, n, K))
+    Y = rng.normal(size=(G, n, 2))
+    X[-1, 0, 0] = np.nan
+    Xt = torch.as_tensor(X, device=cuda_device).mT
+    Yt = torch.as_tensor(Y, device=cuda_device)
+    nv = torch.full((G,), float(n), dtype=torch.float64, device=cuda_device)
+    b_k = jacobi.rows_lstsq(Xt, Yt, nv)
+    torch.cuda.synchronize()
+    assert jacobi.jacobi_kernel_launches == 1
+    cs._jacobi_err(f"rows K={K} n={n}", b_k, jacobi.rows_lstsq_ref(Xt, Yt, nv), torch)
+    b = b_k.cpu().numpy()
+    assert np.isnan(b[-1]).all()
+    for g in range(G - 1):
+        np.testing.assert_allclose(b[g], np.linalg.lstsq(X[g], Y[g], rcond=None)[0], rtol=1e-9, atol=1e-11)
+
+
+def _wide_frame(n=3_000, k=40, m=2, g=5, seed=21):
+    """k features, m targets, ~2 % nulls per column (row 0 valid), a
+    weight column and g groups."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, k))
+    Yv = X @ rng.normal(size=(k, m)) + 0.1 * rng.normal(size=(n, m))
+    valid = rng.random((n, k + m)) > 0.02
+    valid[0] = True
+    return {
+        **{f"y{j}": pt.Series(f"y{j}", Yv[:, j], valid[:, j]) for j in range(m)},
+        **{f"x{i}": pt.Series(f"x{i}", X[:, i], valid[:, m + i]) for i in range(k)},
+        "w": rng.random(n) + 0.1,
+        "g": rng.integers(g, size=n).astype(float),
+    }
+
+
+WIDE_QUERIES = {
+    # id: (features, targets, the expression on them)
+    "ols_k40": (40, 1, lambda f, t: t[0].least_squares.ols(*f, null_policy="drop").over("g")),
+    "qr_k40": (40, 1, lambda f, t: t[0].least_squares.ols(*f, solve_method="qr").over("g")),
+    "lu_k40": (40, 1, lambda f, t: t[0].least_squares.ols(*f, solve_method="lu", null_policy="zero").over("g")),
+    "svd_k40": (40, 1, lambda f, t: t[0].least_squares.ols(*f, solve_method="svd", null_policy="drop").over("g")),
+    "ridge_wls_k40": (40, 1, lambda f, t: t[0].least_squares.wls(
+        *f, sample_weights="w", alpha=0.1, null_policy="drop_zero").over("g")),
+    "statistics_k40": (40, 1, lambda f, t: t[0].least_squares.ols(*f, mode="statistics").over("g")),
+    "m40_k3": (3, 40, lambda f, t: pt.struct(*t).least_squares.multi_target_ols(*f).over("g")),
+    "m2_k32": (32, 2, lambda f, t: pt.struct(*t).least_squares.multi_target_ols(*f).over("g")),
+    "m3_k31": (31, 3, lambda f, t: pt.struct(*t).least_squares.multi_target_ols(
+        *f, null_policy="drop").over("g")),
+    "m2_k40": (40, 2, lambda f, t: pt.struct(*t).least_squares.multi_target_ols(*f).over("g")),
+    "svd_k100_one_group": (100, 1, lambda f, t: t[0].least_squares.ols(*f, solve_method="svd")),
+    "wide_rows_k100": (100, 1, lambda f, t: t[0].least_squares.ridge(*f, alpha=1e-3, solve_method="svd").over("g")),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("query", sorted(WIDE_QUERIES))
+def test_wide_slices_on_card_match_cpu(cuda_device, query, monkeypatch):
+    # static fits and multi-target above 33 columns through the public API:
+    # the card (the wide forms and the library Cholesky) against the CPU
+    # (the plain versions) at rtol 1e-10 (the kernels' summation order,
+    # through the solves), with identical null masks
+    k, m, build = WIDE_QUERIES[query]
+    n = 150 if query == "wide_rows_k100" else 3_000
+    frame = _wide_frame(n=n, k=k, m=m, g=3 if n < 1_000 else 5)
+    expr = build([f"x{i}" for i in range(k)], [col(f"y{j}") for j in range(m)])
+    monkeypatch.setattr(CONFIG, "lazy_row_order", False)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        monkeypatch.setattr(CONFIG, "device", dev)
+        s = pt.DataFrame(frame).select(expr)
+        c = s[s.columns[0]]
+        if query.startswith("statistics"):
+            out[dev] = ({key: np.asarray(v.cpu() if torch.is_tensor(v) else v, dtype=float)
+                         for key, v in c.arrays.items() if key != "feature_names"}, None)
+        else:
+            out[dev] = (c.to_numpy(), None if c.validity is None else c.validity.cpu().numpy())
+    if query.startswith("statistics"):
+        for key in out["cpu"][0]:
+            np.testing.assert_allclose(out["cuda"][0][key], out["cpu"][0][key], rtol=1e-10, atol=1e-12, err_msg=key)
+        return
+    np.testing.assert_array_equal(out["cuda"][1], out["cpu"][1])
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [33, 100])
+def test_kernel_form_above_32(cuda_device, K):
+    # the Jacobi kernel's C entry takes the wide form above K = 32: one
+    # group a block of at most 32 warps where the groups are fewer than the
+    # SMs, else 8; a pair of a round (K / 2 rounded up) a warp, or a
+    # half-warp where the round has more pairs than the cap has warps
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for G, cap in ((1, 32), (sms, 8)):
+        pairs = (K + 1) // 2
+        per_warp = 2 if pairs > cap else 1
+        warps = min(cap, -(-pairs // per_warp))
+        assert jacobi.kernel_form(K, G) == ("wide", 32 * warps, 1)
+    assert jacobi.kernel_form(K) == ("wide", 32 * (17 if K == 33 else 25), 1)

@@ -163,6 +163,32 @@ def test_blocks_of_more_rows_than_the_kernel_takes_are_cut_first(monkeypatch):
         assert (np.abs(T[g] * sign[:, None] - one) <= 1e-12 * np.linalg.norm(Zv, axis=0)).all()
 
 
+def test_wide_blocks_of_more_rows_than_the_wide_form_takes_are_cut_first(monkeypatch):
+    # the wide form (C > 33) has its own row limit, MAX_WIDE_ROWS, and the
+    # same rule: longer blocks are cut into pieces of that many first. At K
+    # = 40 and C = 43 (three targets) with the limit at 128: blocks of 300
+    # rows become 3 pieces, then factors of 120 rows; the group's factor is
+    # one reduction of its rows up to row signs
+    monkeypatch.setattr(householder, "MAX_WIDE_ROWS", 128)
+    k, m = 40, 3
+    rng = np.random.default_rng(14)
+    blocks = [_group_blocks(rng, n, R=300, C=m + k) for n in (700, 250)]
+    Zs = np.concatenate([b[0] for b in blocks])
+    ws = np.concatenate([b[1] for b in blocks])
+    plan = householder.plan_reduction(np.asarray([len(b[0]) for b in blocks]), k)
+    T = householder.reduce_groups(torch.as_tensor(Zs), torch.as_tensor(ws), k, plan).numpy()
+    for g, (_, _, Zv) in enumerate(blocks):
+        R1, Q1 = linalg._householder_reduce(torch.as_tensor(Zv[None, :, m:]), torch.as_tensor(Zv[None, :, :m]))
+        one = torch.cat([Q1, R1], dim=-1)[0].numpy()
+        sign = np.sign(np.diagonal(T[g][:, m:]) * np.diagonal(one[:, m:]))
+        assert (np.abs(T[g] * sign[:, None] - one) <= 1e-12 * np.linalg.norm(Zv, axis=0)).all()
+    with pytest.raises(ValueError, match="a block of R=300 rows and C=43 columns"):
+        householder.householder_blocks(torch.as_tensor(Zs), torch.as_tensor(ws), k)
+    # a level stacks two factors a block: K may be at most half the limit
+    with pytest.raises(ValueError, match="K <= 64"):
+        householder.reduce_groups(torch.as_tensor(Zs[..., :68]), torch.as_tensor(ws), 65, plan)
+
+
 @pytest.mark.parametrize(
     "n_blocks,k,levels",
     [([1, 1, 1], 5, 0), ([2, 1, 3], 5, 1), ([15_625], 5, 3), ([3_907], 5, 2), ([200, 1], 32, 2)],

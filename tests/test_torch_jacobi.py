@@ -185,9 +185,14 @@ def test_wrapper_checks_its_inputs():
         jacobi.factor_lstsq(F, Y[:, :4], n)
     with pytest.raises(TypeError, match="n_valid"):
         jacobi.factor_lstsq(F, Y, n.float())
-    with pytest.raises(ValueError, match="K=33"):
-        jacobi.factor_lstsq(torch.zeros((1, 33, 33), dtype=torch.float64),
-                            torch.zeros((1, 33, 1), dtype=torch.float64), n[:1])
+    with pytest.raises(ValueError, match="K=0"):
+        jacobi.factor_lstsq(F[:, :0, :0], Y[:, :0], n)
+    # K = 33, refused before the wide form: the wrapper takes it and gives
+    # numpy's minimum-norm beta
+    F33 = _factors(np.random.default_rng(33), 1, 33)
+    Y33 = np.random.default_rng(34).normal(size=(1, 33, 1))
+    b33 = jacobi.factor_lstsq(torch.as_tensor(F33), torch.as_tensor(Y33), n[:1] * 101).numpy()
+    np.testing.assert_allclose(b33[0], np.linalg.lstsq(F33[0], Y33[0], rcond=None)[0], **NUMPY_TOL)
     with pytest.raises(ValueError, match="no Jacobi SVD kernel"):
         jacobi.factor_lstsq(F.to("meta"), Y.to("meta"), n.to("meta"))
 
@@ -218,12 +223,19 @@ def test_launch_names_the_forms_it_has():
     F = torch.zeros((2, 9, 9), dtype=torch.float64)
     Y = torch.zeros((2, 9, 1), dtype=torch.float64)
     n = torch.ones(2, dtype=torch.float64)
-    for K in (0, jacobi.MAX_K + 1):
-        with pytest.raises(ValueError, match=f"1 <= K <= {jacobi.MAX_K}, got K={K}"):
-            jacobi.kernel_form(K)
-    assert jacobi.FORMS == ("thread", "segment")
+    with pytest.raises(ValueError, match="K >= 1, got K=0"):
+        jacobi.kernel_form(0)
+    assert jacobi.FORMS == ("thread", "segment", "wide")
     with pytest.raises(ValueError, match="no Jacobi SVD kernel"):
         jacobi._launch(F, Y, n, 0.0, None, jacobi.MAX_SWEEPS)
+    # K = MAX_K + 1 takes the wide form on the card: on the CPU the plain
+    # version, which agrees with the JAX package's lane-major solve
+    k = jacobi.MAX_K + 1
+    rng = np.random.default_rng(k)
+    X, Yk = _problems(rng, 2, 2 * k + 7, k, 2, "duplicate")
+    t = linalg.svd_lstsq(torch.as_tensor(X), torch.as_tensor(Yk)).numpy()
+    j = np.asarray(jlinalg.svd_lstsq_lanes(jnp.asarray(X), jnp.asarray(Yk)))
+    np.testing.assert_allclose(t, j, **SOLVER_TOL)
 
 
 @pytest.mark.parametrize("ex", [-500, 500])
@@ -306,3 +318,38 @@ def test_a_cap_at_or_above_the_rotating_sweeps_changes_nothing(K):
         assert torch.equal(jacobi.factor_lstsq(F, Y, n, max_sweeps=cap), full)
     if need:
         assert not torch.equal(jacobi.factor_lstsq(F, Y, n, max_sweeps=need - 1), full)
+
+
+@pytest.mark.parametrize("K", [2, 3, 5, 33, 40, 100])
+def test_sweep_rounds_of_the_wide_form_cover_each_pair_once(K):
+    # the circle method: K - 1 rounds (K rounded up to even), each pairing a
+    # column with at most one other, every pair (p < q) in exactly one round
+    rounds = jacobi.sweep_rounds(K, True)
+    assert len(rounds) == K - 1 + (K & 1)
+    for pairs in rounds:
+        cols = [c for pq in pairs for c in pq]
+        assert len(cols) == len(set(cols)) and all(p < q < K for p, q in pairs)
+        assert len(pairs) == K // 2
+    flat = [pq for pairs in rounds for pq in pairs]
+    assert sorted(flat) == [(p, q) for p in range(K - 1) for q in range(p + 1, K)]
+    # the other forms' order: cyclic, a pair a round
+    assert [pq for r in jacobi.sweep_rounds(K, False) for pq in r] == sorted(flat)
+
+
+@pytest.mark.parametrize("K", [33, 40])
+def test_wide_plain_version_runs_the_rounds(K):
+    # above MAX_K the plain version takes the wide form's order: its record
+    # has a sweep's pairs in sweep_rounds order, and beta is numpy's
+    rng = np.random.default_rng(K)
+    F = torch.as_tensor(_factors(rng, 3, K))
+    Y = torch.as_tensor(rng.normal(size=(3, K, 1)))
+    _, _, sweeps, rotated = jacobi.jacobi_ref(F)
+    assert rotated.shape[1:] == (int(sweeps.max()), K * (K - 1) // 2)
+    first = jacobi.sweep_rounds(K, True)[0]
+    # the first round's pairs share no column, so each rotates on the
+    # scaled factor as it came: all of them (a triangular factor's columns
+    # are far from orthogonal)
+    assert bool(rotated[:, 0, : len(first)].all())
+    beta = jacobi.factor_lstsq_ref(F, Y, torch.full((3,), 3.0 * K, dtype=torch.float64)).numpy()
+    for g in range(3):
+        np.testing.assert_allclose(beta[g], np.linalg.lstsq(F[g].numpy(), Y[g].numpy(), rcond=None)[0], **NUMPY_TOL)

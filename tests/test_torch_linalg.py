@@ -130,9 +130,32 @@ def test_eigh_pinv_solve_matches_jax():
 
 
 def test_more_than_32_features_raises():
-    A = torch.eye(tlinalg.MAX_K + 1, dtype=torch.float64)[None]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        tlinalg.solve_psd(A, torch.ones((1, tlinalg.MAX_K + 1), dtype=torch.float64))
+    # K = 33 was refused before the library Cholesky took K > 32 (the JAX
+    # engine's jnp.linalg.cholesky / cho_solve): now it must agree with the
+    # JAX engine on well, singular (the eigh fallback) and zero lanes, with
+    # the same finite-factor flags and the condition estimate 1 on failed
+    # lanes, at the well-conditioned rtol 1e-12 (an all-zero row gives the
+    # failed lanes; the fallback's zero-lane coefficients are exact)
+    k = tlinalg.MAX_K + 1
+    rng = np.random.default_rng(33)
+    X = rng.normal(size=(6, 3 * k, k))
+    X[2:4, :, 5] = 0.0
+    X[4:] = 0.0
+    A = np.einsum("gnk,gnl->gkl", X, X)
+    b = np.einsum("gnk,gn->gk", X, rng.normal(size=(6, 3 * k)))
+    t_sol, t_cond, t_ok = tlinalg.solve_psd_cond_ok(torch.as_tensor(A), torch.as_tensor(b))
+    j_sol, j_cond, j_ok = jlinalg.solve_psd_cond_ok(jnp.asarray(A), jnp.asarray(b))
+    np.testing.assert_array_equal(t_ok.numpy(), np.asarray(j_ok))
+    assert not t_ok[2:].any() and t_ok[:2].all()
+    np.testing.assert_array_equal(t_cond.numpy()[2:], 1.0)
+    np.testing.assert_allclose(t_cond.numpy(), np.asarray(j_cond), rtol=1e-10)
+    np.testing.assert_allclose(t_sol.numpy(), np.asarray(j_sol), rtol=1e-12, atol=1e-12)
+    solve = tlinalg.psd_solver(torch.as_tensor(A))
+    np.testing.assert_allclose(solve(torch.as_tensor(b)).numpy(), np.asarray(j_sol), rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(
+        tlinalg.solve_lu(torch.as_tensor(A[:2]), torch.as_tensor(b[:2])).numpy(),
+        np.asarray(jlinalg.solve_lu(jnp.asarray(A[:2]), jnp.asarray(b[:2]))), rtol=1e-10, atol=1e-12,
+    )
 
 
 def test_eigh_fallback_gives_nan_on_a_nan_lane_like_jax():

@@ -142,8 +142,9 @@ def _bad_inputs(case: str):
         offsets = offsets[:-1]
     elif case == "offsets_dtype":
         offsets = offsets.to(torch.int32)
-    elif case == "too_wide":
-        Zp = torch.zeros((Zp.shape[0], 16, moments.MAX_COLS + 1), dtype=torch.float64)
+    elif case == "too_wide":  # past the wide form's 32-bit entry indices
+        Zp = torch.zeros((Zp.shape[0], 1, moments.MAX_COLS + 1), dtype=torch.float64)
+        wp = wp[:, :1].contiguous()
     return Zp, wp, offsets, G
 
 

@@ -564,5 +564,5 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         moving.recursive_least_squares(Z.transpose(0, 1).contiguous().transpose(0, 1), v, rows, None)
     with pytest.raises(ValueError, match="want"):
         moving.rolling_ols(Z, v, rows, 3, want="residuals")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12c"):
         moving.recursive_least_squares(torch.zeros((1, 4, 34), dtype=torch.float64), v[:1, :4], rows[:1], None)

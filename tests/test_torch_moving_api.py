@@ -276,7 +276,7 @@ def test_statistics_mode_is_refused(model):
 def test_more_than_32_features_raise_item_12(model):
     d = _data(seed=11, nulls=False, k=33)
     feats = [f"x{i + 1}" for i in range(33)]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 12"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 12c"):
         _frame(pt, d).select(_expr(pt, model, True, features=feats))
 
 

@@ -11,6 +11,10 @@ coefficients behind them, through the module API (``ops/householder.py``
 and ``svd_lstsq_from_factor`` on the engine's blocks), against numpy
 lstsq per target at rtol 1e-9 (tests/test_ozaki.py:60). The error paths
 raise what the JAX package raises (tests/test_error_paths.py:61-115).
+Blocks wider than 33 columns (M targets beside K features: M = 40 / K = 3,
+M = 2 / K = 32, M = 3 / K = 31, M = 2 / K = 40, on 800 rows in 4 groups)
+take the Householder kernel's wide form; the port's predictions equal the
+JAX package's at the same atol 1e-8, where the port raised before.
 """
 
 import numpy as np
@@ -290,3 +294,39 @@ def test_struct_series_fields_and_row_validity():
     assert np.isnan(s.field("q").to_numpy()[1])
     assert [f.name for f in s.fields()] == ["a", "q"]
     assert df.with_columns(s).unnest("s").columns == ["a", "b", "q"]
+
+
+def _wide_targets(m: int, k: int, seed: int):
+    """800 rows in 4 groups: k features, m targets of their own
+    coefficients, 5 % nulls in x0 (row 0 valid)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(800, k))
+    Y = x @ rng.normal(size=(k, m)) + 0.1 * rng.normal(size=(800, m))
+    valid = rng.random(800) >= 0.05
+    valid[0] = True
+    return x, Y, valid, np.repeat(np.arange(4.0), 200)
+
+
+@pytest.mark.parametrize("null_policy", ["zero", "drop"])
+@pytest.mark.parametrize("m,k", [(40, 3), (2, 32), (3, 31), (2, 40)])
+def test_multi_target_wider_than_33_columns_matches_jax(m, k, null_policy):
+    # M + K > 33: the shape that raised in the port (ROADMAP Queue 3,
+    # fault 1), now the wide form of the Householder kernel (its plain
+    # version here) under the shared SVD
+    x, Y, valid, g = _wide_targets(m, k, seed=m * 100 + k)
+    out = []
+    for mod in (pt, pj):
+        cols = {"x0": mod.Series("x0", x[:, 0], valid)}
+        cols.update({f"x{i}": x[:, i] for i in range(1, k)})
+        cols.update({f"t{j}": Y[:, j] for j in range(m)})
+        cols["g"] = g
+        q = mod.struct(*[mod.col(f"t{j}") for j in range(m)]).least_squares.multi_target_ols(
+            *[f"x{i}" for i in range(k)], null_policy=null_policy, mode="residuals"
+        ).over("g")
+        res = mod.DataFrame(cols).select(q.alias("p")).unnest("p")
+        assert res.columns == [f"t{j}" for j in range(m)]
+        out.append(_arrays(res))
+    (tv, tm), (jv, jm) = out
+    np.testing.assert_array_equal(tm, jm)
+    assert np.isfinite(tv[tm]).all()
+    np.testing.assert_allclose(tv, jv, atol=ATOL, equal_nan=True)

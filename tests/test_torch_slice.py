@@ -177,5 +177,5 @@ def test_unported_paths_raise(case):
 def test_lasso_above_32_features_raises_item_12():
     rng = np.random.default_rng(8)
     cols = {"y": rng.normal(size=100), **{f"x{i}": rng.normal(size=100) for i in range(33)}}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 12"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 12b"):
         pt.DataFrame(cols).select(pt.col("y").least_squares.lasso(pt.col("^x.*$"), alpha=0.1))

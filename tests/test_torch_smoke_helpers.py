@@ -45,6 +45,22 @@ def test_moment_bound_counts_each_byte_once():
     assert b == {"bound_ms": moved / 3.35e12 * 1e3, "bound_by": "bytes"}
 
 
+@pytest.mark.parametrize("S,C,by", [(20, 101, "bytes"), (1_280, 41, "bytes"), (20, 301, "operations")])
+def test_moment_bound_takes_the_tensor_cores_f64_rate(S, C, by):
+    # a block's moments are a product of matrices, which the tensor cores
+    # run at 67 TFLOP/s in f64: at that rate the "large" (C = 101) and
+    # "grouped_largek" (C = 41) blocks are bound by their bytes, and only
+    # blocks past ~160 columns by their operations
+    R, G = 512, max(1, S // 2)
+    Zp = torch.zeros((1, 1, C), dtype=torch.float64).expand(S, R, C)
+    wp = torch.ones((1, 1), dtype=torch.bool).expand(S, R)
+    b = cs._moment_bound(Zp, wp, G)
+    ops_ms = S * R * C * (C + 1) / 67e12 * 1e3
+    moved = S * R * (8 * C + 1) + 8 * (G + 1) + 8 * G * C * C + 8 * G
+    assert b["bound_by"] == by
+    assert b["bound_ms"] == pytest.approx(max(ops_ms, moved / 3.35e12 * 1e3))
+
+
 def test_moment_bound_at_the_main_paths_shape():
     """S = 20,000 blocks of R = 512 rows, C = 6, G = 10,000: 0.151 ms."""
     moved = 20_000 * 512 * 49 + 8 * 10_001 + 8 * 10_000 * 36 + 8 * 10_000
@@ -267,7 +283,7 @@ def test_skewed_counts_hold_the_rows_under_the_cap(seed, sigma, cap):
 def test_householder_bound_at_the_multi_target_width():
     # S = 20,000 blocks of R = 512, C = 7, K = 5: 0.573 GB of panel, 10 MB
     # of mask and 5.6 MB of factors (0.176 ms at 3.35 TB/s) against ~1
-    # GFLOP (~0.03 ms at 34 TFLOP/s): bytes bound it
+    # GFLOP (~0.015 ms at the tensor cores' 67 TFLOP/s): bytes bound it
     S, R, C, K = 20_000, 512, 7, 5
     Z = torch.zeros((1, 1, C), dtype=torch.float64).expand(S, R, C)
     w = torch.ones((1, 1), dtype=torch.bool).expand(S, R)
@@ -349,6 +365,22 @@ def test_jacobi_chain_follows_the_shared_columns(K, sweeps, pairs, depth):
     assert rotations.tolist() == [0, int(rotated[1].sum()), 0]
 
 
+@pytest.mark.parametrize("K", [4, 5, 8, 40])
+def test_jacobi_chain_of_the_wide_forms_rounds(K):
+    # in the circle method's rounds a round's pairs share no column: a
+    # sweep that rotates every pair is one rotation a round deep (K - 1
+    # rounds, K rounded up to even)
+    from polars_ols_tpu_torch.ops import jacobi
+
+    pairs = [pq for rnd in jacobi.sweep_rounds(K, True) for pq in rnd]
+    P = K * (K - 1) // 2
+    rotated = torch.ones((2, 2, P), dtype=torch.bool)
+    rotated[0] = False
+    got, rotations = cs._jacobi_chain(rotated, K, pairs)
+    rounds = K - 1 + (K & 1)
+    assert got.tolist() == [0, 2 * rounds] and rotations.tolist() == [0, 2 * P]
+
+
 def test_jacobi_bound_at_the_multi_target_factors():
     # 10,000 factors of K = 5 and targets of M = 2: ~3.7 MB (~1.1 us at
     # 3.35 TB/s) against ~0.04 GFLOP (~1.2 us at 34 TFLOP/s): operations
@@ -410,7 +442,7 @@ def test_check_jacobi_runs_its_gates_on_cpu_tensors(monkeypatch, capsys):
     from polars_ols_tpu_torch.ops import jacobi
 
     monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
-    monkeypatch.setattr(jacobi, "kernel_form", lambda K: ("thread", 32, 32))
+    monkeypatch.setattr(jacobi, "kernel_form", lambda K, G=1: ("thread", 32, 32))
     for kind in ("deficient", "nan"):
         F, Y, nv = cs._jacobi_edge(np.random.default_rng(7), 300, 5, 2, kind, torch, device="cpu")
         out = cs._check_jacobi(kind, F, Y, nv, jacobi, torch, {})
@@ -472,7 +504,7 @@ def test_check_jacobi_times_what_it_is_asked(monkeypatch, capsys):
     calls = []
     monkeypatch.setattr(cs, "_in_turns", _fake_in_turns(calls))
     monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
-    monkeypatch.setattr(jacobi, "kernel_form", lambda K: ("segment", 64, 4))
+    monkeypatch.setattr(jacobi, "kernel_form", lambda K, G=1: ("segment", 64, 4))
     F, Y, nv = cs._jacobi_edge(np.random.default_rng(10), 150, 16, 1, "factor", torch, device="cpu")
     out = cs._check_jacobi("K=16", F, Y, nv, jacobi, torch, OP_MS, timed=("kernel", "library"))
     assert calls == [(["kernel", "library"], cs.JACOBI_LAUNCHES, ("plain", "library"))]
@@ -492,3 +524,59 @@ def test_jacobi_bound_of_groups_that_never_sweep():
                          "thread")
     assert b["latency_bound_ms"] == 0.0 and b["chain_pairs_max"] == 0 and b["sweeps_max"] == 0
     assert b["bound_by"] == "bytes"
+
+
+@pytest.mark.parametrize("K,fma", [(33, 2 + 5), (40, 2 + 5), (100, 4 + 5), (1_000, 32 + 5)])
+def test_jacobi_pair_path_counts_the_wide_forms_lane_sums(K, fma):
+    # a lane's ceil(K / 32) multiply-adds and a warp's 5 shuffle adds, then
+    # the Newton angle the wide form shares with the other forms
+    assert cs._jacobi_pair_path(K, "wide") == {"fma": fma + ANGLE_FMA, "rcp": 2, "rsqrt": 2}
+
+
+def test_check_jacobi_times_the_plain_version_once_on_the_cpu(monkeypatch, capsys):
+    # the wide form's phase: the plain version runs once (here on the CPU
+    # tensors it is given), and that one call is its time; the kernel and
+    # the library route are timed in turns, and the chain follows the wide
+    # form's rounds
+    from polars_ols_tpu_torch.ops import jacobi
+
+    calls = []
+    monkeypatch.setattr(cs, "_in_turns", _fake_in_turns(calls))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(jacobi, "kernel_form", lambda K, G=1: ("wide", 32, 1))
+    F, Y, nv = cs._jacobi_edge(np.random.default_rng(11), 20, 33, 2, "factor", torch, device="cpu")
+    out = cs._check_jacobi("K=33", F, Y, nv, jacobi, torch, OP_MS, timed=("plain", "kernel", "library"),
+                           plain_once=True)
+    assert calls == [(["kernel", "library"], cs.JACOBI_LAUNCHES, ("plain", "library"))]
+    assert out["plain_ms"] > 0 and out["ms"] == 1.0
+    # at most 33 rounds a sweep (K = 33 rounds up to 34 columns)
+    assert 0 < out["chain_pairs_max"] <= 33 * out["sweeps_max"]
+    assert out["max_abs_err"] == 0.0 and out["pair_path"] == cs._jacobi_pair_path(33, "wide")
+    assert "wide form (32 threads, 1 groups a block)" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("label", ["ols_qr", "ols_svd", "ols", "ridge_chol", "ridge_svd", "wls"])
+def test_wide_expected_is_numpys_solution_of_each_query(label):
+    rng = np.random.default_rng(12)
+    X, y, w = rng.normal(size=(60, 7)), rng.normal(size=60), rng.random(60) + 0.1
+    beta = cs._wide_expected(label, X, y, w)
+    if label.startswith("ridge"):
+        grad = X.T @ (X @ beta - y) + cs.WIDE_ALPHA * beta
+    elif label == "wls":
+        grad = X.T @ (w * (X @ beta - y))
+    else:
+        grad = X.T @ (X @ beta - y)
+    np.testing.assert_allclose(grad, 0.0, atol=1e-10)
+
+
+def test_wide_queries_name_their_output_columns():
+    import polars_ols_tpu_torch as pt
+
+    plain = cs._wide_queries(pt, pt.col, 40, False)
+    assert list(plain) == ["ols_qr", "ols_svd", "ridge_chol", "ridge_svd", "wls", "ols", "statistics"]
+    grouped = cs._wide_queries(pt, pt.col, 40, True, fault=[f"t{j}" for j in range(cs.FAULT_TARGETS)])
+    assert list(grouped)[-2:] == ["multi_target", "fault_multi_target"]
+    assert {label: column for label, (_, column) in grouped.items()} == {
+        **{label: "y" for label in ("ols_qr", "ols_svd", "ridge_chol", "ridge_svd", "wls", "ols")},
+        "statistics": "statistics", "multi_target": "p", "fault_multi_target": "p",
+    }

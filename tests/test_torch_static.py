@@ -143,7 +143,7 @@ def test_moving_policies_raise_naming_their_item():
     # the moving semantics are ported (every policy matches the JAX
     # engine's below); what a moving model still refuses names its item
     cols = {"y": np.arange(40.0), **{f"x{i}": np.arange(40.0) + i for i in range(33)}}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12c"):
         pt.DataFrame(cols).select(
             pt.col("y").least_squares.rls(pt.col("^x.*$"), null_policy="drop_window")
         )

@@ -1,0 +1,178 @@
+"""Static fits above 32 features through both engines' public API.
+
+Above K = 32 the port takes the moment kernel's wide form, the library's
+batched Cholesky (where the JAX engine calls ``jnp.linalg.cholesky``), and
+the Householder and Jacobi kernels' wide forms; on the CPU each runs its
+plain version. The same numpy-seeded frames (a few groups of some hundred
+rows; ~2 % nulls per column in all but every third group, row 0 valid; a
+small ``moment_chunk_rows`` that splits each group across blocks, so the
+Householder tree runs) go through the JAX package and the port at K = 33,
+40 and 64 with every static solve method, and at K = 40 in the four modes
+under the five null policies with WLS. Coordinate descent and the moving
+models still refuse K > 32, naming their ROADMAP items (12b, 12c).
+
+Tolerances: coefficients rtol 1e-9 / atol 1e-11 (the JAX suite's against
+lstsq, tests/test_ozaki.py:60), predictions and residuals rtol 1e-8 /
+atol 1e-10, statistics fields rtol 1e-8 (the same solves; the two
+engines' moments sum in different orders), identical null masks. Explicit
+'lu' solves the normal equations with no refinement: its frames keep the
+features at one scale, as tests/test_torch_static.py does.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import polars_ols_tpu as pj  # noqa: E402
+from polars_ols_tpu import CONFIG as JCONFIG  # noqa: E402
+
+import polars_ols_tpu_torch as pt  # noqa: E402
+from polars_ols_tpu_torch import CONFIG  # noqa: E402
+
+COEF_TOL = dict(rtol=1e-9, atol=1e-11)
+PRED_TOL = dict(rtol=1e-8, atol=1e-10)
+STAT_TOL = dict(rtol=1e-8, atol=1e-12)
+CHUNK_ROWS = 128
+POLICIES = ["ignore", "zero", "drop", "drop_zero", "drop_y_zero_x"]
+METHODS = [None, "chol", "qr", "lu", "svd"]
+
+
+@pytest.fixture(autouse=True)
+def small_blocks(monkeypatch):
+    monkeypatch.setattr(CONFIG, "device", "cpu")
+    monkeypatch.setattr(CONFIG, "moment_chunk_rows", CHUNK_ROWS)
+    monkeypatch.setattr(JCONFIG, "moment_chunk_rows", CHUNK_ROWS)
+
+
+def _data(k: int, n: int = 900, groups: int = 3, seed: int = 0, null_rate: float = 0.02):
+    rng = np.random.default_rng(seed + k)
+    gids = rng.integers(groups, size=n)
+    X = rng.normal(size=(n, k))
+    y = X @ np.linspace(1.0, -0.5, k) + rng.normal(size=n) * 0.1
+    valid = rng.random((n, 1 + k)) > null_rate
+    valid[gids % 3 == 0] = True  # groups without nulls: finite under every policy
+    valid[0] = True  # row 0 feeds the JAX engine's padding slots
+    w = rng.random(n) + 0.1
+    return dict(y=y, X=X, valid=valid, gids=gids, w=w)
+
+
+def _frame(mod, d, nulls: bool = True):
+    k = d["X"].shape[1]
+    v = d["valid"]
+    cols = {"y": mod.Series("y", d["y"], v[:, 0] if nulls else None)}
+    for i in range(k):
+        cols[f"x{i}"] = mod.Series(f"x{i}", d["X"][:, i], v[:, 1 + i] if nulls else None)
+    cols["w"] = d["w"]
+    cols["g"] = d["gids"].astype(float)
+    return mod.DataFrame(cols)
+
+
+def _both(d, build, nulls: bool = True):
+    """The selected column of each engine: (port, jax)."""
+    feats = [f"x{i}" for i in range(d["X"].shape[1])]
+    out = []
+    for mod in (pt, pj):
+        s = _frame(mod, d, nulls).select(build(mod.col("y").least_squares, feats))
+        out.append(s[s.columns[0]])
+    return out
+
+
+def _values(s):
+    """(values [N] or [N, K] with NaN at nulls, validity or None)."""
+    v = np.asarray(s.to_numpy(), dtype=float)
+    return v, None if s.validity is None else np.asarray(s.validity)
+
+
+@pytest.mark.parametrize("method", METHODS, ids=str)
+@pytest.mark.parametrize("k", [33, 40, 64])
+def test_static_methods_above_32_match_jax(k, method):
+    d = _data(k)
+    for mode in ("predictions", "coefficients"):
+        t, j = _both(d, lambda ls, f: ls.ols(*f, solve_method=method, mode=mode, null_policy="drop").over("g"))
+        (tv, tm), (jv, jm) = _values(t), _values(j)
+        if tm is not None or jm is not None:
+            np.testing.assert_array_equal(tm, jm)
+        np.testing.assert_allclose(tv, jv, **(COEF_TOL if mode == "coefficients" else PRED_TOL))
+        assert np.isfinite(tv[~np.isnan(jv)]).all()
+
+
+@pytest.mark.parametrize("mode", ["predictions", "residuals", "coefficients", "statistics"])
+@pytest.mark.parametrize("policy", POLICIES)
+def test_wls_modes_and_policies_above_32_match_jax(policy, mode):
+    d = _data(40, seed=1)
+    t, j = _both(d, lambda ls, f: ls.wls(*f, sample_weights="w", mode=mode, null_policy=policy).over("g"))
+    if mode == "statistics":
+        ta, ja = t.arrays, j.arrays
+        for key in pt.StatisticsSeries.SCALAR_FIELDS + pt.StatisticsSeries.LIST_FIELDS:
+            np.testing.assert_allclose(ta[key].numpy(), np.asarray(ja[key]), err_msg=key, **STAT_TOL)
+        return
+    (tv, tm), (jv, jm) = _values(t), _values(j)
+    np.testing.assert_array_equal(tm, jm)
+    np.testing.assert_allclose(tv, jv, **(COEF_TOL if mode == "coefficients" else PRED_TOL))
+
+
+@pytest.mark.parametrize("query", ["ridge_chol", "ridge_svd", "ridge_intercept", "ols_lazy_single_group"])
+def test_ridge_intercept_and_one_group_above_32_match_jax(query):
+    d = _data(36, seed=2)
+    build = {
+        "ridge_chol": lambda ls, f: ls.ridge(*f, alpha=0.1).over("g"),
+        "ridge_svd": lambda ls, f: ls.ridge(*f, alpha=0.1, solve_method="svd").over("g"),
+        "ridge_intercept": lambda ls, f: ls.ols(*f[:32], add_intercept=True, null_policy="zero").over("g"),
+        "ols_lazy_single_group": lambda ls, f: ls.ols(*f, null_policy="drop_zero"),
+    }[query]
+    t, j = _both(d, build, nulls=query != "ridge_svd")
+    (tv, tm), (jv, jm) = _values(t), _values(j)
+    np.testing.assert_array_equal(tm, jm)
+    np.testing.assert_allclose(tv, jv, **PRED_TOL)
+
+
+@pytest.mark.parametrize("query", ["materialized", "predict", "formula"])
+def test_materialized_predict_and_formula_above_32_match_jax(query, monkeypatch):
+    # predictions in row order (not deferred), predict from a coefficient
+    # struct of 40 fields, and a formula of 40 terms with its intercept
+    d = _data(40, seed=3)
+    feats = [f"x{i}" for i in range(40)]
+    monkeypatch.setattr(CONFIG, "lazy_row_order", query != "materialized")
+    out = []
+    for mod in (pt, pj):
+        df = _frame(mod, d)
+        ls = mod.col("y").least_squares
+        if query == "materialized":
+            s = df.select(ls.ols(*feats, null_policy="drop").over("g"))["y"]
+            assert mod is pj or not s.is_lazy
+        elif query == "predict":
+            dfc = df.with_columns(ls.ols(*feats, mode="coefficients", null_policy="zero").over("g"))
+            s = dfc.select(mod.col("coefficients").least_squares.predict(*feats, null_policy="zero"))["predictions"]
+        else:
+            s = df.select(ls.from_formula(" + ".join(feats), null_policy="drop_zero").over("g"))["y"]
+        out.append(_values(s))
+    (tv, tm), (jv, jm) = out
+    np.testing.assert_array_equal(tm, jm)
+    np.testing.assert_allclose(tv, jv, **PRED_TOL)
+
+
+@pytest.mark.parametrize(
+    "model", ["lasso", "elastic_net", "nnls", "cd_active_set", "rls", "rolling_ols", "expanding_ols"]
+)
+def test_cd_and_moving_models_above_32_raise_their_items(model):
+    # coordinate descent above K = 32 is ROADMAP Queue 1 item 12b, the
+    # moving models item 12c: both still refuse, naming their sub-item
+    d = _data(33, n=200)
+    ls = pt.col("y").least_squares
+    feats = [f"x{i}" for i in range(33)]
+    expr = {
+        "lasso": lambda: ls.lasso(*feats, alpha=0.1),
+        "elastic_net": lambda: ls.elastic_net(*feats, alpha=0.1, l1_ratio=0.5),
+        "nnls": lambda: ls.lasso(*feats, alpha=0.1, positive=True),
+        "cd_active_set": lambda: ls.lasso(*feats, alpha=0.1, solve_method="cd_active_set"),
+        "rls": lambda: ls.rls(*feats, half_life=20.0),
+        "rolling_ols": lambda: ls.rolling_ols(*feats, window_size=50),
+        "expanding_ols": lambda: ls.expanding_ols(*feats),
+    }[model]()
+    item = "12c" if model in ("rls", "rolling_ols", "expanding_ols") else "12b"
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 item {item}"):
+        _frame(pt, d).select(expr)
+    for mode in ("statistics", "coefficients") if item == "12b" else ():
+        with pytest.raises(NotImplementedError, match="item 12b"):
+            _frame(pt, d).select(ls.lasso(*feats, alpha=0.1, mode=mode))
