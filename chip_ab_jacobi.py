@@ -33,16 +33,17 @@ SHAPES = ((5, 10_000), (6, 10_000), (7, 10_000), (8, 10_000), (16, 2_000), (32, 
 M = 2
 
 
-def _other_jacobi(root: Path):
-    """ops/jacobi.py of the package under ``root``, loaded as ``pols_other``."""
-    pkg = root / "polars_ols_tpu_torch"
-    spec = importlib.util.spec_from_file_location(
-        "pols_other", pkg / "__init__.py", submodule_search_locations=[str(pkg)]
-    )
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules["pols_other"] = mod
-    spec.loader.exec_module(mod)
-    return importlib.import_module("pols_other.ops.jacobi")
+def other_ops(root: Path, name: str):
+    """ops/<name>.py of the package under ``root``, loaded as ``pols_other``."""
+    if "pols_other" not in sys.modules:
+        pkg = root / "polars_ols_tpu_torch"
+        spec = importlib.util.spec_from_file_location(
+            "pols_other", pkg / "__init__.py", submodule_search_locations=[str(pkg)]
+        )
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules["pols_other"] = mod
+        spec.loader.exec_module(mod)
+    return importlib.import_module(f"pols_other.ops.{name}")
 
 
 def main(argv) -> int:
@@ -56,7 +57,7 @@ def main(argv) -> int:
         return 1
     from polars_ols_tpu_torch.ops import jacobi
 
-    other = _other_jacobi(Path(argv[0]).resolve())
+    other = other_ops(Path(argv[0]).resolve(), "jacobi")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,

@@ -56,16 +56,22 @@ latency bound (its longest group's chain of dependent rotations). The
 coordinate-descent kernel gets a latency bound too (its longest group's
 sweeps x K dependent coordinate steps and a stop test). The moving
 kernel is also timed
-on a sweep of its shape (rows a lane, rows a range), at K = 8 and 16 on
-the main frame's groups, and on a frame of lognormal group sizes. The
+on a sweep of its shape (rows a lane, rows a range), at K = 8 (its register
+form) and 16 and 32 (its shared form) on the main frame's groups, on a
+frame of lognormal group sizes, and at the shapes of the two wide
+configurations below (K = 40 and 100); its register form's outputs at
+K = 1 .. 8 are held bit for bit to digests recorded from it before the
+shared form took K > 8. The
 p-value kernel also gets a latency bound (the dependent f64 operations of
 its longest thread times the measured time of one) and a breakdown of its
 time by stage. Last, the reference suite's two wide configurations run at
 full size (benchmarks/suite.py:274-288): "large", one group of 10,000 rows
 x 100 features, and "grouped_largek", 500,000 rows x 40 features x 1,000
 groups (with the multi-target query of 40 seeded targets on 3 features),
-each query checked on sampled groups against numpy lstsq and
-scipy.stats.t, timed and profiled; and the kernels' wide forms (the
+and the suite's rls(252) and rolling_ols(252) there (the queries the suite
+runs on "grouped_largek"), each query checked on sampled groups against
+numpy lstsq and scipy.stats.t (rls against the Kalman recursion, rolling
+against lstsq per window), timed and profiled; and the kernels' wide forms (the
 moments above 33 columns, the Householder reduction above 33 columns with
 its panel in shared or device memory, the Jacobi SVD above K = 32 and its
 rows mode for fewer rows than features) are held to their plain versions
@@ -79,6 +85,7 @@ without a CUDA device it exits non-zero at once.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import re
 import subprocess
@@ -143,12 +150,17 @@ MOVING_LAUNCHES = 20
 STRETCH_SWEEP = (3, 4, 5, 7, 8)
 RANGE_SWEEP = (480, 240)
 SWEEP_LAUNCHES = 10
-# the moving kernel at wider K on the main frame's groups; the plain
-# version at K = 16 runs on the first WIDE_PLAIN_GROUPS groups (its
-# [G, R, K, K] states of all 10,000 groups would not fit the card)
-WIDE_K = (8, 16)
-WIDE_PLAIN_GROUPS = {8: N_GROUPS, 16: 1_000}
-WIDE_STRETCH_SWEEP = {8: (5,), 16: (1, 2, 4)}  # rows a lane timed beside the default
+# the moving kernel at wider K on the main frame's groups: its register
+# form's widest (8) and its shared form (16, 32); the plain versions hold
+# about PLAIN_COPIES tensors of [G, R, K, K] f64 at once (the outer
+# products, their running sums, the regularised systems, their factors),
+# so they run on as many groups as keep those under PLAIN_STATE_BYTES
+# (_plain_groups; "grouped_largek"'s 1,000 groups hold 6.4 GB a copy at
+# K = 40, the main frame's 10,000 about 5 GB at K = 8 and 75 GB at K = 32)
+WIDE_K = (8, 16, 32)
+PLAIN_COPIES = 5
+PLAIN_STATE_BYTES = 36e9
+WIDE_STRETCH_SWEEP = {8: (5,)}  # rows a lane timed beside the default (the register form)
 # the skewed frame: N_ROWS rows over N_GROUPS groups of lognormal sizes
 # (sigma 1) capped at SKEW_CAP rows; its plain check runs on SKEW_CHECKED
 # groups, the longest among them
@@ -157,10 +169,12 @@ SKEW_CAP = 4_000
 SKEW_CHECKED = 300
 SKEW_RANGE_SWEEP = (2_560, 4_000)  # rows a range timed beside the planner's on it
 # the moving kernels by name in a profile: the walk and the summary pass are
-# one template (its last argument says which), then the prefix and the fill
+# one template (its last argument says which), then the prefix and the
+# fill; the shared form's (K > 8) likewise
 MOVING_KERNEL_NAMES = {
     "walk": ("walk<", "true>("), "summary": ("walk<", "false>("), "prefix": ("prefix_",),
-    "fill": ("fill<",),
+    "fill": ("fill<",), "walk (shared form)": ("walk_shared<", "true>("),
+    "summary (shared form)": ("walk_shared<", "false>("), "fill (shared form)": ("fill_shared",),
 }
 # the Householder kernel: launches a timing sample (~0.2 ms each; the plain
 # version and torch.linalg.qr take tens of ms), and the tolerance against its
@@ -190,6 +204,13 @@ SERIES_ROWS = 2_000_000
 SERIES_HEAD = 20_000  # rows of the series checked against the literal oracles
 SERIES_TAIL = 50  # and its last rows against closed forms
 MOVING_KERNEL_TOL = dict(rtol=1e-9, atol=1e-11)  # kernel against its plain versions
+# the moving kernel's register form (K <= 8) keeps its bits: digests of its
+# outputs on _register_digests's inputs, recorded from the kernel as it was
+# before the shared form took K > 8 (one NVIDIA H100 80GB HBM3)
+REGISTER_FORM_DIGESTS = {
+    1: "41570243a5bed743", 2: "7aeb33faec37fe08", 3: "e9fac194b5c94fd9", 4: "b6cb0e4da5c47b7a",
+    5: "3b457e8651292c1b", 6: "699de79e1a1e9535", 7: "0db0abee2ddb6636", 8: "bf28bf9ecf79040f",
+}
 # windows with fewer than K + SETTLED_EXTRA valid rows are compared by their
 # null pattern only: with as many rows as features the normal equations'
 # error (cond^2 eps) can pass any tolerance, and with fewer the system is
@@ -502,16 +523,22 @@ def _window_numpy(X, y, v, window, min_periods, positional, rows=None):
     return out, counts
 
 
-def _moving_bound(n_rows, n_valid, n_refresh, n_leaving, K, rolling, discounted, coefficients, G):
+def _moving_bound(n_rows, n_valid, n_refresh, n_leaving, K, rolling, discounted, coefficients, G,
+                  fresh=True):
     """Z and the valid mask read once (and, rolling, the leaving-row index
     and the refresh mask), the row counts read once, the output written
     once. Operations: K (K + 3) multiply-adds to add a row's outer products
     (as many again for a leaving row; K (K + 3) / 2 + 1 multiplies where the
     state is discounted), and per solved row a Cholesky solve: K^3 / 3 + 2 K^2
-    operations and 2 K square roots and divisions; 2 K for a prediction."""
+    operations and 2 K square roots and divisions; 2 K for a prediction.
+    ``fresh=False``: the least the function needs, a rank-one update of a
+    kept factor for each row that enters or leaves (2 K^2 beside the
+    moments') and per solved row only the two triangular solves (2 K^2 +
+    2 K), no factorisation."""
     per_row = 8 * (1 + K) + 1 + (5 if rolling else 0) + 8 * (K if coefficients else 1)
-    update = K * (K + 3)
-    ops = (n_valid + n_leaving) * update + n_refresh * (K ** 3 / 3 + 2 * K * K + 2 * K)
+    update = K * (K + 3) + (0 if fresh else 2 * K * K)
+    solve = (K ** 3 / 3 if fresh else 0) + 2 * K * K + 2 * K
+    ops = (n_valid + n_leaving) * update + n_refresh * solve
     if discounted:
         ops += n_valid * (K * (K + 3) // 2 + 1)
     if not coefficients:
@@ -1245,7 +1272,7 @@ def _check_pvalue(t_query, dof_query, special, torch, op_ms):
     return err, times
 
 
-def _moving_batch(rng, K, torch, r=300):
+def _moving_batch(rng, K, torch, r=300, device="cuda"):
     """Five groups for the moving kernel's checks: full, shorter than the
     long window, empty, one row, ragged; ~5 % invalid rows."""
     rows = np.asarray([r, 40, 0, 1, r - 13])
@@ -1253,7 +1280,7 @@ def _moving_batch(rng, K, torch, r=300):
     X = rng.normal(size=(G, r, K)) * np.resize([1.0, 3.0, 0.3], K)
     y = X.sum(-1) + rng.normal(size=(G, r)) * 0.1
     v = (rng.random((G, r)) > 0.05) & (np.arange(r)[None] < rows[:, None])
-    dev = torch.device("cuda")
+    dev = torch.device(device)
     return (
         torch.as_tensor(np.concatenate([y[..., None], X], axis=-1), device=dev),
         torch.as_tensor(v, device=dev), torch.as_tensor(rows, device=dev), rows,
@@ -1287,11 +1314,104 @@ def _moving_diff(out, ref, rows, settled=None):
     return worst
 
 
+def _ridge_exact(Z, v, rows, window, min_periods, alpha, positional, want):
+    """Rolling ridge (alpha > 0) of Z = [y | x] [G, R, 1 + K] over the valid
+    rows v [G, R] (numpy) solved without rounding to speak of: each window's
+    coefficients in the dual form x_w' (X_w X_w' + alpha I)^-1 y_w, its m x m
+    system (m <= window rows) eliminated in long double; the windows as the
+    plain version defines them (positional: the valid rows of the last
+    ``window``; else the last ``window`` valid rows), carried across rows
+    that do not refresh, NaN before the first. Coefficients [G, R, K] or
+    predictions [G, R], float64."""
+    G, R, C = Z.shape
+    K = C - 1
+    mp = min(K, window) if min_periods is None else min_periods
+    ld = np.longdouble
+    out = np.full((G, R, K) if want == "coefficients" else (G, R), np.nan)
+    for g in range(G):
+        beta, rank = None, 0
+        valid = np.flatnonzero(v[g, : rows[g]])
+        for t in range(rows[g]):
+            rank += int(v[g, t])
+            if positional:
+                w = valid[(valid > t - window) & (valid <= t)]
+                solve = len(w) >= mp
+            else:
+                w = valid[max(0, rank - window): rank]
+                solve = bool(v[g, t]) and rank >= mp
+            if solve:
+                Xw, yw = Z[g, w, 1:].astype(ld), Z[g, w, 0].astype(ld)
+                A = np.concatenate([Xw @ Xw.T + ld(alpha) * np.eye(len(w), dtype=ld), yw[:, None]], axis=1)
+                m = len(w)
+                for c in range(m):
+                    A[c + 1:] -= np.outer(A[c + 1:, c] / A[c, c], A[c])
+                u = np.zeros(m, dtype=ld)
+                for r in range(m - 1, -1, -1):
+                    u[r] = (A[r, m] - A[r, r + 1: m] @ u[r + 1:]) / A[r, r]
+                beta = Xw.T @ u
+            if beta is not None:
+                out[g, t] = beta if want == "coefficients" else Z[g, t, 1:].astype(ld) @ beta
+    return out
+
+
+def _max_abs_diff(out, ref, rows):
+    """Max abs difference of two moving results over each group's own rows
+    where both have a value."""
+    out, ref = out.cpu().numpy(), ref.cpu().numpy()
+    worst = 0.0
+    for g, n in enumerate(rows):
+        a, b = out[g, :n], ref[g, :n]
+        m = ~np.isnan(a) & ~np.isnan(b)
+        if m.any():
+            worst = max(worst, float(np.abs(a[m] - b[m]).max()))
+    return worst
+
+
+def _register_digests(moving, torch, device="cuda"):
+    """{K: digest} of the register form's outputs at K = 1 .. 8: rls (with
+    and without forgetting) and rolling (both window semantics) in both
+    output forms, at the planner's rows a range and at 32 and 2, on
+    _moving_batch's groups (seed 500 + K); each output's bytes over the
+    groups' own rows are hashed, and the K's hashes in turn."""
+    out = {}
+    for k in range(1, 9):
+        Z, v, rows_t, rows = _moving_batch(np.random.default_rng(500 + k), k, torch, device=device)
+        parts = []
+        for want in moving.WANTS:
+            for chunk in (None, 32, 2):
+                for run in (
+                    lambda: moving.recursive_least_squares(Z, v, rows_t, 20.0, 10.0, 0.5, want=want, chunk=chunk),
+                    lambda: moving.recursive_least_squares(Z, v, rows_t, None, 10.0, None, want=want, chunk=chunk),
+                    lambda: moving.rolling_ols(Z, v, rows_t, 30, None, 0.0, True, want=want, chunk=chunk),
+                    lambda: moving.rolling_ols(Z, v, rows_t, 30, 2, 0.1, False, want=want, chunk=chunk),
+                ):
+                    o = run()
+                    h = hashlib.sha256()
+                    for g, n in enumerate(rows):
+                        h.update(o[g, :n].contiguous().cpu().numpy().tobytes())
+                    parts.append(h.hexdigest()[:16])
+        out[k] = hashlib.sha256("".join(parts).encode()).hexdigest()[:16]
+    return out
+
+
+def _plain_groups(G, R, K):
+    """Groups of R padded rows on which the plain moving versions run:
+    PLAIN_COPIES tensors of [G, R, K, K] f64 kept under PLAIN_STATE_BYTES."""
+    return int(min(G, max(1, PLAIN_STATE_BYTES // (PLAIN_COPIES * R * K * K * 8))))
+
+
 def _check_moving(moving, recursive, rolling, torch):
     """csrc/moving.cu against the plain versions on the card: rls with and
     without forgetting and prior mean, rolling in both window semantics, at
-    K = 5, 8, 9, 16, 17, 32 (registers, then the two local-memory
-    buckets' edges), coefficients and predictions, the rows a range chosen
+    K = 5, 8 (the register form), 9, 16, 17, 32, 33, 40, 100 and 160 (the
+    shared form; K = 33 where the JAX engine leaves exact moments, 160
+    where its state and factor sit in the device-memory workspace; there
+    the ridge windows of 5 rows, systems of condition ~1e4 whose rounding
+    in the plain version alone can pass the tolerance at a prediction near
+    zero, are held to each window solved in long double, ``_ridge_exact``,
+    and to the plain version's NaN pattern, with the plain version's own
+    distance from the long-double answer printed),
+    coefficients and predictions, the rows a range chosen
     (one range a group) and forced to 32 rows (several ranges a group: the
     summary pass, the prefix and the fill) and to 2 rows (the prefix over a
     group's ranges in segments), on groups that are
@@ -1299,7 +1419,8 @@ def _check_moving(moving, recursive, rolling, torch):
     number of cases and the largest difference."""
     rng = np.random.default_rng(3)
     cases, worst = 0, 0.0
-    for K in (5, 8, 9, 16, 17, 32):
+    short = {"kernel_vs_plain": 0.0, "kernel_vs_exact": 0.0, "plain_vs_exact": 0.0}
+    for K in (5, 8, 9, 16, 17, 32, 33, 40, 100, 160):
         Z, v, rows_t, rows = _moving_batch(rng, K, torch)
         X, y, vn = Z[..., 1:], Z[..., 0], v.cpu().numpy()
         for half_life, mean in ((HALF_LIFE, None), (None, None), (HALF_LIFE, 0.5),
@@ -1319,32 +1440,53 @@ def _check_moving(moving, recursive, rolling, torch):
                 if alpha == 0.0:
                     settled = _window_counts(vn, window, positional) >= K + SETTLED_EXTRA
                 for want in moving.WANTS:
+                    ref = moving._from_coefs(coefs, Z, want)
+                    exact = None
+                    if K == 160 and window == 5 and alpha > 0:
+                        exact = torch.as_tensor(_ridge_exact(
+                            Z.cpu().numpy(), vn, rows, window, min_periods, alpha, positional, want
+                        ))
+                        short["plain_vs_exact"] = max(short["plain_vs_exact"], _max_abs_diff(ref, exact, rows))
                     for chunk in (None, 32, 2):
                         out = moving.rolling_ols(
                             Z, v, rows_t, window, min_periods, alpha, positional, want=want, chunk=chunk
                         )
-                        worst = max(worst, _moving_diff(out, moving._from_coefs(coefs, Z, want), rows, settled))
+                        if exact is None:
+                            d = _moving_diff(out, ref, rows, settled)
+                        else:  # the plain version's NaN pattern, the long-double answer's values
+                            _moving_diff(out, ref, rows, np.zeros(vn.shape, dtype=bool))
+                            d = _moving_diff(out, exact, rows)
+                            short["kernel_vs_exact"] = max(short["kernel_vs_exact"], d)
+                            short["kernel_vs_plain"] = max(short["kernel_vs_plain"], _max_abs_diff(out, ref, rows))
+                        worst = max(worst, d)
                         cases += 1
     torch.cuda.synchronize()
     print(
-        f"kernel moving: {cases} cases (rls / rolling x K 5..32 x coefficients / predictions x "
+        f"kernel moving: {cases} cases (rls / rolling x K 5..160 x coefficients / predictions x "
         f"rows a range) equal their plain versions at {MOVING_KERNEL_TOL}, equal NaN patterns, "
         f"max_abs_err={worst!r}; flagged rows re-solved by eigh: {moving.moving_flagged_rows}"
+    )
+    print(
+        "kernel moving, K = 160 ridge windows of 5 rows (workspace; condition ~1e4): the kernel within "
+        f"{MOVING_KERNEL_TOL} of each window solved in long double; max abs differences {json.dumps(short)} "
+        "(the plain version's and the kernel's own rounding: neither pair is held to the tolerance "
+        "against the other, which predictions near zero can pass)"
     )
     return cases, worst
 
 
 def _moving_kernel_bound(args, counts, K, model, torch):
     """``_moving_bound`` of one moving-kernel launch on these inputs: the
-    group's own rows, their valid, refresh and leaving rows."""
+    group's own rows, their valid, refresh and leaving rows; beside it
+    (``bound_rank1_ms``) the bound of the same function without a fresh
+    factorisation a solved row."""
     Z, v, rows_t, refresh, leaving = args[:5]
     live = torch.arange(Z.shape[1], device=Z.device) < rows_t[:, None]
     n_refresh = int((refresh & live).sum())
     n_leaving = 0 if leaving is None else int(((leaving >= 0) & live).sum())
-    return _moving_bound(
-        int(counts.sum()), int((v & live).sum()), n_refresh, n_leaving, K, model == "rolling",
-        model == "rls", False, len(counts),
-    )
+    counted = (int(counts.sum()), int((v & live).sum()), n_refresh, n_leaving, K, model == "rolling",
+               model == "rls", False, len(counts))
+    return {**_moving_bound(*counted), "bound_rank1_ms": _moving_bound(*counted, fresh=False)["bound_ms"]}
 
 
 def _moving_shape(moving, Z, counts, rolling, dev):
@@ -1418,7 +1560,7 @@ def _moving_frame(label, counts, R, K, n_checked, moving, recursive, rolling, ff
         "rolling": lambda: rolling.solve_rolling_ols(Zs[..., 1:], Zs[..., 0], vs, WINDOW, None, 0.0, True),
     }
     settled = {"rls": None, "rolling": _window_counts(vs.cpu().numpy(), WINDOW, True) >= K + SETTLED_EXTRA}
-    n_launches = MOVING_LAUNCHES if K <= 8 else 2
+    n_launches = MOVING_LAUNCHES if K <= 8 else 1
     fields = {}
     for model, a in args.items():
         out = moving._launch(*a, "coefficients", None, counts)
@@ -1526,6 +1668,7 @@ LARGEK_SHAPE = (500_000, 40, 1_000)
 FAULT_TARGETS, FAULT_K = 40, 3
 WIDE_ALPHA = 0.1  # the suite's ridge alpha
 WIDE_CHECK_GROUPS = 50
+WIDE_WINDOW_STEP = 7  # rows of a sampled group whose rolling window numpy solves
 
 
 def _suite_frame(pt, torch, n, k, groups, seed=0):
@@ -1547,9 +1690,10 @@ def _suite_frame(pt, torch, n, k, groups, seed=0):
 
 
 def _wide_queries(pt, col, k, grouped, fault=None):
-    """label -> (expression, output column) of the suite's static queries
-    (benchmarks/suite.py:119-157) at k features, under .over("g") where
-    grouped, with the multi-target struct(y, y2) and ``fault``'s targets."""
+    """label -> (expression, output column) of the suite's static and
+    moving queries (benchmarks/suite.py:119-157) at k features, under
+    .over("g") where grouped, with the multi-target struct(y, y2) and
+    ``fault``'s targets."""
     feats = [col(f"x{i + 1}") for i in range(k)]
     ls = col("y").least_squares
     q = {
@@ -1560,6 +1704,8 @@ def _wide_queries(pt, col, k, grouped, fault=None):
         "wls": ls.wls(*feats, sample_weights="w"),
         "ols": ls.ols(*feats),
         "statistics": ls.ols(*feats, mode="statistics"),
+        "rls": ls.rls(*feats, half_life=HALF_LIFE),
+        "rolling": ls.rolling_ols(*feats, window_size=WINDOW),
     }
     if grouped:
         q["multi_target"] = pt.struct(col("y"), col("y2")).least_squares.multi_target_ols(*feats)
@@ -1587,12 +1733,15 @@ def _wide_expected(label, X, y, w):
 
 def _wide_config(name, shape, pt, col, torch, smi, kernels_mod):
     """One wide configuration through the public API: every query once with
-    the counts of the moment, Householder and Jacobi kernels set to 0 just
-    before and read just after (the fault query's Jacobi launches apart: at
-    K = 3 it takes the thread form), checked on sampled groups against numpy
-    lstsq and scipy.stats.t, then timed (median of TIMING_REPS) and profiled.
-    Returns the frame and its shape for the kernel checks, and the counts."""
-    moments, householder, jacobi = kernels_mod
+    the counts of the moment, Householder, Jacobi and moving kernels set to
+    0 just before and read just after (the fault query's Jacobi launches
+    apart: at K = 3 it takes the thread form), checked on sampled groups
+    against numpy lstsq and scipy.stats.t (the moving queries against a
+    literal Kalman recursion and a numpy lstsq per window, on every
+    WIDE_WINDOW_STEP-th row and the last few), then timed (median of
+    TIMING_REPS) and profiled. Returns the frame and its shape for the
+    kernel checks, and the counts."""
+    moments, householder, jacobi, moving, recursive = kernels_mod
     n, k, groups = shape
     t0 = time.perf_counter()
     frame, x, y, y2, w, g = _suite_frame(pt, torch, n, k, groups)
@@ -1609,7 +1758,7 @@ def _wide_config(name, shape, pt, col, torch, smi, kernels_mod):
     setup_s = time.perf_counter() - t0
     queries = _wide_queries(pt, col, k, bool(groups), fault)
     moments.moments_kernel_launches = householder.householder_kernel_launches = 0
-    jacobi.jacobi_kernel_launches = 0
+    jacobi.jacobi_kernel_launches = moving.moving_kernel_launches = 0
     out, first_s = {}, {}
     fault_jacobi = 0
     for label, (q, column) in queries.items():
@@ -1625,8 +1774,9 @@ def _wide_config(name, shape, pt, col, torch, smi, kernels_mod):
         "householder": householder.householder_kernel_launches,
         "jacobi_svd": jacobi.jacobi_kernel_launches - fault_jacobi,
         "jacobi_svd (thread form, the fault query's K = 3)": fault_jacobi,
+        "moving (shared form)": moving.moving_kernel_launches,
     }
-    for kname in ("grouped_moments", "householder", "jacobi_svd"):
+    for kname in ("grouped_moments", "householder", "jacobi_svd", "moving (shared form)"):
         if launches[kname] < 1:
             raise AssertionError(f"{name}: the {kname} kernel's wide form launched no time")
 
@@ -1643,7 +1793,7 @@ def _wide_config(name, shape, pt, col, torch, smi, kernels_mod):
         Xg, yg = x[rows], y[rows]
         sel = torch.as_tensor(rows, device="cuda")
         for label, s in out.items():
-            if label == "statistics":
+            if label in ("statistics", "rls", "rolling"):
                 continue
             if label == "multi_target":
                 got = _picked(s, sel)
@@ -1664,10 +1814,22 @@ def _wide_config(name, shape, pt, col, torch, smi, kernels_mod):
         np.testing.assert_allclose(got_stats["p_values"][i], ref["p_values"], **P_TOL)
         for key in ("r2", "mse", "mae"):
             np.testing.assert_allclose(got_stats[key][i], ref[key], err_msg=key, **METRIC_TOL)
+        # the moving queries: rls against the Kalman recursion on every row,
+        # rolling against lstsq per window on a subset of rows
+        every = np.ones(len(rows), dtype=bool)
+        kal = _kalman_numpy(Xg, yg, every, recursive.forgetting_factor(HALF_LIFE))
+        np.testing.assert_allclose(_picked(out["rls"], sel), (Xg * kal).sum(1), err_msg=f"{name} rls", **PRED_TOL)
+        some = np.unique(np.concatenate([np.arange(0, len(rows), WIDE_WINDOW_STEP), np.arange(len(rows))[-5:]]))
+        win, cnt = _window_numpy(Xg, yg, every, WINDOW, min(k, WINDOW), True, rows=some)
+        got = _picked(out["rolling"], sel)[some]
+        np.testing.assert_array_equal(np.isnan(got), cnt[some] < min(k, WINDOW), err_msg=f"{name} rolling")
+        m = cnt[some] >= k + SETTLED_EXTRA
+        np.testing.assert_allclose(got[m], (Xg[some] * win[some]).sum(1)[m], err_msg=f"{name} rolling", **PRED_TOL)
     print(
         f"wide {name}: {n} rows x {k} features x {n_groups} groups (set-up {setup_s!r} s), "
         f"{len(queries)} queries ({', '.join(queries)}), launches {json.dumps(launches)}; "
-        f"{len(group_rows)} sampled groups match numpy lstsq and scipy.stats.t "
+        f"{len(group_rows)} sampled groups match numpy lstsq and scipy.stats.t, rls the Kalman "
+        f"recursion and rolling lstsq per window "
         f"(predictions {PRED_TOL}, statistics {COEF_TOL} / {SE_T_TOL} / {P_TOL})"
     )
     print(f"wide {name} first-query s: " + json.dumps({key: round(v, 4) for key, v in first_s.items()}))
@@ -1675,11 +1837,13 @@ def _wide_config(name, shape, pt, col, torch, smi, kernels_mod):
         fn = (lambda q=q, column=column: frame.select(q)[column].arrays) if column == "statistics" else (
             lambda q=q: frame.select(q))
         med = _timed_median(fn, torch)
-        prof = _profile(fn, torch)
+        prof = _profile(fn, torch, MOVING_KERNEL_NAMES if label in ("rls", "rolling") else None)
         print(
             f"timing wide {name} {label}: median {med * 1e3!r} ms, {n / med!r} rows/s; "
             + (f"device busy {prof['busy_ms']!r} ms, {prof['launches']!r} launches, {prof['host_syncs']!r} "
                f"host syncs a query, idle share <= {prof['idle_share']!r}" if prof else "profile not measured")
+            + (f"; device ms by kernel {json.dumps(prof['kernels_ms'])}" if prof and label in ("rls", "rolling")
+               else "")
             + f" ({smi})"
         )
     return {"frame": frame, "k": k, "grouped": bool(groups), "launches": launches, "fault": fault}
@@ -1695,6 +1859,41 @@ def _wide_blocks(fit, groups_mod, frame, k, grouped, m=1, targets=None):
                                 + [frame[f"x{i + 1}"] for i in range(k)])
     Zp, wp, _ = fit._blocks_cached(layout, vals, None, "ignore", m=len(names))
     return layout, Zp, wp, layout.device_block_offsets(Zp.shape[1])
+
+
+def _householder_past_4096(householder, torch, smi, n=4_200, K=4_100, R=512):
+    """One group of n rows x K features in blocks of R rows through the
+    Householder tree (its factors stack only the blocks' R rows: one level
+    of 4,608 rows past K = 4,096, where a level once stacked two K-row
+    factors), timed once (host clock around a synchronize: the tree takes
+    seconds); its factor's triangle solved and held to numpy lstsq (rtol
+    1e-9). The data of test_householder_tree_past_4096_features_on_card."""
+    import scipy.linalg
+
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(n, K))
+    y = X[:, :50].sum(axis=1) + rng.normal(size=n) * 0.1
+    S = -(-n // R)
+    Z = np.zeros((S * R, K + 1))
+    Z[:n, 0], Z[:n, 1:] = y, X
+    Zt = torch.as_tensor(Z.reshape(S, R, K + 1), device="cuda")
+    wt = torch.as_tensor((np.arange(S * R) < n).reshape(S, R), device="cuda")
+    plan = householder.plan_reduction(np.asarray([S]), K, "cuda", rows=R)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    T = householder.reduce_groups(Zt, wt, K, plan)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    T = T[0].cpu().numpy()
+    del Zt, wt
+    beta = scipy.linalg.solve_triangular(T[:, 1:], T[:, 0])
+    ref = np.linalg.lstsq(X, y, rcond=None)[0]
+    np.testing.assert_allclose(beta, ref, rtol=1e-9, atol=1e-12)
+    out = {"n": n, "K": K, "R": R, "launches": 1 + len(plan.levels), "ms": ms,
+           "max_abs_err_vs_lstsq": float(np.abs(beta - ref).max())}
+    print(f"kernel householder, one group past K = 4,096: {json.dumps(out)} (the tree once, host clock "
+          f"around a synchronize; beta from its triangle against numpy lstsq at rtol 1e-9) ({smi})")
+    return out
 
 
 def _wide_kernels(pt, torch, smi, op_ms, mods, large, largek):
@@ -1762,6 +1961,7 @@ def _wide_kernels(pt, torch, smi, op_ms, mods, large, largek):
             Zh[..., C - k_h + zero_col] = 0.0
         _check_householder(f"wide form, {label}", torch.as_tensor(Zh, device="cuda"),
                            torch.as_tensor(wh, device="cuda"), k_h, householder, torch, timed=False)
+    res["householder"]["past_4096"] = _householder_past_4096(householder, torch, smi)
 
     # the Jacobi SVD: B's factors (headline, the svd query's), A's, the
     # multi-target query's, and the edges (the rows mode among them)
@@ -2408,6 +2608,10 @@ def main() -> int:
     # batches, then every query once at full width through the public API,
     # with the counts of all kernels set to 0 just before and read just after
     _check_moving(moving, recursive, rolling, torch)
+    digests = _register_digests(moving, torch)
+    if digests != REGISTER_FORM_DIGESTS:
+        raise AssertionError(f"the register form's outputs changed: {digests} != {REGISTER_FORM_DIGESTS}")
+    print(f"kernel moving, register form: K = 1..8 outputs equal the recorded digests bit for bit ({digests})")
     K = N_FEATURES
 
     def mv(model, target, feats, **kw):
@@ -2635,9 +2839,9 @@ def main() -> int:
     mv_wide = {}
     for k_wide in WIDE_K:
         mv_wide[k_wide] = _moving_frame(
-            f"K={k_wide}", counts_np, Zm.shape[1], k_wide, WIDE_PLAIN_GROUPS[k_wide], moving, recursive,
-            rolling, ff, torch, smi, seed=10 + k_wide,
-            sweep={f"T={T}": (None, T) for T in WIDE_STRETCH_SWEEP[k_wide]},
+            f"K={k_wide}", counts_np, Zm.shape[1], k_wide, _plain_groups(len(counts_np), Zm.shape[1], k_wide),
+            moving, recursive, rolling, ff, torch, smi, seed=10 + k_wide,
+            sweep={f"T={T}": (None, T) for T in WIDE_STRETCH_SWEEP.get(k_wide, ())},
         )
     skew_counts = _skewed_counts(np.random.default_rng(5), N_ROWS, N_GROUPS, SKEW_SIGMA, SKEW_CAP)
     mv_skew = _moving_frame(
@@ -2783,10 +2987,25 @@ def main() -> int:
 
     # 10. the reference suite's wide configurations at full size, through
     # the public API, then the wide forms against their plain versions
-    mods = (moments, householder, jacobi)
+    mods = (moments, householder, jacobi, moving, recursive)
     large = _wide_config("large", LARGE_SHAPE, pt, col, torch, smi, mods)
     largek = _wide_config("grouped_largek", LARGEK_SHAPE, pt, col, torch, smi, mods)
     wide = _wide_kernels(pt, torch, smi, op_ms, (fit, groups, moments, householder, jacobi), large, largek)
+    # the moving kernel's shared form at the two configurations' shapes (their
+    # group sizes and K, rows drawn on the card): against its plain version
+    # and its bound
+    counts_b = groups.layout_for_columns([largek["frame"]["g"]]).counts
+    R_b = int(counts_b.max())
+    mv_shared = {
+        "grouped_largek": _moving_frame(
+            f"grouped_largek (K={largek['k']})", counts_b, R_b, largek["k"],
+            _plain_groups(len(counts_b), R_b, largek["k"]), moving, recursive, rolling, ff, torch, smi, seed=40,
+        ),
+        "large": _moving_frame(
+            f"large (K={large['k']})", np.asarray([LARGE_SHAPE[0]]), LARGE_SHAPE[0], large["k"], 1, moving,
+            recursive, rolling, ff, torch, smi, seed=100,
+        ),
+    }
     wide_launches = {
         kname: {"large": large["launches"][kname], "grouped_largek": largek["launches"][kname]}
         for kname in ("grouped_moments", "householder", "jacobi_svd")
@@ -2861,8 +3080,31 @@ def main() -> int:
                 "max_abs_err": mv_err["rolling"], **mv_times["rolling"], **mv_bound["rolling"],
                 **mv_shape["rolling"],
             },
-            "wide_k": {str(k): f for k, f in mv_wide.items()},
+            "wide_k": {str(k): f for k, f in mv_wide.items() if k <= 8},
             "skewed": mv_skew,
+            "floor_ms": floor_ms,
+        },
+        {
+            "name": "moving, shared form (K > 8)",
+            "route": "cuda",
+            "source": "polars_ols_tpu_torch/csrc/moving.cu",
+            "replaces": "polars_ols_tpu/ops/moving.py:553",
+            "replaces_kind": "XLA scans, not Pallas: above K = 32 the Sherman-Morrison scans of "
+                             "ops/recursive.py:90 and ops/rolling.py:93 and the refined-SM lanes of "
+                             "ops/moving.py:435,494 (solve_recursive_lanes :553, solve_rolling_lanes :601)",
+            "launches": large["launches"]["moving (shared form)"] + largek["launches"]["moving (shared form)"],
+            "launches_by_path": {
+                "large": large["launches"]["moving (shared form)"],
+                "grouped_largek": largek["launches"]["moving (shared form)"],
+            },
+            **{key: mv_shared["grouped_largek"]["rls"][key] for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "bound_rank1_ms", "host_us",
+                "plain_groups",
+                "range_rows", "resident_warps")},
+            "library_ms": None,
+            "grouped_largek": mv_shared["grouped_largek"],
+            "large": mv_shared["large"],
+            "main_frame": {str(k): f for k, f in mv_wide.items() if k > 8},
             "floor_ms": floor_ms,
         },
         {
@@ -2930,6 +3172,7 @@ def main() -> int:
             "large_blocks": wide["householder"]["large"],
             "fault_blocks": wide["householder"]["grouped_largek_fault"],
             "multi_target_blocks": wide["householder"]["grouped_largek_multi_target"],
+            "tree_past_4096": wide["householder"]["past_4096"],
             "library_call": "torch.linalg.qr(Zx, mode='r') of the masked blocks with the feature "
                             "columns first",
             "floor_ms": floor_ms,

@@ -68,14 +68,14 @@
 // features past 33 columns) cannot keep a thread's rows of all columns in
 // registers, and a 512-row panel of 101 columns (414 KB) fits neither the
 // registers nor a block's 227 KB of shared memory. One block of 1,024
-// threads reduces one row block of up to kWideMaxRows = 8,192 rows (the
-// wrapper cuts longer ones; the tree stacks two factors a block, so K <=
-// 4,096); the panel [R, C] (Z's column order)
-// lives in shared memory where it fits beside the scratch, else in a
-// device-memory workspace [B, R, C] that the wrapper allocates (read back
-// from L2; the same code through a generic pointer). A reflection is three
-// passes with a barrier each: the pivot column v and row j staged in shared
-// memory; the dots g_q = sum_{r >= j} v_r a_rq of the active columns (the
+// threads reduces one row block of any number of rows; the panel [R, C]
+// (Z's column order) lives in shared memory where it fits beside the
+// scratch, else in a device-memory workspace [B, R, C] that the wrapper
+// allocates (read back from L2; the same code through a generic pointer).
+// A reflection is three passes with a barrier each: row j staged in
+// shared memory (the pivot column v is read in place from the panel, so a
+// block's rows are not bounded by a staging buffer); the dots
+// g_q = sum_{r >= j} v_r a_rq of the active columns (the
 // targets and the features from the pivot on), lanes over columns and
 // warps over rows, kWideChunk columns a pass, the warps' partials summed in
 // warp order; then every (row >= j, active column) updated as
@@ -99,7 +99,6 @@ constexpr int kMaxCols = 33;
 constexpr int kWideThreads = 1024;  // 32 warps: a block an SM must hide its own latency
 constexpr int kWideWarps = kWideThreads / 32;
 constexpr int kWideChunk = 128;  // columns a pass of the dots: 4 a lane
-constexpr int64_t kWideMaxRows = 8192;
 constexpr unsigned kFull = 0xffffffffu;
 // the most dynamic shared memory a block can opt in to on sm_90
 constexpr size_t kMaxSmem = 232448;
@@ -327,15 +326,14 @@ householder_blocks(const double* __restrict__ z, const uint8_t* __restrict__ w, 
 }
 
 // The wide form's dynamic shared memory: the dots g [C], row j [C], the
-// pivot column v [R], the warps' partial dots [kWideWarps][kWideChunk] and,
-// where it fits, the panel [R][C] (byte offsets).
+// warps' partial dots [kWideWarps][kWideChunk] and, where it fits, the
+// panel [R][C] (byte offsets).
 struct WideSmem {
-  int64_t g, prow, v, part, panel, bytes;
+  int64_t g, prow, part, panel, bytes;
   __host__ __device__ WideSmem(int64_t R, int64_t C, bool panel_here) {
     g = 0;
     prow = g + 8 * C;
-    v = prow + 8 * C;
-    part = v + 8 * R;
+    part = prow + 8 * C;
     panel = part + 8 * kWideWarps * kWideChunk;
     bytes = panel + (panel_here ? 8 * R * C : 0);
   }
@@ -343,12 +341,11 @@ struct WideSmem {
 
 // The form at (R, C): 0 the register form, 1 the wide form with the panel
 // in shared memory, 2 the wide form with the panel in device memory, -1
-// none (C < 2, R < 1, R > 512 at C <= 33, R > 8,192 above, or the wide
-// form's scratch past shared memory).
+// none (C < 2, R < 1, R > 512 at C <= 33, or the wide form's scratch past
+// shared memory).
 int form_of(int64_t R, int64_t C) {
   if (C < 2 || R < 1) return -1;
   if (C <= kMaxCols) return R <= kMaxRows ? 0 : -1;
-  if (R > kWideMaxRows) return -1;
   if (WideSmem(R, C, true).bytes <= static_cast<int64_t>(kMaxSmem)) return 1;
   return WideSmem(R, C, false).bytes <= static_cast<int64_t>(kMaxSmem) ? 2 : -1;
 }
@@ -363,7 +360,6 @@ householder_wide(const double* __restrict__ z, const uint8_t* __restrict__ w, in
   const WideSmem lay(R, C, panel_here != 0);
   double* g = reinterpret_cast<double*>(smem + lay.g);
   double* prow = reinterpret_cast<double*>(smem + lay.prow);
-  double* v = reinterpret_cast<double*>(smem + lay.v);
   double* part = reinterpret_cast<double*>(smem + lay.part);
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -384,7 +380,6 @@ householder_wide(const double* __restrict__ z, const uint8_t* __restrict__ w, in
   for (int j = 0; j < steps; ++j) {
     const int jc = M + j;      // the pivot column
     const int nq = M + K - j;  // the active columns
-    for (int r = j + tid; r < R; r += kWideThreads) v[r] = a[static_cast<int64_t>(r) * C + jc];
     for (int q = tid; q < nq; q += kWideThreads) prow[q] = a[static_cast<int64_t>(j) * C + (q < M ? q : jc + q - M)];
     __syncthreads();
     for (int q0 = 0; q0 < nq; q0 += kWideChunk) {
@@ -397,7 +392,7 @@ householder_wide(const double* __restrict__ z, const uint8_t* __restrict__ w, in
         cq[u] = q < nq ? (q < M ? q : jc + q - M) : -1;
       }
       for (int r = j + warp; r < R; r += kWideWarps) {
-        const double vr = v[r];
+        const double vr = a[static_cast<int64_t>(r) * C + jc];
         const double* ar = a + static_cast<int64_t>(r) * C;
 #pragma unroll
         for (int u = 0; u < kWideChunk / 32; ++u) {
@@ -421,8 +416,9 @@ householder_wide(const double* __restrict__ z, const uint8_t* __restrict__ w, in
     const double denom = sigma - piv * alpha;  // = ||v||^2 / 2
     const double beta = denom > 0.0 ? 1.0 / denom : 0.0;
     for (int r = j + warp; r < R; r += kWideWarps) {
-      const double bv = beta * (r == j ? vj : v[r]);
       double* ar = a + static_cast<int64_t>(r) * C;
+      const double bv = beta * (r == j ? vj : ar[jc]);
+      __syncwarp();  // every lane has v_r before one of them updates it
       for (int q = lane; q < nq; q += 32) ar[q < M ? q : jc + q - M] -= bv * (g[q] - alpha * prow[q]);
     }
     __syncthreads();

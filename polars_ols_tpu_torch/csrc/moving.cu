@@ -20,11 +20,11 @@
 // beta (the prior mean, or NaN for rolling, before the first). The output is
 // beta_t [G, R, K] or the prediction x_t . beta_t [G, R].
 //
-// Design. A warp owns a range of one group's rows: the whole group where it
-// has at most L rows (the planner's rows a range, ops/moving.py), else one
-// of the group's ranges of L rows. It walks the range in stretches of 32 T
-// rows; lane j owns rows [j T, (j + 1) T) of a stretch, so a stretch of Z is
-// one contiguous span. Per stretch:
+// Design (the register form, K <= 8). A warp owns a range of one group's
+// rows: the whole group where it has at most L rows (the planner's rows a
+// range, ops/moving.py), else one of the group's ranges of L rows. It walks
+// the range in stretches of 32 T rows; lane j owns rows [j T, (j + 1) T) of
+// a stretch, so a stretch of Z is one contiguous span. Per stretch:
 //   - lane 0 bulk-copies (cp.async.bulk, the TMA's 1-D form, completed on an
 //     mbarrier) the stretch's rows of Z, v, refresh and leaving into one of
 //     two shared-memory stages; the copy of stretch s + 2 is issued as soon
@@ -38,11 +38,9 @@
 //     recurrence is linear, so that is its contribution to every later
 //     state) and its total discount; an inclusive Hillis-Steele scan over
 //     the lanes by __shfl_up_sync composes (lam_a, S_a) o (lam_b, S_b) =
-//     (lam_a lam_b, lam_b S_a + S_b) in 5 steps (K > 8, whose state lives
-//     in local memory: through shared memory, one lane an entry composing
-//     the 32 lanes in turn); the exclusive result composed onto the carry
-//     (the state before the stretch, in shared memory) is each lane's
-//     exact start state;
+//     (lam_a lam_b, lam_b S_a + S_b) in 5 steps; the exclusive result
+//     composed onto the carry (the state before the stretch, in shared
+//     memory) is each lane's exact start state;
 //   - every lane walks its rows again from that state, solves at refresh
 //     rows by Cholesky and writes its rows' output into shared memory; the
 //     last solved beta passes to the lanes after it by a shuffle (and from
@@ -66,8 +64,39 @@
 // written once), but the f64 work sits close: every row is advanced twice
 // (the lanes' summary and the walk) and a refresh row runs a Cholesky with
 // K double-precision reciprocal square roots. K <= 8 keeps the state, the
-// factor and the row in registers (the loops unroll over a compile-time K);
-// K <= 16 and K <= 32 run the same code on local-memory arrays.
+// factor and the row in registers (the loops unroll over a compile-time K).
+//
+// The shared form (K > 8). A lane's own K x K state does not fit its
+// registers past K = 8 (as local memory it ran 160x off its bound at
+// K = 16), so above 8 a walker is a block of 32 .. 256 threads that owns one
+// copy of its range's state (A packed, b) and one factor in shared memory
+// (in a device-memory workspace, through the same code, where they do not
+// fit: K > ~100) and walks the rows in order, its threads splitting each
+// row's work:
+//   - the update: each thread owns entries of A and b (the same ones every
+//     row, so the update needs no barrier) and applies the rank-1 (rolling:
+//     rank-2) change; at a refresh row it also writes A + reg I and the
+//     right-hand side into the factor's rows 0..K-1 and K (the augmented
+//     system [A b; b' .]);
+//   - the factorisation: LDL' by columns, right-looking, one barrier a
+//     column: the trailing entries of column j's update are split over the
+//     threads (each steps through the packed triangle from its own first
+//     entry), and thread 0, whose first entry is the next pivot, posts its
+//     reciprocal (an estimate and two Newton steps) before the barrier; the
+//     augmented row makes the forward substitution part of it (row K ends
+//     as y, U y = b);
+//   - the back substitution beta_i = (y_i - sum_{q>i} F_qi beta_q) / d_i
+//     by columns: up to K = 32 in the registers of one warp, beta_i passed
+//     by a shuffle; above, through shared memory, one barrier a column.
+// The same pivot test flags a row (d_j not positive and finite), and the
+// same moments are solved, so the semantics do not change at K = 9 or 33.
+// Stretches arrive as in the register form (bulk copies into two stages,
+// in pieces of fewer rows where K is large), the leaving rows of a
+// rolling stretch are gathered beside them, and each stretch's start
+// state goes to sseed for moments_at. The ranges, the summary pass, the
+// prefix and the fill are the register form's; the grid is persistent
+// (one walker a block, the blocks the card holds), so that the workspace
+// is one slot a walker.
 
 #include <climits>
 #include <cmath>
@@ -79,14 +108,11 @@ namespace {
 
 constexpr int kWarp = 32;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kMaxK = 32;
+constexpr int kRegisterMaxK = 8;  // the register form's K; the shared form above
+constexpr int kMaxK = 8192;       // the shared form's K, while a row of Z fits a stage
 constexpr int kMaxWarps = 4;  // warps a block, fewer where a warp's buffers are large
 constexpr int kMaxShared = 227 * 1024;
 constexpr int kMaxT = 16;
-
-struct Mean {
-  double m[kMaxK];
-};
 
 struct Problem {
   const double* Z;         // [G, R, 1 + K]
@@ -104,10 +130,9 @@ __host__ __device__ __forceinline__ int round16(int v) { return (v + 15) & ~15; 
 
 // A warp's shared memory: three mbarriers (two stages, the leaving span),
 // the carry (state, beta, whether beta is known), two stages of a stretch's
-// rows and masks, the leaving span, the stretch's output and, for K > 8,
-// the block the lanes' summaries are scanned in.
+// rows and masks, the leaving span and the stretch's output.
 struct Layout {
-  int carry, cbeta, misc, stage, z, m, lv, gone, out, scan, total;
+  int carry, cbeta, misc, stage, z, m, lv, gone, out, total;
 };
 
 __host__ __device__ inline Layout layout_for(int K, int T, bool rolling, int ow) {
@@ -123,13 +148,11 @@ __host__ __device__ inline Layout layout_for(int K, int T, bool rolling, int ow)
   const int stage_bytes = l.z + 2 * l.m + l.lv;
   l.gone = l.stage + 2 * stage_bytes;
   l.out = l.gone + (rolling ? l.z : 0);
-  l.scan = l.out + round16(rows * ow * 8);
-  // K > 8: the lanes' summaries, 32 entries at a time, and their discounts
-  l.total = (l.scan + (K > 8 ? round16(kWarp * (kWarp + 2) * 8) : 0) + 127) & ~127;
+  l.total = (l.out + round16(rows * ow * 8) + 127) & ~127;
   return l;
 }
 
-__device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
+__host__ __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
 
 // packed lower triangle: (i, j <= i) at i (i + 1) / 2 + j
 __device__ __forceinline__ int tri(int i, int j) { return i * (i + 1) / 2 + j; }
@@ -140,12 +163,6 @@ struct State {
   double b[KB];
   double disc;
 };
-
-// K of this launch: the template's own where the loops unroll over it
-template <int KB>
-__device__ __forceinline__ int width(int k) {
-  return KB <= 8 ? KB : k;
-}
 
 template <int KB>
 __device__ __forceinline__ void clear(State<KB>& s, int k) {
@@ -233,57 +250,6 @@ __device__ __forceinline__ void exclusive(State<KB>& s, int lane, int k) {
   s.disc = lane > 0 ? x : 1.0;
 }
 
-// entry e of the state in the order of the carry: A, then b
-template <int KB>
-__device__ __forceinline__ double& entry(State<KB>& s, int e, int kt) {
-  return e < kt ? s.A[e] : s.b[e - kt];
-}
-
-// K > 8 (the state in local memory, where shuffles cost a local load and
-// store each): the lanes' summaries go through a [32][33] block of shared
-// memory 32 entries at a time, and lane q composes entry q over the lanes
-// in turn; its running value before lane j is lane j's exclusive prefix.
-// Walk: s becomes the lane's start state (the prefix composed onto the
-// carry); summary: the carry becomes the carry composed with all 32 lanes.
-template <int KB>
-__device__ __forceinline__ void scan_shared(State<KB>& s, int lane, int k, double* buf, double* carry,
-                                            bool walk) {
-  const int kt = k * (k + 1) / 2, body = kt + k;
-  double* lam = buf + kWarp * (kWarp + 1);
-  lam[lane] = s.disc;
-  __syncwarp();
-  double ex = 1.0, total = 1.0;  // the discount before the lane, and of all lanes
-  for (int j = 0; j < kWarp; ++j) {
-    if (j == lane) ex = total;
-    total *= lam[j];
-  }
-  for (int e0 = 0; e0 < body; e0 += kWarp) {
-    const int n = body - e0 < kWarp ? body - e0 : kWarp;
-    for (int q = 0; q < n; ++q) buf[q * (kWarp + 1) + lane] = entry<KB>(s, e0 + q, kt);
-    __syncwarp();
-    if (lane < n) {
-      double* row = buf + lane * (kWarp + 1);
-      double run = 0.0;
-      for (int j = 0; j < kWarp; ++j) {
-        const double x = row[j];
-        row[j] = run;
-        run = fma(lam[j], run, x);
-      }
-      if (!walk) carry[e0 + lane] = fma(total, carry[e0 + lane], run);
-    }
-    __syncwarp();
-    if (walk) {
-      for (int q = 0; q < n; ++q) entry<KB>(s, e0 + q, kt) = fma(ex, carry[e0 + q], buf[q * (kWarp + 1) + lane]);
-    }
-    __syncwarp();
-  }
-  if (walk) {
-    s.disc = carry[body] * ex;
-  } else if (lane == 0) {
-    carry[body] *= total;
-  }
-}
-
 template <int KB>
 __device__ __forceinline__ void load_row(double (&z)[KB + 1], const double* __restrict__ row, int k) {
 #pragma unroll
@@ -327,7 +293,7 @@ __device__ __forceinline__ void advance(State<KB>& s, double ff, const double (&
 // Cholesky solve of (A + reg I) beta = b + reg mean; false where a pivot is
 // not positive and finite (beta is then meaningless)
 template <int KB>
-__device__ __forceinline__ bool chol_solve(const State<KB>& s, double reg, const Mean& mean, int k,
+__device__ __forceinline__ bool chol_solve(const State<KB>& s, double reg, const double* __restrict__ mean, int k,
                                            double (&beta)[KB]) {
   double Lw[KB * (KB + 1) / 2];  // strict lower triangle of the factor
   double inv[KB];                // 1 / its diagonal
@@ -350,7 +316,7 @@ __device__ __forceinline__ bool chol_solve(const State<KB>& s, double reg, const
   }
 #pragma unroll
   for (int i = 0; i < k; ++i) {  // L z = rhs, z kept in beta
-    double acc = fma(reg, mean.m[i], s.b[i]);
+    double acc = fma(reg, mean[i], s.b[i]);
 #pragma unroll
     for (int q = 0; q < i; ++q) acc = fma(-Lw[tri(i, q)], beta[q], acc);
     beta[i] = acc * inv[i];
@@ -457,8 +423,9 @@ __device__ __forceinline__ Stretch stretch_of(const Problem& p, const Range& rg,
 }
 
 // Lane 0: the bulk copies of a stretch into a stage.
+// zb, mb: the stage's bytes for the rows of Z and for each mask
 template <bool kRolling>
-__device__ __forceinline__ void issue_stretch(const Problem& p, const Layout& lay, const Stretch& s,
+__device__ __forceinline__ void issue_stretch(const Problem& p, int zb, int mb, const Stretch& s,
                                               uint32_t stage, uint32_t bar) {
   const int C = p.K + 1;
   const double* z = p.Z + s.row * C;
@@ -469,9 +436,9 @@ __device__ __forceinline__ void issue_stretch(const Problem& p, const Layout& la
   if (kRolling) bytes += round16(shift16(l) + 4 * s.n);
   expect(bar, bytes);
   bulk(stage, z, 8 * s.n * C, bar);
-  bulk(stage + lay.z, v, s.n, bar);
-  bulk(stage + lay.z + lay.m, r, s.n, bar);
-  if (kRolling) bulk(stage + lay.z + 2 * lay.m, l, 4 * s.n, bar);
+  bulk(stage + zb, v, s.n, bar);
+  bulk(stage + zb + mb, r, s.n, bar);
+  if (kRolling) bulk(stage + zb + 2 * mb, l, 4 * s.n, bar);
 }
 
 // A lane's view of a stretch in its stage.
@@ -533,7 +500,7 @@ __device__ __forceinline__ void over_rows(const Problem& p, const Rows& mine, co
 // and whether it has one in has. Summary: summ [M, E].
 template <int KB, bool kRolling, bool kWalk>
 __global__ void __launch_bounds__(kMaxWarps * kWarp)
-walk(Problem p, Mean mean, Layout lay, int64_t first, int64_t items, const double* __restrict__ seed,
+walk(Problem p, const double* __restrict__ mean, Layout lay, int64_t first, int64_t items, const double* __restrict__ seed,
      double* __restrict__ summ, double* __restrict__ sseed, int64_t nsmax, double* __restrict__ tail,
      uint8_t* __restrict__ has, double* __restrict__ coef, double* __restrict__ pred,
      uint8_t* __restrict__ flag, int* __restrict__ nflag) {
@@ -544,7 +511,7 @@ walk(Problem p, Mean mean, Layout lay, int64_t first, int64_t items, const doubl
   if (item >= first + items) return;
   const Range rg = range_of(p, item);
   if (rg.len <= 0) return;  // the whole warp leaves together
-  const int k = width<KB>(p.K), C = k + 1, T = p.T, E = k * (k + 1) / 2 + k + 1;
+  const int k = KB, C = k + 1, T = p.T, E = k * (k + 1) / 2 + k + 1;
   unsigned char* base = smem + static_cast<int64_t>(warp) * lay.total;
   const uint32_t bars = shared_addr(base);
   double* carry = reinterpret_cast<double*>(base + lay.carry);
@@ -562,14 +529,14 @@ walk(Problem p, Mean mean, Layout lay, int64_t first, int64_t items, const doubl
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     for (int st = 0; st < 2 && st < nst; ++st) {
-      issue_stretch<kRolling>(p, lay, stretch_of(p, rg, st),
+      issue_stretch<kRolling>(p, lay.z, lay.m, stretch_of(p, rg, st),
                               shared_addr(base + lay.stage + st * stage_bytes), bars + 8u * st);
     }
   }
   const double* s0 = in_table && seed != nullptr ? seed + (item - p.G) * E : nullptr;
   for (int e = lane; e < E; e += kWarp) carry[e] = s0 != nullptr ? s0[e] : (e == E - 1 ? 1.0 : 0.0);
   if (kWalk) {
-    for (int i = lane; i < k; i += kWarp) cbeta[i] = kRolling ? NAN : mean.m[i];
+    for (int i = lane; i < k; i += kWarp) cbeta[i] = kRolling ? NAN : mean[i];
     if (lane == 0) *known = rg.t0 == 0 ? 1 : 0;  // a later range's carry comes from fill
   }
   __syncwarp();
@@ -618,19 +585,15 @@ walk(Problem p, Mean mean, Layout lay, int64_t first, int64_t items, const doubl
                               load_row<KB>(z, row, k);
                               advance<KB, kRolling>(s, p.ff, z, mine.v[r] != 0, gz, k);
                             });
-    if constexpr (KB > 8) {
-      scan_shared<KB>(s, lane, k, reinterpret_cast<double*>(base + lay.scan), carry, kWalk);
+    scan_lanes<KB, !kRolling>(s, lane, k);
+    if (kWalk) {
+      exclusive<KB>(s, lane, k);
+      compose_after<KB>(s, carry, k);
     } else {
-      scan_lanes<KB, !kRolling>(s, lane, k);
-      if (kWalk) {
-        exclusive<KB>(s, lane, k);
+      __syncwarp();
+      if (lane == kWarp - 1) {
         compose_after<KB>(s, carry, k);
-      } else {
-        __syncwarp();
-        if (lane == kWarp - 1) {
-          compose_after<KB>(s, carry, k);
-          store<KB>(s, k, carry);
-        }
+        store<KB>(s, k, carry);
       }
     }
     __syncwarp();
@@ -699,7 +662,7 @@ walk(Problem p, Mean mean, Layout lay, int64_t first, int64_t items, const doubl
       __syncwarp();
     }
     if (lane == 0 && st + 2 < nst) {
-      issue_stretch<kRolling>(p, lay, stretch_of(p, rg, st + 2), shared_addr(stage), bars + 8u * slot);
+      issue_stretch<kRolling>(p, lay.z, lay.m, stretch_of(p, rg, st + 2), shared_addr(stage), bars + 8u * slot);
     }
   }
   if (!in_table) return;
@@ -774,7 +737,7 @@ fill(Problem p, const double* __restrict__ tail, const uint8_t* __restrict__ has
   if (m >= p.M) return;
   const Range rg = range_of(p, p.G + m);
   if (rg.t0 == 0) return;
-  const int k = width<KB>(p.K);
+  const int k = KB;
   int64_t src = m - 1;
   while (src > 0 && !has[src] && p.ranges[2 * (src - 1)] == rg.g) --src;
   double beta[KB];
@@ -793,14 +756,14 @@ fill(Problem p, const double* __restrict__ tail, const uint8_t* __restrict__ has
 // at row fa[f] of the group
 template <int KB, bool kRolling>
 __global__ void __launch_bounds__(128)
-moments_at(Problem p, Mean mean, const double* __restrict__ sseed, const int64_t* __restrict__ fg,
+moments_at(Problem p, const double* __restrict__ mean, const double* __restrict__ sseed, const int64_t* __restrict__ fg,
            const int64_t* __restrict__ ft, const int64_t* __restrict__ fa,
            const int64_t* __restrict__ fseed, int64_t F, double* __restrict__ A_out,
            double* __restrict__ rhs_out) {
   const int64_t f = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (f >= F) return;
   const int64_t g = fg[f], t_at = ft[f];
-  const int k = width<KB>(p.K), E = k * (k + 1) / 2 + k + 1;
+  const int k = KB, E = k * (k + 1) / 2 + k + 1;
   State<KB> s;
   load<KB>(s, k, sseed + fseed[f] * E);
   for (int64_t t = fa[f]; t <= t_at; ++t) {
@@ -820,7 +783,383 @@ moments_at(Problem p, Mean mean, const double* __restrict__ sseed, const int64_t
       const double a = i >= j ? s.A[tri(i, j)] : s.A[tri(j, i)];
       A_out[(f * k + i) * k + j] = i == j ? a + reg : a;
     }
-    rhs_out[f * k + i] = fma(reg, mean.m[i], s.b[i]);
+    rhs_out[f * k + i] = fma(reg, mean[i], s.b[i]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The shared form (K > 8): see the header.
+
+constexpr int kSharedMaxWarps = 8;
+
+// threads a walker: a warp up to K = 31, then a warp for each 16 features,
+// at most kSharedMaxWarps
+__host__ __device__ inline int shared_threads(int K) {
+  int w = K / 16;
+  w = w < 1 ? 1 : (w > kSharedMaxWarps ? kSharedMaxWarps : w);
+  return w * kWarp;
+}
+
+// A walker's shared memory (byte offsets): two mbarriers, two stages of a
+// piece of `rows` rows (Z, v, refresh, leaving: the register form's stage),
+// the piece's leaving rows (rolling) and, where they fit, beta, the
+// reciprocal pivots, the state [A | b] and the factor (K (K + 1) / 2 + K
+// doubles each); else those four sit in a device-memory workspace of
+// work_doubles a walker.
+struct SharedLayout {
+  int rows, z, m, lv, stage, gone, beta, rpiv, state, factor, total;
+  bool here;
+};
+
+__host__ __device__ inline SharedLayout shared_layout(int K, int rows, bool rolling) {
+  const int C = K + 1, body = K * (K + 1) / 2 + K;
+  SharedLayout l;
+  l.rows = rows;
+  l.z = round16(rows * C * 8) + 16;
+  l.m = round16(rows) + 16;
+  l.lv = rolling ? round16(rows * 4) + 16 : 0;
+  l.stage = 32;
+  l.gone = l.stage + 2 * (l.z + 2 * l.m + l.lv);
+  l.beta = l.gone + (rolling ? round16(rows * C * 8) : 0);
+  l.rpiv = l.beta + round16(K * 8);
+  l.state = l.rpiv + round16(K * 8);
+  l.factor = l.state + round16(body * 8);
+  const int all = l.factor + round16(body * 8);
+  l.here = all <= kMaxShared;
+  l.total = l.here ? all : l.beta;
+  return l;
+}
+
+// The layout for stretches of 32 T rows: pieces of the most rows that
+// divide a stretch and whose stages fit; rows 0 where not even one fits.
+__host__ __device__ inline SharedLayout shared_layout_for(int K, int T, bool rolling) {
+  int rows = kWarp * T;
+  SharedLayout l = shared_layout(K, rows, rolling);
+  while (l.total > kMaxShared && rows > 1) {
+    rows = rows % 2 == 0 ? rows / 2 : 1;
+    l = shared_layout(K, rows, rolling);
+  }
+  if (l.total > kMaxShared) l.rows = 0;
+  return l;
+}
+
+__host__ __device__ inline int64_t work_doubles(int K, const SharedLayout& l) {
+  return l.here ? 0 : 2 * int64_t{K} + 2 * (int64_t{K} * (K + 1) / 2 + K);
+}
+
+// (i, j <= i) of packed index e
+__device__ __forceinline__ void untri(int e, int& i, int& j) {
+  int r = static_cast<int>((sqrtf(8.0f * static_cast<float>(e) + 1.0f) - 1.0f) * 0.5f);
+  if ((r + 1) * (r + 2) / 2 <= e) {
+    ++r;
+  } else if (r * (r + 1) / 2 > e) {
+    --r;
+  }
+  i = r;
+  j = e - r * (r + 1) / 2;
+}
+
+// 1 / d from the reciprocal's estimate and two Newton steps (an ulp or two
+// from the division)
+__device__ __forceinline__ double recip(double d) {
+  double r;
+  asm("rcp.approx.ftz.f64 %0, %1;" : "=d"(r) : "d"(d));
+  double e = fma(-d, r, 1.0);
+  r = fma(r, e, r);
+  e = fma(-d, r, 1.0);
+  return fma(r, e, r);
+}
+
+// the walker's barrier: a warp's where the walker is one warp
+__device__ __forceinline__ void walker_sync(int nt) {
+  if (nt == kWarp) {
+    __syncwarp();
+  } else {
+    __syncthreads();
+  }
+}
+
+// (i, j) of packed index e + n after (i, j) of e (n > 0)
+__device__ __forceinline__ void untri_step(int& i, int& j, int n) {
+  j += n;
+  while (j > i) {
+    ++i;
+    j -= i;
+  }
+}
+
+// The rows of piece pc (of P rows) of a range in device memory.
+__device__ __forceinline__ Stretch piece_of(const Problem& p, const Range& rg, int pc, int P) {
+  Stretch s;
+  s.a = rg.t0 + static_cast<int64_t>(pc) * P;
+  s.row = rg.g * p.R + s.a;
+  s.n = static_cast<int>(min64(P, rg.len - static_cast<int64_t>(pc) * P));
+  return s;
+}
+
+// A walker (a block) walks ranges in turn (a persistent grid): the walk
+// (kWalk) or the summary, with the arguments of the register form's walk;
+// work: the workspace, a slot a block, where the layout says so.
+template <bool kRolling, bool kWalk>
+__global__ void __launch_bounds__(kSharedMaxWarps * kWarp)
+walk_shared(Problem p, const double* __restrict__ mean, SharedLayout lay, int64_t first, int64_t items,
+            const double* __restrict__ seed, double* __restrict__ summ, double* __restrict__ sseed,
+            int64_t nsmax, double* __restrict__ tail, uint8_t* __restrict__ has,
+            double* __restrict__ coef, double* __restrict__ pred, uint8_t* __restrict__ flag,
+            int* __restrict__ nflag, double* __restrict__ work) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = static_cast<int>(threadIdx.x), nt = static_cast<int>(blockDim.x);
+  const int k = p.K, C = k + 1, kt = k * (k + 1) / 2, body = kt + k, E = body + 1;
+  const int P = lay.rows, per = kWarp * p.T / P;  // rows a piece, pieces a stretch
+  int i0, j0;  // (row, column) of the thread's first packed entry, tid: row K is b
+  untri(tid, i0, j0);
+  const uint32_t bars = shared_addr(smem);
+  double* ws = lay.here ? nullptr : work + static_cast<int64_t>(blockIdx.x) * work_doubles(k, lay);
+  double* cbeta = lay.here ? reinterpret_cast<double*>(smem + lay.beta) : ws;
+  double* rpiv = lay.here ? reinterpret_cast<double*>(smem + lay.rpiv) : ws + k;
+  double* st = lay.here ? reinterpret_cast<double*>(smem + lay.state) : ws + 2 * k;
+  double* fac = lay.here ? reinterpret_cast<double*>(smem + lay.factor) : ws + 2 * k + body;
+  double* gone = reinterpret_cast<double*>(smem + lay.gone);
+  const int stage_bytes = lay.z + 2 * lay.m + lay.lv;
+  if (tid == 0) {
+    for (int b = 0; b < 2; ++b) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(bars + 8u * b) : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+  uint32_t used = 0;  // pieces this walker has taken from its stages: piece u is in stage u & 1
+  for (int64_t item = first + blockIdx.x; item < first + items; item += gridDim.x) {
+    const Range rg = range_of(p, item);
+    if (rg.len <= 0) continue;  // the whole block moves on together
+    const int npc = (rg.len + P - 1) / P;
+    const bool in_table = item >= p.G;
+    if (tid == 0) {
+      for (int pc = 0; pc < 2 && pc < npc; ++pc) {
+        const uint32_t slot = (used + pc) & 1u;
+        issue_stretch<kRolling>(p, lay.z, lay.m, piece_of(p, rg, pc, P),
+                                shared_addr(smem + lay.stage + slot * stage_bytes), bars + 8u * slot);
+      }
+    }
+    // each thread owns the state entries e = tid + n nt, here and in every update
+    const double* s0 = in_table && seed != nullptr ? seed + (item - p.G) * E : nullptr;
+    for (int e = tid; e < body; e += nt) st[e] = s0 != nullptr ? s0[e] : 0.0;
+    double disc = s0 != nullptr ? s0[body] : 1.0;  // every thread keeps the discount
+    if (kWalk) {
+      for (int i = tid; i < k; i += nt) cbeta[i] = kRolling ? NAN : mean[i];
+    }
+    bool known = rg.t0 == 0;  // a later range's leading rows that carry come from fill
+    __syncthreads();
+
+    for (int pc = 0; pc < npc; ++pc, ++used) {
+      const uint32_t slot = used & 1u;
+      wait_parity(bars + 8u * slot, (used >> 1) & 1u);
+      const Stretch sx = piece_of(p, rg, pc, P);
+      const unsigned char* stage = smem + lay.stage + slot * stage_bytes;
+      const double* zs = reinterpret_cast<const double*>(stage + shift16(p.Z + sx.row * C));
+      const uint8_t* vs = stage + lay.z + shift16(p.v + sx.row);
+      const uint8_t* rs = stage + lay.z + lay.m + shift16(p.refresh + sx.row);
+      const int32_t* ls = kRolling ? reinterpret_cast<const int32_t*>(
+                                         stage + lay.z + 2 * lay.m + shift16(p.leaving + sx.row))
+                                   : nullptr;
+      if (kRolling) {  // the piece's leaving rows, gathered beside it
+        for (int idx = tid; idx < sx.n * C; idx += nt) {
+          const int r = idx / C;
+          const int32_t src = ls[r];
+          if (src >= 0) gone[idx] = p.Z[(rg.g * p.R + src) * C + (idx - r * C)];
+        }
+        walker_sync(nt);
+      }
+      if (kWalk && sseed != nullptr && pc % per == 0) {  // a stretch's start state, for moments_at
+        double* ss = sseed + (item * nsmax + pc / per) * E;
+        for (int e = tid; e < E; e += nt) ss[e] = e < body ? st[e] : disc;
+      }
+      for (int r = 0; r < sx.n; ++r) {
+        const double* z = zs + r * C;
+        const bool valid = vs[r] != 0;
+        const bool ref = kWalk && rs[r] != 0;
+        const double* gz = kRolling && ls[r] >= 0 ? gone + r * C : nullptr;
+        const bool scale = !kRolling && valid && p.ff != 1.0;
+        if (scale) disc *= p.ff;
+        const double reg = kRolling ? p.reg0 : disc * p.reg0;
+        // the update, and at a refresh row the augmented system [A + reg I; b' + reg mean']
+        bool ok = true;  // the pivots' test: thread 0 keeps it
+        int i = i0, j = j0;
+        for (int e = tid; e < body; e += nt, untri_step(i, j, nt)) {
+          double a = st[e];
+          const int xi = i < k ? i : j, yj = i < k ? j : -1;  // b's entries pair x_j with z[0] = y
+          if (valid) {
+            if (scale) a *= p.ff;
+            a = fma(z[1 + xi], z[1 + yj], a);
+          }
+          if (gz != nullptr) a = fma(-gz[1 + xi], gz[1 + yj], a);
+          st[e] = a;
+          if (ref) {
+            const double f = i < k ? (i == j ? a + reg : a) : fma(reg, mean[j], a);
+            fac[e] = f;
+            if (e == 0) {
+              ok = f > 0.0 && f < INFINITY;
+              rpiv[0] = recip(f);
+            }
+          }
+        }
+        if (ref) {
+          walker_sync(nt);
+          // LDL' by columns: F_iq -= F_ij F_qj / d_j for j < q <= i <= K,
+          // (K, K) aside; thread 0 meets the next pivot first (u = 0) and
+          // posts its reciprocal before the barrier
+          for (int jc = 0; jc < k; ++jc) {
+            const double rd = rpiv[jc];
+            const int j1 = jc + 1, m = k - jc, cnt = m * (m + 1) / 2 - 1;
+            int a = i0, c = j0;
+            for (int u = tid; u < cnt; u += nt, untri_step(a, c, nt)) {
+              const int ri = j1 + a, q = j1 + c;
+              const int ti = ri * (ri + 1) / 2;
+              const double x = fma(-(fac[ti + jc] * rd), fac[q * (q + 1) / 2 + jc], fac[ti + q]);
+              fac[ti + q] = x;
+              if (u == 0 && j1 < k) {
+                ok = ok && x > 0.0 && x < INFINITY;
+                rpiv[j1] = recip(x);
+              }
+            }
+            walker_sync(nt);
+          }
+          // row K is y (U y = b); beta_i = (y_i - sum_{q > i} F_qi beta_q) / d_i by columns
+          if (k <= kWarp) {
+            if (tid < kWarp) {  // lane q keeps y_q and 1 / d_q; beta_i by a shuffle
+              ok = __shfl_sync(kFull, ok, 0);
+              double rq = tid < k ? fac[kt + tid] : 0.0;
+              const double pq = tid < k ? rpiv[tid] : 0.0;
+              for (int ri = k - 1; ri > 0; --ri) {
+                const double f = tid < ri ? fac[ri * (ri + 1) / 2 + tid] : 0.0;
+                const double bi = __shfl_sync(kFull, rq * pq, ri);
+                if (tid < ri) rq = fma(-f, bi, rq);
+              }
+              if (tid < k) cbeta[tid] = ok ? rq * pq : NAN;
+            }
+            walker_sync(nt);
+          } else {
+            for (int ri = k - 1; ri >= 0; --ri) {
+              const double bi = fac[kt + ri] * rpiv[ri];
+              if (tid == 0) cbeta[ri] = ok ? bi : NAN;
+              const int ti = ri * (ri + 1) / 2;
+              for (int q = tid; q < ri; q += nt) fac[kt + q] = fma(-fac[ti + q], bi, fac[kt + q]);
+              walker_sync(nt);
+            }
+          }
+          if (!ok && tid == 0) {
+            flag[sx.row + r] = 1;
+            atomicAdd(nflag, 1);
+          }
+          known = true;
+        }
+        if (kWalk && known) {
+          const int64_t at = sx.row + r;
+          if (coef != nullptr) {
+            for (int i = tid; i < k; i += nt) coef[at * k + i] = cbeta[i];
+          } else if (tid < kWarp) {
+            double acc = 0.0;
+            for (int i = tid; i < k; i += kWarp) acc = fma(z[1 + i], cbeta[i], acc);
+            for (int o = kWarp / 2; o > 0; o >>= 1) acc += __shfl_xor_sync(kFull, acc, o);
+            if (tid == 0) pred[at] = acc;
+          }
+        }
+      }
+      __syncthreads();  // every thread is done with the stage and the leaving rows
+      if (tid == 0 && pc + 2 < npc) {
+        issue_stretch<kRolling>(p, lay.z, lay.m, piece_of(p, rg, pc + 2, P), shared_addr(stage),
+                                bars + 8u * slot);
+      }
+    }
+    if (in_table) {
+      const int64_t m = item - p.G;
+      if (!kWalk) {
+        for (int e = tid; e < E; e += nt) summ[m * E + e] = e < body ? st[e] : disc;
+      } else {
+        for (int i = tid; i < k; i += nt) tail[m * k + i] = cbeta[i];
+        if (tid == 0) has[m] = known ? 1 : 0;
+      }
+    }
+    __syncthreads();  // before the next range takes the state and beta
+  }
+}
+
+// fill (above) at any K, for the shared form. The register form keeps its
+// templated fill and moments_at: run in their place at K <= 8 on an H100,
+// these two changed its outputs' bits (chip_smoke.REGISTER_FORM_DIGESTS),
+// which are held fixed.
+__global__ void __launch_bounds__(128)
+fill_shared(Problem p, const double* __restrict__ tail, const uint8_t* __restrict__ has,
+            double* __restrict__ coef, double* __restrict__ pred) {
+  const int64_t m = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (m >= p.M) return;
+  const Range rg = range_of(p, p.G + m);
+  if (rg.t0 == 0) return;
+  const int k = p.K;
+  int64_t src = m - 1;
+  while (src > 0 && !has[src] && p.ranges[2 * (src - 1)] == rg.g) --src;
+  const double* beta = tail + src * k;
+  for (int t = 0; t < rg.len; ++t) {
+    const int64_t at = rg.g * p.R + rg.t0 + t;
+    if (p.refresh[at]) break;
+    if (coef != nullptr) {
+      for (int i = 0; i < k; ++i) coef[at * k + i] = beta[i];
+    } else {
+      const double* z = p.Z + at * (k + 1);
+      double acc = 0.0;
+      for (int i = 0; i < k; ++i) acc = fma(z[1 + i], beta[i], acc);
+      pred[at] = acc;
+    }
+  }
+}
+
+// moments_at (above) at any K: a block a listed row, its threads over the
+// entries, each walking the rows from the stretch's start state
+template <bool kRolling>
+__global__ void __launch_bounds__(128)
+moments_at_shared(Problem p, const double* __restrict__ mean, const double* __restrict__ sseed,
+                  const int64_t* __restrict__ fg, const int64_t* __restrict__ ft,
+                  const int64_t* __restrict__ fa, const int64_t* __restrict__ fseed,
+                  double* __restrict__ A_out, double* __restrict__ rhs_out) {
+  const int64_t f = blockIdx.x;
+  const int k = p.K, C = k + 1, kt = k * (k + 1) / 2, body = kt + k;
+  const int64_t g = fg[f], t_at = ft[f], t0 = fa[f];
+  const double* s0 = sseed + fseed[f] * (body + 1);
+  double disc = s0[body];
+  if (!kRolling && p.ff != 1.0) {
+    for (int64_t t = t0; t <= t_at; ++t) {
+      if (p.v[g * p.R + t]) disc *= p.ff;
+    }
+  }
+  const double reg = kRolling ? p.reg0 : disc * p.reg0;
+  for (int e = threadIdx.x; e < body; e += blockDim.x) {
+    int i, j = -1;
+    if (e < kt) {
+      untri(e, i, j);
+    } else {
+      i = e - kt;
+    }
+    double a = s0[e];
+    for (int64_t t = t0; t <= t_at; ++t) {
+      const int64_t at = g * p.R + t;
+      if (p.v[at]) {
+        const double* z = p.Z + at * C;
+        if (!kRolling && p.ff != 1.0) a *= p.ff;
+        a = fma(z[1 + i], z[1 + j], a);
+      }
+      if (kRolling && p.leaving[at] >= 0) {
+        const double* gz = p.Z + (g * p.R + p.leaving[at]) * C;
+        a = fma(-gz[1 + i], gz[1 + j], a);
+      }
+    }
+    if (e < kt) {
+      const double x = i == j ? a + reg : a;
+      A_out[(f * k + i) * k + j] = x;
+      A_out[(f * k + j) * k + i] = x;
+    } else {
+      rhs_out[f * k + i] = fma(reg, mean[i], a);
+    }
   }
 }
 
@@ -843,7 +1182,7 @@ int prepare(Kernel kernel, const Layout& lay, int* wpb) {
 }
 
 template <bool kWalk, int KB, bool kRolling>
-int launch_walk(const Problem& p, const Mean& mean, int ow, int64_t first, int64_t items,
+int launch_walk(const Problem& p, const double* mean, int ow, int64_t first, int64_t items,
                 const double* seed, double* summ, double* sseed, int64_t nsmax, double* tail,
                 uint8_t* has, double* coef, double* pred, uint8_t* flag, int* nflag, cudaStream_t st) {
   if (items == 0) return 0;
@@ -857,25 +1196,31 @@ int launch_walk(const Problem& p, const Mean& mean, int ow, int64_t first, int64
   return static_cast<int>(cudaGetLastError());
 }
 
+// The prefix over the range summaries into each range's seed (the start
+// state its walk takes).
+int run_prefix(const Problem& p, const int64_t* seg_first, int64_t NS, const int64_t* grp_seg, int64_t NL,
+               const double* summ, double* seed, double* segtot, double* segseed, cudaStream_t st) {
+  const int E = p.K * (p.K + 1) / 2 + p.K + 1;
+  if (NS > NL) {
+    prefix_compose<<<blocks_for(NS * E, 128), 128, 0, st>>>(summ, seg_first, NS, E, segtot);
+    prefix_scan<<<blocks_for(NL * E, 128), 128, 0, st>>>(segtot, grp_seg, NL, E, segseed);
+  } else {
+    segseed = nullptr;
+  }
+  prefix_expand<<<blocks_for(NS * E, 128), 128, 0, st>>>(summ, seg_first, segseed, NS, E, seed);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int KB, bool kRolling>
-int run_all(const Problem& p, const Mean& mean, const int64_t* seg_first, int64_t NS,
+int run_all(const Problem& p, const double* mean, const int64_t* seg_first, int64_t NS,
             const int64_t* grp_seg, int64_t NL, double* summ, double* seed, double* segtot,
             double* segseed, double* sseed, int64_t nsmax, double* tail, uint8_t* has, double* coef,
             double* pred, uint8_t* flag, int* nflag, cudaStream_t st) {
-  const int E = p.K * (p.K + 1) / 2 + p.K + 1;
   int rc = 0;
   if (p.M > 0) {
     rc = launch_walk<false, KB, kRolling>(p, mean, 0, p.G, p.M, nullptr, summ, nullptr, 0, nullptr,
                                           nullptr, nullptr, nullptr, nullptr, nullptr, st);
-    if (rc != 0) return rc;
-    if (NS > NL) {
-      prefix_compose<<<blocks_for(NS * E, 128), 128, 0, st>>>(summ, seg_first, NS, E, segtot);
-      prefix_scan<<<blocks_for(NL * E, 128), 128, 0, st>>>(segtot, grp_seg, NL, E, segseed);
-    } else {
-      segseed = nullptr;
-    }
-    prefix_expand<<<blocks_for(NS * E, 128), 128, 0, st>>>(summ, seg_first, segseed, NS, E, seed);
-    rc = static_cast<int>(cudaGetLastError());
+    if (rc == 0) rc = run_prefix(p, seg_first, NS, grp_seg, NL, summ, seed, segtot, segseed, st);
     if (rc != 0) return rc;
   }
   rc = launch_walk<true, KB, kRolling>(p, mean, coef != nullptr ? p.K : 1, 0, p.G + p.M, seed, nullptr,
@@ -886,7 +1231,7 @@ int run_all(const Problem& p, const Mean& mean, const int64_t* seg_first, int64_
 }
 
 template <int KB, bool kRolling>
-int run_moments_at(const Problem& p, const Mean& mean, const double* sseed, const int64_t* fg,
+int run_moments_at(const Problem& p, const double* mean, const double* sseed, const int64_t* fg,
                    const int64_t* ft, const int64_t* fa, const int64_t* fseed, int64_t F,
                    double* A_out, double* rhs_out, cudaStream_t st) {
   moments_at<KB, kRolling><<<blocks_for(F, 128), 128, 0, st>>>(p, mean, sseed, fg, ft, fa, fseed, F,
@@ -907,31 +1252,84 @@ int run_occupancy(int K, int T, int ow, int* warps) {
   return rc;
 }
 
+// the shared form
+template <class Kernel>
+int prepare_shared(Kernel kernel, const SharedLayout& lay) {
+  if (lay.rows < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.total));
+}
+
+template <bool kRolling>
+int run_all_shared(const Problem& p, const double* mean, int64_t walkers, double* work,
+                   const int64_t* seg_first, int64_t NS, const int64_t* grp_seg, int64_t NL, double* summ,
+                   double* seed, double* segtot, double* segseed, double* sseed, int64_t nsmax, double* tail,
+                   uint8_t* has, double* coef, double* pred, uint8_t* flag, int* nflag, cudaStream_t st) {
+  const SharedLayout lay = shared_layout_for(p.K, p.T, kRolling);
+  if (walkers < 1 || (!lay.here && work == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = shared_threads(p.K);
+  int rc = 0;
+  if (p.M > 0) {
+    auto summary = walk_shared<kRolling, false>;
+    rc = prepare_shared(summary, lay);
+    if (rc != 0) return rc;
+    summary<<<static_cast<unsigned>(min64(p.M, walkers)), threads, lay.total, st>>>(
+        p, mean, lay, p.G, p.M, nullptr, summ, nullptr, 0, nullptr, nullptr, nullptr, nullptr, nullptr,
+        nullptr, work);
+    rc = static_cast<int>(cudaGetLastError());
+    if (rc == 0) rc = run_prefix(p, seg_first, NS, grp_seg, NL, summ, seed, segtot, segseed, st);
+    if (rc != 0) return rc;
+  }
+  auto walker = walk_shared<kRolling, true>;
+  rc = prepare_shared(walker, lay);
+  if (rc != 0) return rc;
+  walker<<<static_cast<unsigned>(min64(p.G + p.M, walkers)), threads, lay.total, st>>>(
+      p, mean, lay, 0, p.G + p.M, seed, nullptr, sseed, nsmax, tail, has, coef, pred, flag, nflag, work);
+  rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0 || p.M == 0) return rc;
+  fill_shared<<<blocks_for(p.M, 128), 128, 0, st>>>(p, tail, has, coef, pred);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kRolling>
+int run_moments_at_shared(const Problem& p, const double* mean, const double* sseed, const int64_t* fg,
+                          const int64_t* ft, const int64_t* fa, const int64_t* fseed, int64_t F,
+                          double* A_out, double* rhs_out, cudaStream_t st) {
+  moments_at_shared<kRolling><<<static_cast<unsigned>(F), 128, 0, st>>>(p, mean, sseed, fg, ft, fa, fseed,
+                                                                        A_out, rhs_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kRolling>
+int run_occupancy_shared(int K, int T, int* walkers) {
+  const SharedLayout lay = shared_layout_for(K, T, kRolling);
+  auto kernel = walk_shared<kRolling, true>;
+  int blocks = 0;
+  int rc = prepare_shared(kernel, lay);
+  if (rc != 0) return rc;
+  rc = static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, shared_threads(K), lay.total));
+  *walkers = blocks;
+  return rc;
+}
+
 bool valid_sizes(int64_t G, int64_t R, int K, int T) {
   return G >= 0 && R >= 0 && R < (int64_t{1} << 31) && K >= 1 && K <= kMaxK && T >= 1 && T <= kMaxT;
 }
 
-Mean mean_from(const double* mean0) {
-  Mean mean;
-  for (int i = 0; i < kMaxK; ++i) mean.m[i] = mean0[i];
-  return mean;
-}
-
 }  // namespace
 
-// KB of a K: itself up to 8 (registers), then the buckets 16 and 32
-#define POLS_MOVING_DISPATCH(K, ROLLING, CALL)             \
-  switch ((K) <= 8 ? (K) : ((K) <= 16 ? 16 : 32)) {        \
-    case 1: return (ROLLING) ? CALL(1, true) : CALL(1, false);    \
-    case 2: return (ROLLING) ? CALL(2, true) : CALL(2, false);    \
-    case 3: return (ROLLING) ? CALL(3, true) : CALL(3, false);    \
-    case 4: return (ROLLING) ? CALL(4, true) : CALL(4, false);    \
-    case 5: return (ROLLING) ? CALL(5, true) : CALL(5, false);    \
-    case 6: return (ROLLING) ? CALL(6, true) : CALL(6, false);    \
-    case 7: return (ROLLING) ? CALL(7, true) : CALL(7, false);    \
-    case 8: return (ROLLING) ? CALL(8, true) : CALL(8, false);    \
-    case 16: return (ROLLING) ? CALL(16, true) : CALL(16, false); \
-    default: return (ROLLING) ? CALL(32, true) : CALL(32, false); \
+// The register form's templates at K <= 8, the shared form above
+#define POLS_MOVING_DISPATCH(K, ROLLING, CALL, SHARED)             \
+  switch (K) {                                                     \
+    case 1: return (ROLLING) ? CALL(1, true) : CALL(1, false);     \
+    case 2: return (ROLLING) ? CALL(2, true) : CALL(2, false);     \
+    case 3: return (ROLLING) ? CALL(3, true) : CALL(3, false);     \
+    case 4: return (ROLLING) ? CALL(4, true) : CALL(4, false);     \
+    case 5: return (ROLLING) ? CALL(5, true) : CALL(5, false);     \
+    case 6: return (ROLLING) ? CALL(6, true) : CALL(6, false);     \
+    case 7: return (ROLLING) ? CALL(7, true) : CALL(7, false);     \
+    case 8: return (ROLLING) ? CALL(8, true) : CALL(8, false);     \
+    default: return (ROLLING) ? SHARED(true) : SHARED(false);      \
   }
 
 extern "C" {
@@ -940,73 +1338,108 @@ extern "C" {
 // valid rows v [G, R] of groups of rows[g] rows each: beta into coef
 // [G, R, K] or x . beta into pred [G, R] (the other null), in stretches of
 // 32 T rows. rolling: leaving [G, R] int32 and reg0 = alpha; else reg0 =
-// 1 / c, ff the forgetting factor and mean0 (32 host doubles) the prior
-// mean. A group of more than L rows is walked in the M ranges of the table
+// 1 / c, ff the forgetting factor. mean0: the prior mean, K doubles in
+// device memory (zeros for rolling). A group of more than L rows is walked
+// in the M ranges of the table
 // ranges [M, 2] (group, first row; a group's ranges contiguous and in row
 // order), cut for the prefix into NS segments (seg_first [NS + 1], flat
 // range indices) of NL groups (grp_seg [NL + 1], segment indices). Scratch:
 // summ and seed [M, E] (E = K (K + 1) / 2 + K + 1), segtot and segseed
 // [NS, E], tail [M, K], has [M]; sseed [G + M, nsmax, E] receives the start
-// state of every stretch that holds a flagged row (nsmax: stretches of the
-// longest range). flag [G, R] and nflag [1] arrive zeroed and mark and
-// count the rows whose Cholesky failed. Launches on `stream` without
-// synchronising; returns the CUDA error code of the first launch that
-// failed (0 on success).
+// state of every stretch that holds a flagged row (the shared form: of
+// every stretch; nsmax: stretches of the longest range). flag [G, R] and
+// nflag [1] arrive zeroed and mark and count the rows whose Cholesky failed.
+// K > 8 (the shared form): walkers, the blocks of the persistent grid
+// (pols_moving_resident_warps times the SMs), and work, walkers times
+// pols_moving_workspace doubles (null where that is 0). Launches on
+// `stream` without synchronising; returns the CUDA error code of the first
+// launch that failed (0 on success).
 int pols_moving(const double* Z, const uint8_t* v, const int64_t* rows, const uint8_t* refresh,
                 const int32_t* leaving, int64_t G, int64_t R, int K, int T, int64_t L, int rolling,
                 double ff, double reg0, const double* mean0, const int64_t* ranges, int64_t M,
                 const int64_t* seg_first, int64_t NS, const int64_t* grp_seg, int64_t NL,
                 double* summ, double* seed, double* segtot, double* segseed, double* sseed,
                 int64_t nsmax, double* tail, uint8_t* has, double* coef, double* pred,
-                uint8_t* flag, int* nflag, void* stream) {
+                uint8_t* flag, int* nflag, int64_t walkers, double* work, void* stream) {
   const Problem p{Z, v, rows, refresh, leaving, ranges, G, R, L, M, K, T, ff, reg0};
-  if (!valid_sizes(G, R, K, T) || L < 1 || M < 0 || (coef == nullptr) == (pred == nullptr) ||
-      (rolling != 0) != (leaving != nullptr) ||
+  if (!valid_sizes(G, R, K, T) || L < 1 || M < 0 || mean0 == nullptr ||
+      (coef == nullptr) == (pred == nullptr) || (rolling != 0) != (leaving != nullptr) ||
       (M > 0 && (ranges == nullptr || seg_first == nullptr || grp_seg == nullptr || NL < 1 ||
                  NS < NL || summ == nullptr || seed == nullptr || tail == nullptr || has == nullptr ||
                  (NS > NL && (segtot == nullptr || segseed == nullptr))))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (G == 0 || R == 0) return 0;
-  const Mean mean = mean_from(mean0);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define POLS_RUN_ALL(KB, ROLL)                                                                   \
-  run_all<KB, ROLL>(p, mean, seg_first, NS, grp_seg, NL, summ, seed, segtot, segseed, sseed, nsmax, \
+#define POLS_RUN_ALL(KB, ROLL)                                                                        \
+  run_all<KB, ROLL>(p, mean0, seg_first, NS, grp_seg, NL, summ, seed, segtot, segseed, sseed, nsmax, \
                     tail, has, coef, pred, flag, nflag, st)
-  POLS_MOVING_DISPATCH(K, rolling != 0, POLS_RUN_ALL)
+#define POLS_RUN_SHARED(ROLL)                                                                        \
+  run_all_shared<ROLL>(p, mean0, walkers, work, seg_first, NS, grp_seg, NL, summ, seed, segtot,       \
+                       segseed, sseed, nsmax, tail, has, coef, pred, flag, nflag, st)
+  POLS_MOVING_DISPATCH(K, rolling != 0, POLS_RUN_ALL, POLS_RUN_SHARED)
 #undef POLS_RUN_ALL
+#undef POLS_RUN_SHARED
 }
 
 // The systems of the F listed rows (fg[f], ft[f]) of the same problem, from
 // the stretch start states a pols_moving call left in sseed: row f walks
 // from row fa[f] of its group and the state sseed[fseed[f]]. A_out
-// [F, K, K] with the regularisation on its diagonal, rhs_out [F, K].
+// [F, K, K] with the regularisation on its diagonal, rhs_out [F, K]; mean0
+// as above.
 int pols_moving_moments_at(const double* Z, const uint8_t* v, const int32_t* leaving, int64_t G,
                            int64_t R, int K, int rolling, double ff, double reg0,
                            const double* mean0, const double* sseed, const int64_t* fg,
                            const int64_t* ft, const int64_t* fa, const int64_t* fseed, int64_t F,
                            double* A_out, double* rhs_out, void* stream) {
   const Problem p{Z, v, nullptr, nullptr, leaving, nullptr, G, R, 1, 0, K, 1, ff, reg0};
-  if (!valid_sizes(G, R, K, 1) || F < 0 || (rolling != 0) != (leaving != nullptr)) {
+  if (!valid_sizes(G, R, K, 1) || F < 0 || F > INT_MAX || mean0 == nullptr ||
+      (rolling != 0) != (leaving != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (F == 0) return 0;
-  const Mean mean = mean_from(mean0);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define POLS_RUN_AT(KB, ROLL) \
-  run_moments_at<KB, ROLL>(p, mean, sseed, fg, ft, fa, fseed, F, A_out, rhs_out, st)
-  POLS_MOVING_DISPATCH(K, rolling != 0, POLS_RUN_AT)
+  run_moments_at<KB, ROLL>(p, mean0, sseed, fg, ft, fa, fseed, F, A_out, rhs_out, st)
+#define POLS_RUN_AT_SHARED(ROLL) \
+  run_moments_at_shared<ROLL>(p, mean0, sseed, fg, ft, fa, fseed, F, A_out, rhs_out, st)
+  POLS_MOVING_DISPATCH(K, rolling != 0, POLS_RUN_AT, POLS_RUN_AT_SHARED)
 #undef POLS_RUN_AT
+#undef POLS_RUN_AT_SHARED
 }
 
-// Warps of the walk an SM holds at K features, stretches of 32 T rows and
-// coefficients (else predictions) into *warps; the CUDA error code.
-int pols_moving_resident_warps(int K, int rolling, int T, int coefs, int* warps) {
+// Walkers of the walk an SM holds at K features, stretches of 32 T rows and
+// coefficients (else predictions) into *walkers: warps in the register form
+// (K <= 8), blocks in the shared form; the CUDA error code.
+int pols_moving_resident_warps(int K, int rolling, int T, int coefs, int* walkers) {
   if (!valid_sizes(0, 0, K, T)) return static_cast<int>(cudaErrorInvalidValue);
   const int ow = coefs != 0 ? K : 1;
-#define POLS_RUN_OCC(KB, ROLL) run_occupancy<KB, ROLL>(K, T, ow, warps)
-  POLS_MOVING_DISPATCH(K, rolling != 0, POLS_RUN_OCC)
+#define POLS_RUN_OCC(KB, ROLL) run_occupancy<KB, ROLL>(K, T, ow, walkers)
+#define POLS_RUN_OCC_SHARED(ROLL) run_occupancy_shared<ROLL>(K, T, walkers)
+  POLS_MOVING_DISPATCH(K, rolling != 0, POLS_RUN_OCC, POLS_RUN_OCC_SHARED)
 #undef POLS_RUN_OCC
+#undef POLS_RUN_OCC_SHARED
+}
+
+// The shared form's layout at K features and stretches of 32 T rows: the
+// device-memory workspace a walker needs (doubles, 0 where its state sits
+// in shared memory, and always 0 at K <= 8) into *doubles, the rows of a
+// piece that its stages hold into *rows and the threads of a walker into
+// *threads; -1 where no layout fits, else 0.
+int pols_moving_shared_layout(int K, int rolling, int T, int64_t* doubles, int* rows, int* threads) {
+  if (!valid_sizes(0, 0, K, T)) return -1;
+  if (K <= kRegisterMaxK) {
+    *doubles = 0;
+    *rows = kWarp * T;
+    *threads = kWarp;
+    return 0;
+  }
+  const SharedLayout lay = shared_layout_for(K, T, rolling != 0);
+  if (lay.rows < 1) return -1;
+  *doubles = work_doubles(K, lay);
+  *rows = lay.rows;
+  *threads = shared_threads(K);
+  return 0;
 }
 
 // Message for an error code returned above.

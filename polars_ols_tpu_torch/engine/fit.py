@@ -62,7 +62,7 @@ from ..ops.linalg import (
     psd_solver, solve_lu, solve_psd, solve_psd_cond, svd_lstsq, svd_lstsq_from_factor,
 )
 from ..ops.masking import prepare_problem, zero_filled
-from ..ops.moving import MAX_K as MOVING_MAX_K, recursive_least_squares, rolling_ols
+from ..ops.moving import recursive_least_squares, rolling_ols
 from ..ops.rolling import default_min_periods, rolling_indices
 from ..ops.statistics import feature_metrics, residual_metrics
 from ..series import BlockPermuted, Series, StatisticsSeries, StructSeries
@@ -233,7 +233,7 @@ def _reduction_plan(layout, r_cap: int, k: int):
     plan_reduction), planned on the host from its counts and cached on it."""
     key = ("reduction", r_cap, k)
     if key not in layout._dev:
-        layout._dev[key] = plan_reduction(layout._blocks_per_group(r_cap), k, device())
+        layout._dev[key] = plan_reduction(layout._blocks_per_group(r_cap), k, device(), rows=r_cap)
     return layout._dev[key]
 
 
@@ -556,8 +556,6 @@ def evaluate_least_squares(
             )
         return _evaluate_multi_target(target, feat_series, kwargs, layout, weights)
     if function_name != "least_squares":
-        if k > MOVING_MAX_K:
-            raise _not_ported(f"a moving model of K={k} > {MOVING_MAX_K} features", "12c")
         return _evaluate_moving(function_name, target, feat_series, kwargs, mode, layout, weights)
     method = _resolve_method(layout, kwargs, k)
     if method.startswith("cd") and k > CD_MAX_K:

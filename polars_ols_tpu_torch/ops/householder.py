@@ -24,15 +24,17 @@ The kernel has two forms, which its C entry picks by the block's shape
 (``kernel_form`` reads the choice back): up to ``MAX_COLS`` columns a
 thread holds its rows of the panel in registers (blocks of at most
 ``MAX_ROWS`` rows); above, the wide form (more than 32 features, or
-targets beside the features past 33 columns) gives a block of at most
-``MAX_WIDE_ROWS`` rows to 1,024 threads, its panel in shared memory where
-it fits, else in a device-memory workspace that ``_launch`` allocates.
-``max_rows(C)`` is the form's row limit; ``reduce_groups`` cuts longer
-blocks to it.
+targets beside the features past 33 columns) gives a block of any number
+of rows to 1,024 threads, its panel in shared memory where it fits, else
+in a device-memory workspace that ``_launch`` allocates (its pivot
+column is read in place from the panel). ``reduce_groups`` cuts register
+form blocks longer than ``MAX_ROWS`` into pieces first.
 
 A group whose rows span several blocks is reduced as a tree:
-``plan_reduction`` (host-side, from the blocks per group) stacks each
-group's ``[n, K, C]`` partial factors, ``MAX_ROWS // K`` to a block, and
+``plan_reduction`` (host-side, from the blocks per group and their rows)
+stacks each group's ``[n, K, C]`` partial factors, as many to a block as
+fit ``max(MAX_ROWS, 2 K)`` rows (at least two; a factor of a block of
+fewer rows than K stacks only those rows, the rest are zero), and
 ``reduce_groups`` reduces the stacks with the same kernel until one factor
 is left per group. Stacked factors are genuine rows, so the last factor is
 the reduction of all of the group's rows (up to the signs of its rows,
@@ -59,10 +61,8 @@ householder_kernel_launches = 0
 MAX_COLS = 33
 # rows a block holds: the register form's limit (a thread block of at most
 # 512 threads holds the panel in registers) and the split layout's default
-# cap; the wide form's (its pivot column in shared memory), which the
-# tree's levels need at twice K: K <= MAX_WIDE_ROWS / 2
+# cap; the wide form takes any number
 MAX_ROWS = 512
-MAX_WIDE_ROWS = 8192
 # the kernel's forms, as pols_householder_form numbers them
 FORMS = ("register", "wide (panel in shared memory)", "wide (panel in device memory)")
 
@@ -93,20 +93,14 @@ def kernel_form(R: int, C: int) -> str:
     return FORMS[form]
 
 
-def max_rows(C: int) -> int:
-    """The most rows a block of C columns may have: ``MAX_ROWS`` in the
-    register form (C <= ``MAX_COLS``), ``MAX_WIDE_ROWS`` in the wide form."""
-    return MAX_ROWS if C <= MAX_COLS else MAX_WIDE_ROWS
-
-
 def _check(Z, w, K: int) -> None:
     if Z.dtype != F64 or Z.dim() != 3:
         raise TypeError(f"Z must be a [B, R, C] float64 tensor, got {Z.dtype} {tuple(Z.shape)}")
     B, R, C = Z.shape
     if C < 2 or not 1 <= K < C or R < 1:
         raise ValueError(f"Z has C={C}, R={R} with K={K}; the reduction takes 1 <= K < C, R >= 1")
-    if R > max_rows(C):
-        raise ValueError(f"a block of R={R} rows and C={C} columns: the kernel takes at most {max_rows(C)} rows")
+    if C <= MAX_COLS and R > MAX_ROWS:
+        raise ValueError(f"a block of R={R} rows and C={C} columns: the kernel takes at most {MAX_ROWS} rows")
     if w.dtype != torch.bool or tuple(w.shape) != (B, R):
         raise TypeError(f"w must be a [{B}, {R}] bool tensor, got {w.dtype} {tuple(w.shape)}")
     if Z.device != w.device:
@@ -172,7 +166,7 @@ class ReductionPlan:
     Attributes:
         levels: for each level after the first, (gather [S, R] int64 into
             the previous level's factor rows ``[S_prev * K]``, mask [S, R]
-            bool); a block holds up to ``MAX_ROWS // K`` factors of one
+            bool); a block holds the leading rows of several factors of one
             group.
         final: [G] index of each group's last factor into all levels'
             factors concatenated, or None where the last level's blocks are
@@ -183,11 +177,14 @@ class ReductionPlan:
     final: Optional[torch.Tensor]
 
 
-def plan_reduction(blocks_per_group: np.ndarray, K: int, device=None) -> ReductionPlan:
+def plan_reduction(blocks_per_group: np.ndarray, K: int, device=None, rows: Optional[int] = None) -> ReductionPlan:
     """The tree that reduces each group's ``blocks_per_group[g]`` factors
-    (contiguous, in group order) to one. Groups with one factor are done;
-    the others stack theirs, ``MAX_ROWS // K`` to a block, level by level."""
-    per = max(2, MAX_ROWS // K)
+    (contiguous, in group order) of blocks of ``rows`` rows (default: K or
+    more) to one. Groups with one factor are done; the others stack the
+    leading ``h`` rows of theirs (h = K, or the rows of a block of fewer:
+    the factor's rows below those are zero), ``max(MAX_ROWS, 2 K) // h`` (at
+    least two) to a block, level by level."""
+    h = K if rows is None else max(1, min(K, int(rows)))
     units = np.asarray(blocks_per_group, dtype=np.int64).copy()
     G = len(units)
     first = np.zeros(G, dtype=np.int64)
@@ -198,19 +195,21 @@ def plan_reduction(blocks_per_group: np.ndarray, K: int, device=None) -> Reducti
     base, size = 0, int(units.sum())  # the current level's offset and factor count
     levels = []
     while not done.all():
+        per = max(2, max(MAX_ROWS, 2 * K) // h)
         active = np.flatnonzero(~done)
         nb = -(-units[active] // per)  # the next level's blocks of each active group
         S = int(nb.sum())
-        width = int(min(per, units[active].max())) * K
+        width = int(min(per, units[active].max())) * h
         blk_group = np.repeat(active, nb)
         blk_first = np.zeros(len(active), dtype=np.int64)
         np.cumsum(nb[:-1], out=blk_first[1:])
         f_lo = (np.arange(S) - np.repeat(blk_first, nb)) * per
         f_cnt = np.minimum(per, units[blk_group] - f_lo)
         slot = np.arange(width)
-        mask = slot[None, :] // K < f_cnt[:, None]
-        src = (first[blk_group][:, None] + f_lo[:, None] + slot[None, :] // K) * K + slot[None, :] % K
+        mask = slot[None, :] // h < f_cnt[:, None]
+        src = (first[blk_group][:, None] + f_lo[:, None] + slot[None, :] // h) * K + slot[None, :] % h
         levels.append((np.where(mask, src, 0), mask))
+        h = min(K, width)
         base += size
         size = S
         units = np.zeros(G, dtype=np.int64)
@@ -231,15 +230,14 @@ def plan_reduction(blocks_per_group: np.ndarray, K: int, device=None) -> Reducti
 def reduce_groups(Z: torch.Tensor, w: torch.Tensor, K: int, plan: ReductionPlan) -> torch.Tensor:
     """Each group's factor ``[G, K, C]`` of its blocks ``Z [S, R, C]`` under
     ``w [S, R]``: the blocks' reduction, then the plan's levels (one
-    launch each, on the stacked factors). Blocks of more than ``max_rows(C)``
-    rows (a larger ``CONFIG.moment_chunk_rows``) are first cut into pieces
-    of that many, and each block's stacked piece factors stand in for its
-    rows."""
+    launch each, on the stacked factors; a plan made for blocks of R rows,
+    or of K or more). Register form blocks of more than ``MAX_ROWS`` rows
+    (a larger ``CONFIG.moment_chunk_rows``) are first cut into pieces of
+    that many, and each block's stacked piece factors stand in for its
+    rows; the wide form takes a block whole."""
     S, R, C = Z.shape
-    limit = max_rows(C)
-    if 2 * K > limit:  # a level stacks at least two factors a block
-        raise ValueError(f"the Householder reduction takes K <= {limit // 2} features at C={C}, got K={K}")
-    while R > limit:
+    limit = MAX_ROWS
+    while C <= MAX_COLS and R > limit:
         n = -(-R // limit)
         pad = n * limit - R
         Z = torch.cat([Z, Z.new_zeros((S, pad, C))], dim=1).reshape(S * n, limit, C)

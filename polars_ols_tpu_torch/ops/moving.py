@@ -4,10 +4,11 @@ through the hand-written scan-and-solve kernel ``csrc/moving.cu``.
 The JAX engine's fast path (``ops/moving.py:solve_recursive_lanes`` `:553`,
 ``solve_rolling_lanes`` `:601`) scans lane-major f32 inverse states with
 refinement passes, shaped by its accelerator. Here the kernel keeps exact
-f64 moments and solves each refresh row afresh by Cholesky. A warp owns a
-range of one group's rows and walks it in stretches of 32 x T rows (lane j
-owns rows [j T, (j + 1) T) of a stretch), each bulk-copied into shared
-memory behind the previous one's arithmetic:
+f64 moments and solves each refresh row afresh by Cholesky. The kernel
+has two forms, picked by K in its C entry. In the register form (K <= 8)
+a warp owns a range of one group's rows and walks it in stretches of
+32 x T rows (lane j owns rows [j T, (j + 1) T) of a stretch), each
+bulk-copied into shared memory behind the previous one's arithmetic:
 
 1. every lane forms its rows' summary from a zero start (the discounted
    or entering-minus-leaving moment sum and the total discount), a
@@ -18,13 +19,27 @@ memory behind the previous one's arithmetic:
    ``[G, R]``; the last solved beta passes on to later lanes and
    stretches, so rows that only carry it are written in the same pass.
 
+In the shared form (K > 8) a walker is a block of 32 .. 256 threads (a
+warp up to K = 31, a warp more for each 16 features, at most 8) that keeps
+one copy of the range's state and one factor in shared memory (in a
+device-memory workspace of ``shared_layout(K, ...)[0]`` doubles a walker
+past what fits, about K = 100) and walks the rows in order; its threads
+split each row's update, an LDL' factorisation of the augmented system
+(the forward substitution inside it) and the back substitution. The
+stretches arrive the same way (in pieces of fewer rows where a stretch's
+rows do not fit the stages), and the grid is persistent: one walker a
+block, as many blocks as the card holds. The moments, the pivot test and
+the eigh fallback are the register form's, so a query's results do not
+change formulation at any K.
+
 A group of at most ``L`` rows (the planner's rows a range) is one range:
 it reads Z once and needs nothing else. A longer group is cut into ranges
 of ``L`` rows, and only those ranges pay a summary pass, a prefix over
 their summaries (in segments of ``SEGMENT_RANGES`` ranges) and a fill of
 a later range's leading rows that carry a beta solved before it.
-``plan_ranges`` chooses ``L`` from the host-side row counts and the warps
-the card holds, so that the grid holds ``WAVES`` waves of resident warps.
+``plan_ranges`` chooses ``L`` from the host-side row counts and the
+walkers the card holds (warps, or the shared form's blocks), so that the
+ranges make ``WAVES`` waves of resident walkers.
 
 Sums run in a fixed order, so results repeat bit for bit. Rows whose
 Cholesky meets a pivot that is not positive and finite are flagged; their
@@ -68,11 +83,11 @@ moving_host_syncs = 0
 # rows re-solved by the eigh fallback since the last reset
 moving_flagged_rows = 0
 
-# largest K of the per-thread Cholesky
-MAX_K = 32
+# the largest K of the shared form (the register form takes K <= 8)
+MAX_K = 8192
 WANTS = ("coefficients", "predictions")
 LANES = 32
-# waves of resident warps the planner's ranges fill: enough that groups of
+# waves of resident walkers the planner's ranges fill: enough that groups of
 # unequal length even out at the end of the grid
 WAVES = 4
 # ranges of a long group whose summaries one thread composes in turn
@@ -81,6 +96,8 @@ SEGMENT_RANGES = 32
 _BOUND = None
 _SM_COUNT = {}
 _RESIDENT = {}
+_LAYOUTS = {}
+_MEANS = {}
 _PLANS = {}
 _PLAN_CACHE_SIZE = 16
 
@@ -93,7 +110,7 @@ def _kernel():
         lib.pols_moving.argtypes = [
             vp, vp, vp, vp, vp, i64, i64, i32, i32, i64, i32, f64, f64, vp,
             vp, i64, vp, i64, vp, i64,
-            vp, vp, vp, vp, vp, i64, vp, vp, vp, vp, vp, vp, vp,
+            vp, vp, vp, vp, vp, i64, vp, vp, vp, vp, vp, vp, i64, vp, vp,
         ]
         lib.pols_moving.restype = ctypes.c_int
         lib.pols_moving_moments_at.argtypes = [
@@ -103,6 +120,11 @@ def _kernel():
         lib.pols_moving_moments_at.restype = ctypes.c_int
         lib.pols_moving_resident_warps.argtypes = [i32, i32, i32, i32, ctypes.POINTER(ctypes.c_int)]
         lib.pols_moving_resident_warps.restype = ctypes.c_int
+        lib.pols_moving_shared_layout.argtypes = [
+            i32, i32, i32, ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int),
+            ctypes.POINTER(ctypes.c_int),
+        ]
+        lib.pols_moving_shared_layout.restype = ctypes.c_int
         lib.pols_cuda_error_string.argtypes = [ctypes.c_int]
         lib.pols_cuda_error_string.restype = ctypes.c_char_p
         _BOUND = lib
@@ -117,8 +139,9 @@ def _sm_count(device) -> int:
 
 
 def _resident_warps(device, K: int, rolling: bool, T: int, coefs: bool) -> int:
-    """Warps of the walk the card holds at once (the occupancy of its
-    shared memory and registers, times the SMs)."""
+    """Walkers of the walk the card holds at once (the occupancy of its
+    shared memory and registers, times the SMs): warps in the register
+    form, blocks in the shared form (its persistent grid)."""
     key = (str(device), K, rolling, T, coefs)
     if key not in _RESIDENT:
         lib = _kernel()
@@ -130,13 +153,42 @@ def _resident_warps(device, K: int, rolling: bool, T: int, coefs: bool) -> int:
     return _RESIDENT[key]
 
 
+def shared_layout(K: int, rolling: bool, T: int):
+    """(workspace doubles a walker, rows a piece of a stretch, threads a
+    walker) of the kernel at K features and stretches of 32 T rows, as its
+    C entry lays them out (builds the kernel); (0, 32 T, 32) in the register
+    form."""
+    key = (K, bool(rolling), T)
+    if key not in _LAYOUTS:
+        doubles, rows, threads = ctypes.c_int64(0), ctypes.c_int(0), ctypes.c_int(0)
+        rc = _kernel().pols_moving_shared_layout(
+            K, int(rolling), T, ctypes.byref(doubles), ctypes.byref(rows), ctypes.byref(threads)
+        )
+        if rc != 0:
+            raise ValueError(f"the moving kernel has no layout for K={K}, T={T}")
+        _LAYOUTS[key] = (doubles.value, rows.value, threads.value)
+    return _LAYOUTS[key]
+
+
+def _mean_on(dev, mean0) -> torch.Tensor:
+    """The prior mean as K doubles on the device, kept per (device, values)."""
+    key = (str(dev), tuple(mean0))
+    hit = _MEANS.get(key)
+    if hit is None:
+        if len(_MEANS) >= _PLAN_CACHE_SIZE:
+            _MEANS.pop(next(iter(_MEANS)))
+        hit = _MEANS[key] = torch.tensor(list(mean0), dtype=F64, device=dev)
+    return hit
+
+
 def stretch_rows(K: int, rolling: bool) -> int:
     """Rows a lane owns in a stretch (T): the fastest of chip_smoke.py's
     sweeps on the H100 (PERF.md section 6): 5 for the recursive model up
     to K = 8, 3 for rolling up to K = 5 (it also holds the stretch's
-    leaving rows), 2 for rolling up to K = 8, 1 above K = 8 (where the
-    state lives in local memory and shared memory is better left to
-    resident warps). An odd T puts the lanes' rows on distinct
+    leaving rows), 2 for rolling up to K = 8, 1 above K = 8 (the shared
+    form, which walks a stretch's rows in order: 32 rows a stretch are
+    enough to hide the next one's copy, and its stages stay small beside
+    the state). An odd T puts the lanes' rows on distinct
     shared-memory banks where K + 1 is odd; where K + 1 is even two lanes
     share one at best."""
     if K > 8:
@@ -229,11 +281,8 @@ def _check(Zp, vp, rows, want: str) -> None:
     if Zp.dtype != F64 or Zp.dim() != 3 or Zp.shape[2] < 2:
         raise TypeError(f"Zp must be a [G, R, 1+K] float64 tensor, got {Zp.dtype} {tuple(Zp.shape)}")
     G, R, C = Zp.shape
-    if C - 1 > MAX_K:
-        raise NotImplementedError(
-            f"K={C - 1} features: the port's moving models cover K <= {MAX_K} "
-            "(larger K is ROADMAP.md Queue 1 item 12c)"
-        )
+    if C - 1 > MAX_K and Zp.device.type != "cpu":
+        raise ValueError(f"K={C - 1} features: the moving kernel takes K <= {MAX_K}")
     if vp.dtype != torch.bool or tuple(vp.shape) != (G, R):
         raise TypeError(f"vp must be a [{G}, {R}] bool tensor, got {vp.dtype} {tuple(vp.shape)}")
     if rows.dtype != torch.int64 or tuple(rows.shape) != (G,):
@@ -278,7 +327,8 @@ def _launch_kernels(Zp, vp, rows, refresh, leaving, rolling, ff, reg0, mean0, wa
     if counts is None:
         counts = rows.cpu().numpy()
     T = int(stretch) if stretch else stretch_rows(K, rolling)
-    plan, tables = _plan_for(counts, T, _resident_warps(dev, K, rolling, T, coefs), chunk, dev)
+    walkers = _resident_warps(dev, K, rolling, T, coefs)
+    plan, tables = _plan_for(counts, T, walkers, chunk, dev)
     E = K * (K + 1) // 2 + K + 1
     M, NS, NL = plan.M, len(plan.seg_first) - 1, len(plan.grp_seg) - 1
     summ = seed = segtot = segseed = tail = has = None
@@ -293,10 +343,12 @@ def _launch_kernels(Zp, vp, rows, refresh, leaving, rolling, ff, reg0, mean0, wa
     sseed = torch.empty((G + M, plan.nsmax, E), dtype=F64, device=dev)
     flag = torch.zeros((G, R), dtype=torch.uint8, device=dev)
     nflag = torch.zeros(1, dtype=torch.int32, device=dev)
-    mean_host = (ctypes.c_double * MAX_K)(*mean0, *([0.0] * (MAX_K - len(mean0))))
+    per_walker = shared_layout(K, rolling, T)[0]  # the shared form's workspace, where it has one
+    work = torch.empty(walkers * per_walker, dtype=F64, device=dev) if per_walker else None
+    mean_dev = _mean_on(dev, mean0)
     lib = _kernel()
     leaving_ptr = None if leaving is None else leaving.data_ptr()
-    model = (int(rolling), float(ff), float(reg0), mean_host)
+    model = (int(rolling), float(ff), float(reg0), mean_dev.data_ptr())
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -308,11 +360,11 @@ def _launch_kernels(Zp, vp, rows, refresh, leaving, rolling, ff, reg0, mean0, wa
             ptr(tables[0]), M, ptr(tables[1]), NS, ptr(tables[2]), NL,
             ptr(summ), ptr(seed), ptr(segtot), ptr(segseed), sseed.data_ptr(), plan.nsmax,
             ptr(tail), ptr(has), out.data_ptr() if coefs else None, None if coefs else out.data_ptr(),
-            flag.data_ptr(), nflag.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+            flag.data_ptr(), nflag.data_ptr(), walkers, ptr(work), torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(rc, lib, "scan and solve")
     moving_kernel_launches += 1
-    return out, flag, nflag, (leaving_ptr, model, plan, tables[3], sseed)
+    return out, flag, nflag, (leaving_ptr, model, plan, tables[3], sseed, mean_dev)
 
 
 def _resolve_flagged(out, flag, state, Zp, vp, rows, refresh, want):
@@ -322,7 +374,7 @@ def _resolve_flagged(out, flag, state, Zp, vp, rows, refresh, want):
     G, R, C = Zp.shape
     K = C - 1
     dev = Zp.device
-    leaving_ptr, model, plan, range_off, sseed = state
+    leaving_ptr, model, plan, range_off, sseed, _ = state
     live = torch.arange(R, device=dev) < rows[:, None]
     flagged = flag.bool() & live
     fg, ft = torch.nonzero(flagged, as_tuple=True)  # host sync; row-major order

@@ -40,7 +40,13 @@ the prefix and the fill; at 2 rows the prefix runs in segments). The
 edges of the kernel's shape are held the same way: groups of 32 T - 1,
 32 T and 32 T + 1 rows (a stretch) and T - 1, T, T + 1 (a lane's rows),
 groups of one and of several ranges in one call, and K = 4 / 6 with an
-odd R (rows that start 8 bytes past a 16-byte boundary). The Householder
+odd R (rows that start 8 bytes past a 16-byte boundary). Its shared form
+(K > 8) is held the same way at K = 9 .. 160 (a device-memory workspace at
+160; there also over windows of 5 rows, the ridge ones against each
+window solved in long double: their condition ~1e4 puts the plain
+version's own rounding past the tolerance at predictions near zero), and
+its register form (K <= 8) to digests
+of its outputs recorded before the shared form existed, bit for bit. The Householder
 kernel runs the plain version's reflections with its sums in another
 order: each entry of the factor within 1e-12 of its column's norm over the
 block's valid rows, NaN exactly where the plain version has it, the same
@@ -67,7 +73,9 @@ device memory, at R < K and at R = 2,000, and through a tree; the Jacobi
 SVD at K = 33 / 40 / 100 / 125 (W and V in device memory at 125) with
 each edge kind, and its rows mode against numpy lstsq (rtol 1e-9). Static
 fits and multi-target above 33 columns on the card match the CPU at rtol
-1e-10, with identical null masks.
+1e-10, with identical null masks. The Householder tree of one group of
+4,200 rows x 4,100 features (a level of 4,608 rows: the stacked blocks'
+factors) matches its plain version and numpy lstsq.
 """
 
 import sys
@@ -490,7 +498,7 @@ def test_moving_kernel_rolling_matches_plain_on_card(
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("k", [3, 9])
+@pytest.mark.parametrize("k", [3, 9, 40])
 def test_moving_kernel_flagged_rows_take_the_eigh_solve_on_card(cuda_device, k, monkeypatch):
     monkeypatch.setattr(moving, "moving_flagged_rows", 0)
     Z, v, rows_t, rows = _moving_batch(200 + k, k, cuda_device, r=90)
@@ -589,6 +597,89 @@ def test_moving_kernel_long_and_short_groups_on_card(cuda_device, model, want):
     assert plan.M > moving.SEGMENT_RANGES and (np.asarray(sizes) <= plan.L).sum() >= 3
     out, ref, settled = _moving_both(model, Z, v, rows_t, 5, want, None)
     _assert_moving(out, ref, rows, settled)
+
+
+def _shared_batch(seed: int, k: int, device):
+    """Groups for the shared form: longer than four stretches, 3 K rows,
+    40, none, one, ragged; ~5 % invalid rows."""
+    r = max(300, 4 * k)
+    return _sized_batch(seed, k, [r, 3 * k, 40, 0, 1, r - 13], r, device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [None, 32], ids=["one_range", "ranges_of_32"])
+@pytest.mark.parametrize("want", moving.WANTS)
+@pytest.mark.parametrize("model", ["rls", "rolling", "rolling_ridge"])
+@pytest.mark.parametrize("k", [9, 12, 16, 24, 32, 33, 40, 64, 100, 160])
+def test_moving_shared_form_matches_plain_on_card(cuda_device, k, model, want, chunk):
+    # the shared form (K > 8: a block walks a range's rows in order, its
+    # state and factor in shared memory, in a device-memory workspace at
+    # K = 160) against the plain versions at MOVING_KERNEL_TOL, equal NaN
+    # patterns, the same bits from two launches; groups of one range, and
+    # cut into ranges of 32 rows (the summary pass, the prefix, the fill)
+    Z, v, rows_t, rows = _shared_batch(600 + k, k, cuda_device)
+    assert (moving.shared_layout(k, model != "rls", 1)[0] > 0) == (k > 100)
+    X, y = Z[..., 1:], Z[..., 0]
+    settled = None
+    if model == "rls":
+        mean = list(np.linspace(-0.5, 0.5, k))
+        run = lambda: moving.recursive_least_squares(Z, v, rows_t, 252.0, 10.0, mean, want=want, chunk=chunk)
+        coefs = recursive.solve_recursive_least_squares(X, y, v, 252.0, 10.0, mean)
+    else:
+        window, alpha = 2 * k + 20, (0.0 if model == "rolling" else 0.1)
+        run = lambda: moving.rolling_ols(Z, v, rows_t, window, None, alpha, True, want=want, chunk=chunk)
+        coefs = rolling.solve_rolling_ols(X, y, v, window, None, alpha, True)
+        if alpha == 0.0:
+            settled = cs._window_counts(v.cpu().numpy(), window, True) >= k + cs.SETTLED_EXTRA
+    out = run()
+    again = run()
+    torch.cuda.synchronize()
+    assert moving.moving_kernel_launches == 2
+    _assert_moving(out, moving._from_coefs(coefs, Z, want), rows, settled)
+    for g, n in enumerate(rows):
+        a, b = out[g, :n], again[g, :n]
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+        assert torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [None, 32], ids=["one_range", "ranges_of_32"])
+@pytest.mark.parametrize("want", moving.WANTS)
+@pytest.mark.parametrize("positional", [True, False], ids=["positional", "valid_rank"])
+@pytest.mark.parametrize("min_periods,alpha", [(None, 0.1), (2, 0.1), (2, 0.0)])
+def test_moving_shared_form_short_windows_in_the_workspace_on_card(
+    cuda_device, min_periods, alpha, positional, want, chunk
+):
+    # K = 160 (the state and factor in the device-memory workspace) over
+    # windows of 5 rows. Ridge systems of rank 5 plus alpha I (condition
+    # ~1e4): the plain version's own rounding sits up to ~1e-10 from the
+    # exact predictions, which MOVING_KERNEL_TOL does not hold where a
+    # prediction is near zero, so the kernel's values are held at that
+    # tolerance to chip_smoke._ridge_exact (each window solved in long
+    # double) and its NaN pattern to the plain version's. At alpha 0 the
+    # windows are singular (flagged, re-solved by eigh): the plain
+    # version's NaN pattern, as everywhere a window holds fewer than
+    # K + SETTLED_EXTRA rows
+    k, window = 160, 5
+    Z, v, rows_t, rows = _shared_batch(600 + k, k, cuda_device)
+    assert moving.shared_layout(k, True, 1)[0] > 0
+    coefs = rolling.solve_rolling_ols(Z[..., 1:], Z[..., 0], v, window, min_periods, alpha, positional)
+    out = moving.rolling_ols(Z, v, rows_t, window, min_periods, alpha, positional, want=want, chunk=chunk)
+    vn = v.cpu().numpy()
+    settled = cs._window_counts(vn, window, positional) >= k + cs.SETTLED_EXTRA
+    _assert_moving(out, moving._from_coefs(coefs, Z, want), rows, settled)
+    if alpha > 0:
+        exact = cs._ridge_exact(Z.cpu().numpy(), vn, rows, window, min_periods, alpha, positional, want)
+        _assert_moving(out, torch.as_tensor(exact), rows)
+
+
+@pytest.mark.gpu
+def test_moving_register_form_keeps_its_bits_on_card(cuda_device):
+    # K = 1 .. 8 (the register form) give the same bits as before the
+    # shared form replaced the local-memory buckets: digests of every
+    # output of chip_smoke._register_digests, recorded from the earlier
+    # kernel on an H100 (chip_smoke.REGISTER_FORM_DIGESTS)
+    assert cs._register_digests(moving, torch) == cs.REGISTER_FORM_DIGESTS
 
 
 
@@ -939,13 +1030,15 @@ HOUSEHOLDER_WIDE = {
     "m1_k100_panel_in_device_memory": (20, 512, 101, 100, None, False),
     "m1_k100_below_k": (20, 60, 101, 100, None, True),
     "m1_k40_r2000_panel_in_device_memory": (10, 2_000, 41, 40, None, False),
+    # a block of more rows than the tree's levels stack
+    "m1_k40_r9000_panel_in_device_memory": (2, 9_000, 41, 40, None, False),
 }
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", sorted(HOUSEHOLDER_WIDE))
 def test_householder_wide_form_matches_plain_on_card(cuda_device, case):
-    # the wide form takes C > 33 and R up to 8,192; the reflections are the plain
+    # the wide form takes C > 33 and any R; the reflections are the plain
     # version's, the sums in another order: _assert_reduction's 1e-12 of
     # each column's norm, NaN where the plain version has it, zero rows
     # below a block's last, the same bits from two launches
@@ -986,6 +1079,39 @@ def test_householder_wide_tree_matches_plain_on_card(cuda_device):
     T_p = householder.reduce_groups(Z.cpu(), w.cpu(), K, householder.plan_reduction(n_blocks, K))
     norm = torch.where(w[..., None], Z, 0.0).square().sum(dim=(0, 1)).sqrt().cpu()
     assert bool(((T_k.cpu() - T_p).abs() <= 1e-11 * norm).all())
+
+
+@pytest.mark.gpu
+def test_householder_tree_past_4096_features_on_card(cuda_device, monkeypatch):
+    # one group of 4,200 rows x 4,100 features in blocks of 512: their
+    # factors stack only their 512 rows, so one level of 4,608 rows reduces
+    # the group (the whole svd query, its Jacobi SVD of one 4,100 x 4,100
+    # factor included, takes minutes; the reduction is held alone). Against
+    # the plain tree on the card (1e-12 of each column's norm, up to row
+    # signs) and numpy lstsq of the triangular system (rtol 1e-9)
+    n, K, R = 4_200, 4_100, 512
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(n, K))
+    y = X[:, :50].sum(axis=1) + rng.normal(size=n) * 0.1
+    S = -(-n // R)
+    Z = np.zeros((S * R, K + 1))
+    Z[:n, 0], Z[:n, 1:] = y, X
+    Zt = torch.as_tensor(Z.reshape(S, R, K + 1), device=cuda_device)
+    wt = torch.as_tensor((np.arange(S * R) < n).reshape(S, R), device=cuda_device)
+    plan = householder.plan_reduction(np.asarray([S]), K, cuda_device, rows=R)
+    assert [tuple(m.shape) for _, m in plan.levels] == [(1, S * R)]
+    T_k = householder.reduce_groups(Zt, wt, K, plan)[0].cpu().numpy()
+    assert householder.householder_kernel_launches == 2
+    # the plain tree on the card (on the CPU its 4,100 reflections of 4,608
+    # rows take minutes)
+    monkeypatch.setattr(householder, "householder_blocks", householder.householder_blocks_ref)
+    T_p = householder.reduce_groups(Zt, wt, K, plan)[0].cpu().numpy()
+    sign = np.sign(np.diagonal(T_k[:, 1:]) * np.diagonal(T_p[:, 1:]))
+    assert (np.abs(T_k * sign[:, None] - T_p) <= 1e-12 * np.linalg.norm(Z, axis=0)).all()
+    import scipy.linalg
+
+    beta = scipy.linalg.solve_triangular(T_k[:, 1:], T_k[:, 0])
+    np.testing.assert_allclose(beta, np.linalg.lstsq(X, y, rcond=None)[0], rtol=1e-9, atol=1e-12)
 
 
 JACOBI_WIDE = {

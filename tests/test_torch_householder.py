@@ -164,12 +164,14 @@ def test_blocks_of_more_rows_than_the_kernel_takes_are_cut_first(monkeypatch):
 
 
 def test_wide_blocks_of_more_rows_than_the_wide_form_takes_are_cut_first(monkeypatch):
-    # the wide form (C > 33) has its own row limit, MAX_WIDE_ROWS, and the
-    # same rule: longer blocks are cut into pieces of that many first. At K
-    # = 40 and C = 43 (three targets) with the limit at 128: blocks of 300
-    # rows become 3 pieces, then factors of 120 rows; the group's factor is
-    # one reduction of its rows up to row signs
-    monkeypatch.setattr(householder, "MAX_WIDE_ROWS", 128)
+    # the wide form (C > 33) reads its pivot column in place from its panel,
+    # so it takes a block of any length whole, and reduce_groups cuts only
+    # register form blocks longer than MAX_ROWS; a level of the tree stacks
+    # factors up to max(MAX_ROWS, 2 K) rows a block. At K = 40 and C = 43
+    # (three targets) with MAX_ROWS lowered to 128: blocks of 300 rows are
+    # reduced whole, then three factors a block; the group's factor is one
+    # reduction of its rows up to row signs
+    monkeypatch.setattr(householder, "MAX_ROWS", 128)
     k, m = 40, 3
     rng = np.random.default_rng(14)
     blocks = [_group_blocks(rng, n, R=300, C=m + k) for n in (700, 250)]
@@ -182,11 +184,26 @@ def test_wide_blocks_of_more_rows_than_the_wide_form_takes_are_cut_first(monkeyp
         one = torch.cat([Q1, R1], dim=-1)[0].numpy()
         sign = np.sign(np.diagonal(T[g][:, m:]) * np.diagonal(one[:, m:]))
         assert (np.abs(T[g] * sign[:, None] - one) <= 1e-12 * np.linalg.norm(Zv, axis=0)).all()
-    with pytest.raises(ValueError, match="a block of R=300 rows and C=43 columns"):
-        householder.householder_blocks(torch.as_tensor(Zs), torch.as_tensor(ws), k)
-    # a level stacks two factors a block: K may be at most half the limit
-    with pytest.raises(ValueError, match="K <= 64"):
-        householder.reduce_groups(torch.as_tensor(Zs[..., :68]), torch.as_tensor(ws), 65, plan)
+    # the wide form itself takes a block of more rows than the limit
+    assert householder.householder_blocks(torch.as_tensor(Zs), torch.as_tensor(ws), k).shape == (len(Zs), k, m + k)
+    # past K = 64, half the limit, a level stacks factors of more rows than
+    # the limit (they once raised "K <= 64"): the
+    # tree still gives each group one reduction of its rows, held to the
+    # JAX package's _householder_reduce; K = 65 on blocks of 300 rows, and
+    # K = 100 on blocks of 60 rows (fewer than K: a level stacks only the
+    # 60 leading rows of their factors)
+    for k2, R2 in ((65, 300), (100, 60)):
+        blocks2 = [_group_blocks(rng, n, R=R2, C=m + k2) for n in (700, 250)]
+        Zs2 = np.concatenate([b[0] for b in blocks2])
+        ws2 = np.concatenate([b[1] for b in blocks2])
+        plan2 = householder.plan_reduction(np.asarray([len(b[0]) for b in blocks2]), k2, rows=R2)
+        assert plan2.levels[0][1].shape[1] > householder.MAX_ROWS
+        T2 = householder.reduce_groups(torch.as_tensor(Zs2), torch.as_tensor(ws2), k2, plan2).numpy()
+        for g, (_, _, Zv) in enumerate(blocks2):
+            Rj, Qj = jlinalg._householder_reduce(jnp.asarray(Zv[None, :, m:]), jnp.asarray(Zv[None, :, :m]))
+            one = np.concatenate([np.asarray(Qj), np.asarray(Rj)], axis=-1)[0]
+            sign = np.sign(np.diagonal(T2[g][:, m:]) * np.diagonal(one[:, m:]))
+            assert (np.abs(T2[g] * sign[:, None] - one) <= 1e-12 * np.linalg.norm(Zv, axis=0)).all()
 
 
 @pytest.mark.parametrize(

@@ -564,5 +564,14 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         moving.recursive_least_squares(Z.transpose(0, 1).contiguous().transpose(0, 1), v, rows, None)
     with pytest.raises(ValueError, match="want"):
         moving.rolling_ols(Z, v, rows, 3, want="residuals")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12c"):
-        moving.recursive_least_squares(torch.zeros((1, 4, 34), dtype=torch.float64), v[:1, :4], rows[:1], None)
+    # K = 33, where the JAX engine leaves the exact moments, is taken too:
+    # the wrapper matches the JAX engine's classic path at the Kalman
+    # oracle's tolerance (tests/test_largek_moving.py:48)
+    rng = np.random.default_rng(33)
+    X = rng.normal(size=(1, 120, 33))
+    y = X.sum(-1) + rng.normal(size=(1, 120)) * 0.1
+    v33 = rng.random((1, 120)) > 0.1
+    Z33 = torch.as_tensor(np.concatenate([y[..., None], X], axis=-1))
+    got = moving.recursive_least_squares(Z33, torch.as_tensor(v33), torch.as_tensor([120]), 30.0)
+    want = jrecursive.solve_recursive_least_squares(jnp.asarray(X), jnp.asarray(y), jnp.asarray(v33), 30.0, 10.0, None)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-8, atol=1e-10)

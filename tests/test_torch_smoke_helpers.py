@@ -220,6 +220,12 @@ def test_moving_bound_counts_bytes_and_operations_by_hand():
     wide = cs._moving_bound(1_000, 1_000, 1_000, 0, 32, False, False, True, 1)
     assert wide["bound_by"] == "operations"
     assert wide["bound_ms"] == (1_000 * 32 * 35 + 1_000 * (32 ** 3 / 3 + 2 * 32 * 32 + 64)) / 34e12 * 1e3
+    # without a fresh factorisation: a rank-one factor update a row change
+    # and the two triangular solves a solved row
+    upd = cs._moving_bound(1_000, 1_000, 1_000, 0, 32, False, False, True, 1, fresh=False)
+    assert upd["bound_ms"] == max(
+        (1_000 * (8 * 33 + 1 + 8 * 32) + 8) / 3.35e12, (1_000 * (32 * 35 + 2 * 32 * 32) + 1_000 * (2 * 32 * 32 + 64)) / 34e12
+    ) * 1e3
 
 
 def test_window_counts_and_closed_form():
@@ -573,10 +579,74 @@ def test_wide_queries_name_their_output_columns():
     import polars_ols_tpu_torch as pt
 
     plain = cs._wide_queries(pt, pt.col, 40, False)
-    assert list(plain) == ["ols_qr", "ols_svd", "ridge_chol", "ridge_svd", "wls", "ols", "statistics"]
+    assert list(plain) == ["ols_qr", "ols_svd", "ridge_chol", "ridge_svd", "wls", "ols", "statistics", "rls",
+                           "rolling"]
     grouped = cs._wide_queries(pt, pt.col, 40, True, fault=[f"t{j}" for j in range(cs.FAULT_TARGETS)])
     assert list(grouped)[-2:] == ["multi_target", "fault_multi_target"]
     assert {label: column for label, (_, column) in grouped.items()} == {
-        **{label: "y" for label in ("ols_qr", "ols_svd", "ridge_chol", "ridge_svd", "wls", "ols")},
+        **{label: "y" for label in ("ols_qr", "ols_svd", "ridge_chol", "ridge_svd", "wls", "ols", "rls", "rolling")},
         "statistics": "statistics", "multi_target": "p", "fault_multi_target": "p",
     }
+
+
+@pytest.mark.parametrize("G,R,K", [(10_000, 900, 8), (10_000, 900, 32), (1_000, 570, 40), (1, 10_000, 100)])
+def test_plain_groups_keep_the_moving_states_under_the_budget(G, R, K):
+    n = cs._plain_groups(G, R, K)
+    assert 1 <= n <= G
+    assert n == G or cs.PLAIN_COPIES * n * R * K * K * 8 <= cs.PLAIN_STATE_BYTES
+    assert n == G or cs.PLAIN_COPIES * (n + 1) * R * K * K * 8 > cs.PLAIN_STATE_BYTES
+
+
+def test_register_digests_hash_every_output_on_cpu_tensors():
+    # the helper that holds the register form to its recorded bits runs on
+    # CPU tensors through the plain versions: one 16-digit digest a K,
+    # distinct, and the same on a second call
+    from polars_ols_tpu_torch.ops import moving
+
+    got = cs._register_digests(moving, torch, device="cpu")
+    assert sorted(got) == list(range(1, 9)) == sorted(cs.REGISTER_FORM_DIGESTS)
+    assert all(len(d) == 16 and int(d, 16) >= 0 for d in got.values())
+    assert len(set(got.values())) == 8
+    assert got == cs._register_digests(moving, torch, device="cpu")
+
+
+@pytest.mark.parametrize("positional", [True, False], ids=["positional", "valid_rank"])
+@pytest.mark.parametrize("min_periods", [None, 2])
+def test_ridge_exact_solves_each_window_as_the_plain_version_defines_it(positional, min_periods):
+    # the long-double oracle of the short ridge windows: on a well-posed
+    # case (K = 3, window 6, alpha 0.5, ~20 % invalid rows) each refreshed
+    # row's coefficients are the primal ridge solve of its window, carried
+    # across rows that do not refresh, NaN before the first; the
+    # predictions are x_t . beta; and it equals the port's plain version
+    from polars_ols_tpu_torch.ops import moving, rolling
+
+    rng = np.random.default_rng(21)
+    G, R, K, window, alpha = 2, 40, 3, 6, 0.5
+    Z = rng.normal(size=(G, R, 1 + K))
+    v = rng.random((G, R)) > 0.2
+    rows = np.asarray([R, R - 7])
+    v[1, rows[1]:] = False
+    coefs = cs._ridge_exact(Z, v, rows, window, min_periods, alpha, positional, "coefficients")
+    preds = cs._ridge_exact(Z, v, rows, window, min_periods, alpha, positional, "predictions")
+    mp = K if min_periods is None else min_periods
+    for g in range(G):
+        last = None
+        for t in range(rows[g]):
+            valid = np.flatnonzero(v[g, : t + 1])
+            w = valid[valid > t - window] if positional else valid[-window:]
+            if (len(w) >= mp) if positional else (v[g, t] and len(valid) >= mp):
+                X, y = Z[g, w, 1:], Z[g, w, 0]
+                last = np.linalg.solve(X.T @ X + alpha * np.eye(K), X.T @ y)
+            if last is None:
+                assert np.isnan(coefs[g, t]).all() and np.isnan(preds[g, t])
+            else:
+                np.testing.assert_allclose(coefs[g, t], last, rtol=1e-12, atol=1e-13)
+                np.testing.assert_allclose(preds[g, t], Z[g, t, 1:] @ last, rtol=1e-12, atol=1e-13)
+    Zt, vt = torch.as_tensor(Z), torch.as_tensor(v)
+    plain = rolling.solve_rolling_ols(Zt[..., 1:], Zt[..., 0], vt, window, min_periods, alpha, positional)
+    for want, exact in (("coefficients", coefs), ("predictions", preds)):
+        ref = moving._from_coefs(plain, Zt, want).numpy()
+        for g, n in enumerate(rows):
+            np.testing.assert_array_equal(np.isnan(ref[g, :n]), np.isnan(exact[g, :n]))
+            m = ~np.isnan(exact[g, :n])
+            np.testing.assert_allclose(ref[g, :n][m], exact[g, :n][m], rtol=1e-12, atol=1e-13)

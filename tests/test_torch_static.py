@@ -141,12 +141,15 @@ def test_prepare_problem_matches_jax(policy):
 
 def test_moving_policies_raise_naming_their_item():
     # the moving semantics are ported (every policy matches the JAX
-    # engine's below); what a moving model still refuses names its item
+    # engine's below), at K = 33 too (once ROADMAP Queue 1 item 12c): rls
+    # under 'drop_window' on 33 collinear features matches the JAX engine
+    # at the Kalman oracle's tolerance (tests/test_largek_moving.py:48)
     cols = {"y": np.arange(40.0), **{f"x{i}": np.arange(40.0) + i for i in range(33)}}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12c"):
-        pt.DataFrame(cols).select(
-            pt.col("y").least_squares.rls(pt.col("^x.*$"), null_policy="drop_window")
-        )
+    out = []
+    for mod in (pt, pj):
+        s = mod.DataFrame(cols).select(mod.col("y").least_squares.rls(mod.col("^x.*$"), null_policy="drop_window"))
+        out.append(np.asarray(s["y"].to_numpy()))
+    np.testing.assert_allclose(out[0], out[1], rtol=1e-8, atol=1e-10)
 
 
 @pytest.mark.parametrize("policy", POLICIES + ["drop_window"])
