@@ -69,9 +69,15 @@ full size (benchmarks/suite.py:274-288): "large", one group of 10,000 rows
 x 100 features, and "grouped_largek", 500,000 rows x 40 features x 1,000
 groups (with the multi-target query of 40 seeded targets on 3 features),
 and the suite's rls(252) and rolling_ols(252) there (the queries the suite
-runs on "grouped_largek"), each query checked on sampled groups against
-numpy lstsq and scipy.stats.t (rls against the Kalman recursion, rolling
-against lstsq per window), timed and profiled; and the kernels' wide forms (the
+runs on "grouped_largek"), and the suite's elastic_net with the lasso,
+NNLS, cd_active_set and the elastic net's statistics (coordinate descent
+above K = 32: FISTA and the wide cyclic kernel), each query checked on
+sampled groups against numpy lstsq and scipy.stats.t (rls against the
+Kalman recursion, rolling against lstsq per window, the CD queries against
+the elastic-net KKT conditions and a numpy coordinate descent), timed and
+profiled; the FISTA and wide cyclic kernels are held to their plain
+versions bit for bit at those moments, at K = 33 .. 200 and on
+test_fit_wide's lasso, and timed beside their bounds; and the kernels' wide forms (the
 moments above 33 columns, the Householder reduction above 33 columns with
 its panel in shared or device memory, the Jacobi SVD above K = 32 and its
 rows mode for fewer rows than features) are held to their plain versions
@@ -104,6 +110,7 @@ KERNEL_REPS = 20  # samples of each version, taken in turns
 PROBE_LAUNCHES = 100  # launches per sample: a few microseconds each
 MOMENT_LAUNCHES = 20  # ~0.5 ms each
 CD_LAUNCHES = 20
+WIDE_CD_ONE_MS = 500.0  # a wide CD launch this long is timed once
 PVALUE_LAUNCHES = 100
 SYNCED_CALLS = 2  # calls per sample of a plain version that synchronises inside
 # device sleep that holds the stream while the host queues a sample's
@@ -1103,6 +1110,142 @@ def _check_cd(label, XtX, Xty, counts, kw, cd, torch, timed=True):
     return err, t, s_k
 
 
+def _wide_cd_paths(K):
+    """The dependent f64 operations of the wide kernels' steps (L = log2 W,
+    W the tree order's width): a row of XtX x or a dot is a product and L
+    adds; a FISTA iteration is that row, grad (a subtract and an add), x
+    (a division and a subtract), the threshold (|x| - thr, the clamp, the
+    sign's multiply), the restart dot (a subtract, a product, L adds) and
+    z's update (a subtract, a multiply, an add), and the stop test's square
+    root; a power step the row, the norm (a product, L adds, a square root,
+    the clamp) and the division. A cyclic coordinate is its row's dot, rho
+    (a subtract, an add), the threshold and the division; a sweep ends with
+    the step norm (a subtract, a product, L adds, a square root). Barriers,
+    shared-memory traffic and shuffles are left out, so the bound stays a
+    bound."""
+    L = (max(32, 1 << (K - 1).bit_length())).bit_length() - 1
+    return {
+        "iteration": {"fma": 12 + 2 * L, "div": 1, "sqrt": 1},
+        "power_step": {"fma": 3 + 2 * L, "div": 1, "sqrt": 1},
+        "coordinate": {"fma": 6 + L, "div": 1},
+        "sweep_end": {"fma": 2 + L, "sqrt": 1},
+    }
+
+
+def _cd_wide_bound(G, K, counts, op_ms, fista, power_steps):
+    """XtX, Xty and n_valid read once, w and the counts written once; the
+    operations this run's groups needed: a FISTA group (power steps + 1 +
+    its iterations) products of XtX with a vector, 2 K^2 each; a cyclic
+    group K coordinate dots of 2 K a sweep, over the sweeps it took; at 34
+    TFLOP/s. Beside it the latency bound: the longest group's chain of
+    dependent steps (``_wide_cd_paths``), each operation at the time one of
+    its kind takes in a chain on this card."""
+    moved = 8 * (G * K * K + G * K + G) + 8 * G * K + 4 * G
+    paths = _wide_cd_paths(K)
+    most = int(np.max(counts, initial=0))
+    if fista:
+        ops = (G * (power_steps + 1) + int(counts.sum())) * 2 * K * K
+        chain = {kind: power_steps * paths["power_step"].get(kind, 0) + most * paths["iteration"].get(kind, 0)
+                 for kind in ("fma", "div", "sqrt")}
+    else:
+        ops = int(counts.sum()) * K * 2 * K
+        chain = {kind: most * (K * paths["coordinate"].get(kind, 0) + paths["sweep_end"].get(kind, 0))
+                 for kind in ("fma", "div", "sqrt")}
+    return {**_bound(moved, ops, PEAK_F64_PER_S), "latency_bound_ms": _path_ms(chain, op_ms),
+            "longest_path": chain, "counts_max": most, "counts_median": float(np.median(counts))}
+
+
+def _wide_cd_ms(fn, torch):
+    """(device ms, host us) per launch of a wide coordinate-descent kernel,
+    which may run for seconds: a warm launch, then one timed by an event
+    pair, which is the reading where it took WIDE_CD_ONE_MS or more; else
+    it sets the launches a sample (enough for ~20 ms, at least 1), and
+    samples behind the hold, KERNEL_REPS of them or as many as ~1 s allows
+    (at least 3), give the medians."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    fn()
+    host_us = (time.perf_counter() - t0) * 1e6
+    stop.record()
+    stop.synchronize()
+    one = max(start.elapsed_time(stop), 1e-3)
+    if one >= WIDE_CD_ONE_MS:
+        return one, host_us
+    n = max(1, min(CD_LAUNCHES, int(20.0 / one)))
+    reps = max(3, min(KERNEL_REPS, int(1000.0 / (one * n))))
+    hold = _hold_ms(torch)
+    samples = [_launch_run(fn, n, hold, torch) for _ in range(reps)]
+    return tuple(float(np.median(col)) for col in zip(*samples))
+
+
+def _wide_cd_moments(seed, G, K, rows, torch):
+    """Moments on the card of G groups of ``rows`` rows x K features drawn
+    from a generator seeded with ``seed``, with coefficients of both signs,
+    two thirds of them zero, so that positive=True clamps and the lasso
+    leaves zeros."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    X = torch.randn((G, rows, K), generator=gen, dtype=torch.float64, device="cuda")
+    beta = torch.randn((G, K), generator=gen, dtype=torch.float64, device="cuda")
+    beta = beta * (torch.rand((G, K), generator=gen, dtype=torch.float64, device="cuda") > 0.67)
+    y = (X @ beta[..., None])[..., 0] + torch.randn((G, rows), generator=gen, dtype=torch.float64, device="cuda")
+    XtX = (X.mT @ X).contiguous()
+    Xty = (X.mT @ y[..., None])[..., 0].contiguous()
+    del X
+    return XtX, Xty, torch.full((G,), float(rows), dtype=torch.float64, device="cuda")
+
+
+def _check_cd_wide(label, XtX, Xty, counts, kw, cd, torch, op_ms, smi, timed=True):
+    """A wide coordinate-descent kernel (FISTA, or the cyclic form where
+    ``kw`` asks for active_set) against its plain version on the same CUDA
+    moments: the same sums in the same tree order, so the same iteration or
+    sweep counts and the same values (the kernel's w before the polish;
+    then the whole solve, the polish being the same torch code); timed (the
+    kernel alone, ``_wide_cd_ms``) beside its bound, the plain version's
+    time its one checked call. No PyTorch call computes either function.
+    Returns the kernels-line fields."""
+    fista = not kw.get("active_set", False)
+    args = (XtX, Xty, counts, kw["alpha"], kw.get("l1_ratio", 0.5), kw.get("max_iter", 1000),
+            kw.get("tol", 1e-5), kw.get("positive", False))
+    w_k, c_k = cd.launch_wide(*args, not fista, fista=fista)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w_p, c_p = cd.fista_ref(*args, kernel_order=True) if fista else cd._cyclic_wide_ref(*args, True)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    c_k, c_p = c_k.cpu().numpy(), c_p.cpu().numpy()
+    np.testing.assert_array_equal(c_k, c_p, err_msg=f"{label}: iteration counts")
+    np.testing.assert_array_equal(w_k.cpu().numpy(), w_p.cpu().numpy(), err_msg=f"{label}: w")
+    err = float(torch.nan_to_num(w_k - w_p).abs().max())
+    s_k, _ = cd.solve_elastic_net_cov(XtX, Xty, counts, **kw)
+    s_p = w_p
+    if fista:  # the plain solve is the plain iterate, polished
+        s_p = cd.active_set_polish(XtX, Xty, *cd._strengths(counts, args[3], args[4]), w_p, args[7])
+    np.testing.assert_array_equal(s_k.cpu().numpy(), s_p.cpu().numpy(), err_msg=f"{label}: the whole solve")
+    G, K = w_k.shape
+    xtx_shared, work = cd.wide_layout(K, fista)
+    name = "fista" if fista else "cyclic_wide"
+    out = {"max_abs_err": err, "plain_ms": plain_ms, "library_ms": None, "G": G, "K": K,
+           "settings": {k: v for k, v in kw.items()}, "xtx_in": "shared memory" if xtx_shared else "device memory",
+           "workspace_doubles": work, "zero_share": float((s_k == 0).double().mean())}
+    line = (f"kernel cd_{name} {label}: G={G} K={K} {kw} XtX in {out['xtx_in']}: the same "
+            f"{'iterations' if fista else 'sweeps'} (median {float(np.median(c_k))!r}, max {int(c_k.max())}) "
+            f"and values as the plain version (w and the whole solve); zero coefficients "
+            f"{out['zero_share']!r}; plain_ms={plain_ms!r} (one call)")
+    if not timed:
+        print(line)
+        return out
+    ms, host_us = _wide_cd_ms(lambda: cd.launch_wide(*args, not fista, fista=fista), torch)
+    bound = _cd_wide_bound(G, K, c_k, op_ms, fista, cd.POWER_STEPS)
+    out.update({"ms": ms, "host_us": host_us, **bound})
+    print(f"{line}; kernel_ms={ms!r} per launch, host_us={host_us!r}; bound {json.dumps(bound)}; "
+          f"no library call computes it ({smi})")
+    return out
+
+
 def _profile(fn, torch, named=None, top=0):
     """Device busy ms (the union of device intervals), launches (launch API
     calls) and host syncs (stream / device syncs, less the loop's own) per
@@ -1668,6 +1811,47 @@ LARGEK_SHAPE = (500_000, 40, 1_000)
 FAULT_TARGETS, FAULT_K = 40, 3
 WIDE_ALPHA = 0.1  # the suite's ridge alpha
 WIDE_CHECK_GROUPS = 50
+# the coordinate-descent queries of the two configurations, at the suite's
+# alpha: label -> (l1_ratio, positive, solve method, max_iter); the suite's
+# elastic_net (benchmarks/suite.py:132-133) first. Each also runs in
+# coefficients mode (label + "/coef", checked, not timed), and the elastic
+# net in statistics mode.
+WIDE_CD = {
+    "elastic_net": (0.5, False, "cd", 200),
+    "lasso": (1.0, False, "cd", 1000),
+    "nnls": (1.0, True, "cd", 1000),
+    "lasso_active_set": (1.0, False, "cd_active_set", 1000),
+}
+WIDE_CD_CHECK_GROUPS = 20
+# the wide kernels against their plain versions beyond the configurations'
+# moments: (K, G, rows a group, settings) on moments drawn on the card;
+# FISTA with XtX in shared memory up to K = 167, in device memory at 200
+FISTA_CHECKS = (
+    (33, 10_000, 66, dict(alpha=0.05, l1_ratio=0.5, max_iter=200)),
+    (40, 10_000, 80, dict(alpha=0.05, l1_ratio=1.0, positive=True, max_iter=1000)),
+    (64, 1_000, 128, dict(alpha=0.05, l1_ratio=0.0, max_iter=200)),
+    (100, 1_000, 200, dict(alpha=0.05, l1_ratio=0.5, positive=True, max_iter=1000)),
+    (100, 1, 200, dict(alpha=0.05, l1_ratio=1.0, max_iter=200)),
+    (160, 1_000, 320, dict(alpha=0.05, l1_ratio=1.0, max_iter=1000)),
+    (200, 1_000, 400, dict(alpha=0.05, l1_ratio=0.5, max_iter=200)),
+)
+CYCLIC_WIDE_CHECKS = (
+    (33, 1_000, 66, dict(alpha=0.05, l1_ratio=1.0, active_set=True)),
+    (40, 1_000, 80, dict(alpha=0.02, l1_ratio=0.6, positive=True, active_set=True)),
+    (100, 1_000, 200, dict(alpha=0.05, l1_ratio=1.0, active_set=True)),
+)
+# the JAX suite's test_fit_wide lasso (tests/test_ols.py:243-267): one
+# group of 10 rows x 1,000 features
+FIT_WIDE = (10, 1_000, dict(alpha=1e-6, l1_ratio=1.0, tol=1e-8, max_iter=3_000))
+WIDE_CD_TIGHT_TOL = 1e-13  # the numpy coordinate descent that stands for the optimum
+# against the optimum (the KKT conditions, relative to a_l1, and the tight
+# numpy descent): the JAX suite's tolerance for its CD against an
+# independent solver (sklearn, tests/test_ols.py:352-387). Every route
+# stops at tol 1e-5, and FISTA's polished solve is kept only where its
+# objective is no higher than the iterate's, which rounding can decide
+# (as in the JAX engine), so an answer may be FISTA's iterate; the worst
+# errors are printed
+OPTIMUM_RTOL = 1e-4
 WIDE_WINDOW_STEP = 7  # rows of a sampled group whose rolling window numpy solves
 
 
@@ -1707,6 +1891,12 @@ def _wide_queries(pt, col, k, grouped, fault=None):
         "rls": ls.rls(*feats, half_life=HALF_LIFE),
         "rolling": ls.rolling_ols(*feats, window_size=WINDOW),
     }
+    for label, (l1, positive, method, max_iter) in WIDE_CD.items():
+        for mode, suffix in (("predictions", ""), ("coefficients", "/coef")):
+            q[label + suffix] = ls.elastic_net(*feats, alpha=WIDE_ALPHA, l1_ratio=l1, positive=positive,
+                                               solve_method=method, max_iter=max_iter, mode=mode)
+    q["elastic_net_statistics"] = ls.elastic_net(*feats, alpha=WIDE_ALPHA, l1_ratio=0.5, max_iter=200,
+                                                 mode="statistics")
     if grouped:
         q["multi_target"] = pt.struct(col("y"), col("y2")).least_squares.multi_target_ols(*feats)
     if fault is not None:
@@ -1716,7 +1906,8 @@ def _wide_queries(pt, col, k, grouped, fault=None):
     out = {}
     for label, e in q.items():
         e = e.over("g") if grouped else e
-        column = "statistics" if label == "statistics" else ("p" if "multi_target" in label else "y")
+        column = ("statistics" if label.endswith("statistics") else "coefficients" if label.endswith("/coef")
+                  else "p" if "multi_target" in label else "y")
         out[label] = (e.alias("p") if column == "p" else e, column)
     return out
 
@@ -1741,7 +1932,7 @@ def _wide_config(name, shape, pt, col, torch, smi, kernels_mod):
     WIDE_WINDOW_STEP-th row and the last few), then timed (median of
     TIMING_REPS) and profiled. Returns the frame and its shape for the
     kernel checks, and the counts."""
-    moments, householder, jacobi, moving, recursive = kernels_mod
+    moments, householder, jacobi, moving, recursive, cd = kernels_mod
     n, k, groups = shape
     t0 = time.perf_counter()
     frame, x, y, y2, w, g = _suite_frame(pt, torch, n, k, groups)
@@ -1759,6 +1950,7 @@ def _wide_config(name, shape, pt, col, torch, smi, kernels_mod):
     queries = _wide_queries(pt, col, k, bool(groups), fault)
     moments.moments_kernel_launches = householder.householder_kernel_launches = 0
     jacobi.jacobi_kernel_launches = moving.moving_kernel_launches = 0
+    cd.cd_kernel_launches = cd.fista_kernel_launches = cd.cyclic_wide_kernel_launches = 0
     out, first_s = {}, {}
     fault_jacobi = 0
     for label, (q, column) in queries.items():
@@ -1775,10 +1967,17 @@ def _wide_config(name, shape, pt, col, torch, smi, kernels_mod):
         "jacobi_svd": jacobi.jacobi_kernel_launches - fault_jacobi,
         "jacobi_svd (thread form, the fault query's K = 3)": fault_jacobi,
         "moving (shared form)": moving.moving_kernel_launches,
+        "cd_fista": cd.fista_kernel_launches,
+        "cd_cyclic_wide": cd.cyclic_wide_kernel_launches,
+        "cd_cov (K <= 32)": cd.cd_kernel_launches,
     }
-    for kname in ("grouped_moments", "householder", "jacobi_svd", "moving (shared form)"):
+    for kname in ("grouped_moments", "householder", "jacobi_svd", "moving (shared form)", "cd_fista",
+                  "cd_cyclic_wide"):
         if launches[kname] < 1:
             raise AssertionError(f"{name}: the {kname} kernel's wide form launched no time")
+    n_fista = 2 * sum(m == "cd" for _, _, m, _ in WIDE_CD.values()) + 1
+    if launches["cd_fista"] != n_fista or launches["cd_cyclic_wide"] != 2 or launches["cd_cov (K <= 32)"]:
+        raise AssertionError(f"{name}: coordinate-descent launches {launches}, want {n_fista} FISTA and 2 cyclic")
 
     # the sampled groups (one group: all of it) against numpy and scipy
     gid = np.zeros(n, dtype=np.int64) if g is None else g.astype(np.int64)
@@ -1793,7 +1992,8 @@ def _wide_config(name, shape, pt, col, torch, smi, kernels_mod):
         Xg, yg = x[rows], y[rows]
         sel = torch.as_tensor(rows, device="cuda")
         for label, s in out.items():
-            if label in ("statistics", "rls", "rolling"):
+            if label in ("statistics", "rls", "rolling") or label.split("/")[0] in WIDE_CD or label.startswith(
+                    "elastic_net"):
                 continue
             if label == "multi_target":
                 got = _picked(s, sel)
@@ -1825,15 +2025,18 @@ def _wide_config(name, shape, pt, col, torch, smi, kernels_mod):
         np.testing.assert_array_equal(np.isnan(got), cnt[some] < min(k, WINDOW), err_msg=f"{name} rolling")
         m = cnt[some] >= k + SETTLED_EXTRA
         np.testing.assert_allclose(got[m], (Xg[some] * win[some]).sum(1)[m], err_msg=f"{name} rolling", **PRED_TOL)
+    cd_checked = _wide_cd_checks(name, out, x, y, gid, n_groups, k, torch)
     print(
         f"wide {name}: {n} rows x {k} features x {n_groups} groups (set-up {setup_s!r} s), "
         f"{len(queries)} queries ({', '.join(queries)}), launches {json.dumps(launches)}; "
         f"{len(group_rows)} sampled groups match numpy lstsq and scipy.stats.t, rls the Kalman "
         f"recursion and rolling lstsq per window "
-        f"(predictions {PRED_TOL}, statistics {COEF_TOL} / {SE_T_TOL} / {P_TOL})"
+        f"(predictions {PRED_TOL}, statistics {COEF_TOL} / {SE_T_TOL} / {P_TOL}); {cd_checked}"
     )
     print(f"wide {name} first-query s: " + json.dumps({key: round(v, 4) for key, v in first_s.items()}))
     for label, (q, column) in queries.items():
+        if label.endswith("/coef"):
+            continue
         fn = (lambda q=q, column=column: frame.select(q)[column].arrays) if column == "statistics" else (
             lambda q=q: frame.select(q))
         med = _timed_median(fn, torch)
@@ -1847,6 +2050,75 @@ def _wide_config(name, shape, pt, col, torch, smi, kernels_mod):
             + f" ({smi})"
         )
     return {"frame": frame, "k": k, "grouped": bool(groups), "launches": launches, "fault": fault}
+
+
+def _kkt(XtX, Xty, a_l1, a_l2, w, positive, rtol, label):
+    """The elastic-net optimality conditions of w on one group's moments:
+    r = Xty - XtX w - a_l2 w equals a_l1 sign(w_j) on the support (within
+    rtol of a_l1) and |r_j| <= a_l1 (1 + rtol) off it (r_j <= for NNLS).
+    Independent of the algorithm."""
+    r = Xty - XtX @ w - a_l2 * w
+    on = w != 0
+    np.testing.assert_allclose(r[on], a_l1 * np.sign(w[on]), rtol=0, atol=rtol * a_l1, err_msg=f"{label}: KKT on")
+    off = r[~on] if positive else np.abs(r[~on])
+    if (off > a_l1 * (1 + rtol)).any():
+        raise AssertionError(f"{label}: KKT off the support, max {float(off.max())!r} > a_l1 {a_l1!r}")
+    return float(np.abs(r[on] - a_l1 * np.sign(w[on])).max(initial=0.0)) / a_l1
+
+
+def _wide_cd_checks(name, out, x, y, gid, n_groups, k, torch):
+    """The coordinate-descent queries on WIDE_CD_CHECK_GROUPS sampled groups
+    (one group: all of it) against two oracles that stand for the optimum,
+    at OPTIMUM_RTOL: the KKT conditions and a numpy cyclic coordinate
+    descent to WIDE_CD_TIGHT_TOL; cd_active_set also against the literal
+    numpy active-set descent at the same tol (the same iterates, CD_TOL).
+    Predictions against the rows times the query's own coefficients, and
+    the elastic net's statistics against _stats_numpy. Returns a summary
+    with the worst errors for the configuration's line."""
+    pick = np.random.default_rng(6).choice(n_groups, size=min(WIDE_CD_CHECK_GROUPS, n_groups), replace=False)
+    group_rows = _group_rows(gid, pick)
+    first = torch.as_tensor(np.asarray([rows[0] for _, rows in group_rows]), device="cuda")
+    stats = out["elastic_net_statistics"]
+    stats = stats.gather(first) if n_groups > 1 else stats
+    got_stats = {key: v.cpu().numpy() for key, v in stats.arrays.items()}
+    worst = {label: {"kkt_rel": 0.0, "vs_tight_rel": 0.0} for label in WIDE_CD}
+    zeros = 0
+    for i, (_, rows) in enumerate(group_rows):
+        Xg, yg = x[rows], y[rows]
+        sel = torch.as_tensor(rows, device="cuda")
+        coef_row = sel[:1] if n_groups > 1 else torch.zeros(1, dtype=torch.int64, device="cuda")
+        XtX_g, Xty_g, n_g = Xg.T @ Xg, Xg.T @ yg, float(len(rows))
+        for label, (l1, positive, method, max_iter) in WIDE_CD.items():
+            a = WIDE_ALPHA * max(n_g, 1.0)
+            a_l1, a_l2 = a * l1, a * (1.0 - l1)
+            w = _picked(out[label + "/coef"], coef_row)[0]
+            tight = _cd_numpy(XtX_g, Xty_g, n_g, WIDE_ALPHA, l1, positive, max_iter=1_000_000,
+                              tol=WIDE_CD_TIGHT_TOL)
+            where = f"{name} {label} group {i}"
+            if method == "cd_active_set":
+                literal = _cd_numpy(XtX_g, Xty_g, n_g, WIDE_ALPHA, l1, positive, active_set=True,
+                                    max_iter=max_iter)
+                np.testing.assert_allclose(w, literal, err_msg=where, **CD_TOL)
+            np.testing.assert_allclose(w, tight, rtol=OPTIMUM_RTOL, atol=OPTIMUM_RTOL, err_msg=where)
+            kkt = _kkt(XtX_g, Xty_g, a_l1, a_l2, w, positive, OPTIMUM_RTOL, where)
+            worst[label]["kkt_rel"] = max(worst[label]["kkt_rel"], kkt)
+            worst[label]["vs_tight_rel"] = max(worst[label]["vs_tight_rel"],
+                                               float(np.abs(w - tight).max() / np.abs(tight).max()))
+            np.testing.assert_allclose(_picked(out[label], sel), Xg @ w, err_msg=where, **PREDICT_TOL)
+            zeros += int((w == 0).sum())
+        w_enet = got_stats["coefficients"][i]
+        np.testing.assert_allclose(w_enet, _picked(out["elastic_net/coef"], coef_row)[0],
+                                   err_msg=f"{name} statistics", **PREDICT_TOL)
+        ref = _stats_numpy(Xg, yg, WIDE_ALPHA, beta=w_enet)
+        for key in ("standard_errors", "t_values"):
+            np.testing.assert_allclose(got_stats[key][i], ref[key], err_msg=f"{name} elastic_net {key}", **SE_T_TOL)
+        np.testing.assert_allclose(got_stats["p_values"][i], ref["p_values"], **P_TOL)
+        for key in ("r2", "mse", "mae"):
+            np.testing.assert_allclose(got_stats[key][i], ref[key], err_msg=f"{name} elastic_net {key}", **METRIC_TOL)
+    return (f"the coordinate-descent queries on {len(group_rows)} groups hold the KKT conditions and a numpy "
+            f"coordinate descent to tol {WIDE_CD_TIGHT_TOL} within {OPTIMUM_RTOL} (worst, relative: "
+            f"{json.dumps(worst)}), cd_active_set the literal numpy active-set descent at {CD_TOL}; "
+            f"{zeros} zero coefficients among them; the elastic net's statistics match _stats_numpy")
 
 
 def _wide_blocks(fit, groups_mod, frame, k, grouped, m=1, targets=None):
@@ -2004,6 +2276,52 @@ def _wide_kernels(pt, torch, smi, op_ms, mods, large, largek):
     return res
 
 
+def _wide_cd_kernels(torch, smi, op_ms, cd, fit, groups_mod, large, largek):
+    """The FISTA and wide cyclic kernels against their plain versions, timed
+    beside their bounds: at the moments of the two configurations (the
+    suite's elastic net by FISTA, the lasso's cd_active_set by the cyclic
+    form; B first, the headline), at FISTA_CHECKS and CYCLIC_WIDE_CHECKS,
+    and on test_fit_wide's lasso (FIT_WIDE). Returns the kernels-line
+    fields of each kernel."""
+    from polars_ols_tpu_torch.ops.direct import grouped_moments
+
+    res = {"cd_fista": {}, "cd_cyclic_wide": {}}
+    for key, cfg in (("grouped_largek", largek), ("large", large)):
+        layout, Zp, wp, offsets = _wide_blocks(fit, groups_mod, cfg["frame"], cfg["k"], cfg["grouped"])
+        XtX, Xty, counts = grouped_moments(Zp, wp, offsets, layout.num_groups)
+        XtX, Xty = XtX.contiguous(), Xty.contiguous()
+        res["cd_fista"][key] = _check_cd_wide(
+            f"{key} moments, the suite's elastic net", XtX, Xty, counts,
+            dict(alpha=WIDE_ALPHA, l1_ratio=0.5, max_iter=200), cd, torch, op_ms, smi,
+        )
+        res["cd_cyclic_wide"][key] = _check_cd_wide(
+            f"{key} moments, lasso cd_active_set", XtX, Xty, counts,
+            dict(alpha=WIDE_ALPHA, l1_ratio=1.0, active_set=True), cd, torch, op_ms, smi,
+        )
+        del Zp, wp, XtX, Xty
+    for name, checks in (("cd_fista", FISTA_CHECKS), ("cd_cyclic_wide", CYCLIC_WIDE_CHECKS)):
+        for i, (K, G, rows, kw) in enumerate(checks):
+            label = f"K={K} G={G}"
+            moments = _wide_cd_moments(1_000 * K + G + i, G, K, rows, torch)
+            res[name][label] = _check_cd_wide(label, *moments, kw, cd, torch, op_ms, smi)
+            del moments
+    n, K, kw = FIT_WIDE
+    rng = np.random.default_rng(0)  # tests/test_ols.py:_make_data(10, 1_000, scale=1e-4)
+    X = rng.normal(size=(n, K))
+    y = X.sum(axis=1) + rng.normal(size=n, scale=1e-4)
+    dev = torch.device("cuda")
+    moments = (torch.as_tensor((X.T @ X)[None], device=dev), torch.as_tensor((X.T @ y)[None], device=dev),
+               torch.full((1,), float(n), dtype=torch.float64, device=dev))
+    out = _check_cd_wide("test_fit_wide's lasso (10 rows)", *moments, kw, cd, torch, op_ms, smi)
+    w, _ = cd.solve_elastic_net_cov(*moments, **kw)
+    corr = float(np.corrcoef(X @ w[0].cpu().numpy(), y)[0, 1])
+    if abs(corr - 1.0) > 1e-5:
+        raise AssertionError(f"test_fit_wide's lasso: predictions correlate with y at {corr!r}, not within 1e-5 of 1")
+    print(f"kernel cd_fista test_fit_wide's lasso: predictions correlate with y at {corr!r} (within 1e-5 of 1)")
+    res["cd_fista"][f"K={K} G=1, {n} rows (test_fit_wide)"] = {**out, "correlation": corr}
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -2033,7 +2351,7 @@ def main() -> int:
     )
 
     # 2. build: one nvcc per source, all at once
-    sources = ("moments", "grid_probe", "cd", "t_pvalue", "moving", "householder", "jacobi_svd")
+    sources = ("moments", "grid_probe", "cd", "cd_wide", "t_pvalue", "moving", "householder", "jacobi_svd")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(kernels.build, sources))
@@ -2987,10 +3305,11 @@ def main() -> int:
 
     # 10. the reference suite's wide configurations at full size, through
     # the public API, then the wide forms against their plain versions
-    mods = (moments, householder, jacobi, moving, recursive)
+    mods = (moments, householder, jacobi, moving, recursive, cd)
     large = _wide_config("large", LARGE_SHAPE, pt, col, torch, smi, mods)
     largek = _wide_config("grouped_largek", LARGEK_SHAPE, pt, col, torch, smi, mods)
     wide = _wide_kernels(pt, torch, smi, op_ms, (fit, groups, moments, householder, jacobi), large, largek)
+    wide_cd = _wide_cd_kernels(torch, smi, op_ms, cd, fit, groups, large, largek)
     # the moving kernel's shared form at the two configurations' shapes (their
     # group sizes and K, rows drawn on the card): against its plain version
     # and its bound
@@ -3008,7 +3327,11 @@ def main() -> int:
     }
     wide_launches = {
         kname: {"large": large["launches"][kname], "grouped_largek": largek["launches"][kname]}
-        for kname in ("grouped_moments", "householder", "jacobi_svd")
+        for kname in ("grouped_moments", "householder", "jacobi_svd", "cd_fista", "cd_cyclic_wide")
+    }
+    cd_rows = {
+        name: {key: v for key, v in wide_cd[name].items() if key not in ("grouped_largek", "large")}
+        for name in wide_cd
     }
 
     print(json.dumps({"kernels": [
@@ -3195,6 +3518,36 @@ def main() -> int:
             "multi_target_factors": wide["jacobi_svd"]["grouped_largek_multi_target"],
             "rows_mode": wide["jacobi_svd"]["rows_mode"],
             "library_call": "torch.linalg.svd of the factors with numpy's cutoff and the ridge shrink",
+            "floor_ms": floor_ms,
+        },
+        {
+            "name": "cd_fista",
+            "route": "cuda",
+            "source": "polars_ols_tpu_torch/csrc/cd_wide.cu",
+            "replaces": "polars_ols_tpu/ops/cd.py:156",
+            "replaces_kind": "XLA while loop, not Pallas: _cd_cov_single_fista (:156), the K >= 33 route of "
+                             "solve_elastic_net_cov (:331-342); its polish _active_set_polish (:216) stays torch ops",
+            "launches": sum(wide_launches["cd_fista"].values()),
+            "launches_by_path": wide_launches["cd_fista"],
+            **wide_cd["cd_fista"]["grouped_largek"],
+            "large_moments": wide_cd["cd_fista"]["large"],
+            "checks": cd_rows["cd_fista"],
+            "library_call": "none: no PyTorch call computes FISTA with adaptive restart",
+            "floor_ms": floor_ms,
+        },
+        {
+            "name": "cd_cyclic_wide",
+            "route": "cuda",
+            "source": "polars_ols_tpu_torch/csrc/cd_wide.cu",
+            "replaces": "polars_ols_tpu/ops/cd.py:99",
+            "replaces_kind": "XLA while loop, not Pallas: _cd_cov_single with active_set above K = 32 "
+                             "(solve_elastic_net_cov :329-330)",
+            "launches": sum(wide_launches["cd_cyclic_wide"].values()),
+            "launches_by_path": wide_launches["cd_cyclic_wide"],
+            **wide_cd["cd_cyclic_wide"]["grouped_largek"],
+            "large_moments": wide_cd["cd_cyclic_wide"]["large"],
+            "checks": cd_rows["cd_cyclic_wide"],
+            "library_call": "none: no PyTorch call computes cyclic coordinate descent",
             "floor_ms": floor_ms,
         },
     ]}))

@@ -4,24 +4,26 @@ The PyTorch port of ``polars_ols_tpu`` (the JAX engine, which stays the
 reference): the same DataFrame / expression surface, with every group
 batched into tensor programs on ``CONFIG.device`` and hand-written CUDA
 kernels for the per-group moments (``csrc/moments.cu``), coordinate
-descent (``csrc/cd.cu``), the t-test p-values (``csrc/t_pvalue.cu``), the
-moving models' scan and per-row solve (``csrc/moving.cu``) and the
-Householder reduction under the shared SVD (``csrc/householder.cu``).
+descent (``csrc/cd.cu``; FISTA and the wide cyclic form above K = 32,
+``csrc/cd_wide.cu``), the t-test p-values (``csrc/t_pvalue.cu``), the
+moving models' scan and per-row solve (``csrc/moving.cu``), the
+Householder reduction under the shared SVD (``csrc/householder.cu``) and
+that SVD (``csrc/jacobi_svd.cu``).
 
 Ported so far: the static fits, grouped (``.over(keys)``) and not, through
 ``col(y).least_squares.ols / wls / ridge / lasso / elastic_net(...)`` and
 ``DataFrame.select`` / ``with_columns``: the five static null policies,
 sample weights, solve methods chol / lu / qr / svd / cd / cd_active_set
-(``positive=True`` for NNLS), K <= 32, in predictions, residuals,
+(``positive=True`` for NNLS), at any K, in predictions, residuals,
 coefficients or statistics mode (a ``StatisticsSeries``); the moving
 models ``rls`` / ``expanding_ols`` / ``rolling_ols`` under all six null
 policies (``drop_window`` included), in predictions, residuals or
 coefficients mode; multi-target OLS / ridge of a ``struct(...)`` target
 (``multi_target_ols``: predictions or residuals as a struct, read by
 ``DataFrame.unnest``); ``predict`` / ``predict_from_formula`` of a
-coefficient struct; and ``from_formula`` / the compute functions. K > 32
-and the rest of the frame API raise ``NotImplementedError`` naming their
-ROADMAP.md queue item.
+coefficient struct; and ``from_formula`` / the compute functions. The
+rest of the frame API raises ``NotImplementedError`` naming its ROADMAP.md
+queue item.
 
 This package imports torch and numpy only; it never imports jax or
 polars_ols_tpu.

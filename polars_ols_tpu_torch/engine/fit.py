@@ -13,8 +13,9 @@ row order, deferred (``BlockPermuted``) or materialized.
   refinement (``qr``: always refined; ``lu``: partial-pivot LU, never
   refined).
 - ``cd`` / ``cd_active_set`` (lasso, elastic net, NNLS): the same moments,
-  then covariance-form coordinate descent (ops/cd.py, a CUDA kernel on the
-  card).
+  then covariance-form coordinate descent (ops/cd.py, CUDA kernels on the
+  card): cyclic up to K = 32 and for ``cd_active_set``, FISTA with an
+  active-set polish above.
 - ``svd``: the same split-padded blocks, reduced per group to the K x K
   triangular factor and ``Q^T y`` by the hand-written Householder kernel
   (ops/householder.py: each block, then a tree over a group's stacked
@@ -39,13 +40,11 @@ coefficients, or their predictions, from one scan-and-solve kernel family
 on the card; rolling warm-up NaNs become nulls; the output goes back to row
 order like the static fits'.
 
-The static fits and multi-target run at any K: above K = 32 the moments
-take the moment kernel's wide form, the Cholesky the library's batched
-factorization (ops/linalg.py: ``chol_factor``), the reduction and the SVD
-the Householder and Jacobi kernels' wide forms. What is not ported
-(coordinate descent and the moving models above K = 32, fused select)
-raises ``NotImplementedError`` naming its ROADMAP queue item; nothing
-falls back silently.
+Every fit runs at any K: above K = 32 the moments take the moment
+kernel's wide form, the Cholesky the library's batched factorization
+(ops/linalg.py: ``chol_factor``), the reduction and the SVD the
+Householder and Jacobi kernels' wide forms, coordinate descent the wide
+kernels of ops/cd.py. Nothing falls back silently.
 """
 
 from __future__ import annotations
@@ -55,7 +54,7 @@ from typing import List
 import torch
 
 from ..config import CONFIG, EPSILON, F64, device
-from ..ops.cd import MAX_K as CD_MAX_K, solve_elastic_net_cov
+from ..ops.cd import solve_elastic_net_cov
 from ..ops.direct import grouped_moments, resolve_solve_method
 from ..ops.householder import plan_reduction, reduce_groups
 from ..ops.linalg import (
@@ -77,13 +76,6 @@ _COND_REFINE = 1.0e6
 _ROW_PREDICT_POLICIES = ("drop_zero", "drop_y_zero_x")
 
 _STACK_CACHE_LIMIT = 8
-
-
-def _not_ported(what: str, item):
-    return NotImplementedError(
-        f"{what} is not ported to polars_ols_tpu_torch yet "
-        f"(ROADMAP.md Queue 1 item {item})"
-    )
 
 
 # --------------------------------------------------------------------------- #
@@ -558,8 +550,6 @@ def evaluate_least_squares(
     if function_name != "least_squares":
         return _evaluate_moving(function_name, target, feat_series, kwargs, mode, layout, weights)
     method = _resolve_method(layout, kwargs, k)
-    if method.startswith("cd") and k > CD_MAX_K:
-        raise _not_ported(f"coordinate descent of K={k} > {CD_MAX_K} features", "12b")
 
     vals, valid, inv_w = _stack(target, feat_series, weights)
     policy = kwargs.null_policy

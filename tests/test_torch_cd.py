@@ -180,9 +180,14 @@ def test_cd_wrapper_checks_its_inputs():
         cd.solve_elastic_net_cov(XtX, Xty, n.to(torch.float32), alpha=0.1)
     with pytest.raises(ValueError, match="contiguous"):
         cd.solve_elastic_net_cov(XtX.transpose(1, 2), Xty, n, alpha=0.1)
+    # K = 33 is no longer refused: zero moments give zero coefficients
+    # after one FISTA iteration
     big = torch.zeros((2, 33, 33), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12b"):
-        cd.solve_elastic_net_cov(big, torch.zeros((2, 33), dtype=torch.float64),
+    w, its = cd.solve_elastic_net_cov(big, torch.zeros((2, 33), dtype=torch.float64),
+                                      torch.ones(2, dtype=torch.float64), alpha=0.1)
+    assert w.shape == (2, 33) and float(w.abs().max()) == 0.0 and its.tolist() == [1, 1]
+    with pytest.raises(TypeError, match="Xty"):
+        cd.solve_elastic_net_cov(big, torch.zeros((2, 32), dtype=torch.float64),
                                  torch.ones(2, dtype=torch.float64), alpha=0.1)
 
 

@@ -76,6 +76,13 @@ fits and multi-target above 33 columns on the card match the CPU at rtol
 1e-10, with identical null masks. The Householder tree of one group of
 4,200 rows x 4,100 features (a level of 4,608 rows: the stacked blocks'
 factors) matches its plain version and numpy lstsq.
+Coordinate descent above K = 32: the FISTA and wide cyclic kernels make
+their plain versions' sums in the same tree order (``fista_ref`` with
+``kernel_order=True``), so they are held to the same values and iteration
+or sweep counts at K = 33 .. 200 and on 10 rows x 1,000 features, with a
+group without rows and a NaN group, XtX in shared or device memory; the
+layout each K takes; and the lasso / elastic net / NNLS / cd_active_set
+slices at K = 40 and 100 on the card match the CPU at rtol 1e-9.
 """
 
 import sys
@@ -102,6 +109,8 @@ def cuda_device(monkeypatch):
         pytest.skip("needs a CUDA device: the port's kernels run only on the card")
     monkeypatch.setattr(moments, "moments_kernel_launches", 0)
     monkeypatch.setattr(cd, "cd_kernel_launches", 0)
+    monkeypatch.setattr(cd, "fista_kernel_launches", 0)
+    monkeypatch.setattr(cd, "cyclic_wide_kernel_launches", 0)
     monkeypatch.setattr(special, "t_pvalue_kernel_launches", 0)
     monkeypatch.setattr(moving, "moving_kernel_launches", 0)
     monkeypatch.setattr(householder, "householder_kernel_launches", 0)
@@ -1255,3 +1264,165 @@ def test_kernel_form_above_32(cuda_device, K):
         warps = min(cap, -(-pairs // per_warp))
         assert jacobi.kernel_form(K, G) == ("wide", 32 * warps, 1)
     assert jacobi.kernel_form(K) == ("wide", 32 * (17 if K == 33 else 25), 1)
+
+
+# --------------------------------------------------------------------------- #
+# coordinate descent above K = 32: FISTA and the wide cyclic form
+# --------------------------------------------------------------------------- #
+def _wide_cd_moments(seed: int, G: int, K: int, device, rows=None, edges: bool = True):
+    """Moments of G groups of ``rows`` (default K + 10 .. 3 K) rows with
+    sparse coefficients of both signs; with ``edges`` group 0 has no rows
+    and group 1 a NaN (the 'ignore' policy's)."""
+    rng = np.random.default_rng(seed)
+    n = rng.integers(K + 10, 3 * K, size=G) if rows is None else np.full(G, rows)
+    XtX = np.zeros((G, K, K))
+    Xty = np.zeros((G, K))
+    for g in range(G):
+        X = rng.normal(size=(int(n[g]), K))
+        y = X @ (rng.normal(size=K) * (rng.random(K) > 0.6)) + rng.normal(size=int(n[g]))
+        XtX[g], Xty[g] = X.T @ X, X.T @ y
+    nv = n.astype(float)
+    if edges and G > 2:
+        XtX[0], Xty[0], nv[0] = 0.0, 0.0, 0.0
+        XtX[1, 3, 5] = XtX[1, 5, 3] = np.nan
+    return tuple(torch.as_tensor(a, device=device) for a in (XtX, Xty, nv))
+
+
+FISTA_CASES = {
+    # id: (G, K, rows a group or None, settings)
+    "k33_enet": (300, 33, None, dict(alpha=0.05, l1_ratio=0.5)),
+    "k40_lasso_positive": (200, 40, None, dict(alpha=0.05, l1_ratio=1.0, positive=True)),
+    "k64_l1_0": (100, 64, None, dict(alpha=0.05, l1_ratio=0.0)),
+    "k100_max_iter": (50, 100, None, dict(alpha=0.01, l1_ratio=1.0, max_iter=5)),
+    "k160_shared": (6, 160, None, dict(alpha=0.05, l1_ratio=0.5)),
+    "k200_device_memory": (4, 200, None, dict(alpha=0.05, l1_ratio=0.7, positive=True)),
+    "k1000_ten_rows": (1, 1_000, 10, dict(alpha=1e-6, l1_ratio=1.0, max_iter=3_000, tol=1e-8)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(FISTA_CASES))
+def test_fista_kernel_matches_plain_on_card(cuda_device, case):
+    # the FISTA kernel makes the plain version's sums in the same tree
+    # order: the same iteration counts and the same values, before the
+    # polish and after it (the same torch code on the same iterate); the
+    # group without rows stays at zero, the NaN group stops after one
+    # iteration with NaN coefficients
+    G, K, rows, kw = FISTA_CASES[case]
+    XtX, Xty, n = _wide_cd_moments(K + G, G, K, cuda_device, rows, edges=G > 2)
+    args = (XtX, Xty, n, kw["alpha"], kw["l1_ratio"], kw.get("max_iter", 1000), kw.get("tol", 1e-5),
+            kw.get("positive", False))
+    w_k, it_k = cd.launch_wide(*args, False, fista=True)
+    torch.cuda.synchronize()
+    assert cd.fista_kernel_launches == 1 and cd.cd_kernel_launches == 0
+    w_p, it_p = cd.fista_ref(*args, kernel_order=True)
+    np.testing.assert_array_equal(it_k.cpu().numpy(), it_p.cpu().numpy())
+    np.testing.assert_array_equal(w_k.cpu().numpy(), w_p.cpu().numpy())
+    if "max_iter" in kw and K == 100:
+        assert int(it_k.max()) == 4 * kw["max_iter"]
+    if G > 2:
+        assert float(w_k[0].abs().max()) == 0.0 and int(it_k[0]) == 1
+        assert bool(torch.isnan(w_k[1]).all()) and int(it_k[1]) == 1
+    full_k, _ = cd.solve_elastic_net_cov(XtX, Xty, n, **kw)
+    full_p = cd.active_set_polish(XtX, Xty, *cd._strengths(n, kw["alpha"], kw["l1_ratio"]), w_p,
+                                  kw.get("positive", False))
+    np.testing.assert_array_equal(full_k.cpu().numpy(), full_p.cpu().numpy())
+    if kw.get("positive"):
+        assert float(torch.nan_to_num(full_k).min()) >= 0.0
+
+
+CYCLIC_WIDE_CASES = {
+    "k33_active_set": (300, 33, dict(alpha=0.05, l1_ratio=1.0, active_set=True)),
+    "k40_active_set_positive": (200, 40, dict(alpha=0.02, l1_ratio=0.6, positive=True, active_set=True)),
+    "k100_active_set": (40, 100, dict(alpha=0.05, l1_ratio=1.0, active_set=True)),
+    "k40_cyclic_no_active_set": (100, 40, dict(alpha=0.05, l1_ratio=0.5)),
+    "k200_device_memory": (3, 200, dict(alpha=0.05, l1_ratio=1.0, active_set=True, max_iter=30)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(CYCLIC_WIDE_CASES))
+def test_cyclic_wide_kernel_matches_plain_on_card(cuda_device, case):
+    # the wide cyclic kernel against its plain version: the same sweep
+    # counts and values (active-set freezing is a threshold on them)
+    G, K, kw = CYCLIC_WIDE_CASES[case]
+    XtX, Xty, n = _wide_cd_moments(2 * K + G, G, K, cuda_device)
+    args = (XtX, Xty, n, kw["alpha"], kw["l1_ratio"], kw.get("max_iter", 1000), 1e-5,
+            kw.get("positive", False), kw.get("active_set", False))
+    w_k, s_k = cd.launch_wide(*args, fista=False)
+    torch.cuda.synchronize()
+    assert cd.cyclic_wide_kernel_launches == 1
+    w_p, s_p = cd._cyclic_wide_ref(*args)
+    np.testing.assert_array_equal(s_k.cpu().numpy(), s_p.cpu().numpy())
+    np.testing.assert_array_equal(w_k.cpu().numpy(), w_p.cpu().numpy())
+    assert float(w_k[0].abs().max()) == 0.0 and int(s_k[0]) == 1
+    assert bool(torch.isnan(w_k[1]).any()) and int(s_k[1]) == 1
+    if kw.get("active_set"):
+        w_api, _ = cd.solve_elastic_net_cov(XtX, Xty, n, **kw)
+        assert torch.equal(torch.nan_to_num(w_api), torch.nan_to_num(w_k))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,fista,want", [
+    (33, True, (True, 0)), (167, True, (True, 0)), (168, True, (False, 0)),
+    (5_811, True, (False, 0)), (5_812, True, (False, 5 * 5_812)),
+    (168, False, (True, 0)), (169, False, (False, 0)), (8_192, False, (False, 0)),
+])
+def test_wide_cd_layout_by_k(cuda_device, K, fista, want):
+    # XtX in shared memory while it fits beside the vectors; the vectors in
+    # a device-memory workspace only where they alone do not fit
+    assert cd.wide_layout(K, fista) == want
+
+
+@pytest.mark.gpu
+def test_wide_cd_refuses_past_its_width(cuda_device):
+    XtX = torch.zeros((1, 8_193, 8_193), dtype=torch.float64, device=cuda_device)
+    Xty = torch.zeros((1, 8_193), dtype=torch.float64, device=cuda_device)
+    n = torch.ones(1, dtype=torch.float64, device=cuda_device)
+    with pytest.raises(ValueError, match="K <= 8192"):
+        cd.solve_elastic_net_cov(XtX, Xty, n, alpha=0.1)
+
+
+WIDE_CD_QUERIES = {
+    "lasso_k40": (40, lambda f, t: t.least_squares.lasso(*f, alpha=0.05, null_policy="drop").over("g")),
+    "enet_k40_coefficients": (40, lambda f, t: t.least_squares.elastic_net(
+        *f, alpha=0.05, l1_ratio=0.5, mode="coefficients").over("g")),
+    "nnls_k40_zero": (40, lambda f, t: t.least_squares.lasso(
+        *f, alpha=0.05, positive=True, null_policy="zero").over("g")),
+    "active_set_k40": (40, lambda f, t: t.least_squares.lasso(
+        *f, alpha=0.05, solve_method="cd_active_set", null_policy="drop").over("g")),
+    "lasso_statistics_k40": (40, lambda f, t: t.least_squares.lasso(*f, alpha=0.05, mode="statistics").over("g")),
+    "lasso_k100_one_group": (100, lambda f, t: t.least_squares.lasso(*f, alpha=0.05)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("query", sorted(WIDE_CD_QUERIES))
+def test_wide_cd_slices_on_card_match_cpu(cuda_device, query, monkeypatch):
+    # lasso / elastic net / NNLS / cd_active_set above K = 32 through the
+    # public API: the card (the moment kernel's wide form, then the FISTA
+    # or wide cyclic kernel) against the CPU (the plain versions) at rtol
+    # 1e-9 (the moments' summation order, through the iterations), with
+    # identical null masks
+    k, build = WIDE_CD_QUERIES[query]
+    frame = _wide_frame(n=3_000, k=k, m=1, g=5)
+    expr = build([f"x{i}" for i in range(k)], col("y0"))
+    monkeypatch.setattr(CONFIG, "lazy_row_order", False)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        monkeypatch.setattr(CONFIG, "device", dev)
+        s = pt.DataFrame(frame).select(expr)
+        c = s[s.columns[0]]
+        if "statistics" in query:
+            out[dev] = ({key: np.asarray(v.cpu() if torch.is_tensor(v) else v, dtype=float)
+                         for key, v in c.arrays.items() if key != "feature_names"}, None)
+        else:
+            out[dev] = (c.to_numpy(), None if c.validity is None else c.validity.cpu().numpy())
+    launched = cd.cyclic_wide_kernel_launches if "active_set" in query else cd.fista_kernel_launches
+    assert launched == 1 and cd.cd_kernel_launches == 0
+    if "statistics" in query:
+        for key in out["cpu"][0]:
+            np.testing.assert_allclose(out["cuda"][0][key], out["cpu"][0][key], rtol=1e-9, atol=1e-11, err_msg=key)
+        return
+    np.testing.assert_array_equal(out["cuda"][1], out["cpu"][1])
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-9, atol=1e-11)

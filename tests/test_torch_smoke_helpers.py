@@ -578,15 +578,88 @@ def test_wide_expected_is_numpys_solution_of_each_query(label):
 def test_wide_queries_name_their_output_columns():
     import polars_ols_tpu_torch as pt
 
+    cd_labels = ["elastic_net", "elastic_net/coef", "lasso", "lasso/coef", "nnls", "nnls/coef",
+                 "lasso_active_set", "lasso_active_set/coef", "elastic_net_statistics"]
     plain = cs._wide_queries(pt, pt.col, 40, False)
     assert list(plain) == ["ols_qr", "ols_svd", "ridge_chol", "ridge_svd", "wls", "ols", "statistics", "rls",
-                           "rolling"]
+                           "rolling", *cd_labels]
     grouped = cs._wide_queries(pt, pt.col, 40, True, fault=[f"t{j}" for j in range(cs.FAULT_TARGETS)])
     assert list(grouped)[-2:] == ["multi_target", "fault_multi_target"]
     assert {label: column for label, (_, column) in grouped.items()} == {
         **{label: "y" for label in ("ols_qr", "ols_svd", "ridge_chol", "ridge_svd", "wls", "ols", "rls", "rolling")},
-        "statistics": "statistics", "multi_target": "p", "fault_multi_target": "p",
+        **{label: "coefficients" if label.endswith("/coef") else "y" for label in cd_labels},
+        "statistics": "statistics", "elastic_net_statistics": "statistics", "multi_target": "p",
+        "fault_multi_target": "p",
     }
+
+
+def test_wide_cd_paths_count_the_steps_by_hand():
+    # K = 40: W = 64, L = 6 adds of the tree
+    p = cs._wide_cd_paths(40)
+    assert p["iteration"] == {"fma": 12 + 12, "div": 1, "sqrt": 1}
+    assert p["power_step"] == {"fma": 3 + 12, "div": 1, "sqrt": 1}
+    assert p["coordinate"] == {"fma": 6 + 6, "div": 1} and p["sweep_end"] == {"fma": 8, "sqrt": 1}
+    assert cs._wide_cd_paths(1_000)["coordinate"]["fma"] == 6 + 10  # W = 1,024
+
+
+@pytest.mark.parametrize("fista", [True, False], ids=["fista", "cyclic"])
+def test_cd_wide_bound_counts_what_the_groups_took(fista):
+    G, K = 3, 40
+    counts = np.asarray([1, 30, 12])
+    b = cs._cd_wide_bound(G, K, counts, OP_MS, fista, 24)
+    moved = 8 * (G * K * K + G * K + G) + 8 * G * K + 4 * G
+    ops = (3 * 25 + 43) * 2 * K * K if fista else 43 * K * 2 * K
+    assert b["bound_ms"] == pytest.approx(max(moved / cs.PEAK_BYTES_PER_S, ops / cs.PEAK_F64_PER_S) * 1e3)
+    paths = cs._wide_cd_paths(K)
+    if fista:
+        want = {k: 24 * paths["power_step"].get(k, 0) + 30 * paths["iteration"].get(k, 0) for k in ("fma", "div", "sqrt")}
+    else:
+        want = {k: 30 * (K * paths["coordinate"].get(k, 0) + paths["sweep_end"].get(k, 0)) for k in ("fma", "div", "sqrt")}
+    assert b["longest_path"] == want and b["counts_max"] == 30
+    assert b["latency_bound_ms"] == pytest.approx(sum(n * OP_MS[k] for k, n in want.items()))
+
+
+def test_kkt_holds_at_the_optimum_and_fails_off_it():
+    # a literal numpy descent to a tight tol satisfies the elastic-net
+    # conditions; a nudged coefficient does not
+    rng = np.random.default_rng(3)
+    X = rng.normal(size=(80, 12))
+    y = X @ (rng.normal(size=12) * (rng.random(12) > 0.5)) + rng.normal(size=80)
+    XtX, Xty = X.T @ X, X.T @ y
+    for positive in (False, True):
+        w = cs._cd_numpy(XtX, Xty, 80.0, 0.1, 0.7, positive, max_iter=100_000, tol=1e-14)
+        a = 0.1 * 80
+        assert (w == 0).any() and (w != 0).any()
+        assert cs._kkt(XtX, Xty, a * 0.7, a * 0.3, w, positive, 1e-9, "tight") < 1e-9
+        bad = w.copy()
+        bad[np.flatnonzero(w)[0]] *= 1.01
+        with pytest.raises(AssertionError):
+            cs._kkt(XtX, Xty, a * 0.7, a * 0.3, bad, positive, 1e-9, "nudged")
+
+
+@pytest.mark.parametrize("kw", [dict(alpha=0.05, l1_ratio=0.5), dict(alpha=0.05, l1_ratio=1.0, active_set=True)],
+                         ids=["fista", "cyclic"])
+def test_check_cd_wide_runs_its_gates_on_cpu_tensors(monkeypatch, capsys, kw):
+    # a rehearsal of the smoke's wide coordinate-descent phase: on CPU
+    # tensors the launch is a stand-in for the plain versions, so every gate
+    # passes and the line is printed
+    from polars_ols_tpu_torch.ops import cd
+
+    def launch(*args, fista):
+        return cd.fista_ref(*args[:8], kernel_order=True) if fista else cd._cyclic_wide_ref(*args)
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(cd, "launch_wide", launch)
+    monkeypatch.setattr(cd, "wide_layout", lambda K, fista: (True, 0))
+    rng = np.random.default_rng(4)
+    X = rng.normal(size=(5, 80, 36))
+    y = np.einsum("grk,gk->gr", X, rng.normal(size=(5, 36)) * (rng.random((5, 36)) > 0.6))
+    XtX = torch.as_tensor(np.einsum("grk,grl->gkl", X, X))
+    Xty = torch.as_tensor(np.einsum("grk,gr->gk", X, y))
+    out = cs._check_cd_wide("rehearsal", XtX, Xty, torch.full((5,), 80.0, dtype=torch.float64), kw, cd, torch,
+                            OP_MS, "no card", timed=False)
+    assert out["max_abs_err"] == 0.0 and out["K"] == 36 and out["library_ms"] is None
+    assert "kernel cd_" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("G,R,K", [(10_000, 900, 8), (10_000, 900, 32), (1_000, 570, 40), (1, 10_000, 100)])

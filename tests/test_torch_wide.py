@@ -8,9 +8,10 @@ rows; ~2 % nulls per column in all but every third group, row 0 valid; a
 small ``moment_chunk_rows`` that splits each group across blocks, so the
 Householder tree runs) go through the JAX package and the port at K = 33,
 40 and 64 with every static solve method, and at K = 40 in the four modes
-under the five null policies with WLS. Coordinate descent still refuses
-K > 32, naming its ROADMAP item (12b); the moving models' cases here match
-the JAX engine (tests/test_torch_moving_wide.py holds them in full).
+under the five null policies with WLS. Coordinate descent (FISTA and the
+wide cyclic form, tests/test_torch_cd_wide.py holds them in full) and the
+moving models (tests/test_torch_moving_wide.py) match the JAX engine here
+at K = 33.
 
 Tolerances: coefficients rtol 1e-9 / atol 1e-11 (the JAX suite's against
 lstsq, tests/test_ozaki.py:60), predictions and residuals rtol 1e-8 /
@@ -157,15 +158,15 @@ def test_materialized_predict_and_formula_above_32_match_jax(query, monkeypatch)
     "model", ["lasso", "elastic_net", "nnls", "cd_active_set", "rls", "rolling_ols", "expanding_ols"]
 )
 def test_cd_and_moving_models_above_32_raise_their_items(model):
-    # coordinate descent above K = 32 is ROADMAP Queue 1 item 12b: it still
-    # refuses, naming its sub-item; the moving models run at any K and match
-    # the JAX engine at the JAX suite's tolerances for its paths above 32
+    # coordinate descent above K = 32 (once refused as ROADMAP item 12b)
+    # and the moving models run at any K and match the JAX engine: CD at the
+    # JAX suite's CD tolerance (rtol 1e-8 / atol 1e-10, tests/test_ols.py:465)
+    # in predictions, coefficients and statistics mode, the moving models at
+    # the JAX suite's tolerances for their paths above 32
     # (tests/test_largek_moving.py: the Kalman oracle's rtol 1e-8 / atol
     # 1e-10, grouped rolling's 2e-5 where a window holds 2 K fit rows),
     # with identical nulls
     d = _data(33, n=200)
-    ls = pt.col("y").least_squares
-    feats = [f"x{i}" for i in range(33)]
     moving = {
         "rls": lambda ls, f: ls.rls(*f, half_life=20.0),
         "rolling_ols": lambda ls, f: ls.rolling_ols(*f, window_size=180),
@@ -184,14 +185,25 @@ def test_cd_and_moving_models_above_32_raise_their_items(model):
             assert m.sum() > 20
             np.testing.assert_allclose(tv[m], jv[m], rtol=2e-5, atol=2e-5)
         return
-    expr = {
-        "lasso": lambda: ls.lasso(*feats, alpha=0.1),
-        "elastic_net": lambda: ls.elastic_net(*feats, alpha=0.1, l1_ratio=0.5),
-        "nnls": lambda: ls.lasso(*feats, alpha=0.1, positive=True),
-        "cd_active_set": lambda: ls.lasso(*feats, alpha=0.1, solve_method="cd_active_set"),
-    }[model]()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 12b"):
-        _frame(pt, d).select(expr)
-    for mode in ("statistics", "coefficients"):
-        with pytest.raises(NotImplementedError, match="item 12b"):
-            _frame(pt, d).select(ls.lasso(*feats, alpha=0.1, mode=mode))
+    kw = {
+        "lasso": dict(alpha=0.1),
+        "elastic_net": dict(alpha=0.1, l1_ratio=0.5),
+        "nnls": dict(alpha=0.1, positive=True),
+        "cd_active_set": dict(alpha=0.1, solve_method="cd_active_set"),
+    }[model]
+    method = "elastic_net" if model == "elastic_net" else "lasso"
+    for mode in ("predictions", "coefficients", "statistics"):
+        t, j = _both(d, lambda ls, f: getattr(ls, method)(*f, mode=mode, null_policy="drop", **kw).over("g"))
+        if mode == "statistics":
+            ta, ja = t.arrays, j.arrays
+            for key in pt.StatisticsSeries.SCALAR_FIELDS + pt.StatisticsSeries.LIST_FIELDS:
+                np.testing.assert_allclose(ta[key].numpy(), np.asarray(ja[key]), err_msg=key, rtol=1e-8, atol=1e-10)
+            continue
+        (tv, tm), (jv, jm) = _values(t), _values(j)
+        np.testing.assert_array_equal(tm, jm)
+        np.testing.assert_allclose(tv, jv, rtol=1e-8, atol=1e-10)
+        assert np.isfinite(tv[~np.isnan(jv)]).all()
+        if mode == "coefficients":
+            assert (tv == 0).any() and (tv != 0).any()
+            if model == "nnls":
+                assert tv.min() >= 0.0

@@ -10,8 +10,8 @@ kernels' wide forms.
   predictions 1e-8 / 1e-10.
 - The JAX suite's ``test_fit_wide`` (tests/test_ols.py:243) and
   ``test_fit_multi_collinear`` (:270) through the port, at those tests'
-  own tolerances, beside the JAX package; ``test_fit_wide``'s lasso part
-  raises ROADMAP item 12b above K = 32.
+  own tolerances, beside the JAX package; ``test_fit_wide``'s lasso runs
+  FISTA and the active-set polish above K = 32.
 - The plain versions at wide C against the JAX package and numpy:
   ``grouped_moments_blocks_ref`` (rtol 1e-13 to the f64 einsum form, 5e-13
   to the digit form, tests/test_ozaki.py:39), ``householder_blocks_ref``
@@ -117,8 +117,7 @@ def _make_data(mod, n_samples, n_features, scale, dup=False):
 def test_fit_wide(n_features):
     # tests/test_ols.py:243 through the port: ols and ridge on 10 rows,
     # their predictions correlated with y to 1e-5 (that test's tolerance),
-    # ols at numpy's minimum-norm solution; lasso runs up to K = 32 and
-    # raises ROADMAP item 12b above
+    # ols at numpy's minimum-norm solution
     df, x, y = _make_data(pt, 10, n_features, 1e-4)
     features = [pt.col(f"x{i + 1}") for i in range(n_features)]
     ls = pt.col("y").least_squares
@@ -136,12 +135,14 @@ def test_fit_wide(n_features):
         assert corr == pytest.approx(1.0, rel=1e-5, abs=1e-5), cname
     beta = np.asarray(out["coef_ols"].to_numpy())[0]
     np.testing.assert_allclose(beta, np.linalg.lstsq(x, y, rcond=None)[0], **NUMPY_TOL)
+    # the lasso: cyclic CD up to K = 32, FISTA and the active-set polish
+    # above (12,000 iterations at this alpha and tol); its predictions
+    # correlated with y to 1e-5, as the JAX test holds the JAX engine's
     lasso = ls.lasso(*features, mode="coefficients", alpha=1e-6, tol=1e-8, max_iter=3_000)
-    if n_features > 32:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 12b"):
-            df.select(lasso)
-    else:
-        assert np.isfinite(np.asarray(df.select(lasso)["coefficients"].to_numpy())).all()
+    coef = np.asarray(df.select(lasso)["coefficients"].to_numpy())
+    assert coef.shape == (1, n_features) and np.isfinite(coef).all()
+    corr = np.corrcoef(x @ coef[0], y)[0, 1]
+    assert corr == pytest.approx(1.0, rel=1e-5, abs=1e-5), "coef_lasso"
 
 
 @pytest.mark.parametrize(
