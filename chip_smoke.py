@@ -82,7 +82,16 @@ moments above 33 columns, the Householder reduction above 33 columns with
 its panel in shared or device memory, the Jacobi SVD above K = 32 and its
 rows mode for fewer rows than features) are held to their plain versions
 at the shapes those configurations give them and at their edges, and
-timed beside their bounds and library calls. The line before the last is a JSON object with the
+timed beside their bounds and library calls. Before the wide configurations, the frame phase
+(``_frame_phase``) runs the reference suite's workflow (``frame_steps``:
+a lazy filter, row index, ``.over`` fits and column arithmetic,
+``group_by(...).agg`` and ``.last()``, ``unique``, a left join then
+``predict``, a two-key sort, statistics exploded; the features as
+``selectors.starts_with("x")``) on the main frame, checks each step
+against numpy and that every value column stays on the card, times and
+profiles each step, then runs ``warmup()`` at the main frame's shape twice
+and ``utils.trace`` around one query (its Chrome trace must hold CUDA
+kernel events). The line before the last is a JSON object with the
 kernels' names, sources, launch counts on their paths, errors, times and
 bounds; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -98,6 +107,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 
@@ -1246,11 +1256,11 @@ def _check_cd_wide(label, XtX, Xty, counts, kw, cd, torch, op_ms, smi, timed=Tru
     return out
 
 
-def _profile(fn, torch, named=None, top=0):
+def _profile(fn, torch, named=None, top=0, queries=PROFILE_QUERIES, warm=True):
     """Device busy ms (the union of device intervals), launches (launch API
     calls) and host syncs (stream / device syncs, less the loop's own) per
-    query, from torch.profiler over PROFILE_QUERIES queries after a warm
-    one, with the host ms per query under the profiler (which inflates it:
+    query, from torch.profiler over ``queries`` queries (PROFILE_QUERIES)
+    after a warm one (``warm``), with the host ms per query under the profiler (which inflates it:
     the idle share 1 - busy / wall is an upper bound), and the device ms per
     query of the kernels of each label of ``named`` (those whose names hold
     all of its strings), and the ``top`` device operations by device ms
@@ -1261,15 +1271,16 @@ def _profile(fn, torch, named=None, top=0):
     from torch.profiler import ProfilerActivity, profile
 
     named = named or {}
-    fn()
-    torch.cuda.synchronize()
+    if warm:
+        fn()
+        torch.cuda.synchronize()
     for tries in range(1, PROFILE_TRIES + 1):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            for _ in range(PROFILE_QUERIES):
+            for _ in range(queries):
                 fn()
                 torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_QUERIES
+            wall_ms = (time.perf_counter() - t0) * 1e3 / queries
         events = prof.events()
         names = [e.name for e in events if e.device_type == DeviceType.CPU]
         launches = sum(n in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
@@ -1289,12 +1300,12 @@ def _profile(fn, torch, named=None, top=0):
             busy_us += hi - max(lo, end)
             end = hi
     syncs = sum(n in ("cudaStreamSynchronize", "cudaDeviceSynchronize") for n in names)
-    busy_ms = busy_us / 1e3 / PROFILE_QUERIES
+    busy_ms = busy_us / 1e3 / queries
     by_name = {
         label: sum(
             e.time_range.end - e.time_range.start
             for e in events if e.device_type == DeviceType.CUDA and all(k in e.name for k in keys)
-        ) / 1e3 / PROFILE_QUERIES
+        ) / 1e3 / queries
         for label, keys in named.items()
     }
     seen = sorted({
@@ -1305,12 +1316,12 @@ def _profile(fn, torch, named=None, top=0):
     for e in events:
         if e.device_type == DeviceType.CUDA:
             name = e.name[:90]
-            totals[name] = totals.get(name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3 / PROFILE_QUERIES
+            totals[name] = totals.get(name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3 / queries
     return {
         "top_ms": sorted(totals.items(), key=lambda kv: -kv[1])[:top],
         "kernels_ms": by_name, "kernel_names": seen, "tries": tries, "complete": kernels >= launches,
-        "busy_ms": busy_ms, "launches": launches / PROFILE_QUERIES,
-        "host_syncs": (syncs - PROFILE_QUERIES) / PROFILE_QUERIES,
+        "busy_ms": busy_ms, "launches": launches / queries,
+        "host_syncs": (syncs - queries) / queries,
         "wall_ms": wall_ms, "idle_share": 1.0 - busy_ms / wall_ms,
     }
 
@@ -1806,6 +1817,222 @@ def _stats_numpy(X, y, alpha, beta=None):
 # x 100 features, and "grouped_largek", 500,000 rows x 40 features x 1,000
 # groups; the latter also with the multi-target fault query (40 seeded
 # targets on 3 features: blocks of 43 columns)
+FRAME_DROPPED = 3.0  # the group the frame workflow filters out before its fits
+FRAME_PROFILE_QUERIES = 1  # profiled queries a frame step (each is host-heavy)
+FRAME_TOL = dict(rtol=1e-12, atol=1e-12)  # frame aggregations against numpy
+STAT_FIELDS = ["feature_names", "coefficients", "standard_errors", "t_values", "p_values"]
+
+
+def frame_steps(pt, df):
+    """The reference suite's workflow (tests/test_ols.py) on ``df`` (``y``,
+    features ``x1 ..``, ``group``) through the public API: an ordered
+    {step: fn(outputs of the steps before it) -> frame}. The features are
+    the selector ``starts_with("x")``."""
+    col = pt.col
+    feats = pt.selectors.starts_with("x")
+    coef = col("y").least_squares.ols(feats, mode="coefficients")
+    kept = col("group") != FRAME_DROPPED
+    return {
+        "lazy": lambda o: (
+            df.lazy().filter(kept).with_row_index()
+            .with_columns(coef.over("group"), col("y").least_squares.ols(feats).over("group").alias("pred"))
+            .with_columns(((col("y") - col("pred")) / (col("x1") * col("x1") + 1.0)).alias("scaled"))
+            .collect()
+        ),
+        "agg": lambda o: o["lazy"].group_by("group").agg(
+            col("y").mean().alias("y_mean"), col("y").std().alias("y_std"), col("y").count().alias("n"),
+            col("coefficients"),
+        ),
+        "last": lambda o: o["lazy"].group_by("group").last(),
+        "unique": lambda o: df.filter(kept).select("group", coef.over("group")).unique(),
+        "join_predict": lambda o: df.join(o["unique"], on="group", how="left").select(
+            "group", col("coefficients").least_squares.predict(feats, name="p"),
+        ),
+        "sort": lambda o: o["lazy"].sort(["group", "index"], descending=[True, False]),
+        "explode": lambda o: (
+            df.select("group", col("y").least_squares.ols(feats, mode="statistics").over("group"))
+            .unique().unnest("statistics").explode(STAT_FIELDS)
+        ),
+    }
+
+
+def run_frame_steps(pt, df):
+    """{step: output frame} of one pass of ``frame_steps``."""
+    out = {}
+    for step, fn in frame_steps(pt, df).items():
+        out[step] = fn(out)
+    return out
+
+
+def frame_value_devices(frame):
+    """The device types of a frame's value tensors (object columns, which
+    live on the host by design, left out)."""
+    kinds = set()
+    for c in frame._columns.values():
+        for t in (getattr(c, "_values", None), getattr(c, "validity", None)):
+            t = getattr(t, "flat", t)
+            if hasattr(t, "device"):
+                kinds.add(t.device.type)
+        if type(c).__name__ == "StructSeries":
+            kinds.add(c.values.device.type)
+        if type(c).__name__ == "StatisticsSeries":
+            kinds.update(v.device.type for v in c.arrays.values())
+    return kinds
+
+
+def _check_frame(out, x, y, g, checked, device="cuda"):
+    """Every step of the frame workflow against numpy: row selections and
+    orders exactly, aggregations at FRAME_TOL, fits at the main path's
+    tolerances on the sampled groups, every value column on ``device``.
+    Returns {step: shape}."""
+    keep = g != FRAME_DROPPED
+    kept = np.flatnonzero(keep)
+    gk = g[keep].astype(np.int64)
+    lazy = out["lazy"]
+    if lazy.height != len(kept):
+        raise AssertionError(f"frame lazy: {lazy.height} rows, expected {len(kept)}")
+    np.testing.assert_array_equal(lazy["index"].to_numpy(), np.arange(len(kept), dtype=float))
+    np.testing.assert_array_equal(lazy["y"].to_numpy(), y[kept])
+    np.testing.assert_array_equal(lazy["group"].to_numpy(), g[kept])
+    coefs = lazy["coefficients"].to_numpy()
+    pred = lazy["pred"].to_numpy()
+    x1 = x[kept, 0]
+    np.testing.assert_allclose(lazy["scaled"].to_numpy(), (y[kept] - pred) / (x1 * x1 + 1.0), rtol=1e-14, atol=0)
+    groups = [k for k in checked if k != int(FRAME_DROPPED)]
+    xk = x[kept]
+    for _, rows, beta in _groupwise_lstsq(xk, y[kept], gk, groups):
+        np.testing.assert_allclose(coefs[rows[0]], beta, **COEF_TOL)
+        np.testing.assert_allclose(pred[rows], xk[rows] @ beta, **PRED_TOL)
+    # group_by: one row per group in sorted key order
+    keys, first_pos, counts = np.unique(gk, return_index=True, return_counts=True)
+    agg = out["agg"]
+    np.testing.assert_array_equal(agg["group"].to_numpy(), keys.astype(float))
+    dense = np.searchsorted(keys, gk)
+    mean = np.bincount(dense, y[kept]) / counts
+    std = np.sqrt(np.bincount(dense, (y[kept] - mean[dense]) ** 2) / (counts - 1))
+    np.testing.assert_allclose(agg["y_mean"].to_numpy(), mean, **FRAME_TOL)
+    np.testing.assert_allclose(agg["y_std"].to_numpy(), std, **FRAME_TOL)
+    np.testing.assert_array_equal(agg["n"].to_numpy(), counts.astype(float))
+    np.testing.assert_array_equal(agg["coefficients"].to_numpy(), coefs[first_pos])
+    order = np.argsort(gk, kind="stable")
+    last_pos = order[np.cumsum(counts) - 1]
+    np.testing.assert_array_equal(out["last"]["index"].to_numpy(), last_pos.astype(float))
+    # unique: one row per kept group, in the order of first appearance
+    uniq = out["unique"]
+    appear = np.sort(first_pos)
+    np.testing.assert_array_equal(uniq["group"].to_numpy(), g[kept][appear])
+    ucoef = uniq["coefficients"].to_numpy()
+    np.testing.assert_allclose(ucoef, coefs[appear], **COEF_TOL)
+    # join then predict: NaN exactly on the dropped group
+    jp = out["join_predict"]
+    np.testing.assert_array_equal(jp["group"].to_numpy(), g)
+    p = jp["p"].to_numpy()
+    if not (np.isnan(p[~keep]).all() and np.isfinite(p[keep]).all()):
+        raise AssertionError("frame join_predict: NaN predictions are not exactly the dropped group's rows")
+    np.testing.assert_allclose(p[kept], pred, **PRED_TOL)
+    # sort: group descending, index ascending
+    order = np.lexsort((np.arange(len(kept)), -g[kept]))
+    srt = out["sort"]
+    np.testing.assert_array_equal(srt["index"].to_numpy(), order.astype(float))
+    np.testing.assert_array_equal(srt["group"].to_numpy(), g[kept][order])
+    # statistics, one row per group in the order of first appearance, exploded
+    ex = out["explode"]
+    K = x.shape[1]
+    all_keys, all_first = np.unique(g.astype(np.int64), return_index=True)
+    groups_in_order = g[np.sort(all_first)].astype(np.int64)
+    if ex.height != len(all_keys) * K:
+        raise AssertionError(f"frame explode: {ex.height} rows, expected {len(all_keys) * K}")
+    if ex["feature_names"].to_list()[: 2 * K] != [f"x{i + 1}" for i in range(K)] * 2:
+        raise AssertionError("frame explode: feature names out of order")
+    ecoef = ex["coefficients"].to_numpy().reshape(-1, K)
+    at = {int(k): i for i, k in enumerate(groups_in_order)}
+    for k, _, beta in _groupwise_lstsq(x, y, g.astype(np.int64), checked):
+        np.testing.assert_allclose(ecoef[at[int(k)]], beta, **COEF_TOL)
+    for step, frame in out.items():
+        kinds = frame_value_devices(frame)
+        if kinds != {device}:
+            raise AssertionError(f"frame {step}: value columns on {sorted(kinds)}, not only {device}")
+    return {step: frame.shape for step, frame in out.items()}
+
+
+def _frame_phase(pt, torch, smi, columns, x, y, g, checked, mods):
+    """The frame substrate at the main frame (``columns``: y, x1 .. on the
+    card; ``g`` the host group keys): the reference suite's workflow
+    (frame_steps) through the public API, every step checked against numpy
+    (_check_frame), timed (median of TIMING_REPS after a warm call) and
+    profiled; then warmup() at the main frame's shape, twice, and trace()
+    around one query, whose file must hold CUDA kernel events. Returns the
+    kernel launches of the workflow's first pass."""
+    from polars_ols_tpu_torch.utils import trace
+
+    moments, special, cd, householder, jacobi, moving = mods
+    col = pt.col
+    fdf = pt.DataFrame({**columns, "group": g})
+    counters = {
+        "grouped_moments": (moments, "moments_kernel_launches"),
+        "t_pvalue": (special, "t_pvalue_kernel_launches"),
+        "cd_cov": (cd, "cd_kernel_launches"),
+        "householder": (householder, "householder_kernel_launches"),
+        "jacobi_svd": (jacobi, "jacobi_kernel_launches"),
+        "moving": (moving, "moving_kernel_launches"),
+    }
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    t0 = time.perf_counter()
+    frame_out = run_frame_steps(pt, fdf)
+    torch.cuda.synchronize()
+    frame_first_s = time.perf_counter() - t0
+    frame_launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+    if frame_launches["grouped_moments"] == 0 or frame_launches["t_pvalue"] == 0:
+        raise AssertionError(f"frame workflow: kernel launches {frame_launches}")
+    frame_shapes = _check_frame(frame_out, x, y, g, checked)
+    print(
+        f"frame: {len(frame_shapes)} steps at {N_ROWS} rows x {N_FEATURES} features x {N_GROUPS} groups "
+        f"(group {FRAME_DROPPED} filtered out), shapes {json.dumps(frame_shapes)}, every value column on "
+        f"cuda, each step matches numpy (orders exactly, aggregations at {FRAME_TOL}, fits at {COEF_TOL} on "
+        f"{N_CHECK_GROUPS} groups); first pass {frame_first_s!r} s, kernel launches {json.dumps(frame_launches)}"
+    )
+    for step, fn in frame_steps(pt, fdf).items():
+        def call(fn=fn):
+            return fn(frame_out)
+
+        med = _timed_median(call, torch)
+        prof = _profile(call, torch, queries=FRAME_PROFILE_QUERIES, warm=False)
+        if prof is None:
+            print(f"frame {step}: wall median {med * 1e3!r} ms; profile not measured ({smi})")
+            continue
+        print(
+            f"frame {step}: wall median {med * 1e3!r} ms ({TIMING_REPS} after a warm call); device busy "
+            f"{prof['busy_ms']!r} ms, {prof['launches']!r} launches, {prof['host_syncs']!r} host syncs a "
+            f"call ({FRAME_PROFILE_QUERIES} profiled; idle share <= {prof['idle_share']!r}) ({smi})"
+        )
+    del frame_out
+    t0 = time.perf_counter()
+    warm_1 = pt.warmup(N_ROWS, N_FEATURES, n_groups=N_GROUPS)
+    warm_1_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    warm_2 = pt.warmup(N_ROWS, N_FEATURES, n_groups=N_GROUPS)
+    warm_2_s = time.perf_counter() - t0
+    print(
+        f"warmup({N_ROWS}, {N_FEATURES}, n_groups={N_GROUPS}): first call {warm_1_s!r} s "
+        f"{json.dumps(warm_1)}; second call at the same shape {warm_2_s!r} s {json.dumps(warm_2)} ({smi})"
+    )
+    trace_dir = Path(__file__).resolve().parent / "chiprun_out" / "frame_trace"
+    with trace(str(trace_dir)):
+        fdf.select(col("y").least_squares.ols(pt.selectors.starts_with("x")).over("group"))
+    events = json.loads((trace_dir / "trace.json").read_text())["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    if not kernels:
+        raise AssertionError(f"trace: {trace_dir / 'trace.json'} holds no CUDA kernel events")
+    launched = sum(e.get("name") in ("cudaLaunchKernel", "cuLaunchKernel") for e in events)
+    own = sorted({k.split("(")[0] for k in kernels if "at::" not in k})
+    print(
+        f"trace: {trace_dir / 'trace.json'} holds {len(kernels)} CUDA kernel events of "
+        f"{len(set(kernels))} kernels for {launched} launch calls; the port's own: {own or 'none recorded'}"
+    )
+    return frame_launches
+
+
 LARGE_SHAPE = (10_000, 100, None)
 LARGEK_SHAPE = (500_000, 40, 1_000)
 FAULT_TARGETS, FAULT_K = 40, 3
@@ -3303,6 +3530,11 @@ def main() -> int:
             + f" ({smi})"
         )
 
+    # 9b. the frame substrate at the main frame: the reference suite's
+    # workflow through the public API, then warmup() and trace()
+    frame_launches = _frame_phase(pt, torch, smi, {n: up[n] for n in names}, x, y, g, checked,
+                                  (moments, special, cd, householder, jacobi, moving))
+
     # 10. the reference suite's wide configurations at full size, through
     # the public API, then the wide forms against their plain versions
     mods = (moments, householder, jacobi, moving, recursive, cd)
@@ -3340,10 +3572,11 @@ def main() -> int:
             "route": "cuda",
             "source": "polars_ols_tpu_torch/csrc/moments.cu",
             "replaces": "polars_ols_tpu/ops/pallas_moments.py:78",
-            "launches": launches + static_launches + stat_launches["grouped_moments"],
+            "launches": launches + static_launches + stat_launches["grouped_moments"]
+            + frame_launches["grouped_moments"],
             "launches_by_path": {
                 "main": launches, "static": static_launches,
-                "statistics_cd": stat_launches["grouped_moments"],
+                "statistics_cd": stat_launches["grouped_moments"], "frame": frame_launches["grouped_moments"],
             },
             "max_abs_err": main_err,
             **main_times,
@@ -3381,7 +3614,8 @@ def main() -> int:
             "source": "polars_ols_tpu_torch/csrc/t_pvalue.cu",
             "replaces": "polars_ols_tpu/ops/linalg.py:659",
             "replaces_kind": "XLA betainc, not Pallas",
-            "launches": stat_launches["t_pvalue"],
+            "launches": stat_launches["t_pvalue"] + frame_launches["t_pvalue"],
+            "launches_by_path": {"statistics": stat_launches["t_pvalue"], "frame": frame_launches["t_pvalue"]},
             "max_abs_err": p_err,
             **p_times,
             **p_bound,

@@ -10,20 +10,21 @@ moving models' scan and per-row solve (``csrc/moving.cu``), the
 Householder reduction under the shared SVD (``csrc/householder.cu``) and
 that SVD (``csrc/jacobi_svd.cu``).
 
-Ported so far: the static fits, grouped (``.over(keys)``) and not, through
-``col(y).least_squares.ols / wls / ridge / lasso / elastic_net(...)`` and
-``DataFrame.select`` / ``with_columns``: the five static null policies,
-sample weights, solve methods chol / lu / qr / svd / cd / cd_active_set
-(``positive=True`` for NNLS), at any K, in predictions, residuals,
-coefficients or statistics mode (a ``StatisticsSeries``); the moving
-models ``rls`` / ``expanding_ols`` / ``rolling_ols`` under all six null
-policies (``drop_window`` included), in predictions, residuals or
-coefficients mode; multi-target OLS / ridge of a ``struct(...)`` target
-(``multi_target_ols``: predictions or residuals as a struct, read by
-``DataFrame.unnest``); ``predict`` / ``predict_from_formula`` of a
-coefficient struct; and ``from_formula`` / the compute functions. The
-rest of the frame API raises ``NotImplementedError`` naming its ROADMAP.md
-queue item.
+Ported: the static fits, grouped (``.over(keys)``) and not, through
+``col(y).least_squares.ols / wls / ridge / lasso / elastic_net(...)``: the
+five static null policies, sample weights, solve methods chol / lu / qr /
+svd / cd / cd_active_set (``positive=True`` for NNLS), at any K, in
+predictions, residuals, coefficients or statistics mode (a
+``StatisticsSeries``); the moving models ``rls`` / ``expanding_ols`` /
+``rolling_ols`` under all six null policies (``drop_window`` included),
+in predictions, residuals or coefficients mode; multi-target OLS / ridge
+of a ``struct(...)`` target; ``predict`` / ``predict_from_formula``;
+``from_formula`` and the compute functions. Around the fits, the frame
+substrate: expression arithmetic, comparisons and reductions, ``filter``,
+``sort``, ``unique``, ``join``, ``group_by(...).agg / first / last``,
+``explode``, ``concat``, ``lazy()`` plans, the ``selectors`` module,
+``warmup()`` (kernel builds and warm layout caches), ``clear_caches()``
+and ``utils.trace`` (a ``torch.profiler`` Chrome trace).
 
 This package imports torch and numpy only; it never imports jax or
 polars_ols_tpu.
@@ -31,13 +32,18 @@ polars_ols_tpu.
 
 from __future__ import annotations
 
+from . import selectors
 from .config import CONFIG
-from .expr import col, lit, struct
-from .frame import DataFrame
+from .engine.groups import clear_caches
+from .expr import Expr, col, lit, struct
+from .frame import DataFrame, GroupBy, LazyFrame, concat
 from .least_squares import (
+    NullPolicy,
     OLSKwargs,
+    OutputMode,
     RLSKwargs,
     RollingKwargs,
+    SolveMethod,
     compute_least_squares,
     compute_least_squares_from_formula,
     compute_multi_target_least_squares,
@@ -45,14 +51,17 @@ from .least_squares import (
     compute_rolling_least_squares,
     predict,
 )
-from .series import Series, StatisticsSeries, StructSeries
+from .namespace import LeastSquares
+from .series import ObjectSeries, Series, StatisticsSeries, StructSeries
+from .warmup import warmup
 
 __version__ = "0.1.0"
 
 __all__ = [
-    "CONFIG", "DataFrame", "OLSKwargs", "RLSKwargs", "RollingKwargs", "Series",
-    "StatisticsSeries", "StructSeries", "col", "compute_least_squares",
-    "compute_least_squares_from_formula", "compute_multi_target_least_squares",
-    "compute_recursive_least_squares", "compute_rolling_least_squares", "lit", "predict",
-    "struct",
+    "CONFIG", "DataFrame", "Expr", "GroupBy", "LazyFrame", "LeastSquares", "NullPolicy",
+    "OLSKwargs", "ObjectSeries", "OutputMode", "RLSKwargs", "RollingKwargs", "Series",
+    "SolveMethod", "StatisticsSeries", "StructSeries", "clear_caches", "col",
+    "compute_least_squares", "compute_least_squares_from_formula",
+    "compute_multi_target_least_squares", "compute_recursive_least_squares",
+    "compute_rolling_least_squares", "concat", "lit", "predict", "selectors", "struct", "warmup",
 ]

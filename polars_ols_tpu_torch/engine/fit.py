@@ -65,7 +65,7 @@ from ..ops.moving import recursive_least_squares, rolling_ols
 from ..ops.rolling import default_min_periods, rolling_indices
 from ..ops.statistics import feature_metrics, residual_metrics
 from ..series import BlockPermuted, Series, StatisticsSeries, StructSeries
-from .groups import bucket_size, single_layout
+from .groups import bucket_size, register_cache_owner, single_layout
 
 # cond(XtX) beyond which one f64 Cholesky solve of the squared system loses
 # lstsq-grade accuracy; flagged batches take the CSNE refinement branch
@@ -93,6 +93,7 @@ def _split_layout(layout):
 def _cache_of(owner) -> dict:
     if owner._layout_cache is None:
         owner._layout_cache = {}
+        register_cache_owner(owner)
     return owner._layout_cache
 
 

@@ -15,6 +15,7 @@ an out-of-range index.
 
 from __future__ import annotations
 
+import weakref
 from dataclasses import dataclass, field
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -32,11 +33,34 @@ _SINGLE_LAYOUTS_LIMIT = 4
 # the native unpad helper emits int32 positions
 _INT32_LIMIT = 2**31
 
+# owners of device caches (layouts, and the columns the layouts and the fit
+# stacks hang off); clear_caches() walks them
+_CACHE_OWNERS: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def register_cache_owner(obj) -> None:
+    _CACHE_OWNERS.add(obj)
+
+
+def clear_caches() -> None:
+    """Release every device cache: the layouts' index tensors and
+    partitions (``GroupLayout._dev``, on every device), the layouts cached
+    on key columns and the fit stacks cached on target columns
+    (engine/fit.py), and the single-group layouts. Frees device memory
+    between unrelated workloads; later queries rebuild what they need."""
+    for obj in list(_CACHE_OWNERS):
+        if isinstance(obj, GroupLayout):
+            obj._devs.clear()
+        elif obj._layout_cache:
+            obj._layout_cache.clear()
+    _SINGLE_LAYOUTS.clear()
+
 
 def single_layout(n_rows: int) -> "GroupLayout":
     layout = _SINGLE_LAYOUTS.get(n_rows)
     if layout is None:
         layout = build_layout(None, n_rows)
+        register_cache_owner(layout)
         if len(_SINGLE_LAYOUTS) >= _SINGLE_LAYOUTS_LIMIT:
             _SINGLE_LAYOUTS.pop(next(iter(_SINGLE_LAYOUTS)))
         _SINGLE_LAYOUTS[n_rows] = layout
@@ -47,9 +71,14 @@ def single_layout(n_rows: int) -> "GroupLayout":
 
 def factorize_columns(cols: Sequence) -> np.ndarray:
     """Factorize one or more key columns into dense group ids [N] (host)."""
+    return factorize_arrays([c.to_numpy() for c in cols])
+
+
+def factorize_arrays(keys: Sequence[np.ndarray]) -> np.ndarray:
+    """Dense ids [N] of the distinct tuples of one or more host key arrays,
+    in their sorted order."""
     arrays = []
-    for c in cols:
-        vals = c.to_numpy()
+    for vals in keys:
         if vals.dtype == object:
             _, inv = np.unique(vals.astype(str), return_inverse=True)
         else:
@@ -244,9 +273,11 @@ def layout_for_columns(cols: Sequence) -> GroupLayout:
         return cache[key][0]
     gids = factorize_columns(cols)
     layout = build_layout(gids, len(gids))
+    register_cache_owner(layout)
     if cache is None:
         cache = {}
         cols[0]._layout_cache = cache
+        register_cache_owner(cols[0])
     # hold refs to the key columns so the ids in `key` stay valid
     cache[key] = (layout, tuple(cols))
     return layout

@@ -4,12 +4,17 @@ Float columns are f64 tensors on ``CONFIG.device``; integer and string
 columns (typically group keys) stay host-side numpy arrays, since group
 factorization runs on the host. ``validity`` is an optional bool mask: a
 null is distinct from a NaN value, which stays valid. ``None`` entries of
-a Python list are nulls.
+a Python list are nulls. ``ObjectSeries`` holds arbitrary Python objects
+(strings, the list fields of an unnested statistics column) on the host.
+
+Rows are selected by ``gather``: a device column takes the positions as a
+device int64 tensor (``index_select``), a host column as numpy; either form
+is accepted and converted where the column needs the other.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Iterable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -39,6 +44,33 @@ class BlockPermuted:
     def materialize(self) -> torch.Tensor:
         return self.flat.index_select(0, self.idx)
 
+    def take(self, indices: torch.Tensor) -> torch.Tensor:
+        """Rows ``indices`` in row order through the index map: two small
+        gathers, the other rows untouched."""
+        return self.flat.index_select(0, self.idx.index_select(0, indices))
+
+
+def device_index(indices, dev: torch.device) -> torch.Tensor:
+    """Row positions as an int64 tensor on ``dev``."""
+    if isinstance(indices, torch.Tensor):
+        return indices.to(device=dev, dtype=torch.int64)
+    return torch.as_tensor(np.asarray(indices, dtype=np.int64), device=dev)
+
+
+def host_index(indices) -> np.ndarray:
+    """Row positions as a host int64 array."""
+    if isinstance(indices, torch.Tensor):
+        return indices.cpu().numpy()
+    return np.asarray(indices, dtype=np.int64)
+
+
+def _mask_positions(mask) -> Union[torch.Tensor, np.ndarray]:
+    """The positions of the True rows of a bool mask, in the mask's place:
+    a device mask stays on the device (``torch.nonzero``)."""
+    if isinstance(mask, torch.Tensor):
+        return torch.nonzero(mask.to(torch.bool)).flatten()
+    return np.flatnonzero(np.asarray(mask, dtype=bool))
+
 
 def _from_list(values, validity):
     """(array, validity) of a Python sequence: ``None`` entries are nulls
@@ -64,7 +96,7 @@ def _as_column(values):
 class Series:
     """A named 1-D column with an optional validity mask."""
 
-    __slots__ = ("name", "_values", "validity", "_layout_cache")
+    __slots__ = ("name", "_values", "validity", "_layout_cache", "__weakref__")
 
     def __init__(self, name: str, values, validity=None) -> None:
         self.name = name
@@ -95,8 +127,17 @@ class Series:
     def is_lazy(self) -> bool:
         return isinstance(self._values, BlockPermuted)
 
+    @property
+    def is_float(self) -> bool:
+        v = self._values
+        return isinstance(v, BlockPermuted) or (isinstance(v, torch.Tensor) and v.is_floating_point())
+
     def __len__(self) -> int:
         return len(self._values)
+
+    @property
+    def height(self) -> int:
+        return len(self)
 
     def alias(self, name: str) -> "Series":
         return Series(name, self._values, self.validity)
@@ -107,14 +148,131 @@ class Series:
             return torch.ones(len(self), dtype=torch.bool, device=device())
         return self.validity
 
+    def f64(self) -> torch.Tensor:
+        """The values as an f64 tensor on the device (a host key column is
+        uploaded; a bool column gives 0 / 1)."""
+        v = self.values
+        if isinstance(v, torch.Tensor):
+            return v.to(device=device(), dtype=F64)
+        return torch.as_tensor(np.asarray(v, dtype=np.float64), device=device())
+
+    def null_count(self) -> int:
+        return 0 if self.validity is None else int((~self.validity).sum())
+
+    def is_null(self) -> "Series":
+        return Series(self.name, ~self.valid_mask())
+
+    def is_not_null(self) -> "Series":
+        return Series(self.name, self.valid_mask())
+
+    def fill_null(self, value: float) -> "Series":
+        if self.validity is None:
+            return self
+        return Series(self.name, torch.where(self.validity, self.f64(), float(value)))
+
+    def forward_fill(self) -> "Series":
+        """Each null or NaN slot takes the last valid non-NaN value before
+        it; slots with none before them stay null."""
+        vals = self.f64()
+        if self.validity is not None:
+            vals = torch.where(self.validity, vals, torch.nan)
+        pos = torch.arange(len(vals), device=vals.device)
+        last = torch.cummax(torch.where(torch.isnan(vals), -1, pos), dim=0).values
+        out = vals.index_select(0, last.clamp(min=0))
+        valid = (last >= 0) & ~torch.isnan(out)
+        return Series(self.name, torch.where(valid, out, 0.0), valid)
+
     def to_numpy(self) -> np.ndarray:
-        """Host copy, with null slots as NaN."""
+        """Host copy, with null slots as NaN (None in a non-float column)."""
         vals = self.values
         if isinstance(vals, torch.Tensor):
             vals = vals.cpu().numpy()
         if self.validity is not None:
-            vals = np.where(self.validity.cpu().numpy(), vals, np.nan)
+            mask = self.validity.cpu().numpy()
+            if np.issubdtype(vals.dtype, np.floating):
+                vals = np.where(mask, vals, np.nan)
+            else:
+                vals = np.asarray([v if ok else None for v, ok in zip(vals.tolist(), mask)], dtype=object)
         return vals
+
+    def to_list(self) -> list:
+        return [None if isinstance(v, float) and np.isnan(v) else v for v in self.to_numpy().tolist()]
+
+    def gather(self, indices) -> "Series":
+        """Rows ``indices`` (host ints or a device tensor); a deferred
+        permutation stays deferred."""
+        v = self._values
+        if isinstance(v, BlockPermuted):
+            vals = v.take(device_index(indices, v.idx.device))
+        elif isinstance(v, torch.Tensor):
+            vals = v.index_select(0, device_index(indices, v.device))
+        else:
+            vals = v[host_index(indices)]
+        validity = None
+        if self.validity is not None:
+            validity = self.validity.index_select(0, device_index(indices, self.validity.device))
+        return Series(self.name, vals, validity)
+
+    def head(self, n: int = 5) -> "Series":
+        return self.gather(np.arange(min(max(n, 0), len(self))))
+
+    def tail(self, n: int = 5) -> "Series":
+        m = len(self)
+        return self.gather(np.arange(max(0, m - max(n, 0)), m))
+
+    def filter(self, mask) -> "Series":
+        return self.gather(_mask_positions(mask))
+
+    def slice(self, offset: int, length: Optional[int] = None) -> "Series":
+        stop = len(self) if length is None else offset + length
+        return self.gather(np.arange(offset, min(stop, len(self))))
+
+    def __getitem__(self, i):
+        if isinstance(i, slice):
+            return self.gather(np.arange(len(self))[i])
+        return self.gather(np.asarray([i if i >= 0 else len(self) + i])).to_numpy()[0]
+
+    def item(self):
+        if len(self) != 1:
+            raise ValueError(f"item() needs a series of one row, {self.name!r} has {len(self)}")
+        return self[0]
+
+    # null-aware scalar reductions (the polars Series surface), on the device
+    def _valid_values(self) -> torch.Tensor:
+        vals = self.f64()
+        return vals if self.validity is None else vals[self.validity]
+
+    def sum(self) -> float:
+        return float(self._valid_values().sum())
+
+    def mean(self) -> Optional[float]:
+        v = self._valid_values()
+        return float(v.mean()) if len(v) else None
+
+    def min(self) -> Optional[float]:
+        v = self._valid_values()
+        return float(v.min()) if len(v) else None
+
+    def max(self) -> Optional[float]:
+        v = self._valid_values()
+        return float(v.max()) if len(v) else None
+
+    def std(self, ddof: int = 1) -> Optional[float]:
+        v = self._valid_values()
+        return float(v.std(correction=ddof)) if len(v) > ddof else None
+
+    def var(self, ddof: int = 1) -> Optional[float]:
+        v = self._valid_values()
+        return float(v.var(correction=ddof)) if len(v) > ddof else None
+
+    def median(self) -> Optional[float]:
+        # numpy's median (the mean of the middle two of an even count);
+        # torch.median gives the lower one
+        v = self._valid_values().cpu().numpy()
+        return float(np.median(v)) if len(v) else None
+
+    def count(self) -> int:
+        return len(self) - self.null_count()
 
     def __repr__(self) -> str:  # pragma: no cover
         return f"Series(name={self.name!r}, len={len(self)})"
@@ -159,8 +317,20 @@ class StructSeries:
     def __len__(self) -> int:
         return int(self.values.shape[0])
 
+    @property
+    def height(self) -> int:
+        return len(self)
+
     def alias(self, name: str) -> "StructSeries":
         return StructSeries(name, self.field_names, self.values, self.validity, self.sources)
+
+    def gather(self, indices) -> "StructSeries":
+        idx = device_index(indices, self.values.device)
+        validity = None if self.validity is None else self.validity.index_select(0, idx)
+        return StructSeries(self.name, self.field_names, self.values.index_select(0, idx), validity)
+
+    def filter(self, mask) -> "StructSeries":
+        return self.gather(_mask_positions(mask))
 
     def valid_mask(self) -> torch.Tensor:
         """Row validity [N]: a row is valid when every field is."""
@@ -254,11 +424,7 @@ class StatisticsSeries:
 
     def gather(self, indices) -> "StatisticsSeries":
         """Rows ``indices`` (a device tensor, or host ints), deferred."""
-        device = self._base["r2"].device
-        if isinstance(indices, torch.Tensor):
-            idx = indices.to(device=device, dtype=torch.int64)
-        else:
-            idx = torch.as_tensor(np.asarray(indices, dtype=np.int64), device=device)
+        idx = device_index(indices, self._base["r2"].device)
         chain = (idx,) if self._row_index is None else self._row_index + (idx,)
         return StatisticsSeries(self.name, self.feature_names, self._base, chain)
 
@@ -269,9 +435,7 @@ class StatisticsSeries:
         return self.gather(np.arange(max(0, len(self) - n), len(self)))
 
     def filter(self, mask) -> "StatisticsSeries":
-        if isinstance(mask, torch.Tensor):
-            return self.gather(torch.nonzero(mask.to(torch.bool)).flatten())
-        return self.gather(np.nonzero(np.asarray(mask, dtype=bool))[0])
+        return self.gather(_mask_positions(mask))
 
     def alias(self, name: str) -> "StatisticsSeries":
         return StatisticsSeries(name, self.feature_names, self._base, self._row_index)
@@ -318,3 +482,52 @@ class StatisticsSeries:
             f"StatisticsSeries(name={self.name!r}, len={len(self)}, "
             f"features={self.feature_names})"
         )
+
+
+class ObjectSeries:
+    """A host column of arbitrary Python objects: strings, or the list
+    fields of an unnested statistics column (the reference's statistics
+    struct, src/expressions.rs:448-466)."""
+
+    __slots__ = ("name", "values", "_layout_cache", "__weakref__")
+
+    def __init__(self, name: str, values: Iterable) -> None:
+        self.name = name
+        self.values = list(values)
+        self._layout_cache = None
+
+    def __len__(self) -> int:
+        return len(self.values)
+
+    @property
+    def height(self) -> int:
+        return len(self)
+
+    def alias(self, name: str) -> "ObjectSeries":
+        return ObjectSeries(name, self.values)
+
+    def to_numpy(self) -> np.ndarray:
+        return np.asarray(self.values, dtype=object)
+
+    def to_list(self) -> list:
+        return list(self.values)
+
+    def gather(self, indices) -> "ObjectSeries":
+        return ObjectSeries(self.name, [self.values[i] for i in host_index(indices).tolist()])
+
+    def filter(self, mask) -> "ObjectSeries":
+        return self.gather(host_index(_mask_positions(mask)))
+
+    def __getitem__(self, i):
+        return self.values[i]
+
+    def item(self):
+        if len(self.values) != 1:
+            raise ValueError(f"item() needs a series of one row, {self.name!r} has {len(self)}")
+        return self.values[0]
+
+    def __repr__(self) -> str:  # pragma: no cover
+        return f"ObjectSeries(name={self.name!r}, len={len(self)})"
+
+
+AnySeries = Union[Series, StructSeries, StatisticsSeries, ObjectSeries]

@@ -1,4 +1,4 @@
-"""Formula parsing and timing.
+"""Formula parsing, timing, profiling and device syncs.
 
 The subset of the patsy grammar the reference supports without patsy
 (polars_ols/utils.py:61-108): ``~`` separates the dependent variable, ``+``
@@ -11,12 +11,17 @@ terms are refused, as the reference's asserts refuse them
 
 from __future__ import annotations
 
+import os
 import re
+import tempfile
 import time
 from contextlib import contextmanager
 from functools import reduce
 from typing import List, Optional, Tuple
 
+import torch
+
+from .config import device
 from .expr import Expr, col
 
 _TERM = re.compile(r"[A-Za-z_][\w.]*(:[A-Za-z_][\w.]*)*")
@@ -92,3 +97,51 @@ def timer(msg: Optional[str] = None, precision: int = 3):
     finally:
         end = time.perf_counter()
         print(f"{msg or 'task'} took: {(end - start) * 1_000:.{precision}f} ms")
+
+
+@contextmanager
+def trace(log_dir: Optional[str] = None):
+    """Profile the enclosed block with ``torch.profiler`` (host activity,
+    and the device's kernels and copies when ``CONFIG.device`` is a CUDA
+    device) and write it to ``<log_dir>/trace.json`` as a Chrome trace
+    (open it in Perfetto or ``chrome://tracing``: the host's launches on
+    the CPU rows, the kernels on the GPU stream rows, with their names,
+    grids and durations). ``log_dir`` defaults to a directory under the
+    temporary directory; the block gets ``log_dir``.
+
+    Example:
+        with trace("traces/over"):
+            df.select(col("y").least_squares.ols("x1").over("g"))
+    """
+    from torch.profiler import ProfilerActivity, profile
+
+    log_dir = log_dir or os.path.join(tempfile.gettempdir(), "pols_torch_trace")
+    os.makedirs(log_dir, exist_ok=True)
+    on_card = device().type == "cuda"
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
+    with profile(activities=activities) as prof:
+        yield log_dir
+        if on_card:
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def _leaf(x):
+    """A tensor that ``x`` (a series, or a tensor) keeps its values in."""
+    from .series import BlockPermuted, StatisticsSeries, StructSeries
+
+    if isinstance(x, StatisticsSeries):
+        return x._base["r2"]
+    if isinstance(x, StructSeries):
+        return x.values
+    v = getattr(x, "_values", x)
+    return v.flat if isinstance(v, BlockPermuted) else v
+
+
+def device_sync(x) -> None:
+    """Wait for the device work behind ``x`` (a series or a tensor) to
+    finish: ``torch.cuda.synchronize`` of its device where it is a CUDA
+    tensor, nothing on the CPU. A deferred row order is not materialised."""
+    leaf = _leaf(x)
+    if isinstance(leaf, torch.Tensor) and leaf.is_cuda:
+        torch.cuda.synchronize(leaf.device)

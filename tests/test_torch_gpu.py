@@ -83,6 +83,10 @@ or sweep counts at K = 33 .. 200 and on 10 rows x 1,000 features, with a
 group without rows and a NaN group, XtX in shared or device memory; the
 layout each K takes; and the lasso / elastic net / NNLS / cd_active_set
 slices at K = 40 and 100 on the card match the CPU at rtol 1e-9.
+The frame workflow of ``chip_smoke.frame_steps`` (filter, sort, unique,
+join, group_by, explode around the fits) on the card matches its CPU run:
+the same rows in the same order, values at rtol 1e-9, every value column
+on the card.
 """
 
 import sys
@@ -1426,3 +1430,36 @@ def test_wide_cd_slices_on_card_match_cpu(cuda_device, query, monkeypatch):
         return
     np.testing.assert_array_equal(out["cuda"][1], out["cpu"][1])
     np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-9, atol=1e-11)
+
+
+@pytest.mark.gpu
+def test_frame_workflow_on_card_matches_cpu(cuda_device, monkeypatch):
+    # the smoke's frame workflow (chip_smoke.frame_steps: filter,
+    # with_row_index, .over fits, column arithmetic, group_by agg / last,
+    # unique, a left join then predict, a two-key sort, statistics
+    # exploded) on the card against the same workflow on the CPU: the same
+    # rows in the same order, the same keys and null masks, values at rtol
+    # 1e-9 (the moment kernel's summation order, through the fits); every
+    # value column on the card, and the card frames pass the smoke's numpy
+    # checks
+    rng = np.random.default_rng(12)
+    n, k, G = 30_000, 5, 60
+    x = rng.normal(size=(n, k))
+    y = x @ np.arange(1.0, k + 1) + rng.normal(size=n) * 0.1
+    g = rng.integers(G, size=n).astype(float)
+    cols = {"y": y, **{f"x{i + 1}": x[:, i] for i in range(k)}, "group": g}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        monkeypatch.setattr(CONFIG, "device", dev)
+        out[dev] = cs.run_frame_steps(pt, pt.DataFrame(cols))
+    assert moments.moments_kernel_launches >= 3 and special.t_pvalue_kernel_launches >= 1
+    cs._check_frame(out["cuda"], x, y, g, np.arange(G), device="cuda")
+    for step, frame in out["cuda"].items():
+        ref = out["cpu"][step]
+        assert frame.columns == ref.columns and frame.shape == ref.shape, step
+        for c in frame.columns:
+            a, b = frame[c].to_numpy(), ref[c].to_numpy()
+            if a.dtype == object:
+                assert [repr(v) for v in a.tolist()] == [repr(v) for v in b.tolist()], (step, c)
+            else:
+                np.testing.assert_allclose(a, b, rtol=1e-9, atol=1e-11, equal_nan=True, err_msg=f"{step}.{c}")

@@ -723,3 +723,31 @@ def test_ridge_exact_solves_each_window_as_the_plain_version_defines_it(position
             np.testing.assert_array_equal(np.isnan(ref[g, :n]), np.isnan(exact[g, :n]))
             m = ~np.isnan(exact[g, :n])
             np.testing.assert_allclose(ref[g, :n][m], exact[g, :n][m], rtol=1e-12, atol=1e-13)
+
+
+@pytest.mark.parametrize("dropped_absent", [False, True])
+def test_frame_steps_pass_their_numpy_checks_on_cpu(monkeypatch, dropped_absent):
+    # the smoke's frame workflow (filter, with_row_index, .over fits, column
+    # arithmetic, group_by agg / last, unique, a left join then predict, a
+    # two-key sort, statistics exploded) on a small frame, checked by the
+    # smoke's own numpy checks with every value column on the CPU; once
+    # with a frame whose filtered group exists, once without it
+    import polars_ols_tpu_torch as pt
+    from polars_ols_tpu_torch import CONFIG
+
+    monkeypatch.setattr(CONFIG, "device", "cpu")
+    rng = np.random.default_rng(3)
+    n, k, G = 12_000, 5, 40
+    x = rng.normal(size=(n, k))
+    y = x @ np.arange(1.0, k + 1) + rng.normal(size=n) * 0.1
+    g = rng.integers(G, size=n).astype(float)
+    if dropped_absent:
+        g[g == cs.FRAME_DROPPED] = cs.FRAME_DROPPED + 1
+    df = pt.DataFrame({"y": y, **{f"x{i + 1}": x[:, i] for i in range(k)}, "group": g})
+    out = cs.run_frame_steps(pt, df)
+    shapes = cs._check_frame(out, x, y, g, np.unique(g).astype(np.int64), device="cpu")
+    n_kept = int((g != cs.FRAME_DROPPED).sum())
+    assert shapes["lazy"] == (n_kept, k + 6) and shapes["join_predict"] == (n, 2)
+    assert shapes["explode"] == (len(np.unique(g)) * k, 9)
+    with pytest.raises(AssertionError, match="not only cuda"):
+        cs._check_frame(out, x, y, g, np.unique(g).astype(np.int64))
