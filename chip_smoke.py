@@ -91,7 +91,13 @@ a lazy filter, row index, ``.over`` fits and column arithmetic,
 against numpy and that every value column stays on the card, times and
 profiles each step, then runs ``warmup()`` at the main frame's shape twice
 and ``utils.trace`` around one query (its Chrome trace must hold CUDA
-kernel events). The line before the last is a JSON object with the
+kernel events). After it the fused phase (``_fused_phase``) runs four
+selects of several fits each (an alpha sweep, the JAX suite's mix, the
+sweep over a collinear and an ill-conditioned group, "large"'s seven
+queries) fused and eagerly: every column equal within 1e-12, sampled
+groups against numpy, one flag read a select, one moment launch for the
+sweep's eight, and each select's wall, device busy, launches and host
+syncs fused beside eager. The line before the last is a JSON object with the
 kernels' names, sources, launch counts on their paths, errors, times and
 bounds; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -2033,6 +2039,297 @@ def _frame_phase(pt, torch, smi, columns, x, y, g, checked, mods):
     return frame_launches
 
 
+FUSED_ALPHAS = (1e-3, 1e-2, 0.1, 1.0, 10.0, 100.0, 1000.0)  # the sweep's ridge alphas, beside ols
+FUSED_LASSO_ALPHA = 1e-3
+FUSED_TOL = 1e-12  # fused against eager, every column (tests/test_fused_select.py:32-50)
+FUSED_LARGE = ("ols_qr", "ols_svd", "ridge_chol", "ridge_svd", "wls", "ols", "statistics")
+FUSED_COLLINEAR, FUSED_ILL = 0, 1  # the flagged frame's groups: x5 = x4, and x5 = x4 + 1e-5 noise
+FUSED_ILL_NOISE = 1e-5
+FUSED_PROFILE_QUERIES = 2  # profiled selects of each (a mixed select launches ~1,000 kernels)
+# host syncs a fused select on the common path: its one read, and the
+# profile window's own untraced one spread over its selects
+FUSED_SYNCS = 1.0 + 1.0 / FUSED_PROFILE_QUERIES
+
+
+def fused_selects(pt, k, key="group"):
+    """{name: expressions} of the fused select's phase on a frame with y,
+    y2, w, x1..xk, the nulled copies yn, x1n..xkn and the key column:
+    "sweep", ols and ridge at FUSED_ALPHAS, predictions under .over; and
+    "mixed", the JAX suite's mix (tests/test_fused_select.py) at this
+    width, with a fit on the nulled columns under 'drop' and a multi-target
+    fit (which runs eagerly in its place)."""
+    col = pt.col
+    xv = [col(f"x{i + 1}") for i in range(k)]
+    xn = [col(f"x{i + 1}n") for i in range(k)]
+    ls = col("y").least_squares
+    sweep = [ls.ols(*xv).over(key).alias("ols")] + [
+        ls.ridge(*xv, alpha=a).over(key).alias(f"ridge_{a!r}") for a in FUSED_ALPHAS
+    ]
+    mixed = [
+        col(key),
+        ls.ols(*xv).over(key).alias("ols"),
+        ls.wls(*xv, sample_weights="w").over(key).alias("wls"),
+        ls.ridge(*xv, alpha=RIDGE_ALPHA, mode="residuals").over(key).alias("ridge_residuals"),
+        ls.ols(*xv, mode="coefficients").over(key),
+        ls.ols(*xv, mode="statistics").over(key),
+        ls.lasso(*xv, alpha=FUSED_LASSO_ALPHA).over(key).alias("lasso"),
+        ls.rls(*xv, half_life=HALF_LIFE).over(key).alias("rls"),
+        ls.rolling_ols(*xv, window_size=WINDOW).over(key).alias("rolling"),
+        col("yn").least_squares.ols(*xn, null_policy="drop").over(key).alias("drop"),
+        pt.struct(col("y"), col("y2")).least_squares.multi_target_ols(*xv).over(key).alias("multi_target"),
+    ]
+    return {"sweep": sweep, "mixed": mixed}
+
+
+def flagged_x5(x, g, seed=12):
+    """x5 of the flagged frame: x4 in group FUSED_COLLINEAR (its Cholesky
+    fails at alpha 0: the eigh solve of the failed lanes) and x4 plus
+    FUSED_ILL_NOISE noise in group FUSED_ILL (cond(X'X) > 1e6: the CSNE
+    sweeps)."""
+    x5 = x[:, 4].copy()
+    collinear, ill = g == FUSED_COLLINEAR, g == FUSED_ILL
+    x5[collinear] = x[collinear, 3]
+    x5[ill] = x[ill, 3] + FUSED_ILL_NOISE * np.random.default_rng(seed).normal(size=int(ill.sum()))
+    return x5
+
+
+def fused_fields(c):
+    """{field: (values, valid)} device tensors of a result column."""
+    if hasattr(c, "arrays"):  # statistics: NaN where a group has no finite factor
+        return {key: (v, ~v.isnan()) for key, v in c.arrays.items()}
+    if hasattr(c, "field_names"):  # struct
+        return {"": (c.values, c.values == c.values if c.validity is None else c.validity)}
+    return {"": (c.f64(), c.valid_mask())}
+
+
+def fused_diff(fused, eager) -> float:
+    """The largest |fused - eager| over every column and field where valid;
+    raises where the names, shapes or nulls differ."""
+    import torch
+
+    if fused.columns != eager.columns:
+        raise AssertionError(f"fused columns {fused.columns} != eager {eager.columns}")
+    worst = 0.0
+    for name in fused.columns:
+        a, b = fused_fields(fused[name]), fused_fields(eager[name])
+        if a.keys() != b.keys():
+            raise AssertionError(f"{name}: fields {list(a)} != {list(b)}")
+        for key in a:
+            (av, am), (bv, bm) = a[key], b[key]
+            if av.shape != bv.shape or not torch.equal(am, bm):
+                raise AssertionError(f"{name} {key}: shapes or nulls differ between fused and eager")
+            if am.any():
+                worst = max(worst, float((av[am] - bv[am]).abs().max()))
+    return worst
+
+
+def _fused_numpy(label, out, x, y, y2, w, valid, group_rows, sel, first_t):
+    """The selects' columns on the sampled groups against numpy: lstsq and
+    ridge solves (predictions PRED_TOL, coefficients COEF_TOL), the
+    weighted and 'drop' fits, the residuals, statistics against
+    scipy.stats.t, the lasso against a literal numpy CD (CD_TOL) and the
+    multi-target fit per target. rls / rolling are held to fused == eager
+    here; the moving phase holds the eager queries to their oracles."""
+    host = {c: _picked(out[c], sel) for c in out.columns
+            if c not in ("statistics", "group", "rls", "rolling")}
+    stats = None
+    if "statistics" in out.columns:
+        stats = {key: v.cpu().numpy() for key, v in out["statistics"].gather(first_t).arrays.items()}
+    at = 0
+    for i, (_, rows) in enumerate(group_rows):
+        here = slice(at, at + len(rows))
+        at += len(rows)
+        Xg, yg = x[rows], y[rows]
+        XtX, Xty = Xg.T @ Xg, Xg.T @ yg
+        for c, got in host.items():
+            got = got[here]
+            if c == "ols":
+                want = Xg @ _lstsq(Xg, yg)
+            elif c.startswith("ridge_") and c != "ridge_residuals":
+                want = Xg @ np.linalg.solve(XtX + float(c[6:]) * np.eye(Xg.shape[1]), Xty)
+            elif c == "ridge_residuals":
+                want = yg - Xg @ np.linalg.solve(XtX + RIDGE_ALPHA * np.eye(Xg.shape[1]), Xty)
+            elif c == "wls":
+                sq = np.sqrt(w[rows])
+                want = Xg @ _lstsq(Xg * sq[:, None], yg * sq)
+            elif c == "coefficients":
+                np.testing.assert_allclose(got[0], _lstsq(Xg, yg), err_msg=f"{label} {c}", **COEF_TOL)
+                continue
+            elif c == "lasso":
+                want = Xg @ _cd_numpy(XtX, Xty, float(len(rows)), FUSED_LASSO_ALPHA, 1.0)
+                np.testing.assert_allclose(got, want, err_msg=f"{label} {c}", **CD_TOL)
+                continue
+            elif c == "drop":
+                _, want, shown = _policy_expected("drop", Xg, yg, valid[rows, 1:], valid[rows, 0])
+                np.testing.assert_array_equal(np.isnan(got), ~shown, err_msg=f"{label} {c}")
+                got, want = got[shown], want[shown]
+            elif c == "multi_target":
+                Yg = np.stack([yg, y2[rows]], axis=1)
+                want = Xg @ _lstsq(Xg, Yg)
+            else:
+                raise AssertionError(f"{label}: no numpy reference for column {c}")
+            np.testing.assert_allclose(got, want, err_msg=f"{label} {c}", **PRED_TOL)
+        if stats is not None:
+            ref = _stats_numpy(Xg, yg, 0.0)
+            np.testing.assert_allclose(stats["coefficients"][i], ref["coefficients"], **COEF_TOL)
+            for key in ("standard_errors", "t_values"):
+                np.testing.assert_allclose(stats[key][i], ref[key], err_msg=f"{label} {key}", **SE_T_TOL)
+            np.testing.assert_allclose(stats["p_values"][i], ref["p_values"], **P_TOL)
+            for key in ("r2", "mse", "mae"):
+                np.testing.assert_allclose(stats[key][i], ref[key], err_msg=f"{label} {key}", **METRIC_TOL)
+
+
+def _fused_phase(pt, torch, smi, df, arrays, checked, mods):
+    """The fused select (engine/batch.py) at the main frame and at "large":
+    the sweep, the mix, the sweep on a frame with a collinear and an
+    ill-conditioned group ("flagged"), and the suite's seven "large"
+    queries in one select. For each, fused beside eager: every column
+    within FUSED_TOL with identical nulls, sampled groups against numpy,
+    moment-kernel launches, wall ms (median of TIMING_REPS after a warm
+    call) and the profile's device busy ms, launches and host syncs; the
+    gathers of a repeated mixed select. Returns the kernels' launches of
+    the fused selects' first pass."""
+    from polars_ols_tpu_torch import CONFIG
+    from polars_ols_tpu_torch.engine import batch, fit
+
+    moments, special, cd, householder, jacobi, moving = mods
+    counters = {
+        "grouped_moments": (moments, "moments_kernel_launches"),
+        "t_pvalue": (special, "t_pvalue_kernel_launches"),
+        "cd_cov": (cd, "cd_kernel_launches"),
+        "householder": (householder, "householder_kernel_launches"),
+        "jacobi_svd": (jacobi, "jacobi_kernel_launches"),
+        "moving": (moving, "moving_kernel_launches"),
+    }
+    x, y, y2, w, g, valid = (arrays[key] for key in ("x", "y", "y2", "w", "g", "valid"))
+    col = pt.col
+    t_phase = time.perf_counter()
+    selects = fused_selects(pt, N_FEATURES)
+    x5 = flagged_x5(x, g)
+    df_flag = df.with_columns(pt.Series("x5", torch.as_tensor(x5, device="cuda")))
+    x_flag = np.column_stack([x[:, :4], x5])
+    large_df, xl, yl, _, wl, _ = _suite_frame(pt, torch, *LARGE_SHAPE)
+    large_q = _wide_queries(pt, col, LARGE_SHAPE[1], False)
+    large_exprs = [large_q[label][0].alias(label) for label in FUSED_LARGE]
+    cases = {
+        "sweep": (df, selects["sweep"]),
+        "mixed": (df, selects["mixed"]),
+        "flagged": (df_flag, selects["sweep"]),
+        "large": (large_df, large_exprs),
+    }
+    CONFIG.lazy_row_order = False
+    # the layout caches over a repeated mix, eager first (three partitions
+    # and the multi-target's: more than the two a layout keeps of a kind;
+    # a fused select holds its own while it runs)
+    gathers = {}
+    for key, on in (("eager", False), ("fused", True)):
+        CONFIG.fused_select = on
+        df.select(*selects["mixed"])
+        fit.layout_gathers = 0
+        df.select(*selects["mixed"])
+        torch.cuda.synchronize()
+        gathers[key] = fit.layout_gathers
+    if gathers["fused"]:
+        raise AssertionError(f"a repeated fused mix rebuilt {gathers['fused']} partitions")
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    batch.flag_reads = batch.flagged_plans = 0
+    first_s = {}
+    for label, (frame, exprs) in cases.items():
+        t0 = time.perf_counter()
+        frame.select(*exprs)
+        torch.cuda.synchronize()
+        first_s[label] = time.perf_counter() - t0
+    fused_launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+    if batch.flag_reads != len(cases):
+        raise AssertionError(f"fused selects read their flags {batch.flag_reads} times for {len(cases)} selects")
+    if fused_launches["moving"] != 2 or fused_launches["cd_cov"] != 1:
+        raise AssertionError(f"fused selects: kernel launches {fused_launches}")
+
+    group_rows = _group_rows(g.astype(np.int64), checked)
+    sel = torch.as_tensor(np.concatenate([rows for _, rows in group_rows]), device="cuda")
+    first_t = torch.as_tensor(np.asarray([rows[0] for _, rows in group_rows]), device="cuda")
+    special_rows = _group_rows(g.astype(np.int64), [FUSED_COLLINEAR, FUSED_ILL])
+    report = {}
+    for label, (frame, exprs) in cases.items():
+        t_checks = time.perf_counter()
+        row = {"first_s": first_s[label]}
+        CONFIG.fused_select = False
+        moments.moments_kernel_launches = 0
+        eager = frame.select(*exprs)
+        torch.cuda.synchronize()
+        row["eager_moment_launches"] = moments.moments_kernel_launches
+        CONFIG.fused_select = True
+        moments.moments_kernel_launches = 0
+        reads, flagged = batch.flag_reads, batch.flagged_plans
+        fused = frame.select(*exprs)
+        torch.cuda.synchronize()
+        row["moment_launches"] = moments.moments_kernel_launches
+        row["flagged_plans"] = batch.flagged_plans - flagged
+        if batch.flag_reads != reads + 1:
+            raise AssertionError(f"fused {label}: {batch.flag_reads - reads} flag reads, not one")
+        row["max_abs_diff_eager"] = fused_diff(fused, eager)
+        if row["max_abs_diff_eager"] > FUSED_TOL:
+            raise AssertionError(f"fused {label}: {row['max_abs_diff_eager']!r} from eager (> {FUSED_TOL})")
+        del eager
+        if label == "large":
+            stats = {key: v.cpu().numpy()[0] for key, v in fused["statistics"].arrays.items()}
+            for c in FUSED_LARGE[:-1]:
+                want = xl @ _wide_expected(c, xl, yl, wl)
+                np.testing.assert_allclose(fused[c].to_numpy(), want, err_msg=f"fused large {c}", **PRED_TOL)
+            ref = _stats_numpy(xl, yl, 0.0)
+            for key, tol in (("coefficients", COEF_TOL), ("standard_errors", SE_T_TOL), ("t_values", SE_T_TOL),
+                             ("p_values", P_TOL)):
+                np.testing.assert_allclose(stats[key], ref[key], err_msg=f"fused large {key}", **tol)
+        else:
+            xs = x_flag if label == "flagged" else x
+            _fused_numpy(label, fused, xs, y, y2, w, valid, group_rows, sel, first_t)
+            if label == "flagged":  # the collinear and the ill-conditioned group
+                sel_f = torch.as_tensor(np.concatenate([rows for _, rows in special_rows]), device="cuda")
+                _fused_numpy(label, fused, xs, y, y2, w, valid, special_rows, sel_f, None)
+        fn_f = lambda frame=frame, exprs=exprs: frame.select(*exprs)  # noqa: E731
+
+        def fn_e(frame=frame, exprs=exprs):
+            CONFIG.fused_select = False
+            try:
+                return frame.select(*exprs)
+            finally:
+                CONFIG.fused_select = True
+
+        row["wall_ms"] = _timed_median(fn_f, torch) * 1e3
+        row["eager_wall_ms"] = _timed_median(fn_e, torch) * 1e3
+        for key, fn in (("", fn_f), ("eager_", fn_e)):
+            prof = _profile(fn, torch, queries=FUSED_PROFILE_QUERIES)
+            if prof is None:
+                row[f"{key}profile"] = "not measured"
+                continue
+            row.update({f"{key}busy_ms": prof["busy_ms"], f"{key}launches": prof["launches"],
+                        f"{key}host_syncs": prof["host_syncs"], f"{key}idle_share_max": prof["idle_share"]})
+        row["checks_s"] = time.perf_counter() - t_checks
+        report[label] = row
+        del fused
+    for label in ("sweep", "flagged"):
+        if report[label]["moment_launches"] != 1 or report[label]["eager_moment_launches"] != 1 + len(FUSED_ALPHAS):
+            raise AssertionError(f"fused {label}: moment launches {report[label]}")
+    for label in ("sweep", "mixed", "large"):
+        syncs = report[label].get("host_syncs")
+        if report[label]["flagged_plans"] or (syncs is not None and syncs > FUSED_SYNCS):
+            raise AssertionError(f"fused {label}: the common path read the host more than once: {report[label]}")
+    if not report["flagged"]["flagged_plans"]:
+        raise AssertionError("fused flagged: no plan took the eigh or CSNE continuation")
+    for label, row in report.items():
+        print(f"fused {label}: " + json.dumps(row) + f" ({smi})")
+    print(
+        f"fused: {len(cases)} selects ({', '.join(cases)}) at {N_ROWS} rows x {N_FEATURES} features x "
+        f"{N_GROUPS} groups and at large {LARGE_SHAPE[:2]}; fused equals eager within {FUSED_TOL} with identical "
+        f"nulls, {N_CHECK_GROUPS} sampled groups (and the flagged frame's two) match numpy; one flag read a "
+        f"select; kernel launches of the first pass {json.dumps(fused_launches)}; partitions rebuilt by a "
+        f"repeated mix {json.dumps(gathers)}; phase {time.perf_counter() - t_phase:.1f} s ({smi})"
+    )
+    del df_flag, large_df
+    return fused_launches
+
+
 LARGE_SHAPE = (10_000, 100, None)
 LARGEK_SHAPE = (500_000, 40, 1_000)
 FAULT_TARGETS, FAULT_K = 40, 3
@@ -3535,6 +3832,13 @@ def main() -> int:
     frame_launches = _frame_phase(pt, torch, smi, {n: up[n] for n in names}, x, y, g, checked,
                                   (moments, special, cd, householder, jacobi, moving))
 
+    # 9c. the fused select at the main frame and at "large": several fits
+    # in one select share their moments, their solves and one host read
+    fused_launches = _fused_phase(
+        pt, torch, smi, df, {"x": x, "y": y, "y2": y2, "w": w, "g": g, "valid": valid}, checked,
+        (moments, special, cd, householder, jacobi, moving),
+    )
+
     # 10. the reference suite's wide configurations at full size, through
     # the public API, then the wide forms against their plain versions
     mods = (moments, householder, jacobi, moving, recursive, cd)
@@ -3573,10 +3877,11 @@ def main() -> int:
             "source": "polars_ols_tpu_torch/csrc/moments.cu",
             "replaces": "polars_ols_tpu/ops/pallas_moments.py:78",
             "launches": launches + static_launches + stat_launches["grouped_moments"]
-            + frame_launches["grouped_moments"],
+            + frame_launches["grouped_moments"] + fused_launches["grouped_moments"],
             "launches_by_path": {
                 "main": launches, "static": static_launches,
                 "statistics_cd": stat_launches["grouped_moments"], "frame": frame_launches["grouped_moments"],
+                "fused": fused_launches["grouped_moments"],
             },
             "max_abs_err": main_err,
             **main_times,
@@ -3602,7 +3907,8 @@ def main() -> int:
             "source": "polars_ols_tpu_torch/csrc/cd.cu",
             "replaces": "polars_ols_tpu/ops/cd.py:99",
             "replaces_kind": "XLA while loop, not Pallas",
-            "launches": stat_launches["cd_cov"],
+            "launches": stat_launches["cd_cov"] + fused_launches["cd_cov"],
+            "launches_by_path": {"statistics_cd": stat_launches["cd_cov"], "fused": fused_launches["cd_cov"]},
             "max_abs_err": cd_err,
             **cd_times,
             **cd_bound,
@@ -3614,8 +3920,9 @@ def main() -> int:
             "source": "polars_ols_tpu_torch/csrc/t_pvalue.cu",
             "replaces": "polars_ols_tpu/ops/linalg.py:659",
             "replaces_kind": "XLA betainc, not Pallas",
-            "launches": stat_launches["t_pvalue"] + frame_launches["t_pvalue"],
-            "launches_by_path": {"statistics": stat_launches["t_pvalue"], "frame": frame_launches["t_pvalue"]},
+            "launches": stat_launches["t_pvalue"] + frame_launches["t_pvalue"] + fused_launches["t_pvalue"],
+            "launches_by_path": {"statistics": stat_launches["t_pvalue"], "frame": frame_launches["t_pvalue"],
+                                 "fused": fused_launches["t_pvalue"]},
             "max_abs_err": p_err,
             **p_times,
             **p_bound,
@@ -3628,7 +3935,8 @@ def main() -> int:
             "replaces": "polars_ols_tpu/ops/moving.py:553",
             "replaces_kind": "XLA scans (lax.associative_scan, lax.scan) and batched solves of "
                              "ops/recursive.py:40, ops/rolling.py:41 and ops/moving.py:553,601, not Pallas",
-            "launches": moving_launches,
+            "launches": moving_launches + fused_launches["moving"],
+            "launches_by_path": {"moving": moving_launches, "fused": fused_launches["moving"]},
             "max_abs_err": mv_err["rls"],
             **mv_times["rls"],
             **mv_bound["rls"],
@@ -3671,9 +3979,9 @@ def main() -> int:
             "replaces": "polars_ols_tpu/ops/linalg.py:382",
             "replaces_kind": "XLA, not Pallas: _householder_reduce (:382) and its lane-major form "
                              "householder_lanes (:435) under the shared SVD",
-            "launches": mt_launches + svd_launches,
+            "launches": mt_launches + svd_launches + fused_launches["householder"],
             "launches_by_path": {
-                "multi_target": mt_launches, "svd": svd_launches,
+                "multi_target": mt_launches, "svd": svd_launches, "fused": fused_launches["householder"],
                 "edges (kernel checks, not a path)": hh_edges,
             },
             **hh["multi_target"],
@@ -3690,9 +3998,10 @@ def main() -> int:
             "replaces": "polars_ols_tpu/ops/linalg.py:463",
             "replaces_kind": "XLA, not Pallas: jacobi_svd_lanes (:463) with the shrink of svd_lstsq_lanes "
                              "(:499); in the port it takes the place of cuSOLVER's batched SVD",
-            "launches": mt_jacobi + svd_jacobi + stat_launches["jacobi_svd"],
+            "launches": mt_jacobi + svd_jacobi + stat_launches["jacobi_svd"] + fused_launches["jacobi_svd"],
             "launches_by_path": {
                 "multi_target": mt_jacobi, "svd": svd_jacobi, "statistics": stat_launches["jacobi_svd"],
+                "fused": fused_launches["jacobi_svd"],
                 "edges (kernel checks and their timing, not a path)": jc_edges,
             },
             **jc["multi_target"],

@@ -34,12 +34,16 @@ class Config:
         lazy_row_order: grouped predictions return block-ordered values
             with a deferred row-order permutation (series.BlockPermuted)
             instead of paying the [N] gather inside the query.
+        fused_select: a select of two or more fit expressions runs them
+            together (engine/batch.py: shared moments, batched solves, one
+            host read); off, each expression is evaluated on its own.
     """
 
     def __init__(self) -> None:
         self.device = os.environ.get("POLS_TORCH_DEVICE", "cuda")
         self.moment_chunk_rows = int(os.environ.get("POLS_TORCH_CHUNK_ROWS", 512))
         self.lazy_row_order = bool(int(os.environ.get("POLS_TORCH_LAZY", "1")))
+        self.fused_select = bool(int(os.environ.get("POLS_TORCH_FUSED_SELECT", "1")))
 
 
 CONFIG = Config()

@@ -49,6 +49,7 @@ kernels of ops/cd.py. Nothing falls back silently.
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from typing import List
 
 import torch
@@ -76,6 +77,28 @@ _COND_REFINE = 1.0e6
 _ROW_PREDICT_POLICIES = ("drop_zero", "drop_y_zero_x")
 
 _STACK_CACHE_LIMIT = 8
+
+# row gathers into a batched layout since the last reset (_gather_layout):
+# what a layout-cache miss costs, counted for the smoke's thrash check
+layout_gathers = 0
+
+# the layout-cache keys that a fused select in progress has touched
+# (engine/batch.py): ``_lru`` evicts none of them, so a select over more
+# stacks than the LRU keeps does not evict its own entries and rebuild
+# them on its next call; None outside such a select
+_HELD = None
+
+
+@contextmanager
+def held_caches():
+    """Within the block, the layout-cache entries touched stay cached
+    (``_lru`` evicts older ones only) until the block ends."""
+    global _HELD
+    outer, _HELD = _HELD, set() if _HELD is None else _HELD
+    try:
+        yield
+    finally:
+        _HELD = outer
 
 
 # --------------------------------------------------------------------------- #
@@ -105,13 +128,18 @@ def _put(cache: dict, key, value) -> None:
 
 def _lru(store: dict, kind: str, key, build):
     """``store[key]``, built on a miss, in an LRU of 2 entries of ``kind``
-    (the layout's device caches: steady-state queries reuse them)."""
+    (the layout's device caches: steady-state queries reuse them). Entries
+    held by a fused select in progress (``held_caches``) are not evicted:
+    the kind then keeps more than 2 until a later miss outside it."""
     if key not in store:
         value = build()
         keys = [k for k in store if isinstance(k, tuple) and k[0] == kind]
-        if len(keys) >= 2:
-            del store[keys[0]]
+        victims = [k for k in keys if _HELD is None or k not in _HELD]
+        for k in victims[: max(0, len(keys) - 1)]:
+            del store[k]
         store[key] = value
+    if _HELD is not None:
+        _HELD.add(key)
     store[key] = store.pop(key)  # most recently used
     return store[key]
 
@@ -194,6 +222,8 @@ def _gather_layout(vals, valid, policy: str, gather, pmask, moving: bool = False
     fit mask) into a padded layout ``pmask.shape``: (Zp [B, R, m+K]
     targets in the first m slots, wp [B, R] fit mask, predict_valid [N] or
     None). Padding slots gather row 0 and are masked out."""
+    global layout_gathers
+    layout_gathers += 1
     y, X, fit_mask, predict_valid = _problem(vals, valid, policy, moving, m)
     B, R = pmask.shape
     Z = vals if fit_mask is None else torch.cat([y.reshape(len(X), -1), X], dim=1)
@@ -269,15 +299,18 @@ def _rolling_indices_cached(layout, vp, window: int, min_periods: int, positiona
 # solves
 # --------------------------------------------------------------------------- #
 def _block_preds(Xp, beta_blocks):
-    """Block predictions [B, R] as K multiply-adds of [B, R] planes."""
+    """Block predictions [B, R] as K multiply-adds of [B, R] planes, or
+    [P, B, R] of P coefficient sets ``beta_blocks`` [P, B, K] in one pass
+    over ``Xp`` [B, R, K] (each element the same operations in the same
+    order either way)."""
     K = Xp.shape[-1]
-    acc = Xp[..., 0] * beta_blocks[:, None, 0]
+    acc = Xp[..., 0] * beta_blocks[..., None, 0]
     for k in range(1, K):
-        acc = acc + Xp[..., k] * beta_blocks[:, None, k]
+        acc = acc + Xp[..., k] * beta_blocks[..., None, k]
     return acc
 
 
-def _csne_refine_blocks(A, beta, Xp, yp, wp, block_group, block_offsets, alpha):
+def _csne_refine_blocks(A, beta, Xp, yp, wp, block_group, block_offsets, alpha, solve=None):
     """Corrected semi-normal-equations refinement (Björck's CSNE). The
     normal-equation solve squares cond(X); four sweeps of ``r = y - X b``
     (from the rows, in f64) and ``b += A^{-1}(X'r - alpha b)`` restore
@@ -285,8 +318,9 @@ def _csne_refine_blocks(A, beta, Xp, yp, wp, block_group, block_offsets, alpha):
     Cholesky failed into the eigh fallback. X'r is summed per group over
     the group's contiguous blocks in block order (deterministic). Rows
     outside ``wp`` are selected away, not multiplied by zero, so a NaN in
-    a padding slot never reaches a group."""
-    solve = psd_solver(A)  # factor A once; the sweeps reuse it
+    a padding slot never reaches a group. ``solve``: A's ``psd_solver``
+    where the caller has it (engine/batch.py)."""
+    solve = solve or psd_solver(A)  # factor A once; the sweeps reuse it
     for _ in range(4):
         bb = beta.index_select(0, block_group)
         resid = torch.where(wp, yp - _block_preds(Xp, bb), 0.0)
@@ -382,19 +416,34 @@ def _fit_svd(layout, vals, valid, policy: str, alpha: float, rcond, m: int = 1):
     returns, beta with its target axis."""
     block_group = _split_layout(layout)[2]
     Zp, wp, predict_valid = _blocks_cached(layout, vals, valid, policy, m)
+    G, R = layout.num_groups, Zp.shape[1]
+    beta = _svd_solve(layout, Zp, wp, _svd_reduce(layout, Zp, wp, m), alpha, rcond, m)
+    unpad = layout.device_split_unpad(R) if G > 1 else None
+    return beta, Zp[..., m:], block_group, unpad, predict_valid
+
+
+def _svd_reduce(layout, Zp, wp, m: int = 1):
+    """The Householder tree's last level T [G, K, m + K] of the blocks (m
+    target columns), or None where no group has more than K rows."""
+    k = Zp.shape[2] - m
+    if int(layout.counts.max()) > k:
+        return reduce_groups(Zp, wp, k, _reduction_plan(layout, Zp.shape[1], k))
+    return None
+
+
+def _svd_solve(layout, Zp, wp, T, alpha: float, rcond, m: int = 1):
+    """Beta [G, K, m] of ``_fit_svd`` from the reduction ``T`` (None: the
+    SVD of each group's rows)."""
     G, (S, R, C) = layout.num_groups, Zp.shape
     k = C - m
     n_valid = wp.sum(dim=1, dtype=F64)
     if S > G:
         n_valid = torch.segment_reduce(n_valid, "sum", offsets=layout.device_block_offsets(R), axis=0)
-    if int(layout.counts.max()) > k:
-        T = reduce_groups(Zp, wp, k, _reduction_plan(layout, R, k))
-        beta = svd_lstsq_from_factor(T[..., m:], T[..., :m], n_valid, alpha, rcond)
-    else:  # a group's rows sit at the top of its one block
-        Zm = torch.where(wp[:, :k, None], Zp[:, :k], 0.0)
-        beta = svd_lstsq(Zm[..., m:], Zm[..., :m], alpha, rcond, n_valid)
-    unpad = layout.device_split_unpad(R) if G > 1 else None
-    return beta, Zp[..., m:], block_group, unpad, predict_valid
+    if T is not None:
+        return svd_lstsq_from_factor(T[..., m:], T[..., :m], n_valid, alpha, rcond)
+    # a group's rows sit at the top of its one block
+    Zm = torch.where(wp[:, :k, None], Zp[:, :k], 0.0)
+    return svd_lstsq(Zm[..., m:], Zm[..., :m], alpha, rcond, n_valid)
 
 
 def _coef_struct(beta: torch.Tensor, names: List[str]) -> StructSeries:
@@ -413,16 +462,8 @@ def _statistics(layout, vals, valid, policy: str, kwargs, method: str, cd, names
     and the per-row RSS of their own solution; df = n - tr(A^-1) whenever
     alpha > 0 (lasso and elastic net included)."""
     alpha = float(kwargs.alpha or 0.0)
-    Zp, wp, _, block_group, offsets, XtX, Xty, counts = _moment_blocks(
-        layout, vals, valid, policy
-    )
-    yp, Xp = Zp[..., 0], Zp[..., 1:]
-    blocks = (block_group, offsets)
-
-    def metrics(beta):
-        preds = _block_preds(Xp, beta.index_select(0, block_group))
-        return residual_metrics(yp, preds, wp, blocks)
-
+    moments = _moment_blocks(layout, vals, valid, policy)
+    XtX, Xty, counts = moments[5:]
     A = XtX + alpha * torch.eye(XtX.shape[-1], dtype=F64, device=XtX.device)
     beta_ne = solve_psd(A, Xty)
     if cd is not None:
@@ -431,6 +472,21 @@ def _statistics(layout, vals, valid, policy: str, kwargs, method: str, cd, names
         beta = _fit_svd(layout, vals, valid, policy, alpha, kwargs.rcond)[0][..., 0]
     else:
         beta = beta_ne
+    return _statistics_series(moments, alpha, beta, beta_ne, names, layout, layout_in)
+
+
+def _statistics_series(moments, alpha: float, beta, beta_ne, names, layout, layout_in):
+    """The ``StatisticsSeries`` of ``_statistics`` from the blocks and
+    moments (``_moment_blocks``), the dispatch solver's ``beta`` and the
+    normal equations' ``beta_ne`` (the same tensor where they agree)."""
+    Zp, wp, _, block_group, offsets, XtX, Xty, counts = moments
+    yp, Xp = Zp[..., 0], Zp[..., 1:]
+    blocks = (block_group, offsets)
+
+    def metrics(beta):
+        preds = _block_preds(Xp, beta.index_select(0, block_group))
+        return residual_metrics(yp, preds, wp, blocks)
+
     rm = metrics(beta)
     rss_ne = rm["rss"] if beta is beta_ne else metrics(beta_ne)["rss"]
     fm = feature_metrics(XtX, Xty, rss_ne, counts, alpha)
@@ -464,7 +520,15 @@ def _evaluate_moving(function_name, target, feat_series, kwargs, mode, layout, w
     only: the reference's predictions entry point passes none
     (src/expressions.rs:624-646), and so predictions and residuals run
     with a zero prior mean."""
-    n, k, G = len(target), len(feat_series), layout.num_groups
+    out, finish = _moving_start(function_name, target, feat_series, kwargs, mode, layout, weights)
+    return finish(out)
+
+
+def _moving_start(function_name, target, feat_series, kwargs, mode, layout, weights, defer=False):
+    """``_evaluate_moving`` up to its kernels: (the moving call's output,
+    or with ``defer`` its ``Deferred`` (ops/moving.py), and ``finish(out)``
+    -> the Series)."""
+    k, G = len(feat_series), layout.num_groups
     vals, valid, inv_w = _stack(target, feat_series, weights)
     policy = kwargs.null_policy
     Zp, vp, predict_valid = _moving_cached(layout, vals, valid, policy)
@@ -475,7 +539,7 @@ def _evaluate_moving(function_name, target, feat_series, kwargs, mode, layout, w
         mean0 = kwargs.initial_state_mean if mode == "coefficients" else None
         out = recursive_least_squares(
             Zp, vp, rows, kwargs.half_life, kwargs.initial_state_covariance, mean0, want=want,
-            counts=layout.counts,
+            counts=layout.counts, defer=defer,
         )
     else:
         window, mp = int(kwargs.window_size), kwargs.min_periods
@@ -489,10 +553,19 @@ def _evaluate_moving(function_name, target, feat_series, kwargs, mode, layout, w
             )
         out = rolling_ols(
             Zp, vp, rows, window, mp, float(kwargs.alpha or 0.0), positional,
-            want=want, indices=indices, counts=layout.counts,
+            want=want, indices=indices, counts=layout.counts, defer=defer,
         )
     R = Zp.shape[1]
     unpad = layout.device_unpad(R) if G > 1 else None
+
+    def finish(out):
+        return _moving_series(out, mode, is_rls, target.name, feat_series, G, R, k, unpad, predict_valid, inv_w)
+
+    return out, finish
+
+
+def _moving_series(out, mode, is_rls, name, feat_series, G, R, k, unpad, predict_valid, inv_w):
+    """The Series of a moving call's output (``_moving_start``)."""
     if mode == "coefficients":
         flat = out.reshape(G * R, k)
         rows_out = flat if unpad is None else flat.index_select(0, unpad)
@@ -505,11 +578,11 @@ def _evaluate_moving(function_name, target, feat_series, kwargs, mode, layout, w
         finite = finite if unpad is None else finite.index_select(0, unpad)
         predict_valid = finite if predict_valid is None else predict_valid & finite
     if CONFIG.lazy_row_order and G > 1 and inv_w is None:
-        return Series(target.name, BlockPermuted(flat, unpad), predict_valid)
+        return Series(name, BlockPermuted(flat, unpad), predict_valid)
     preds = flat if unpad is None else flat.index_select(0, unpad)
     if inv_w is not None:
         preds = preds * inv_w
-    return Series(target.name, preds, predict_valid)
+    return Series(name, preds, predict_valid)
 
 
 # --------------------------------------------------------------------------- #
@@ -601,6 +674,12 @@ def _predictions(beta, Xp, block_group, unpad, layout, n: int, X_row=None, lazy:
         rows = beta if G == 1 else beta.index_select(0, layout.device_gids())
         return (X_row * rows).sum(dim=1)
     flat = _block_preds(Xp, beta.index_select(0, block_group)).reshape(-1)
+    return _row_order(flat, unpad, n, G, lazy)
+
+
+def _row_order(flat, unpad, n: int, G: int, lazy: bool = False):
+    """Block-ordered predictions ``flat`` [S * R] in row order [N] (a slice
+    for one group), or deferred (``BlockPermuted``) with ``lazy``."""
     if G == 1:
         return flat[:n]
     return BlockPermuted(flat, unpad) if lazy else flat.index_select(0, unpad)

@@ -136,13 +136,20 @@ class DataFrame:
 
     # ------------------------------------------------------------------ #
     def _evaluate(self, exprs, named) -> list:
-        """Evaluate each expression eagerly, in order (the fused multi-query
-        select is ROADMAP Queue 1 item 9)."""
+        """The expressions' columns, in order: two or more fit expressions
+        run fused (engine/batch.py: shared moments, batched solves, one
+        host read), anything else is evaluated on its own."""
         all_exprs: List[Expr] = []
         for e in exprs:
             all_exprs.extend(parse_into_expr(e).expand(self))
         for name, e in named.items():
             all_exprs.append(parse_into_expr(e).alias(name))
+        if len(all_exprs) > 1:
+            from .engine.batch import try_fused_select
+
+            fused = try_fused_select(self, all_exprs)
+            if fused is not None:
+                return fused
         return [e.evaluate(self) for e in all_exprs]
 
     def select(self, *exprs, **named) -> "DataFrame":
@@ -600,7 +607,9 @@ def _broadcast(c, n: int):
         return c
     if len(c) != 1:
         raise ValueError(f"a column of {len(c)} rows does not fit a frame of {n}")
-    if isinstance(c, (StatisticsSeries, ObjectSeries)) or (isinstance(c, Series) and _on_host(c)):
+    if isinstance(c, StatisticsSeries):  # the row index made on the card: an upload would synchronise
+        return c.gather(torch.zeros(n, dtype=torch.int64, device=device()))
+    if isinstance(c, ObjectSeries) or (isinstance(c, Series) and _on_host(c)):
         return c.gather(np.zeros(n, dtype=np.int64))
     if isinstance(c, StructSeries):
         validity = None if c.validity is None else c.validity.expand(n, -1)

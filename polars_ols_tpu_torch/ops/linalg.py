@@ -141,6 +141,14 @@ def _with_fallback(A, rhs, sol, ok):
     and, where a lane failed, the selection of the failed lanes."""
     if bool(ok.all()):
         return sol
+    return fallback_lanes(A, rhs, sol, ok)
+
+
+def fallback_lanes(A, rhs, sol, ok):
+    """``sol`` with the lanes where ``ok`` is false replaced by the eigh
+    pseudo-solve of those lanes alone, for a caller that has read
+    ``ok.all()`` itself (engine/batch.py). Host sync: the selection of the
+    failed lanes."""
     K, M = A.shape[-1], rhs.shape[-1]
     bad = torch.nonzero(~ok.reshape(-1)).flatten()
     A_bad = A.reshape(-1, K, K).index_select(0, bad)
@@ -155,10 +163,16 @@ def psd_solver(A: torch.Tensor):
     (the CSNE sweeps). Failed lanes are identity-substituted so the
     substitution stays finite, then take the eigh fallback on every call.
     Host sync: ``ok.all()``, read once per factor."""
-    k = A.shape[-1]
     L, ok = chol_factor(A)
+    return psd_solver_from(A, L, ok, bool(ok.all()))
+
+
+def psd_solver_from(A: torch.Tensor, L: torch.Tensor, ok: torch.Tensor, all_ok: bool):
+    """``psd_solver`` on a factor ``(L, ok) = chol_factor(A)`` computed
+    already, whose ``ok.all()`` the caller has read (``all_ok``): no host
+    sync."""
+    k = A.shape[-1]
     Ls = torch.where(ok[..., None, None], L, torch.eye(k, dtype=F64, device=A.device))
-    all_ok = bool(ok.all())
 
     def solve(b: torch.Tensor) -> torch.Tensor:
         rhs = b[..., None] if b.dim() == A.dim() - 1 else b
@@ -171,15 +185,33 @@ def psd_solver(A: torch.Tensor):
     return solve
 
 
-def _solve_psd_inner(A: torch.Tensor, rhs: torch.Tensor):
-    """(sol, ok, d2): the solve, the finite-factor lanes and the squared
-    Cholesky pivots L_jj^2 (NaN on failed lanes) from the same factor."""
+def chol_solve(A: torch.Tensor, rhs: torch.Tensor):
+    """(sol, ok, L): the Cholesky solve of ``A x = rhs`` (rhs [..., K, M]),
+    zero where not finite, with the failed lanes not yet replaced; the
+    finite-factor lanes; the factor. Reads nothing from the device: the
+    caller applies ``fallback_lanes`` where ``ok`` is not all true. Each
+    lane's bits do not depend on the batch up to K = 32 (the column
+    recurrence is elementwise across lanes)."""
     L, ok = chol_factor(A)
     sol = chol_substitute(L, rhs)
-    sol = torch.where(torch.isfinite(sol), sol, 0.0)
-    out = _with_fallback(A, rhs, sol, ok)
+    return torch.where(torch.isfinite(sol), sol, 0.0), ok, L
+
+
+def cond_estimate(L: torch.Tensor) -> torch.Tensor:
+    """The squared ratio of extreme Cholesky pivots ``(max_j L_jj / min_j
+    L_jj)^2`` of each lane, a lower bound on cond_2(A); 1 on failed lanes."""
     d2 = torch.square(torch.diagonal(L, dim1=-2, dim2=-1))
-    return out, ok, d2
+    finite = torch.isfinite(d2) & (d2 > 0)
+    dmax = torch.where(finite, d2, 0.0).amax(dim=-1)
+    dmin = torch.where(finite, d2, torch.inf).amin(dim=-1)
+    return torch.where(finite.all(dim=-1), dmax / dmin.clamp_min(1e-300), 1.0)
+
+
+def _solve_psd_inner(A: torch.Tensor, rhs: torch.Tensor):
+    """(sol, ok, L): the solve with its fallback, the finite-factor lanes
+    and the factor."""
+    sol, ok, L = chol_solve(A, rhs)
+    return _with_fallback(A, rhs, sol, ok), ok, L
 
 
 def solve_psd(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -203,13 +235,9 @@ def solve_psd_cond_ok(A: torch.Tensor, b: torch.Tensor):
     Returns (solution, cond_est [...], chol_ok [...]).
     """
     rhs = b[..., None] if b.dim() == A.dim() - 1 else b
-    out, ok, d2 = _solve_psd_inner(A, rhs)
-    finite = torch.isfinite(d2) & (d2 > 0)
-    dmax = torch.where(finite, d2, 0.0).amax(dim=-1)
-    dmin = torch.where(finite, d2, torch.inf).amin(dim=-1)
-    cond_est = torch.where(finite.all(dim=-1), dmax / dmin.clamp_min(1e-300), 1.0)
+    out, ok, L = _solve_psd_inner(A, rhs)
     sol = out[..., 0] if b.dim() == A.dim() - 1 else out
-    return sol, cond_est, ok
+    return sol, cond_estimate(L), ok
 
 
 def _sign(x: torch.Tensor) -> torch.Tensor:
@@ -287,10 +315,18 @@ def solve_lu(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     whose pivots are not finite and nonzero (the reference's fallback
     chain, src/least_squares.rs:264-328). Host sync: ``ok.all()``."""
     rhs = b[..., None] if b.dim() == A.dim() - 1 else b
-    sol, ok = _lu_solve_vectorized(A, rhs)
-    sol = torch.where(torch.isfinite(sol), sol, 0.0)
+    sol, ok = lu_solve(A, rhs)
     out = _with_fallback(A, rhs, sol, ok)
     return out[..., 0] if b.dim() == A.dim() - 1 else out
+
+
+def lu_solve(A: torch.Tensor, rhs: torch.Tensor):
+    """(sol, ok): the LU solve (rhs [..., K, M]), zero where not finite,
+    the failed lanes not yet replaced; reads nothing from the device (the
+    counterpart of ``chol_solve``). Each lane's bits do not depend on the
+    batch."""
+    sol, ok = _lu_solve_vectorized(A, rhs)
+    return torch.where(torch.isfinite(sol), sol, 0.0), ok
 
 
 # --------------------------------------------------------------------------- #

@@ -411,23 +411,46 @@ def _resolve_flagged(out, flag, state, Zp, vp, rows, refresh, want):
         out[cg, ct] = (Zp[cg, ct, 1:] * beta[slot]).sum(dim=-1)
 
 
-def _launch(Zp, vp, rows, refresh, leaving, rolling, ff, reg0, mean0, want, chunk, counts):
+@dataclass(eq=False)
+class Deferred:
+    """A moving call whose flag count is not read yet (``defer=True``):
+    ``out`` is final once ``finish`` has run with the count of ``nflag``
+    ([1] int32 on the device; None where nothing can be flagged: the plain
+    versions, an empty layout), which the caller reads with its other
+    flags (engine/batch.py)."""
+
+    out: torch.Tensor
+    nflag: Optional[torch.Tensor] = None
+    resolve: Optional[tuple] = None  # _resolve_flagged's arguments but ``out``
+
+    def finish(self, n_flagged: int) -> torch.Tensor:
+        """``out``, its flagged rows given the eigh solve where
+        ``n_flagged`` (read from ``nflag``) is not 0: two host syncs."""
+        global moving_host_syncs, moving_flagged_rows
+        if n_flagged:
+            moving_host_syncs += 2
+            moving_flagged_rows += n_flagged
+            _resolve_flagged(self.out, *self.resolve)
+        return self.out
+
+
+def _launch(Zp, vp, rows, refresh, leaving, rolling, ff, reg0, mean0, want, chunk, counts, defer=False):
     """The kernel family, then the eigh fallback where any row was flagged
-    (one host sync to read the count, two more in the fallback)."""
-    global moving_host_syncs, moving_flagged_rows
+    (one host sync to read the count, two more in the fallback); with
+    ``defer`` the queued call as a ``Deferred``, the count not read."""
+    global moving_host_syncs
     if Zp.shape[0] == 0 or Zp.shape[1] == 0:
         shape = Zp.shape[:2] + ((Zp.shape[2] - 1,) if want == "coefficients" else ())
-        return torch.empty(shape, dtype=F64, device=Zp.device)
+        out = torch.empty(shape, dtype=F64, device=Zp.device)
+        return Deferred(out) if defer else out
     out, flag, nflag, state = _launch_kernels(
         Zp, vp, rows, refresh, leaving, rolling, ff, reg0, mean0, want, chunk, counts
     )
+    pending = Deferred(out, nflag, (flag, state, Zp, vp, rows, refresh, want))
+    if defer:
+        return pending
     moving_host_syncs += 1
-    n_flagged = int(nflag.item())  # host sync: the one read every call makes
-    if n_flagged:
-        moving_host_syncs += 2
-        moving_flagged_rows += n_flagged
-        _resolve_flagged(out, flag, state, Zp, vp, rows, refresh, want)
-    return out
+    return pending.finish(int(nflag.item()))  # host sync: the one read every call makes
 
 
 def recursive_least_squares(
@@ -440,25 +463,29 @@ def recursive_least_squares(
     want: str = "coefficients",
     chunk: Optional[int] = None,
     counts=None,
-) -> torch.Tensor:
+    defer: bool = False,
+):
     """RLS coefficient paths [G, R, K] or their predictions [G, R]
     (``want``); the meaning of the arguments is
     ``ops/recursive.py:solve_recursive_least_squares``'s. ``chunk`` sets
     the rows a range (default: chosen from the sizes and the card);
-    ``counts`` is ``rows`` on the host (numpy), where the caller has it."""
+    ``counts`` is ``rows`` on the host (numpy), where the caller has it.
+    ``defer`` returns a ``Deferred`` whose flag count the caller reads."""
     _check(Zp, vp, rows, want)
     K = Zp.shape[2] - 1
     if Zp.device.type == "cpu":
         coefs = solve_recursive_least_squares(
             Zp[..., 1:], Zp[..., 0], vp, half_life, initial_state_covariance, initial_state_mean
         )
-        return _from_coefs(coefs, Zp, want)
+        out = _from_coefs(coefs, Zp, want)
+        return Deferred(out) if defer else out
     if Zp.device.type != "cuda":
         raise ValueError(f"no moving kernel for device {Zp.device}")
     c = 10.0 if initial_state_covariance is None else float(initial_state_covariance)
     mean0 = prior_mean(initial_state_mean, K, "cpu").tolist()
     return _launch(
-        Zp, vp, rows, vp, None, False, forgetting_factor(half_life), 1.0 / c, mean0, want, chunk, counts
+        Zp, vp, rows, vp, None, False, forgetting_factor(half_life), 1.0 / c, mean0, want, chunk, counts,
+        defer,
     )
 
 
@@ -474,19 +501,21 @@ def rolling_ols(
     chunk: Optional[int] = None,
     indices=None,
     counts=None,
-) -> torch.Tensor:
+    defer: bool = False,
+):
     """Rolling-OLS coefficient paths [G, R, K] (NaN before the first solved
     window) or their predictions [G, R]; the meaning of the arguments is
     ``ops/rolling.py:solve_rolling_ols``'s. ``indices`` takes a prepared
     ``rolling_indices`` result for these ``vp``, window and semantics;
-    ``chunk`` and ``counts`` are ``recursive_least_squares``'s."""
+    ``chunk``, ``counts`` and ``defer`` are ``recursive_least_squares``'s."""
     _check(Zp, vp, rows, want)
     K = Zp.shape[2] - 1
     if Zp.device.type == "cpu":
         coefs = solve_rolling_ols(
             Zp[..., 1:], Zp[..., 0], vp, window, min_periods, alpha, positional
         )
-        return _from_coefs(coefs, Zp, want)
+        out = _from_coefs(coefs, Zp, want)
+        return Deferred(out) if defer else out
     if Zp.device.type != "cuda":
         raise ValueError(f"no moving kernel for device {Zp.device}")
     if indices is None:
@@ -495,5 +524,5 @@ def rolling_ols(
     leaving, refresh = indices
     return _launch(
         Zp, vp, rows, refresh.contiguous(), leaving.contiguous(), True, 1.0, float(alpha),
-        [0.0] * K, want, chunk, counts,
+        [0.0] * K, want, chunk, counts, defer,
     )

@@ -83,6 +83,10 @@ or sweep counts at K = 33 .. 200 and on 10 rows x 1,000 features, with a
 group without rows and a NaN group, XtX in shared or device memory; the
 layout each K takes; and the lasso / elastic net / NNLS / cd_active_set
 slices at K = 40 and 100 on the card match the CPU at rtol 1e-9.
+The fused selects of ``chip_smoke.fused_selects`` (an alpha sweep, the JAX
+suite's mix, the sweep over a collinear and an ill-conditioned group) on
+the card equal the eager ones within 1e-12 and match the CPU at rtol 1e-9,
+with one flag read a select.
 The frame workflow of ``chip_smoke.frame_steps`` (filter, sort, unique,
 join, group_by, explode around the fits) on the card matches its CPU run:
 the same rows in the same order, values at rtol 1e-9, every value column
@@ -1463,3 +1467,68 @@ def test_frame_workflow_on_card_matches_cpu(cuda_device, monkeypatch):
                 assert [repr(v) for v in a.tolist()] == [repr(v) for v in b.tolist()], (step, c)
             else:
                 np.testing.assert_allclose(a, b, rtol=1e-9, atol=1e-11, equal_nan=True, err_msg=f"{step}.{c}")
+
+
+def _fused_frame(n=20_000, k=5, G=37, seed=13):
+    """The smoke's main frame at a small size: y, y2, w, x1..xk, their
+    nulled copies (nulls in the odd groups, row 0 valid) and the group
+    column, as host arrays; with x and the group keys."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, k))
+    y = x.sum(axis=1) + rng.normal(size=n) * 0.1
+    g = rng.integers(G, size=n).astype(float)
+    valid = rng.random((n, 1 + k)) >= cs.NULL_RATE
+    valid[g.astype(np.int64) % 2 == 0] = True
+    valid[0] = True
+    cols = {"y": y, **{f"x{i + 1}": x[:, i] for i in range(k)}}
+    data = dict(cols, y2=x @ np.asarray(cs.Y2_COEFS) + rng.normal(size=n) * 0.1, w=rng.random(n) + 0.1, group=g)
+    for j, (name, v) in enumerate(cols.items()):
+        data[f"{name}n"] = pt.Series(f"{name}n", v, valid[:, j])
+    return data, x, g
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("select", ["sweep", "mixed", "flagged"])
+def test_fused_select_on_card_matches_cpu(cuda_device, select, monkeypatch):
+    # the smoke's fused selects (chip_smoke.fused_selects; "flagged": the
+    # sweep with a collinear and an ill-conditioned group) on the card and
+    # on the CPU: fused equals eager within 1e-12 on each device with one
+    # flag read a select (and on the flagged frame a plan that continued:
+    # the eigh solve of failed lanes or the CSNE sweeps); the card matches
+    # the CPU at rtol 1e-9 / atol 1e-11 with identical nulls (the moment
+    # and moving kernels' summation order; the moving columns from the
+    # row on where a group holds K + 3 rows)
+    from polars_ols_tpu_torch.engine import batch
+
+    k = 5
+    data, x, g = _fused_frame(k=k)
+    if select == "flagged":
+        data["x5"] = cs.flagged_x5(x, g)
+    exprs = cs.fused_selects(pt, k)["mixed" if select == "mixed" else "sweep"]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        monkeypatch.setattr(CONFIG, "device", dev)
+        df = pt.DataFrame(data)
+        reads, flagged = batch.flag_reads, batch.flagged_plans
+        fused = df.select(*exprs)
+        assert batch.flag_reads == reads + 1
+        assert (batch.flagged_plans > flagged) == (select == "flagged")
+        monkeypatch.setattr(CONFIG, "fused_select", False)
+        eager = df.select(*exprs)
+        monkeypatch.setattr(CONFIG, "fused_select", True)
+        assert cs.fused_diff(fused, eager) <= cs.FUSED_TOL
+        out[dev] = {c: {key: (v.cpu().numpy(), m.cpu().numpy()) for key, (v, m) in cs.fused_fields(fused[c]).items()}
+                    for c in fused.columns}
+    rank = np.zeros(len(g), dtype=np.int64)
+    for v in np.unique(g):
+        rows = np.flatnonzero(g == v)
+        rank[rows] = np.arange(len(rows))
+    for c, fields in out["cuda"].items():
+        for key, (v, m) in fields.items():
+            v_cpu, m_cpu = out["cpu"][c][key]
+            np.testing.assert_array_equal(m, m_cpu, err_msg=f"{c} {key}: nulls")
+            shown = m & (rank >= k + 3) if c in ("rls", "rolling") else m
+            np.testing.assert_allclose(v[shown], v_cpu[shown], rtol=1e-9, atol=1e-11, err_msg=f"{c} {key}")
+    if select == "mixed":
+        assert moving.moving_kernel_launches >= 2 and cd.cd_kernel_launches >= 1
+    assert moments.moments_kernel_launches >= 2
