@@ -2855,7 +2855,7 @@ def main() -> int:
 
     import polars_ols_tpu_torch as pt
     from polars_ols_tpu_torch import CONFIG, col
-    from polars_ols_tpu_torch.engine import fit, groups
+    from polars_ols_tpu_torch.engine import batch, fit, groups
     from polars_ols_tpu_torch.engine.native import native_loaded
     from polars_ols_tpu_torch.ops import (
         cd, grid_probe, householder, jacobi, kernels, moments, moving, recursive, rolling, special,
@@ -3488,6 +3488,7 @@ def main() -> int:
     CONFIG.lazy_row_order = True
     moments.moments_kernel_launches = cd.cd_kernel_launches = special.t_pvalue_kernel_launches = 0
     moving.moving_kernel_launches = moving.moving_host_syncs = moving.moving_flagged_rows = 0
+    batch.flag_reads = 0
     mout, first_s_mov = {}, {}
     for frame, qs in ((df, moving_queries), (df2, series_queries)):
         for label, (q, column) in qs.items():
@@ -3499,7 +3500,9 @@ def main() -> int:
     rls_mat = df.select(moving_queries["rls"][0])["y"]
     torch.cuda.synchronize()
     moving_launches = moving.moving_kernel_launches
-    moving_syncs, moving_flagged = moving.moving_host_syncs, moving.moving_flagged_rows
+    # a fit's flag count comes to the host in its run's one read
+    # (engine/batch.py); the eigh rows of a flagged call read twice more
+    moving_syncs, moving_flagged = batch.flag_reads + moving.moving_host_syncs, moving.moving_flagged_rows
     n_moving = len(moving_queries) + len(series_queries) + 1
     if moving_launches < n_moving:
         raise AssertionError(f"moving kernel launched {moving_launches} times for {n_moving} queries")

@@ -34,9 +34,10 @@ class Config:
         lazy_row_order: grouped predictions return block-ordered values
             with a deferred row-order permutation (series.BlockPermuted)
             instead of paying the [N] gather inside the query.
-        fused_select: a select of two or more fit expressions runs them
-            together (engine/batch.py: shared moments, batched solves, one
-            host read); off, each expression is evaluated on its own.
+        fused_select: the fit expressions of a select of two or more
+            expressions run together (engine/batch.py: shared moments,
+            batched solves, one host read); off, each expression is
+            evaluated on its own.
     """
 
     def __init__(self) -> None:

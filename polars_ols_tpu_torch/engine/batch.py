@@ -1,17 +1,18 @@
-"""Fused select: the fit expressions of one ``select()`` share their
-moments, their solves and one host read.
+"""The fits of a select run together: they share their moments, their
+solves and one host read.
 
 The counterpart of the JAX package's ``engine/batch.py``, which traces a
 multi-fit select into one XLA program (whose CSE computes an alpha sweep's
-moments once). Here the select is planned, then run in stages on the
-device:
+moments once). Here a fit is a plan and a list of plans runs in stages on
+the device. A fit evaluated alone (``evaluate_least_squares``) is a run of
+one plan; a select runs every fit expression it holds as one run
+(``try_fused_select``). There is one pipeline:
 
-1. Planning is the eager path's prep, expression by expression: the same
-   cached stacks, partitions and layouts (engine/fit.py), the same solve
-   method. An expression that does not fuse is evaluated eagerly in its
-   place; fewer than two that fuse leave the whole select to the eager
-   path. Planning catches nothing: an error raises as the eager path
-   raises it.
+1. Planning (``plan_fit``): the cached stacks, partitions and layouts of
+   engine/fit.py and the solve method. In a select, an expression that is
+   not a single-target fit (a column, a multi-target fit, a nested
+   ``.over``) is evaluated on its own in its place. Planning catches
+   nothing: an error raises where the inputs are evaluated.
 2. On the device, with no host read between the stages: the moments once
    for each distinct partition (``grouped_moments``, csrc/moments.cu),
    keyed on tensor identity; the Cholesky solves of plans that share
@@ -23,17 +24,16 @@ device:
 3. One host read of every plan's flags: a failed Cholesky or LU lane,
    ``chol``'s condition estimate over ``_COND_REFINE``, a moving call's
    flagged rows.
-4. A flagged plan continues as the eager path does (the eigh solve of its
-   failed lanes, the CSNE sweeps on the batch's factor,
-   ``_resolve_flagged``); then the predictions of the plans on one
-   partition in one pass over its features (``[P, S, R]``), and each
-   output wrapped as the eager path wraps it.
+4. A flagged plan continues (the eigh solve of its failed lanes, the CSNE
+   sweeps on the batch's factor, ``_resolve_flagged``); then the
+   predictions of the plans on one partition in one pass over its
+   features (``[P, S, R]``), and each output wrapped.
 
-Every lane's arithmetic is the eager path's: up to K = 32 the batched
-Cholesky and LU are elementwise across lanes, so a lane's bits do not
-depend on the batch; above K = 32 the library Cholesky may round
-differently at another batch size, so there each plan keeps its own
-call. A fused select gives what the eager select gives.
+Every lane's arithmetic is that of a plan run alone: up to K = 32 the
+batched Cholesky and LU are elementwise across lanes, so a lane's bits do
+not depend on the batch; above K = 32 the library Cholesky may round
+differently at another batch size, so there each plan keeps its own call.
+A select gives what its expressions give one by one.
 """
 
 from __future__ import annotations
@@ -48,37 +48,27 @@ from ..ops.direct import grouped_moments
 from ..ops.linalg import MAX_K, chol_solve, cond_estimate, fallback_lanes, lu_solve, psd_solver_from
 from . import fit
 
-# schedules keyed on a select's signature (each plan's statics and the
-# identities of its cached inputs), the counterpart of the JAX package's
-# compiled programs; a small LRU, since the identities change with the data
-_PROGRAMS: Dict[tuple, "_Program"] = {}
-_PROGRAMS_LIMIT = 64
-
-# host reads of flags that fused selects made since the last reset: one a
-# select with a flag to read, whatever the number of fits
+# host reads of flags since the last reset: one a run with a flag to read,
+# whatever the number of its plans
 flag_reads = 0
 # plans that continued past the read on a flag (failed lanes, chol's CSNE,
 # flagged moving rows) since the last reset
 flagged_plans = 0
 
 
-def clear_programs() -> None:
-    _PROGRAMS.clear()
-
-
 @dataclass(eq=False)
 class _Plan:
-    """One fusable expression, prepared as the eager path prepares it.
+    """One single-target fit, prepared up to its solve.
 
     ``kind`` is "fit" (a static fit's predictions or coefficients), "stats"
     or "moving"; ``family`` the solve: "chol", "qr", "lu", "cd" or "svd"
-    (statistics also solve the normal equations by Cholesky). Results of
-    the stages are set on it as they come."""
+    (statistics also solve the normal equations by Cholesky). ``alias``
+    and ``resid`` (the Series a ``y - fit`` residual subtracts from) are a
+    select's. Results of the stages are set on it as they come."""
 
     kind: str
-    alias: Optional[str]
-    family: str = ""
     mode: str = "predictions"
+    family: str = ""
     layout: object = None
     layout_in: object = None
     n: int = 0
@@ -89,8 +79,10 @@ class _Plan:
     name: str = ""
     blocks: tuple = ()  # (Zp, wp, predict_valid, block_group, offsets)
     inv_w: Optional[torch.Tensor] = None
-    resid: object = None  # the target Series of y - fit residuals
-    start: Optional[Callable] = None  # moving: _moving_start(..., defer=True)
+    X_row: Optional[torch.Tensor] = None  # the drop family's row features (fit._row_features)
+    start: Optional[Callable] = None  # moving: fit._moving_start bound to its inputs
+    alias: Optional[str] = None
+    resid: object = None
     # set by the stages
     moments: tuple = ()  # blocks + (XtX, Xty, counts)
     A: Optional[torch.Tensor] = None
@@ -99,7 +91,7 @@ class _Plan:
     L: Optional[torch.Tensor] = None
     beta: Optional[torch.Tensor] = None
     flat: Optional[torch.Tensor] = None  # block-ordered predictions [S * R]
-    pending: object = None  # moving: its Deferred, its output, the Series of the output
+    pending: object = None  # moving: its Deferred
     out: Optional[torch.Tensor] = None
     finish: Optional[Callable] = None
 
@@ -108,17 +100,14 @@ class _Plan:
         return 0 if self.kind == "moving" else self.blocks[0].shape[2] - 1
 
     @property
-    def statics(self) -> tuple:
-        return (self.kind, self.family, self.K, self.kind == "fit" and self.mode == "predictions")
-
-    @property
     def ident(self) -> tuple:
+        """The partition: the identities of the cached blocks."""
         return () if self.kind == "moving" else (id(self.blocks[0]), id(self.blocks[1]))
 
 
 @dataclass(frozen=True)
 class _Program:
-    """A select's schedule: plan indices that share a moment launch, a
+    """A run's schedule: plan indices that share a moment launch, a
     batched solve (with its family), a Householder reduction, a prediction
     pass; and the moving plans."""
 
@@ -129,39 +118,76 @@ class _Program:
     moving: tuple
 
 
-def _schedule(sig: tuple) -> _Program:
-    """The schedule of a signature: one entry a plan, ``(statics, ident)``
-    or None for an expression evaluated eagerly."""
+def _schedule(plans: List[_Plan]) -> _Program:
+    """Which plans share work: those on one partition share its moments,
+    its Householder reduction and a prediction pass, and those of one
+    solve family and K there one batched solve (above MAX_K each plan its
+    own call)."""
 
     def groups(key) -> Dict[tuple, tuple]:
         out: Dict = {}
-        for i, s in enumerate(sig):
-            k = None if s is None else key(i, s[1], *s[0])
+        for i, p in enumerate(plans):
+            k = key(i, p)
             if k is not None:
                 out.setdefault(k, []).append(i)
         return {k: tuple(v) for k, v in out.items()}
 
-    def moments(i, ident, kind, family, K, preds):
-        return ident if kind == "stats" or family in ("chol", "qr", "lu", "cd") else None
+    def moments(i, p):
+        return p.ident if p.kind == "stats" or p.family in ("chol", "qr", "lu", "cd") else None
 
-    def solves(i, ident, kind, family, K, preds):
-        if kind == "stats" or family in ("chol", "qr"):
+    def solves(i, p):
+        if p.kind == "stats" or p.family in ("chol", "qr"):
             # the library Cholesky above MAX_K: each plan its own call
-            return ("chol", ident, K) if K <= MAX_K else ("chol", i)
-        return ("lu", ident, K) if family == "lu" else None
+            return ("chol", p.ident, p.K) if p.K <= MAX_K else ("chol", i)
+        return ("lu", p.ident, p.K) if p.family == "lu" else None
 
-    def reductions(i, ident, kind, family, K, preds):
-        return ident if family == "svd" else None
+    def reductions(i, p):
+        return p.ident if p.family == "svd" else None
 
-    def passes(i, ident, kind, family, K, preds):
-        return ident if preds else None
+    def passes(i, p):
+        predictions = p.kind == "fit" and p.mode != "coefficients" and p.X_row is None
+        return p.ident if predictions else None
 
     return _Program(
         moments=tuple(groups(moments).values()),
         solves=tuple((k[0], g) for k, g in groups(solves).items()),
         reductions=tuple(groups(reductions).values()),
         passes=tuple(groups(passes).values()),
-        moving=tuple(i for i, s in enumerate(sig) if s is not None and s[0][0] == "moving"),
+        moving=tuple(i for i, p in enumerate(plans) if p.kind == "moving"),
+    )
+
+
+def plan_fit(
+    target, feat_series, kwargs, mode: str, layout_in, add_intercept: bool = False, weights=None,
+    function_name: str = "least_squares",
+) -> _Plan:
+    """The plan of a plain target's fit (``evaluate_least_squares``'s
+    arguments): its layout and features, the intercept's constant last;
+    for a static fit the solve method, the cached column stack and blocks,
+    and for predictions under the drop family the row features."""
+    n = len(target)
+    layout, feats = fit._fit_layout(n, feat_series, layout_in, add_intercept)
+    if function_name != "least_squares":
+        def start():
+            return fit._moving_start(function_name, target, feats, kwargs, mode, layout, weights)
+
+        return _Plan("moving", mode, start=start)
+
+    method = fit._resolve_method(layout, kwargs, len(feats))
+    vals, valid, inv_w = fit._stack(target, feats, weights)
+    policy = kwargs.null_policy
+    _, pmask, block_group, _ = fit._split_layout(layout)
+    Zp, wp, predict_valid = fit._blocks_cached(layout, vals, valid, policy)
+    offsets = layout.device_block_offsets(pmask.shape[1])
+    cd = fit._cd_params(kwargs, method) if method.startswith("cd") else None
+    family = "cd" if cd is not None else method
+    if mode == "statistics" and family not in ("cd", "svd"):
+        family = "chol"  # the dispatch solver's estimate is the normal equations'
+    return _Plan(
+        "stats" if mode == "statistics" else "fit", mode, family, layout=layout, layout_in=layout_in, n=n,
+        alpha=float(kwargs.alpha or 0.0), rcond=kwargs.rcond, cd=cd, names=tuple(s.name for s in feats),
+        name=target.name, blocks=(Zp, wp, predict_valid, block_group, offsets), inv_w=inv_w,
+        X_row=fit._row_features(vals, valid, policy, 1) if mode == "predictions" else None,
     )
 
 
@@ -184,18 +210,14 @@ def _unwrap(expr):
 
 
 def _plan_expr(df, expr) -> Optional[_Plan]:
-    """A plan of one expression, or None where it does not fuse (the JAX
-    planner's rules): a static ``least_squares`` fit in predictions,
-    coefficients or statistics mode, ``y - fit`` residuals on fully valid
-    columns, and ``rls`` / ``rolling_ols`` predictions, each with or
-    without ``.over``. Multi-target and struct targets, a nested
-    ``.over``, moving coefficients, any other expression and the null
-    policies whose predictions need the rows' own features do not fuse.
-    The prep is ``LeastSquaresExpr.evaluate`` and ``evaluate_least_squares``
-    (engine/fit.py) up to the solve."""
-    from ..expr import BinExpr, LeastSquaresExpr, _expand
+    """The plan of one expression of a select: a single-target fit or its
+    ``y - fit`` residuals, each with or without one ``.over``; None for
+    any other expression (a column, a multi-target fit, a struct target, a
+    nested ``.over``). The inputs are evaluated as the expression's own
+    ``evaluate`` evaluates them, in the same order."""
+    from ..expr import BinExpr, LeastSquaresExpr
     from ..series import Series
-    from .groups import layout_for_columns, single_layout
+    from .groups import layout_for_columns
 
     core, alias, keys = _unwrap(expr)
     resid = None
@@ -203,69 +225,30 @@ def _plan_expr(df, expr) -> Optional[_Plan]:
         resid, core = core.left, core.right
     if not isinstance(core, LeastSquaresExpr) or core.multi_target:
         return None
-    moving = core.function_name != "least_squares"
-    modes = ("predictions",) if moving or resid is not None else ("predictions", "coefficients", "statistics")
-    if core.mode not in modes:
-        return None
-
     layout_in = None if keys is None else layout_for_columns([df.get_column(k) for k in keys])
-    resid_series = None if resid is None else resid.evaluate(df, layout_in)
-    target = core.target.evaluate(df, layout_in)
+    resid = None if resid is None else resid.evaluate(df, layout_in)
+    target, feats, weights = core.inputs(df, layout_in)
     if not isinstance(target, Series):
         return None
-    feats = [f.evaluate(df, layout_in) for f in _expand(core.features, df)]
-    weights = None if core.weights is None else core.weights.evaluate(df, layout_in)
-    n = len(target)
-    layout = layout_in if layout_in is not None else single_layout(n)
-    if core.add_intercept:
-        feats = feats + [fit._const_series(layout, n)]
-    kwargs = core.kwargs
-    if moving:
-        def start(fn=core.function_name, kw=kwargs):
-            return fit._moving_start(fn, target, feats, kw, "predictions", layout, weights, defer=True)
-
-        return _Plan("moving", alias, start=start)
-
-    method = fit._resolve_method(layout, kwargs, len(feats))
-    vals, valid, inv_w = fit._stack(target, feats, weights)
-    policy = kwargs.null_policy
-    if core.mode != "statistics" and valid is not None and policy not in (
-        ("zero", "drop") if method == "svd" else ("zero", "ignore", "drop")
-    ):
-        return None
-    if resid is not None and (
-        valid is not None
-        or (weights is not None and weights.validity is not None)
-        or not isinstance(resid_series, Series)
-        or resid_series.validity is not None
-    ):
-        return None
-    _, pmask, block_group, _ = fit._split_layout(layout)
-    Zp, wp, predict_valid = fit._blocks_cached(layout, vals, valid, policy)
-    offsets = layout.device_block_offsets(pmask.shape[1])
-    cd = fit._cd_params(kwargs, method) if method.startswith("cd") else None
-    family = "cd" if cd is not None else method
-    if core.mode == "statistics" and family not in ("cd", "svd"):
-        family = "chol"  # the dispatch solver's estimate is the normal equations'
-    return _Plan(
-        "stats" if core.mode == "statistics" else "fit", alias, family=family, mode=core.mode,
-        layout=layout, layout_in=layout_in, n=n, alpha=float(kwargs.alpha or 0.0), rcond=kwargs.rcond,
-        cd=cd, names=tuple(s.name for s in feats), name=target.name,
-        blocks=(Zp, wp, predict_valid, block_group, offsets), inv_w=inv_w, resid=resid_series,
+    plan = plan_fit(
+        target, feats, core.kwargs, core.mode, layout_in, core.add_intercept, weights, core.function_name
     )
+    plan.alias, plan.resid = alias, resid
+    return plan
 
 
-def _solve_batch(family: str, plans: List[_Plan]) -> None:
+def _solve_batch(family: str, plans: List[_Plan]):
     """The Cholesky (or LU) solves of plans on one moment set and K as one
     batch ``[P * G, K, K]`` of ``XtX + alpha_p I``; each plan gets its
     slices of A, the solution (failed lanes not yet replaced), ``ok`` and
-    the factor. Reads nothing from the device and copies nothing to it (a
-    host-to-device copy synchronises)."""
+    the factor. Returns the batch's ``ok`` [P, G] and factor [P, G, K, K]
+    (None for LU). Reads nothing from the device and copies nothing to it
+    (a host-to-device copy synchronises)."""
     XtX, Xty = plans[0].moments[5:7]
     G, K = XtX.shape[0], XtX.shape[-1]
     P = len(plans)
     eye = torch.eye(K, dtype=F64, device=XtX.device)
-    A = torch.stack([XtX + p.alpha * eye for p in plans])  # each lane's A as the eager path forms it
+    A = torch.stack([XtX + p.alpha * eye for p in plans])
     rhs = Xty[None, ..., None].expand(P, G, K, 1).reshape(P * G, K, 1)
     if family == "chol":
         sol, ok, L = chol_solve(A.reshape(P * G, K, K), rhs)
@@ -275,27 +258,25 @@ def _solve_batch(family: str, plans: List[_Plan]) -> None:
         lanes = slice(j * G, (j + 1) * G)
         p.A, p.sol, p.ok = A[j], sol[lanes], ok[lanes]
         p.L = None if L is None else L[lanes]
+    return ok.reshape(P, G), None if L is None else L.reshape(P, G, K, K)
 
 
-def _flags(program: _Program, plans: List[_Plan]):
+def _flags(batches, moving: List[_Plan]):
     """The tensors of the one host read, each [P] or [1], and for each a
-    list of (plan, what) its entries belong to: "failed" (a lane failed),
-    "refine" (``chol``'s condition estimate over the CSNE threshold),
-    "moving" (the count of flagged rows)."""
+    list of (plan, what) its entries belong to (None: an entry no plan
+    reads): "ok" (every lane of the plan factored), "refine" (``chol``'s
+    condition estimate over the CSNE threshold), "moving" (the count of
+    flagged rows). ``batches``: (plans, ok [P, G], factor [P, G, K, K])
+    of each batched solve."""
     tensors, owners = [], []
-    for family, idxs in program.solves:
-        group = [plans[i] for i in idxs]
-        G = group[0].ok.shape[0]
-        ok = torch.stack([p.ok for p in group])
-        tensors.append(~ok.reshape(len(group), G).all(dim=1))
-        owners += [(p, "failed") for p in group]
-        chol = [p for p in group if p.kind == "fit" and p.family == "chol"]
-        if chol:
-            cond = torch.stack([cond_estimate(p.L) for p in chol])
-            tensors.append(cond.amax(dim=1) > fit._COND_REFINE)
-            owners += [(p, "refine") for p in chol]
-    for i in program.moving:
-        p = plans[i]
+    for group, ok, L in batches:
+        tensors.append(ok.all(dim=1))
+        owners += [(p, "ok") for p in group]
+        chol = [p.kind == "fit" and p.family == "chol" for p in group]
+        if any(chol):
+            tensors.append(cond_estimate(L).amax(dim=1) > fit._COND_REFINE)
+            owners += [(p, "refine") if c else None for p, c in zip(group, chol)]
+    for p in moving:
         if p.pending.nflag is not None:
             tensors.append(p.pending.nflag)
             owners.append((p, "moving"))
@@ -303,9 +284,12 @@ def _flags(program: _Program, plans: List[_Plan]):
 
 
 def _continue(p: _Plan, failed: bool, refine: bool) -> None:
-    """The eager path after the solve, given the plan's flags: the eigh
-    solve of failed lanes, then for ``qr`` (always) and a flagged ``chol``
-    the CSNE sweeps on the batch's factor; ``beta`` [G, K]."""
+    """A static fit after its solve, given its flags: the eigh solve of
+    failed lanes, then the CSNE sweeps on the batch's factor for a
+    ``chol`` fit whose condition estimate passed 1e6 and for every ``qr``
+    fit (QR-grade forward error for cond(X) up to ~1e7; the reference's
+    col-piv QR, src/least_squares.rs:193-205); ``lu`` takes no sweeps
+    (src/least_squares.rs:264-273). ``beta`` [G, K]."""
     rhs = p.moments[6][..., None]
     sol = fallback_lanes(p.A, rhs, p.sol, p.ok) if failed else p.sol
     beta = sol[..., 0]
@@ -313,24 +297,27 @@ def _continue(p: _Plan, failed: bool, refine: bool) -> None:
         Zp, wp, _, block_group, offsets = p.blocks
         solve = psd_solver_from(p.A, p.L, p.ok, not failed)
         beta = fit._csne_refine_blocks(
-            p.A, beta, Zp[..., 1:], Zp[..., 0], wp, block_group, offsets, p.alpha, solve=solve
+            p.A, beta, Zp[..., 1:], Zp[..., 0], wp, block_group, offsets, p.alpha, solve
         )
     p.beta = beta
 
 
-def _run(plans: List[_Plan], program: _Program) -> None:
-    """The stages of a select on its plans."""
+def _run(plans: List[_Plan]) -> None:
+    """The stages on the plans."""
     global flag_reads, flagged_plans
+    program = _schedule(plans)
     for idxs in program.moments:  # a. moments once a partition
         p0 = plans[idxs[0]]
         Zp, wp, _, _, offsets = p0.blocks
         moments = p0.blocks + grouped_moments(Zp, wp, offsets, p0.layout.num_groups)
         for i in idxs:
             plans[i].moments = moments
+    batches = []
     for family, idxs in program.solves:  # b. the batched solves
-        _solve_batch(family, [plans[i] for i in idxs])
+        group = [plans[i] for i in idxs]
+        batches.append((group,) + _solve_batch(family, group))
     for p in plans:  # coordinate descent, a plan
-        if p is not None and p.family == "cd":
+        if p.family == "cd":
             XtX, Xty, counts = p.moments[5:]
             p.beta = fit._solve_cd(XtX, Xty, counts, p.alpha, p.cd)
     for idxs in program.reductions:  # the Householder reduction once, the Jacobi SVD a plan
@@ -343,26 +330,30 @@ def _run(plans: List[_Plan], program: _Program) -> None:
     for i in program.moving:
         plans[i].pending, plans[i].finish = plans[i].start()
 
-    tensors, owners = _flags(program, plans)  # e. one host read
+    tensors, owners = _flags(batches, [plans[i] for i in program.moving])  # e. one host read
     values = []
     if tensors:
-        values = torch.cat([t.reshape(-1).to(torch.int64) for t in tensors]).tolist()
+        values = torch.cat([t.reshape(-1) for t in tensors]).tolist()
         flag_reads += 1
     flags: Dict[int, Dict[str, int]] = {}
-    for (p, what), v in zip(owners, values):
-        flags.setdefault(id(p), {})[what] = v
-    flagged_plans += sum(any(f.values()) for f in flags.values())
+    for owner, v in zip(owners, values):
+        if owner is not None:
+            flags.setdefault(id(owner[0]), {})[owner[1]] = int(v)
+    flagged_plans += sum(
+        (not f.get("ok", 1)) or f.get("refine", 0) > 0 or f.get("moving", 0) > 0 for f in flags.values()
+    )
 
-    for i in [i for _, idxs in program.solves for i in idxs]:  # the flagged plans continue
-        p = plans[i]
-        f = flags[id(p)]
-        if p.kind == "stats":  # the normal equations' solve; beta is theirs unless cd / svd
-            sol = fallback_lanes(p.A, p.moments[6][..., None], p.sol, p.ok) if f["failed"] else p.sol
-            p.sol = sol[..., 0]
-            if p.family == "chol":
-                p.beta = p.sol
-        else:
-            _continue(p, bool(f["failed"]), bool(f.get("refine", 0)))
+    for group, _, _ in batches:  # the flagged plans continue
+        for p in group:
+            f = flags[id(p)]
+            failed = not f["ok"]
+            if p.kind == "stats":  # the normal equations' solve; beta is theirs unless cd / svd
+                sol = fallback_lanes(p.A, p.moments[6][..., None], p.sol, p.ok) if failed else p.sol
+                p.sol = sol[..., 0]
+                if p.family == "chol":
+                    p.beta = p.sol
+            else:
+                _continue(p, failed, bool(f.get("refine", 0)))
     for i in program.moving:
         p = plans[i]
         p.out = p.pending.finish(flags.get(id(p), {}).get("moving", 0))
@@ -377,7 +368,9 @@ def _run(plans: List[_Plan], program: _Program) -> None:
 
 
 def _output(p: _Plan):
-    """A plan's column, as the eager path builds it."""
+    """A plan's column: predictions in row order (unscaled for WLS), a
+    coefficient struct, a ``StatisticsSeries``; a residual's subtraction
+    and the alias last."""
     from ..expr import binop_series
     from ..series import Series
 
@@ -390,36 +383,39 @@ def _output(p: _Plan):
         s = fit._coef_struct(rows, list(p.names))
     else:
         G = p.layout.num_groups
-        unpad = p.layout.device_split_unpad(p.blocks[0].shape[1]) if G > 1 else None
-        preds = fit._row_order(p.flat, unpad, p.n, G, lazy=CONFIG.lazy_row_order and p.inv_w is None)
+        if p.X_row is not None:
+            preds = fit._predictions(p.beta, None, None, None, p.layout, p.n, p.X_row)
+        else:
+            unpad = p.layout.device_split_unpad(p.blocks[0].shape[1]) if G > 1 else None
+            preds = fit._row_order(p.flat, unpad, p.n, G, lazy=CONFIG.lazy_row_order and p.inv_w is None)
         if p.inv_w is not None:
             preds = preds * p.inv_w
         s = Series(p.name, preds, p.blocks[2])
-        if p.resid is not None:
-            s = binop_series("sub", p.resid, s)
+    if p.resid is not None:
+        s = binop_series("sub", p.resid, s)
     return s.alias(p.alias) if p.alias else s
 
 
+def run_plans(plans: List[_Plan]) -> List:
+    """The plans' columns, in order, from one run."""
+    _run(plans)
+    return [_output(p) for p in plans]
+
+
 def try_fused_select(df, exprs: List) -> Optional[List]:
-    """The columns of a select of two or more fusable fit expressions, in
-    order, from shared moments, batched solves and one host read; None
-    where fewer than two fuse (the caller evaluates every expression
-    eagerly) or ``CONFIG.fused_select`` is off. The layout-cache entries
+    """The columns of a select's expressions, in order: its fit
+    expressions as one run (shared moments, batched solves, one host
+    read), any other expression evaluated on its own in its place; None
+    where no expression is a fit or ``CONFIG.fused_select`` is off (the
+    caller evaluates each expression on its own). The layout-cache entries
     the select touches stay cached while it runs (``fit.held_caches``), so
     a select over more partitions than that cache keeps does not rebuild
     them when it is repeated."""
-    if not CONFIG.fused_select or len(exprs) < 2:
+    if not CONFIG.fused_select:
         return None
     with fit.held_caches():
         plans = [_plan_expr(df, e) for e in exprs]
-        if sum(p is not None for p in plans) < 2:
+        if all(p is None for p in plans):
             return None
-        sig = tuple(None if p is None else (p.statics, p.ident) for p in plans)
-        program = _PROGRAMS.get(sig)
-        if program is None:
-            program = _schedule(sig)
-            if len(_PROGRAMS) >= _PROGRAMS_LIMIT:
-                del _PROGRAMS[next(iter(_PROGRAMS))]
-            _PROGRAMS[sig] = program
-        _run(plans, program)
+        _run([p for p in plans if p is not None])
         return [e.evaluate(df) if p is None else _output(p) for e, p in zip(exprs, plans)]

@@ -5,7 +5,10 @@ A static fit runs as: the cached ``[N, 1+K]`` column stack (values and
 validity, target first; scaled by sqrt(w) for WLS) -> the null policy
 (ops/masking.py) and one row gather into a batched layout (cached per
 layout, columns and policy) -> the solve -> predictions in that layout ->
-row order, deferred (``BlockPermuted``) or materialized.
+row order, deferred (``BlockPermuted``) or materialized. This module holds
+the stack, the layouts and each stage's pieces; engine/batch.py plans a
+fit and runs it through the stages, a fit alone as a run of one plan and
+the fits of a select as one run.
 
 - ``chol`` / ``lu`` / ``qr``: the split-padded blocks ``Zp [S, R, 1+K]``,
   per-group moments from the hand-written CUDA kernel (ops/moments.py),
@@ -56,11 +59,9 @@ import torch
 
 from ..config import CONFIG, EPSILON, F64, device
 from ..ops.cd import solve_elastic_net_cov
-from ..ops.direct import grouped_moments, resolve_solve_method
+from ..ops.direct import resolve_solve_method
 from ..ops.householder import plan_reduction, reduce_groups
-from ..ops.linalg import (
-    psd_solver, solve_lu, solve_psd, solve_psd_cond, svd_lstsq, svd_lstsq_from_factor,
-)
+from ..ops.linalg import svd_lstsq, svd_lstsq_from_factor
 from ..ops.masking import prepare_problem, zero_filled
 from ..ops.moving import recursive_least_squares, rolling_ols
 from ..ops.rolling import default_min_periods, rolling_indices
@@ -310,7 +311,7 @@ def _block_preds(Xp, beta_blocks):
     return acc
 
 
-def _csne_refine_blocks(A, beta, Xp, yp, wp, block_group, block_offsets, alpha, solve=None):
+def _csne_refine_blocks(A, beta, Xp, yp, wp, block_group, block_offsets, alpha, solve):
     """Corrected semi-normal-equations refinement (Björck's CSNE). The
     normal-equation solve squares cond(X); four sweeps of ``r = y - X b``
     (from the rows, in f64) and ``b += A^{-1}(X'r - alpha b)`` restore
@@ -318,9 +319,8 @@ def _csne_refine_blocks(A, beta, Xp, yp, wp, block_group, block_offsets, alpha, 
     Cholesky failed into the eigh fallback. X'r is summed per group over
     the group's contiguous blocks in block order (deterministic). Rows
     outside ``wp`` are selected away, not multiplied by zero, so a NaN in
-    a padding slot never reaches a group. ``solve``: A's ``psd_solver``
-    where the caller has it (engine/batch.py)."""
-    solve = solve or psd_solver(A)  # factor A once; the sweeps reuse it
+    a padding slot never reaches a group. ``solve``: A's factored solve
+    (ops/linalg.py: ``psd_solver_from``), which the sweeps reuse."""
     for _ in range(4):
         bb = beta.index_select(0, block_group)
         resid = torch.where(wp, yp - _block_preds(Xp, bb), 0.0)
@@ -351,59 +351,6 @@ def _solve_cd(XtX, Xty, counts, alpha: float, cd: dict):
     return w
 
 
-def _solve_dispatch(XtX, Xty, alpha: float, method: str, refine):
-    """The per-group solve of the moment path (``refine`` = (Xp, yp, wp,
-    block_group, block_offsets), the rows of the CSNE sweeps):
-
-    - 'chol': Cholesky, CSNE sweeps when cond(XtX) > 1e6;
-    - 'qr': Cholesky with unconditional CSNE sweeps (QR-grade forward
-      error for cond(X) up to ~1e7; reference col-piv QR,
-      src/least_squares.rs:193-205);
-    - 'lu': partial-pivot LU, no sweeps (src/least_squares.rs:264-273).
-
-    Host syncs: the Cholesky or LU fallback (``ok.all()``) and the
-    refinement choice for 'chol'."""
-    K = XtX.shape[-1]
-    A = XtX + alpha * torch.eye(K, dtype=F64, device=XtX.device)
-    if method == "lu":
-        return solve_lu(A, Xty)
-    if method == "qr":
-        return _csne_refine_blocks(A, solve_psd(A, Xty), *refine, alpha)
-    beta, cond_est = solve_psd_cond(A, Xty)
-    if float(cond_est.max()) > _COND_REFINE:
-        beta = _csne_refine_blocks(A, beta, *refine, alpha)
-    return beta
-
-
-def _moment_blocks(layout, vals, valid, policy: str):
-    """The cached split-padded blocks and their per-group moments:
-    (Zp, wp, predict_valid, block_group, block_offsets, XtX, Xty, counts)."""
-    _, pmask, block_group, _ = _split_layout(layout)
-    Zp, wp, predict_valid = _blocks_cached(layout, vals, valid, policy)
-    offsets = layout.device_block_offsets(pmask.shape[1])
-    XtX, Xty, counts = grouped_moments(Zp, wp, offsets, layout.num_groups)
-    return Zp, wp, predict_valid, block_group, offsets, XtX, Xty, counts
-
-
-def _fit_moments(layout, vals, valid, policy: str, alpha: float, method: str, cd=None):
-    """Per-group beta [G, K] on the split-padded blocks (coordinate descent
-    with the settings ``cd``, else ``_solve_dispatch``); returns (beta,
-    Xp, block_group, unpad, predict_valid): the blocks' features, their
-    group ids and the row-order gather [N] out of the flat block layout
-    (None for one group, whose layout is row-sequential)."""
-    Zp, wp, predict_valid, block_group, offsets, XtX, Xty, counts = _moment_blocks(
-        layout, vals, valid, policy
-    )
-    yp, Xp = Zp[..., 0], Zp[..., 1:]
-    if cd is not None:
-        beta = _solve_cd(XtX, Xty, counts, alpha, cd)
-    else:
-        beta = _solve_dispatch(XtX, Xty, alpha, method, (Xp, yp, wp, block_group, offsets))
-    r_cap = Zp.shape[1]
-    unpad = layout.device_split_unpad(r_cap) if layout.num_groups > 1 else None
-    return beta, Xp, block_group, unpad, predict_valid
-
-
 def _fit_svd(layout, vals, valid, policy: str, alpha: float, rcond, m: int = 1):
     """Per-group minimum-norm beta [G, K, m] of the m targets on the
     split-padded blocks: each group's rows reduced by the Householder
@@ -412,8 +359,10 @@ def _fit_svd(layout, vals, valid, policy: str, alpha: float, rcond, m: int = 1):
     factors (``svd_lstsq_from_factor``, one launch; the factors and ``Q^T
     Y`` go to it as strided views of the tree's last level, not copies).
     Where no group has more than K rows (each is one block), the SVD of
-    the rows themselves (``svd_lstsq``). Returns what ``_fit_moments``
-    returns, beta with its target axis."""
+    the rows themselves (``svd_lstsq``). Returns (beta [G, K, m], Xp,
+    block_group, unpad, predict_valid): the blocks' features, their group
+    ids and the row-order gather [N] out of the flat block layout (None
+    for one group, whose layout is row-sequential)."""
     block_group = _split_layout(layout)[2]
     Zp, wp, predict_valid = _blocks_cached(layout, vals, valid, policy, m)
     G, R = layout.num_groups, Zp.shape[1]
@@ -451,34 +400,19 @@ def _coef_struct(beta: torch.Tensor, names: List[str]) -> StructSeries:
     return StructSeries("coefficients", names, beta, torch.isfinite(beta))
 
 
-def _statistics(layout, vals, valid, policy: str, kwargs, method: str, cd, names, layout_in):
-    """mode='statistics' (the JAX engine's ``_blocks_statistics_kernel``
-    and, for 'svd', its ``_statistics``): moments, residuals and metrics on
-    the split-padded blocks. The coefficients field holds the dispatch
-    solver's estimate: the plain Cholesky solve (with its eigh fallback,
-    no CSNE, no LU) for chol / lu / qr, coordinate descent for cd, the
-    minimum-norm SVD for svd; r2 / mae / mse are those coefficients'.
-    se / t / p always come from the normal equations with the raw alpha
-    and the per-row RSS of their own solution; df = n - tr(A^-1) whenever
-    alpha > 0 (lasso and elastic net included)."""
-    alpha = float(kwargs.alpha or 0.0)
-    moments = _moment_blocks(layout, vals, valid, policy)
-    XtX, Xty, counts = moments[5:]
-    A = XtX + alpha * torch.eye(XtX.shape[-1], dtype=F64, device=XtX.device)
-    beta_ne = solve_psd(A, Xty)
-    if cd is not None:
-        beta = _solve_cd(XtX, Xty, counts, alpha, cd)
-    elif method == "svd":
-        beta = _fit_svd(layout, vals, valid, policy, alpha, kwargs.rcond)[0][..., 0]
-    else:
-        beta = beta_ne
-    return _statistics_series(moments, alpha, beta, beta_ne, names, layout, layout_in)
-
-
 def _statistics_series(moments, alpha: float, beta, beta_ne, names, layout, layout_in):
-    """The ``StatisticsSeries`` of ``_statistics`` from the blocks and
-    moments (``_moment_blocks``), the dispatch solver's ``beta`` and the
-    normal equations' ``beta_ne`` (the same tensor where they agree)."""
+    """mode='statistics' (the JAX engine's ``_blocks_statistics_kernel``
+    and, for 'svd', its ``_statistics``): residual metrics and se / t / p
+    from the split-padded blocks and their per-group moments ``moments``
+    (Zp, wp, predict_valid, block_group, block_offsets, XtX, Xty, counts).
+    The coefficients field holds the dispatch solver's estimate ``beta``:
+    the plain Cholesky solve (with its eigh fallback, no CSNE, no LU) for
+    chol / lu / qr, coordinate descent for cd, the minimum-norm SVD for
+    svd; r2 / mae / mse are those coefficients'. se / t / p always come
+    from the normal equations' ``beta_ne`` with the raw alpha and the
+    per-row RSS of that solution (the same tensor as ``beta`` where they
+    agree); df = n - tr(A^-1) whenever alpha > 0 (lasso and elastic net
+    included)."""
     Zp, wp, _, block_group, offsets, XtX, Xty, counts = moments
     yp, Xp = Zp[..., 0], Zp[..., 1:]
     blocks = (block_group, offsets)
@@ -513,21 +447,15 @@ def _resolve_method(layout, kwargs, k: int) -> str:
     )
 
 
-def _evaluate_moving(function_name, target, feat_series, kwargs, mode, layout, weights):
+def _moving_start(function_name, target, feat_series, kwargs, mode, layout, weights):
     """``rls`` / ``rolling_ols`` per group (the JAX engine's moving branch,
-    engine/fit.py:1293-1520): per-row coefficients as a struct column, or
-    their predictions. ``initial_state_mean`` reaches the coefficients
-    only: the reference's predictions entry point passes none
+    engine/fit.py:1293-1520) up to its kernels: (the moving call's
+    ``Deferred`` (ops/moving.py), whose flag count the caller reads, and
+    ``finish(out)`` -> per-row coefficients as a struct column, or their
+    predictions). ``initial_state_mean`` reaches the coefficients only:
+    the reference's predictions entry point passes none
     (src/expressions.rs:624-646), and so predictions and residuals run
     with a zero prior mean."""
-    out, finish = _moving_start(function_name, target, feat_series, kwargs, mode, layout, weights)
-    return finish(out)
-
-
-def _moving_start(function_name, target, feat_series, kwargs, mode, layout, weights, defer=False):
-    """``_evaluate_moving`` up to its kernels: (the moving call's output,
-    or with ``defer`` its ``Deferred`` (ops/moving.py), and ``finish(out)``
-    -> the Series)."""
     k, G = len(feat_series), layout.num_groups
     vals, valid, inv_w = _stack(target, feat_series, weights)
     policy = kwargs.null_policy
@@ -539,7 +467,7 @@ def _moving_start(function_name, target, feat_series, kwargs, mode, layout, weig
         mean0 = kwargs.initial_state_mean if mode == "coefficients" else None
         out = recursive_least_squares(
             Zp, vp, rows, kwargs.half_life, kwargs.initial_state_covariance, mean0, want=want,
-            counts=layout.counts, defer=defer,
+            counts=layout.counts, defer=True,
         )
     else:
         window, mp = int(kwargs.window_size), kwargs.min_periods
@@ -553,7 +481,7 @@ def _moving_start(function_name, target, feat_series, kwargs, mode, layout, weig
             )
         out = rolling_ols(
             Zp, vp, rows, window, mp, float(kwargs.alpha or 0.0), positional,
-            want=want, indices=indices, counts=layout.counts, defer=defer,
+            want=want, indices=indices, counts=layout.counts, defer=True,
         )
     R = Zp.shape[1]
     unpad = layout.device_unpad(R) if G > 1 else None
@@ -609,49 +537,26 @@ def evaluate_least_squares(
     (one row per group without ``.over()``, one per row with it). With
     ``multi_target`` a struct target's fields share one SVD fit and the
     predictions come as a struct; a plain target takes the 'svd' fit, as
-    in the JAX engine."""
-    n = len(target)
-    layout = layout_in if layout_in is not None else single_layout(n)
-    if add_intercept:
-        feat_series = list(feat_series) + [_const_series(layout, n)]
-    k = len(feat_series)
+    in the JAX engine. A plain target's fit is a run of one plan of
+    engine/batch.py, the pipeline a select's fits share."""
+    from .batch import plan_fit, run_plans
+
     if isinstance(target, StructSeries):
         if not (multi_target and function_name == "least_squares" and mode == "predictions"):
             raise TypeError(
                 "a struct target is fitted by multi_target_ols, in predictions or residuals mode"
             )
+        layout, feat_series = _fit_layout(len(target), feat_series, layout_in, add_intercept)
         return _evaluate_multi_target(target, feat_series, kwargs, layout, weights)
-    if function_name != "least_squares":
-        return _evaluate_moving(function_name, target, feat_series, kwargs, mode, layout, weights)
-    method = _resolve_method(layout, kwargs, k)
+    plan = plan_fit(target, feat_series, kwargs, mode, layout_in, add_intercept, weights, function_name)
+    return run_plans([plan])[0]
 
-    vals, valid, inv_w = _stack(target, feat_series, weights)
-    policy = kwargs.null_policy
-    alpha = float(kwargs.alpha or 0.0)
-    cd = _cd_params(kwargs, method) if method.startswith("cd") else None
-    names = [s.name for s in feat_series]
-    if mode == "statistics":
-        return _statistics(layout, vals, valid, policy, kwargs, method, cd, names, layout_in)
-    if method == "svd":
-        beta, Xp, block_group, unpad, predict_valid = _fit_svd(
-            layout, vals, valid, policy, alpha, kwargs.rcond
-        )
-        beta = beta[..., 0]
-    else:
-        beta, Xp, block_group, unpad, predict_valid = _fit_moments(
-            layout, vals, valid, policy, alpha, method, cd
-        )
 
-    if mode == "coefficients":
-        rows = beta if layout_in is None else beta.index_select(0, layout.device_gids())
-        return _coef_struct(rows, names)
-    preds = _predictions(
-        beta, Xp, block_group, unpad, layout, n, _row_features(vals, valid, policy, 1),
-        lazy=CONFIG.lazy_row_order and inv_w is None,
-    )
-    if inv_w is not None:
-        preds = preds * inv_w
-    return Series(target.name, preds, predict_valid)
+def _fit_layout(n: int, feat_series: List[Series], layout_in, add_intercept: bool):
+    """A fit's layout (one group where ``layout_in`` is None) and its
+    features, the intercept's constant column last."""
+    layout = layout_in if layout_in is not None else single_layout(n)
+    return layout, list(feat_series) + ([_const_series(layout, n)] if add_intercept else [])
 
 
 def _row_features(vals, valid, policy: str, m: int):

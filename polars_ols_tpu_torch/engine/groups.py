@@ -47,11 +47,7 @@ def clear_caches() -> None:
     partitions (``GroupLayout._dev``, on every device), the layouts cached
     on key columns and the fit stacks cached on target columns
     (engine/fit.py), and the single-group layouts. Frees device memory
-    between unrelated workloads; later queries rebuild what they need. The
-    fused select's schedules (engine/batch.py) go too."""
-    from .batch import clear_programs
-
-    clear_programs()
+    between unrelated workloads; later queries rebuild what they need."""
     for obj in list(_CACHE_OWNERS):
         if isinstance(obj, GroupLayout):
             obj._devs.clear()

@@ -611,12 +611,17 @@ class LeastSquaresExpr(Expr):
             return self.mode
         return self.target.output_name
 
-    def evaluate(self, df, groups=None):
-        from .engine.fit import evaluate_least_squares
-
+    def inputs(self, df, groups=None):
+        """(target, features, weights) evaluated under ``groups``."""
         target = self.target.evaluate(df, groups)
         feat_series = [f.evaluate(df, groups) for f in _expand(self.features, df)]
         weights = None if self.weights is None else self.weights.evaluate(df, groups)
+        return target, feat_series, weights
+
+    def evaluate(self, df, groups=None):
+        from .engine.fit import evaluate_least_squares
+
+        target, feat_series, weights = self.inputs(df, groups)
         return evaluate_least_squares(
             target,
             feat_series,

@@ -136,9 +136,10 @@ class DataFrame:
 
     # ------------------------------------------------------------------ #
     def _evaluate(self, exprs, named) -> list:
-        """The expressions' columns, in order: two or more fit expressions
-        run fused (engine/batch.py: shared moments, batched solves, one
-        host read), anything else is evaluated on its own."""
+        """The expressions' columns, in order: where there are two or
+        more, their fits run together (engine/batch.py: shared moments,
+        batched solves, one host read) and anything else is evaluated on
+        its own in its place."""
         all_exprs: List[Expr] = []
         for e in exprs:
             all_exprs.extend(parse_into_expr(e).expand(self))

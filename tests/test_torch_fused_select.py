@@ -11,13 +11,14 @@ solvers' tolerance, rtol 1e-6 / atol 1e-8, from the row on where a group
 holds 3 K rows (tests/test_torch_moving.py: their diffuse prior needs
 them), the null pattern everywhere.
 
-Further cases: an 8-alpha sweep computes its moments once where the
-eager select computes them 8 times; a fused select reads its flags from
-the device once; a collinear group (failed Cholesky lanes), an
-ill-conditioned group (the CSNE sweeps) and a flagged moving row give the
-eager result; a missing column raises the eager ``KeyError``; the
-schedule cache does not grow on a repeated select, and ``clear_caches()``
-empties it; a repeated select over three partitions gathers nothing.
+Further cases: ``rls`` residuals, with and without ``.over``, beside two
+static fits; an 8-alpha sweep computes its moments once where the eager
+select computes them 8 times; a fused select reads its flags from the
+device once, and so does a fit alone; a collinear group (failed Cholesky
+lanes), an ill-conditioned group (the CSNE sweeps) and a flagged moving
+row give the eager result; a missing column raises the eager
+``KeyError``; the schedule groups plans by partition, solve family and
+K; a repeated select over three partitions gathers nothing.
 """
 
 import numpy as np
@@ -68,10 +69,14 @@ def _data():
     return data
 
 
-@pytest.fixture
+@pytest.fixture(scope="module")
 def frames():
-    data = _data()
-    return pt.DataFrame(data), pj.DataFrame(data)
+    # one pair for the module: the JAX frame's cached stacks and layouts
+    # serve every case
+    with pytest.MonkeyPatch.context() as patched:
+        patched.setattr(CONFIG, "device", "cpu")
+        data = _data()
+        yield pt.DataFrame(data), pj.DataFrame(data)
 
 
 def _port_arrays(c):
@@ -284,13 +289,17 @@ def test_fused_intercept(frames):
 
 
 def test_fused_single_fit_falls_back(frames, monkeypatch):
-    # one fusable expression: the whole select runs eagerly
-    monkeypatch.setattr(batch, "_run", None)  # a fused run would call it
+    # one fit beside a column: the fit is planned once and run as a plan
+    # alone, the run its own evaluation makes
+    plans = []
+    real = batch.plan_fit
+    monkeypatch.setattr(batch, "plan_fit", lambda *a, **k: plans.append(1) or real(*a, **k))
 
     def exprs(m):
         return m.col("g"), m.col("y").least_squares.ols(m.col("x1")).alias("a")
 
     assert _compare(frames, exprs).columns == ["g", "a"]
+    assert len(plans) == 2  # once fused, once eager
 
 
 def test_fused_statistics(frames):
@@ -344,20 +353,40 @@ def test_fused_moving_wls(frames):
     _compare(frames, exprs, moving_k={c: (2, None) for c in ("a", "b")})
 
 
-def test_fused_program_reuse(frames):
-    # the same select twice: the second reuses the cached schedule
+def test_fused_program_reuse(frames, monkeypatch):
+    # the same select twice: the second reuses the cached stacks and
+    # partitions, and gives the same bits
     tdf = frames[0]
 
     def exprs():
         ls, f = pt.col("y").least_squares, _feats(pt)
         return ls.ols(*f).alias("a"), ls.ridge(*f, alpha=0.1).alias("b")
 
-    tdf.select(*exprs())
-    n_before = len(batch._PROGRAMS)
     out1 = tdf.select(*exprs())
-    assert len(batch._PROGRAMS) == n_before
+    monkeypatch.setattr(fit, "layout_gathers", 0)
     out2 = tdf.select(*exprs())
+    assert fit.layout_gathers == 0
     assert np.array_equal(out1.to_numpy(), out2.to_numpy())
+
+
+def test_fused_moving_residuals(frames):
+    # rls residuals, alone and per group, beside two static fits: each is
+    # y minus its own predictions
+    def exprs(m):
+        ls, f = m.col("y").least_squares, _feats(m, 2)
+        return (
+            ls.rls(*f, half_life=20.0, mode="residuals").alias("r"),
+            ls.rls(*f, half_life=20.0, mode="residuals").over("g").alias("rg"),
+            ls.ols(*f).alias("a"),
+            ls.ridge(*f, alpha=0.1).alias("b"),
+        )
+
+    out = _compare(frames, exprs, moving_k={"r": (2, None), "rg": (2, "g")})
+    tdf, ls = frames[0], pt.col("y").least_squares
+    for name, e in (("r", ls.rls(*_feats(pt, 2), half_life=20.0)),
+                    ("rg", ls.rls(*_feats(pt, 2), half_life=20.0).over("g"))):
+        preds = tdf.select(e)["y"].to_numpy()
+        np.testing.assert_array_equal(out[name].to_numpy(), tdf["y"].to_numpy() - preds, err_msg=name)
 
 
 # --------------------------------------------------------------------------- #
@@ -384,7 +413,6 @@ def _counted(monkeypatch):
         return wrapper
 
     monkeypatch.setattr(batch, "grouped_moments", counting(batch.grouped_moments))
-    monkeypatch.setattr(fit, "grouped_moments", counting(fit.grouped_moments))
     return calls
 
 
@@ -402,10 +430,11 @@ def test_fused_select_reads_its_flags_once(frames, monkeypatch):
 
     with monkeypatch.context() as patched:
         patched.setattr(linalg, "_with_fallback", no_read)
-        patched.setattr(fit, "_solve_dispatch", no_read)
         before = batch.flag_reads
         tdf.select(*_sweep())
-    assert batch.flag_reads == before + 1
+        assert batch.flag_reads == before + 1
+        tdf.select(_sweep()[0])  # a fit alone: a run of one plan, one read
+    assert batch.flag_reads == before + 2
     # (the CPU plain versions of the moving models and of coordinate
     # descent read the device themselves; on the card they do not)
     ls, f = pt.col("y").least_squares, _feats(pt)
@@ -414,7 +443,7 @@ def test_fused_select_reads_its_flags_once(frames, monkeypatch):
         ls.ols(*f, mode="statistics"), ls.lasso(*f, alpha=0.01).alias("lasso"),
         ls.rls(*f, half_life=30.0).alias("rls"), ls.rolling_ols(*f, window_size=40).alias("roll"),
     )
-    assert batch.flag_reads == before + 2
+    assert batch.flag_reads == before + 3
 
 
 def _hard_frame():
@@ -468,25 +497,39 @@ def test_flagged_moving_row_gives_the_eager_result():
 
 
 def test_what_fuses(frames):
-    # the JAX planner's rules: every fit family, residuals on fully valid
-    # columns and the moving models' predictions fuse; a column, a
-    # multi-target fit, moving coefficients, residuals over nulls, a
-    # nested .over and the drop_zero policy over nulls do not
+    # every single-target fit is a plan: each family and mode, residuals
+    # (over nulls too), the moving models in every mode, each null policy;
+    # a column, a multi-target fit, a struct target and a nested .over are
+    # evaluated on their own
     tdf = frames[0].with_columns(pt.Series("yn", frames[0]["y"].f64(), np.arange(400) % 7 != 0))
-    ls, f = pt.col("y").least_squares, _feats(pt)
+    ls, lsn, f = pt.col("y").least_squares, pt.col("yn").least_squares, _feats(pt)
     fused = [
         ls.ols(*f), ls.ols(*f, solve_method="qr"), ls.ols(*f, solve_method="lu"), ls.ols(*f, solve_method="svd"),
         ls.lasso(*f, alpha=0.1), ls.ols(*f, mode="residuals").over("g"), ls.ols(*f, mode="coefficients"),
         ls.ols(*f, mode="statistics").over("g"), ls.rls(*f, half_life=20.0), ls.rolling_ols(*f, window_size=30),
-        pt.col("yn").least_squares.ols(*f, null_policy="drop"),
+        lsn.ols(*f, null_policy="drop"), ls.rls(*f, half_life=20.0, mode="coefficients"),
+        ls.rls(*f, half_life=20.0, mode="residuals"), lsn.ols(*f, mode="residuals"),
+        lsn.ols(*f, null_policy="drop_zero"), lsn.ols(*f, solve_method="svd", null_policy="ignore"),
     ]
     eager = [
         pt.col("g"), pt.struct(pt.col("y"), pt.col("y2")).least_squares.multi_target_ols(*f),
-        ls.rls(*f, half_life=20.0, mode="coefficients"), pt.col("yn").least_squares.ols(*f, mode="residuals"),
-        ls.ols(*f).over("g").over("g"), pt.col("yn").least_squares.ols(*f, null_policy="drop_zero"),
+        pt.struct(pt.col("y"), pt.col("y2")).least_squares.ols(*f), ls.ols(*f).over("g").over("g"),
     ]
     assert all(batch._plan_expr(tdf, e) is not None for e in fused)
     assert all(batch._plan_expr(tdf, e) is None for e in eager)
+
+
+def test_what_fuses_gives_the_eager_result(frames):
+    # the plans that the JAX planner leaves to its eager path give, in a
+    # select, what they give alone
+    tdf = frames[0].with_columns(pt.Series("yn", frames[0]["y"].f64(), np.arange(400) % 7 != 0))
+    _fused_and_eager(tdf, lambda: [
+        pt.col("y").least_squares.rls(*_feats(pt), half_life=20.0, mode="coefficients").alias("c"),
+        pt.col("yn").least_squares.ols(*_feats(pt), mode="residuals").alias("r"),
+        pt.col("yn").least_squares.ols(*_feats(pt), null_policy="drop_zero").alias("z"),
+        pt.col("yn").least_squares.ols(*_feats(pt), solve_method="svd", null_policy="ignore").alias("s"),
+        pt.col("y").least_squares.ols(*_feats(pt)).alias("o"),
+    ])
 
 
 def test_missing_column_raises_as_eager(frames):
@@ -507,16 +550,22 @@ def test_missing_column_raises_as_eager(frames):
     assert str(fused.value) == str(eager.value)
 
 
-def test_schedules_do_not_grow_and_clear_caches_empties_them(frames):
-    tdf = frames[0]
-    tdf.select(*_sweep())
-    n = len(batch._PROGRAMS)
-    assert n >= 1
-    for _ in range(3):
-        tdf.select(*_sweep())
-    assert len(batch._PROGRAMS) == n
-    pt.clear_caches()
-    assert len(batch._PROGRAMS) == 0
+def test_schedule_shares_work_by_partition(frames):
+    # one moment launch, one Cholesky batch, one reduction and one
+    # prediction pass for the plans on y's partition; y2's its own; LU,
+    # coefficients, statistics and the moving model as their kinds need
+    tdf, ls, f = frames[0], pt.col("y").least_squares, _feats(pt)
+    exprs = [
+        ls.ols(*f), ls.ridge(*f, alpha=0.1), pt.col("y2").least_squares.ols(*f), ls.ols(*f, solve_method="lu"),
+        ls.ols(*f, solve_method="svd"), ls.ridge(*f, alpha=0.1, solve_method="svd"), ls.lasso(*f, alpha=0.1),
+        ls.ols(*f, mode="coefficients"), ls.ols(*f, mode="statistics"), ls.rls(*f, half_life=20.0),
+    ]
+    program = batch._schedule([batch._plan_expr(tdf, e) for e in exprs])
+    assert program.moments == ((0, 1, 3, 6, 7, 8), (2,))
+    assert program.solves == (("chol", (0, 1, 7, 8)), ("chol", (2,)), ("lu", (3,)))
+    assert program.reductions == ((4, 5),)
+    assert program.passes == ((0, 1, 3, 4, 5, 6), (2,))
+    assert program.moving == (9,)
 
 
 def test_repeated_select_over_three_partitions_gathers_nothing(monkeypatch):
