@@ -97,7 +97,19 @@ sweep over a collinear and an ill-conditioned group, "large"'s seven
 queries) fused and eagerly: every column equal within 1e-12, sampled
 groups against numpy, one flag read a select, one moment launch for the
 sweep's eight, and each select's wall, device busy, launches and host
-syncs fused beside eager. The line before the last is a JSON object with the
+syncs fused beside eager. Then the sharded phase (``_sharded_phase``)
+sets ``CONFIG.virtual_devices = 4`` and ``CONFIG.auto_shard`` on: every
+family of tests/test_autoshard.py at the main frame (ols, lu, 'drop'
+nulls, ridge, wls, lasso, elastic net, rls, rolling, expanding),
+statistics (also by coordinate descent), coefficients, 'svd' and
+multi-target run over four virtual shards of the card, each held to the
+same query on one device (rtol 1e-8 / atol 1e-10, p-values 1e-6) and
+timed and profiled both ways; three cases at the JAX tests' shapes (a
+heavy group spanning every shard, the all-to-all shuffle bit for bit, a
+near-collinear frame through the CSNE sweeps); over the real cards too
+where the host has several. Then ``utils.trace`` of the main query in a
+fresh process (``--trace-main``) says whether the port's kernels are in
+its Chrome trace. The line before the last is a JSON object with the
 kernels' names, sources, launch counts on their paths, errors, times and
 bounds; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -1080,12 +1092,12 @@ def _picked(s, sel):
     return vals
 
 
-def _timed_median(fn, torch) -> float:
-    """Median host seconds of TIMING_REPS calls after one warm call."""
+def _timed_median(fn, torch, reps=TIMING_REPS) -> float:
+    """Median host seconds of ``reps`` calls after one warm call."""
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(TIMING_REPS):
+    for _ in range(reps):
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -2329,6 +2341,302 @@ def _fused_phase(pt, torch, smi, df, arrays, checked, mods):
     del df_flag, large_df
     return fused_launches
 
+
+SHARDED_SHARDS = 4  # virtual shards of the one card (CONFIG.virtual_devices)
+SHARDED_TOL = dict(rtol=1e-8, atol=1e-10)  # sharded against one device (tests/test_autoshard.py)
+SHARDED_P_TOL = dict(rtol=1e-6, atol=1e-12)
+SHARDED_REPS = 3  # timed queries each way, after the first
+SHARDED_PROFILE_QUERIES = 1
+SHARDED_COLLINEAR_NOISE = 1e-5  # the near-collinear case (cond(X'X) past 1e6: the CSNE sweeps)
+# the port's kernels of the main query (csrc/moments.cu), which a Chrome
+# trace names "void (anonymous namespace)::block_moments<...>(...)" and
+# "(anonymous namespace)::group_sums(...)"
+PORT_TRACE_KERNELS = ("block_moments", "group_sums")
+
+
+def sharded_queries(pt, k, key="group"):
+    """{label: (expression, output column)} of the sharded phase on a frame
+    with y, y2, w, x1..xk, the nulled yn, x1n..xkn and the key column: the
+    families of tests/test_autoshard.py at the smoke's parameters,
+    statistics (also by coordinate descent), coefficients, 'svd' and
+    multi-target."""
+    col = pt.col
+    xv = [col(f"x{i + 1}") for i in range(k)]
+    xn = [col(f"x{i + 1}n") for i in range(k)]
+    ls = col("y").least_squares
+    return {
+        "ols": (ls.ols(*xv).over(key), "y"),
+        "ols_lu": (ls.ols(*xv, solve_method="lu").over(key), "y"),
+        "ols_nulls_drop": (col("yn").least_squares.ols(*xn, null_policy="drop").over(key), "yn"),
+        "ridge": (ls.ridge(*xv, alpha=RIDGE_ALPHA).over(key), "y"),
+        "wls": (ls.wls(*xv, sample_weights="w").over(key), "y"),
+        "lasso": (ls.lasso(*xv, alpha=LASSO_ALPHA).over(key), "y"),
+        "elastic_net": (ls.elastic_net(*xv, alpha=ENET_ALPHA, l1_ratio=0.5).over(key), "y"),
+        "rls": (ls.rls(*xv, half_life=HALF_LIFE).over(key), "y"),
+        "rolling": (ls.rolling_ols(*xv, window_size=WINDOW).over(key), "y"),
+        "expanding": (ls.expanding_ols(*xv).over(key), "y"),
+        "coefficients": (ls.ols(*xv, mode="coefficients").over(key), "coefficients"),
+        "statistics": (ls.ols(*xv, mode="statistics").over(key), "statistics"),
+        "lasso/statistics": (ls.lasso(*xv, alpha=LASSO_ALPHA, mode="statistics").over(key), "statistics"),
+        "svd": (ls.ols(*xv, solve_method="svd").over(key), "y"),
+        "multi_target": (
+            pt.struct(col("y"), col("y2")).least_squares.multi_target_ols(*xv).over(key).alias("p"), "p"
+        ),
+    }
+
+
+def _sharded_close(label, out, ref, settled, torch):
+    """``out`` (sharded) against ``ref`` (one device), field by field on the
+    card: the same nulls, values within SHARDED_TOL (p-values
+    SHARDED_P_TOL); a moving model's values and NaN pattern from the row on
+    where its group holds K + 3 rows (``settled``: a window with fewer rows
+    than features is singular, and round-off picks its branch). Returns
+    the largest |out - ref| compared."""
+    a, b = fused_fields(out), fused_fields(ref)
+    if a.keys() != b.keys():
+        raise AssertionError(f"sharded {label}: fields {list(a)} != {list(b)}")
+    moving = label in ("rls", "rolling", "expanding")
+    worst = 0.0
+    for key in a:
+        (av, am), (bv, bm) = a[key], b[key]
+        if av.shape != bv.shape:
+            raise AssertionError(f"sharded {label} {key}: shape {tuple(av.shape)} != {tuple(bv.shape)}")
+        if moving:
+            am, bm = am & settled, bm & settled
+        if not torch.equal(am, bm):
+            raise AssertionError(f"sharded {label} {key}: nulls differ from one device")
+        tol = SHARDED_P_TOL if key == "p_values" else SHARDED_TOL
+        d = (av[am] - bv[am]).abs()
+        if d.numel():
+            bad = d > tol["atol"] + tol["rtol"] * bv[am].abs()
+            if bool(bad.any()):
+                raise AssertionError(
+                    f"sharded {label} {key}: {int(bad.sum())} values past {tol} of one device "
+                    f"(largest difference {float(d.max())!r})"
+                )
+            worst = max(worst, float(d.max()))
+    return worst
+
+
+def _sharded_cases(pt, torch, sharded_mod):
+    """The three cases of the JAX tests at their shapes, on SHARDED_SHARDS
+    virtual shards of the card: one heavy group spanning every shard
+    (tests/test_parallel.py:58-76) against numpy lstsq and one shard; the
+    all-to-all shuffle (:218-250) against the host-built layout bit for
+    bit; a near-collinear frame (tests/test_autoshard.py:154, noise
+    SHARDED_COLLINEAR_NOISE) through the public API, which must take the
+    CSNE sweeps and match numpy lstsq and the one-device result."""
+    from polars_ols_tpu_torch import CONFIG
+    from polars_ols_tpu_torch.parallel import fit_moments_sharded, make_mesh, shuffle_rows_to_groups
+
+    dev = torch.device("cuda")
+    out = {}
+    rng = np.random.default_rng(1)
+    n, k = 8_192, 4
+    X = rng.normal(size=(n, k))
+    gids = np.zeros(n, dtype=np.int64)
+    gids[: n // 64] = np.arange(n // 64) % 7 + 1  # 7 tiny groups and 1 heavy one
+    y = X.sum(1) + rng.normal(size=n) * 0.1
+    args = [torch.as_tensor(a, device=dev) for a in (X, y, np.ones(n, dtype=bool), gids)]
+    beta = fit_moments_sharded(make_mesh(SHARDED_SHARDS), *args, num_groups=8)[0].cpu().numpy()
+    one = fit_moments_sharded(make_mesh(1), *args, num_groups=8)[0].cpu().numpy()
+    for gi in range(8):
+        m = gids == gi
+        np.testing.assert_allclose(beta[gi], _lstsq(X[m], y[m]), rtol=1e-8, atol=1e-8, err_msg=f"heavy {gi}")
+    np.testing.assert_allclose(beta, one, err_msg="heavy group: sharded against one shard", **SHARDED_TOL)
+    out["heavy_group"] = float(np.abs(beta - one).max())
+
+    rng = np.random.default_rng(7)
+    N, K, G = 501, 3, 13
+    X, y = rng.normal(size=(N, K)), rng.normal(size=N)
+    w, gids = rng.random(N) > 0.1, rng.integers(G, size=N)
+    Xg, yg, vg, _ = shuffle_rows_to_groups(
+        make_mesh(SHARDED_SHARDS), *[torch.as_tensor(a, device=dev) for a in (X, y, w, gids)], num_groups=G
+    )
+    Xg, yg, vg = Xg.cpu().numpy(), yg.cpu().numpy(), vg.cpu().numpy()
+    for gi in range(G):
+        rows = np.flatnonzero(gids == gi)
+        np.testing.assert_array_equal(Xg[gi, : len(rows)], X[rows])
+        np.testing.assert_array_equal(yg[gi, : len(rows)], y[rows])
+        np.testing.assert_array_equal(vg[gi, : len(rows)], w[rows])
+        if vg[gi, len(rows):].any() or Xg[gi, len(rows):].any() or yg[gi, len(rows):].any():
+            raise AssertionError(f"shuffle: group {gi} has padding slots that are valid or not zero")
+    if vg[G:].any() or Xg[G:].any() or yg[G:].any():
+        raise AssertionError("shuffle: the padding groups are not invalid and zero")
+    out["shuffle"] = "bit for bit"
+
+    rng = np.random.default_rng(32)
+    n = 5_000
+    x1 = rng.normal(size=n)
+    x2 = x1 + SHARDED_COLLINEAR_NOISE * rng.normal(size=n)
+    y = 1.5 * x1 - 0.5 * x2 + rng.normal(size=n) * 0.1
+    g = rng.integers(20, size=n).astype(float)
+    df = pt.DataFrame({"y": y, "x1": x1, "x2": x2, "g": g})
+    e = pt.col("y").least_squares.ols("x1", "x2").over("g")
+    runs = sharded_mod.csne_runs
+    CONFIG.auto_shard = True
+    got = df.select(e)["y"].to_numpy()
+    CONFIG.auto_shard = False
+    if sharded_mod.csne_runs != runs + 1:
+        raise AssertionError("near-collinear: the sharded fit did not take the CSNE sweeps")
+    single = df.select(e)["y"].to_numpy()
+    x = np.stack([x1, x2], axis=1)
+    for gid in range(20):
+        m = g == gid
+        np.testing.assert_allclose(got[m], x[m] @ _lstsq(x[m], y[m]), rtol=1e-5, atol=2e-6)
+    np.testing.assert_allclose(got, single, err_msg="near-collinear", **SHARDED_TOL)
+    out["near_collinear"] = float(np.abs(got - single).max())
+    return out
+
+
+def _sharded_phase(pt, torch, smi, df, g, mods):
+    """The sharded engine (parallel/sharded.py) over SHARDED_SHARDS virtual
+    shards of the card (``CONFIG.virtual_devices``, ``CONFIG.auto_shard``
+    on; both restored after): every query of ``sharded_queries`` at the
+    main frame through the public API, held to the same query on one
+    device (``_sharded_close``), each timed both ways (wall median of
+    SHARDED_REPS after the first) and profiled (device busy ms, launches,
+    host syncs a query); then ``_sharded_cases``; and, where the host has
+    more than one card, the queries again over the real cards. Returns the
+    kernels' launches of the sharded queries' first pass."""
+    from polars_ols_tpu_torch import CONFIG
+    from polars_ols_tpu_torch.parallel import sharded as sharded_mod
+
+    moments, special, cd, householder, jacobi, moving = mods
+    counters = {
+        "grouped_moments": (moments, "moments_kernel_launches"),
+        "t_pvalue": (special, "t_pvalue_kernel_launches"),
+        "cd_cov": (cd, "cd_kernel_launches"),
+        "householder": (householder, "householder_kernel_launches"),
+        "jacobi_svd": (jacobi, "jacobi_kernel_launches"),
+        "moving": (moving, "moving_kernel_launches"),
+    }
+    t_phase = time.perf_counter()
+    queries = sharded_queries(pt, N_FEATURES)
+    gi = g.astype(np.int64)
+    rank = np.zeros(len(gi), dtype=np.int64)
+    order = np.argsort(gi, kind="stable")
+    starts = np.searchsorted(gi[order], np.arange(N_GROUPS))
+    rank[order] = np.arange(len(gi)) - np.repeat(starts, np.bincount(gi, minlength=N_GROUPS))
+    settled = torch.as_tensor(rank >= N_FEATURES + SETTLED_EXTRA, device="cuda")
+    saved = (CONFIG.virtual_devices, CONFIG._auto_shard, CONFIG.lazy_row_order)
+    CONFIG.lazy_row_order = False
+    try:
+        CONFIG.virtual_devices, CONFIG.auto_shard = SHARDED_SHARDS, False
+        ref = {}
+        for label, (q, column) in queries.items():
+            ref[label] = df.select(q)[column]
+        CONFIG.auto_shard = True
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        calls0 = dict(sharded_mod.calls)
+        out, first_s = {}, {}
+        for label, (q, column) in queries.items():
+            t0 = time.perf_counter()
+            out[label] = df.select(q)[column]
+            torch.cuda.synchronize()
+            first_s[label] = time.perf_counter() - t0
+        launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+        calls = {k: sharded_mod.calls[k] - calls0[k] for k in calls0}
+        if calls["fit_moments"] != 8 or calls["statistics_moments"] != 2 or calls["groups"] != 5:
+            raise AssertionError(f"sharded queries: entry point calls {calls}")
+        if any(v == 0 for v in launches.values()):
+            raise AssertionError(f"sharded queries: kernel launches {launches}")
+        report = {}
+        for label in queries:
+            report[label] = {
+                "max_abs_diff_one_device": _sharded_close(label, out[label], ref[label], settled, torch),
+                "first_s": first_s[label],
+            }
+        del out, ref
+        for label, (q, column) in queries.items():
+            row = report[label]
+            for key, shard in (("", True), ("one_device_", False)):
+                CONFIG.auto_shard = shard
+
+                def fn(q=q):
+                    return df.select(q)
+
+                row[f"{key}wall_ms"] = _timed_median(fn, torch, SHARDED_REPS) * 1e3
+                prof = _profile(fn, torch, queries=SHARDED_PROFILE_QUERIES)
+                if prof is None:
+                    row[f"{key}profile"] = "not measured"
+                    continue
+                row.update({f"{key}busy_ms": prof["busy_ms"], f"{key}launches": prof["launches"],
+                            f"{key}host_syncs": prof["host_syncs"]})
+            print(f"sharded {label}: " + json.dumps(row) + f" ({smi})")
+        CONFIG.auto_shard = False
+        cases = _sharded_cases(pt, torch, sharded_mod)
+        real = "one card: not run"
+        if torch.cuda.device_count() > 1:
+            CONFIG.virtual_devices = 0
+            worst = {}
+            for label, (q, column) in queries.items():
+                CONFIG.auto_shard = False
+                r = df.select(q)[column]
+                CONFIG.auto_shard = True
+                worst[label] = _sharded_close(label, df.select(q)[column], r, settled, torch)
+            real = json.dumps(worst)
+    finally:
+        CONFIG.virtual_devices, CONFIG._auto_shard, CONFIG.lazy_row_order = saved
+    print(
+        f"sharded: {len(queries)} queries ({', '.join(queries)}) at {N_ROWS} rows x {N_FEATURES} features x "
+        f"{N_GROUPS} groups over {SHARDED_SHARDS} virtual shards of the card, each within {SHARDED_TOL} of one "
+        f"device (p-values {SHARDED_P_TOL}; the moving models from the row on where a group holds K + "
+        f"{SETTLED_EXTRA}); entry point calls {json.dumps(calls)}; kernel launches of the first pass "
+        f"{json.dumps(launches)}; cases {json.dumps(cases)}; over the host's real cards: {real}; "
+        f"phase {time.perf_counter() - t_phase:.1f} s ({smi})"
+    )
+    return launches
+
+
+def _trace_fresh(torch, smi):
+    """One ``utils.trace`` of the main query in a fresh process (this script
+    with ``--trace-main``): whether the port's kernels (csrc/moments.cu's
+    ``block_moments`` and ``group_sums``) are in the Chrome trace."""
+    trace_dir = Path(__file__).resolve().parent / "chiprun_out" / "fresh_trace"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--trace-main", str(trace_dir)],
+        capture_output=True, text=True, timeout=600,
+    )
+    if proc.returncode != 0:
+        raise AssertionError(f"the fresh trace process failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(
+        f"trace (fresh process): {trace_dir / 'trace.json'} holds {got['kernel_events']} CUDA kernel events; "
+        f"the port's kernels in it: {got['port_kernels'] or 'none'}; csrc kernels present: "
+        f"{bool(got['port_kernels'])}; {time.perf_counter() - t0:.1f} s ({smi})"
+    )
+    return got
+
+
+def trace_main(out_dir: str) -> int:
+    """``--trace-main``: the main query once warm, then once inside
+    ``utils.trace(out_dir)``; prints the trace's kernel events and the
+    port's kernels among them as the last line (JSON)."""
+    import torch
+
+    import polars_ols_tpu_torch as pt
+    from polars_ols_tpu_torch import CONFIG, col
+    from polars_ols_tpu_torch.utils import trace
+
+    CONFIG.device = "cuda"
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(N_ROWS, N_FEATURES))
+    y = x.sum(axis=1) + rng.normal(size=N_ROWS) * 0.1
+    g = rng.integers(N_GROUPS, size=N_ROWS).astype(float)
+    df = pt.DataFrame({"y": y, **{f"x{i + 1}": x[:, i] for i in range(N_FEATURES)}, "group": g})
+    expr = col("y").least_squares.ols(*[col(f"x{i + 1}") for i in range(N_FEATURES)]).over("group")
+    df.select(expr)
+    torch.cuda.synchronize()
+    with trace(out_dir):
+        df.select(expr)
+    events = json.loads((Path(out_dir) / "trace.json").read_text())["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    own = sorted({name for name in PORT_TRACE_KERNELS if any(name in k for k in kernels)})
+    print(json.dumps({"kernel_events": len(kernels), "port_kernels": own}))
+    return 0
 
 LARGE_SHAPE = (10_000, 100, None)
 LARGEK_SHAPE = (500_000, 40, 1_000)
@@ -3842,6 +4150,12 @@ def main() -> int:
         (moments, special, cd, householder, jacobi, moving),
     )
 
+    # 9d. the sharded engine over virtual shards of the card, every family
+    # held to one device; then utils.trace of the main query in a fresh
+    # process
+    sharded_launches = _sharded_phase(pt, torch, smi, df, g, (moments, special, cd, householder, jacobi, moving))
+    _trace_fresh(torch, smi)
+
     # 10. the reference suite's wide configurations at full size, through
     # the public API, then the wide forms against their plain versions
     mods = (moments, householder, jacobi, moving, recursive, cd)
@@ -3880,11 +4194,12 @@ def main() -> int:
             "source": "polars_ols_tpu_torch/csrc/moments.cu",
             "replaces": "polars_ols_tpu/ops/pallas_moments.py:78",
             "launches": launches + static_launches + stat_launches["grouped_moments"]
-            + frame_launches["grouped_moments"] + fused_launches["grouped_moments"],
+            + frame_launches["grouped_moments"] + fused_launches["grouped_moments"]
+            + sharded_launches["grouped_moments"],
             "launches_by_path": {
                 "main": launches, "static": static_launches,
                 "statistics_cd": stat_launches["grouped_moments"], "frame": frame_launches["grouped_moments"],
-                "fused": fused_launches["grouped_moments"],
+                "fused": fused_launches["grouped_moments"], "sharded": sharded_launches["grouped_moments"],
             },
             "max_abs_err": main_err,
             **main_times,
@@ -3910,8 +4225,9 @@ def main() -> int:
             "source": "polars_ols_tpu_torch/csrc/cd.cu",
             "replaces": "polars_ols_tpu/ops/cd.py:99",
             "replaces_kind": "XLA while loop, not Pallas",
-            "launches": stat_launches["cd_cov"] + fused_launches["cd_cov"],
-            "launches_by_path": {"statistics_cd": stat_launches["cd_cov"], "fused": fused_launches["cd_cov"]},
+            "launches": stat_launches["cd_cov"] + fused_launches["cd_cov"] + sharded_launches["cd_cov"],
+            "launches_by_path": {"statistics_cd": stat_launches["cd_cov"], "fused": fused_launches["cd_cov"],
+                                 "sharded": sharded_launches["cd_cov"]},
             "max_abs_err": cd_err,
             **cd_times,
             **cd_bound,
@@ -3923,9 +4239,10 @@ def main() -> int:
             "source": "polars_ols_tpu_torch/csrc/t_pvalue.cu",
             "replaces": "polars_ols_tpu/ops/linalg.py:659",
             "replaces_kind": "XLA betainc, not Pallas",
-            "launches": stat_launches["t_pvalue"] + frame_launches["t_pvalue"] + fused_launches["t_pvalue"],
+            "launches": stat_launches["t_pvalue"] + frame_launches["t_pvalue"] + fused_launches["t_pvalue"]
+            + sharded_launches["t_pvalue"],
             "launches_by_path": {"statistics": stat_launches["t_pvalue"], "frame": frame_launches["t_pvalue"],
-                                 "fused": fused_launches["t_pvalue"]},
+                                 "fused": fused_launches["t_pvalue"], "sharded": sharded_launches["t_pvalue"]},
             "max_abs_err": p_err,
             **p_times,
             **p_bound,
@@ -3938,8 +4255,9 @@ def main() -> int:
             "replaces": "polars_ols_tpu/ops/moving.py:553",
             "replaces_kind": "XLA scans (lax.associative_scan, lax.scan) and batched solves of "
                              "ops/recursive.py:40, ops/rolling.py:41 and ops/moving.py:553,601, not Pallas",
-            "launches": moving_launches + fused_launches["moving"],
-            "launches_by_path": {"moving": moving_launches, "fused": fused_launches["moving"]},
+            "launches": moving_launches + fused_launches["moving"] + sharded_launches["moving"],
+            "launches_by_path": {"moving": moving_launches, "fused": fused_launches["moving"],
+                                 "sharded": sharded_launches["moving"]},
             "max_abs_err": mv_err["rls"],
             **mv_times["rls"],
             **mv_bound["rls"],
@@ -3982,9 +4300,10 @@ def main() -> int:
             "replaces": "polars_ols_tpu/ops/linalg.py:382",
             "replaces_kind": "XLA, not Pallas: _householder_reduce (:382) and its lane-major form "
                              "householder_lanes (:435) under the shared SVD",
-            "launches": mt_launches + svd_launches + fused_launches["householder"],
+            "launches": mt_launches + svd_launches + fused_launches["householder"] + sharded_launches["householder"],
             "launches_by_path": {
                 "multi_target": mt_launches, "svd": svd_launches, "fused": fused_launches["householder"],
+                "sharded": sharded_launches["householder"],
                 "edges (kernel checks, not a path)": hh_edges,
             },
             **hh["multi_target"],
@@ -4001,10 +4320,11 @@ def main() -> int:
             "replaces": "polars_ols_tpu/ops/linalg.py:463",
             "replaces_kind": "XLA, not Pallas: jacobi_svd_lanes (:463) with the shrink of svd_lstsq_lanes "
                              "(:499); in the port it takes the place of cuSOLVER's batched SVD",
-            "launches": mt_jacobi + svd_jacobi + stat_launches["jacobi_svd"] + fused_launches["jacobi_svd"],
+            "launches": mt_jacobi + svd_jacobi + stat_launches["jacobi_svd"] + fused_launches["jacobi_svd"]
+            + sharded_launches["jacobi_svd"],
             "launches_by_path": {
                 "multi_target": mt_jacobi, "svd": svd_jacobi, "statistics": stat_launches["jacobi_svd"],
-                "fused": fused_launches["jacobi_svd"],
+                "fused": fused_launches["jacobi_svd"], "sharded": sharded_launches["jacobi_svd"],
                 "edges (kernel checks and their timing, not a path)": jc_edges,
             },
             **jc["multi_target"],
@@ -4106,4 +4426,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--trace-main"]:
+        sys.exit(trace_main(sys.argv[2]))
     sys.exit(main())

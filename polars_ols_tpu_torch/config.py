@@ -38,6 +38,17 @@ class Config:
             expressions run together (engine/batch.py: shared moments,
             batched solves, one host read); off, each expression is
             evaluated on its own.
+        virtual_devices: n > 0 makes the mesh (parallel/sharded.py) n
+            shards, each on the one ``device()``; 0 (the default) gives it
+            one shard a device: every visible CUDA device where ``device``
+            is CUDA, the one CPU otherwise. This is the counterpart of the
+            XLA host-platform device count the JAX package's tests set
+            (``--xla_force_host_platform_device_count=8``), not a mode of
+            its own. ``POLS_TORCH_VIRTUAL_DEVICES``.
+        auto_shard: grouped fits run through the sharded engine
+            (parallel/sharded.py) when the mesh has more than one shard. On
+            by default only when more than one CUDA device is visible and
+            ``device`` is CUDA; off on the CPU. ``POLS_TORCH_AUTO_SHARD``.
     """
 
     def __init__(self) -> None:
@@ -45,6 +56,23 @@ class Config:
         self.moment_chunk_rows = int(os.environ.get("POLS_TORCH_CHUNK_ROWS", 512))
         self.lazy_row_order = bool(int(os.environ.get("POLS_TORCH_LAZY", "1")))
         self.fused_select = bool(int(os.environ.get("POLS_TORCH_FUSED_SELECT", "1")))
+        self.virtual_devices = int(os.environ.get("POLS_TORCH_VIRTUAL_DEVICES", "0"))
+        env = os.environ.get("POLS_TORCH_AUTO_SHARD")
+        self._auto_shard = None if env is None else bool(int(env))
+
+    @property
+    def auto_shard(self) -> bool:
+        if self._auto_shard is None:
+            return (
+                torch.device(self.device).type == "cuda"
+                and torch.cuda.is_available()
+                and torch.cuda.device_count() > 1
+            )
+        return self._auto_shard
+
+    @auto_shard.setter
+    def auto_shard(self, value) -> None:
+        self._auto_shard = None if value is None else bool(value)
 
 
 CONFIG = Config()

@@ -11,8 +11,10 @@ one plan; a select runs every fit expression it holds as one run
 1. Planning (``plan_fit``): the cached stacks, partitions and layouts of
    engine/fit.py and the solve method. In a select, an expression that is
    not a single-target fit (a column, a multi-target fit, a nested
-   ``.over``) is evaluated on its own in its place. Planning catches
-   nothing: an error raises where the inputs are evaluated.
+   ``.over``) is evaluated on its own in its place, and so is a grouped
+   fit under ``CONFIG.auto_shard`` (engine/fit.py routes it through the
+   sharded engine). Planning catches nothing: an error raises where the
+   inputs are evaluated.
 2. On the device, with no host read between the stages: the moments once
    for each distinct partition (``grouped_moments``, csrc/moments.cu),
    keyed on tensor identity; the Cholesky solves of plans that share
@@ -226,6 +228,8 @@ def _plan_expr(df, expr) -> Optional[_Plan]:
     if not isinstance(core, LeastSquaresExpr) or core.multi_target:
         return None
     layout_in = None if keys is None else layout_for_columns([df.get_column(k) for k in keys])
+    if layout_in is not None and layout_in.num_groups > 1 and fit.shard_mesh() is not None:
+        return None  # evaluated on its own, through the sharded engine
     resid = None if resid is None else resid.evaluate(df, layout_in)
     target, feats, weights = core.inputs(df, layout_in)
     if not isinstance(target, Series):

@@ -48,12 +48,24 @@ kernel's wide form, the Cholesky the library's batched factorization
 (ops/linalg.py: ``chol_factor``), the reduction and the SVD the
 Householder and Jacobi kernels' wide forms, coordinate descent the wide
 kernels of ops/cd.py. Nothing falls back silently.
+
+With ``CONFIG.auto_shard`` on and a mesh of more than one shard
+(parallel/sharded.py), grouped fits run sharded (``_evaluate_sharded``):
+the static fits of several groups through ``fit_moments_sharded`` or
+``statistics_moments_sharded`` (every null policy, WLS, CD, ``lu``,
+``qr``), and where there are at least as many groups as shards the
+whole-group solves (``svd``, multi-target, the moving models) through
+``solve_groups_sharded``. Otherwise, with a log line, a fit stays on one
+device; with ``auto_shard`` off nothing here changes.
 """
 
 from __future__ import annotations
 
+import logging
 from contextlib import contextmanager
 from typing import List
+
+import numpy as np
 
 import torch
 
@@ -68,6 +80,8 @@ from ..ops.rolling import default_min_periods, rolling_indices
 from ..ops.statistics import feature_metrics, residual_metrics
 from ..series import BlockPermuted, Series, StatisticsSeries, StructSeries
 from .groups import bucket_size, register_cache_owner, single_layout
+
+logger = logging.getLogger(__name__)
 
 # cond(XtX) beyond which one f64 Cholesky solve of the squared system loses
 # lstsq-grade accuracy; flagged batches take the CSNE refinement branch
@@ -546,6 +560,16 @@ def evaluate_least_squares(
             raise TypeError(
                 "a struct target is fitted by multi_target_ols, in predictions or residuals mode"
             )
+    mesh = shard_mesh()
+    if mesh is not None and (layout_in is None or layout_in.num_groups <= 1):
+        logger.info("auto_shard: a single group stays on one device")
+    elif mesh is not None:
+        out = _evaluate_sharded(
+            mesh, target, feat_series, kwargs, mode, layout_in, add_intercept, weights, function_name
+        )
+        if out is not None:
+            return out
+    if isinstance(target, StructSeries):
         layout, feat_series = _fit_layout(len(target), feat_series, layout_in, add_intercept)
         return _evaluate_multi_target(target, feat_series, kwargs, layout, weights)
     plan = plan_fit(target, feat_series, kwargs, mode, layout_in, add_intercept, weights, function_name)
@@ -613,6 +637,180 @@ def _evaluate_multi_target(target: StructSeries, feat_series, kwargs, layout, we
         preds = preds * inv_w[:, None]
     validity = None if predict_valid is None else predict_valid[:, None].expand(n, m).contiguous()
     return StructSeries("predictions", target.field_names, preds, validity)
+
+
+# --------------------------------------------------------------------------- #
+# sharded routing (CONFIG.auto_shard)
+# --------------------------------------------------------------------------- #
+def shard_mesh():
+    """The mesh grouped fits are sharded over: ``make_mesh()`` where
+    ``CONFIG.auto_shard`` is on and it has more than one shard, else None."""
+    if not CONFIG.auto_shard:
+        return None
+    from ..parallel import make_mesh
+
+    mesh = make_mesh()
+    return mesh if mesh.size > 1 else None
+
+
+def _evaluate_sharded(mesh, target, feat_series, kwargs, mode, layout_in, add_intercept, weights, function_name):
+    """A grouped fit (``layout_in`` of G > 1 groups) on the mesh, or None
+    where it stays on one device: a whole-group solve (``svd``,
+    multi-target, a moving model) with fewer groups than shards, and
+    ``svd`` statistics (their moments are one device's)."""
+    n = len(target)
+    layout, feats = _fit_layout(n, feat_series, layout_in, add_intercept)
+    G, n_shards = layout.num_groups, mesh.size
+    if isinstance(target, StructSeries) or function_name != "least_squares":
+        if G < n_shards:
+            logger.info("auto_shard: %d groups < %d shards; the whole-group solve stays on one device", G, n_shards)
+            return None
+        if isinstance(target, StructSeries):
+            return _sharded_svd(mesh, target, feats, kwargs, "predictions", layout, weights)
+        return _sharded_moving(mesh, function_name, target, feats, kwargs, mode, layout, weights)
+    method = _resolve_method(layout, kwargs, len(feats))
+    if method == "svd":
+        if G < n_shards or mode == "statistics":
+            logger.info("auto_shard: svd %s on %d groups stays on one device", mode, G)
+            return None
+        return _sharded_svd(mesh, target, feats, kwargs, mode, layout, weights)
+    return _sharded_static(mesh, target, feats, kwargs, mode, layout, method, weights)
+
+
+def _sharded_static(mesh, target, feats, kwargs, mode, layout, method, weights):
+    """A static fit of several groups through ``fit_moments_sharded`` /
+    ``statistics_moments_sharded`` (the JAX engine's ``_sharded_static``):
+    the policy's fit rows and features, the layout's host group ids."""
+    from ..parallel import fit_moments_sharded, statistics_moments_sharded
+
+    vals, valid, inv_w = _stack(target, feats, weights)
+    n, G = vals.shape[0], layout.num_groups
+    if valid is None:
+        X_fit, y_fit, X_pred, predict_valid = vals[:, 1:], vals[:, 0], None, None
+        wmask = torch.ones(n, dtype=torch.bool, device=vals.device)
+    else:
+        p = prepare_problem(kwargs.null_policy, vals[:, 0], valid[:, 0], vals[:, 1:], valid[:, 1:])
+        X_fit, y_fit, wmask, X_pred, predict_valid = p.X, p.y, p.fit_mask, p.X_predict, p.predict_valid
+    alpha = float(kwargs.alpha or 0.0)
+    cd = _cd_params(kwargs, method) if method.startswith("cd") else None
+    cd_params = None if cd is None else (
+        cd["l1_ratio"], cd["max_iter"], cd["tol"], cd["positive"], cd["active_set"]
+    )
+    names = [s.name for s in feats]
+    if mode == "statistics":
+        out = statistics_moments_sharded(
+            mesh, X_fit, y_fit, wmask, layout.gids, G, alpha=alpha, cd_params=cd_params
+        )
+        return StatisticsSeries("statistics", names, out).gather(layout.device_gids())
+    beta, preds = fit_moments_sharded(
+        mesh, X_fit, y_fit, wmask, layout.gids, G, alpha=alpha, cd_params=cd_params, X_pred=X_pred,
+        force_refine=method == "qr", lu=method == "lu",
+    )
+    if mode == "coefficients":
+        return _coef_struct(beta.index_select(0, layout.device_gids()), names)
+    if inv_w is not None:
+        preds = preds * inv_w
+    return Series(target.name, preds, predict_valid)
+
+
+def _rows_svd(Zp, wp, alpha: float, rcond, m: int, reduce: bool):
+    """Minimum-norm beta [g, K, m] of whole padded groups ``Zp [g, R, m +
+    K]`` under ``wp``: each group one block of the Householder kernel, then
+    the Jacobi SVD kernel on the factors (``reduce``), or the SVD of the
+    rows where no group has more than K rows (``_fit_svd``'s two routes)."""
+    g, R, C = Zp.shape
+    k = C - m
+    n_valid = wp.sum(dim=1, dtype=F64)
+    if reduce:
+        plan = plan_reduction(np.ones(g, dtype=np.int64), k, Zp.device, rows=R)
+        T = reduce_groups(Zp.contiguous(), wp.contiguous(), k, plan)
+        return svd_lstsq_from_factor(T[..., m:], T[..., :m], n_valid, alpha, rcond)
+    Zm = torch.where(wp[:, :k, None], Zp[:, :k], 0.0)
+    return svd_lstsq(Zm[..., m:], Zm[..., :m], alpha, rcond, n_valid)
+
+
+def _sharded_svd(mesh, target, feats, kwargs, mode, layout, weights):
+    """An ``svd`` fit, or a multi-target one (a struct target), with its
+    groups sharded: the fully padded ``[G, R, m + K]`` layout (cached like
+    the moving models'), ``_rows_svd`` on each shard's groups
+    (``solve_groups_sharded``), the predictions from the layout's rows."""
+    from ..parallel import solve_groups_sharded
+
+    multi = isinstance(target, StructSeries)
+    if multi:
+        fields = list(target.sources or target.fields())
+        m = len(fields)
+        vals, valid, inv_w = _stack(fields[0], fields[1:] + list(feats), weights)
+    else:
+        m = 1
+        vals, valid, inv_w = _stack(target, feats, weights)
+    policy = kwargs.null_policy
+    gather, pmask, R = layout.device_padded()
+    key = _cache_key("svd_rows", vals, valid, policy, R, m)
+    Zp, wp, predict_valid = _lru(
+        layout._dev, "svd_rows", key,
+        lambda: _gather_layout(vals, valid, policy, gather, pmask, m=m) + (vals, valid),
+    )[:3]
+    k = Zp.shape[2] - m
+    beta = solve_groups_sharded(
+        mesh, _rows_svd, [Zp, wp], alpha=float(kwargs.alpha or 0.0), rcond=kwargs.rcond, m=m,
+        reduce=int(layout.counts.max()) > k,
+    )
+    if mode == "coefficients":
+        return _coef_struct(beta[..., 0].index_select(0, layout.device_gids()), [s.name for s in feats])
+    X_row = _row_features(vals, valid, policy, m)
+    unpad = layout.device_unpad(R)
+    n = vals.shape[0]
+    cols = []
+    for j in range(m):
+        if X_row is not None:
+            cols.append(_predictions(beta[..., j], None, None, None, layout, n, X_row))
+        else:
+            cols.append(_block_preds(Zp[..., m:], beta[..., j]).reshape(-1).index_select(0, unpad))
+    preds = torch.stack(cols, dim=1)
+    if inv_w is not None:
+        preds = preds * inv_w[:, None]
+    if not multi:
+        return Series(target.name, preds[:, 0], predict_valid)
+    validity = None if predict_valid is None else predict_valid[:, None].expand(n, m).contiguous()
+    return StructSeries("predictions", target.field_names, preds, validity)
+
+
+def _moving_groups(Zp, vp, rows, counts, rls: bool, **kw):
+    """A moving model on a shard's groups (``solve_groups_sharded``):
+    ``counts`` is ``rows`` on the host."""
+    fn = recursive_least_squares if rls else rolling_ols
+    return fn(Zp.contiguous(), vp.contiguous(), rows.contiguous(), counts=np.asarray(counts), **kw)
+
+
+def _sharded_moving(mesh, function_name, target, feats, kwargs, mode, layout, weights):
+    """``rls`` / ``rolling_ols`` with the groups sharded
+    (``solve_groups_sharded`` on the padded ``[G, R, 1+K]`` layout); the
+    output as ``_moving_start`` gives it."""
+    from ..parallel import solve_groups_sharded
+
+    k, G = len(feats), layout.num_groups
+    vals, valid, inv_w = _stack(target, feats, weights)
+    policy = kwargs.null_policy
+    Zp, vp, predict_valid = _moving_cached(layout, vals, valid, policy)
+    want = "coefficients" if mode == "coefficients" else "predictions"
+    is_rls = function_name == "recursive_least_squares"
+    if is_rls:
+        kw = dict(
+            half_life=kwargs.half_life, initial_state_covariance=kwargs.initial_state_covariance,
+            initial_state_mean=kwargs.initial_state_mean if mode == "coefficients" else None,
+        )
+    else:
+        window, mp = int(kwargs.window_size), kwargs.min_periods
+        positional = policy == "drop_window" or (valid is None and (mp is None or mp <= window))
+        kw = dict(window=window, min_periods=mp, alpha=float(kwargs.alpha or 0.0), positional=positional)
+    out = solve_groups_sharded(
+        mesh, _moving_groups, [Zp, vp, layout.device_counts(), layout.counts], rls=is_rls, want=want, **kw
+    )
+    R = Zp.shape[1]
+    return _moving_series(
+        out, mode, is_rls, target.name, feats, G, R, k, layout.device_unpad(R), predict_valid, inv_w
+    )
 
 
 # --------------------------------------------------------------------------- #

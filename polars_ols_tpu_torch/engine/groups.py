@@ -283,18 +283,23 @@ def layout_for_columns(cols: Sequence) -> GroupLayout:
     return layout
 
 
-def build_layout(gids: Optional[np.ndarray], n_rows: int) -> GroupLayout:
+def build_layout(gids: Optional[np.ndarray], n_rows: int, num_groups: Optional[int] = None) -> GroupLayout:
+    """The layout of ``n_rows`` rows with group ids ``gids`` (one group
+    where None); ``num_groups`` (default ``max(gids) + 1``) may add groups
+    with no rows, as a shard's layout of all groups has
+    (parallel/sharded.py)."""
     if gids is None:
         gids = np.zeros(n_rows, dtype=np.int64)
     if n_rows > 0:
         from .native import native_layout_build
 
-        num_groups = int(gids.max()) + 1
+        if num_groups is None:
+            num_groups = int(gids.max()) + 1
         nat = native_layout_build(gids, num_groups)
         if nat is not None:
             counts, order, rank = nat
             return GroupLayout(gids, num_groups, counts, order, rank)
-    counts = np.bincount(gids).astype(np.int64)
+    counts = np.bincount(gids, minlength=num_groups or 0).astype(np.int64)
     num_groups = len(counts)
     order = np.argsort(gids, kind="stable")
     sorted_gids = gids[order]

@@ -42,7 +42,7 @@ class Kwargs:
 
     def __post_init__(self):
         if self.null_policy not in _VALID_NULL_POLICIES:
-            raise ValueError(
+            raise AssertionError(
                 f"unknown null_policy {self.null_policy!r}; "
                 f"expected one of {sorted(_VALID_NULL_POLICIES)}"
             )
@@ -74,12 +74,12 @@ class OLSKwargs(Kwargs):
     def __post_init__(self):
         valid_ols_policies = _VALID_NULL_POLICIES - {"drop_window"}
         if self.null_policy not in valid_ols_policies:
-            raise ValueError(
+            raise AssertionError(
                 f"unknown null_policy {self.null_policy!r} for a static fit; "
                 f"expected one of {sorted(valid_ols_policies)}"
             )
         if self.solve_method not in _VALID_SOLVE_METHODS:
-            raise ValueError(
+            raise AssertionError(
                 f"unknown solve_method {self.solve_method!r}; expected one of "
                 f"{sorted(s for s in _VALID_SOLVE_METHODS if s)} or None"
             )
@@ -155,7 +155,7 @@ def compute_least_squares(
     least_squares.py:242-279); ``mode="statistics"`` gives a
     ``StatisticsSeries``."""
     if mode not in _VALID_OUTPUT_MODES:
-        raise ValueError(f"unknown mode {mode!r}; expected one of {sorted(_VALID_OUTPUT_MODES)}")
+        raise AssertionError(f"unknown mode {mode!r}; expected one of {sorted(_VALID_OUTPUT_MODES)}")
     return _build_least_squares_expr(
         target,
         *features,
@@ -204,7 +204,7 @@ def compute_multi_target_least_squares(
 def _check_moving_mode(mode: str) -> None:
     valid = _VALID_OUTPUT_MODES - {"statistics"}
     if mode not in valid:
-        raise ValueError(f"unknown mode {mode!r}; expected one of {sorted(valid)}")
+        raise AssertionError(f"unknown mode {mode!r}; expected one of {sorted(valid)}")
 
 
 def compute_recursive_least_squares(

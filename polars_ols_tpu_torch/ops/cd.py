@@ -46,8 +46,11 @@ library's matrix-vector product (see ``fista_ref``).
 On a CUDA tensor ``solve_elastic_net_cov`` always launches the route's
 kernel; a failed build or launch raises. On a CPU tensor it runs
 ``solve_elastic_net_cov_ref``. The polish is the same torch code on both.
-The row form ``solve_elastic_net`` waits for the sharded path (ROADMAP.md
-Queue 1 item 11).
+The row form ``solve_elastic_net`` (the JAX package's residual-update
+solver on padded groups, which the sharded path's group-parallel solves
+take) computes each group's moments with the moment kernel and runs
+``solve_elastic_net_cov``: the covariance form makes the same coordinate
+steps, ``x_j' r = Xty_j - (XtX w)_j + XtX_jj w_j``.
 """
 
 from __future__ import annotations
@@ -61,6 +64,7 @@ import torch
 from ..config import F64
 from . import kernels
 from .linalg import solve_psd
+from .moments import grouped_moments_blocks
 
 # kernel launches made by solve_elastic_net_cov since the last reset, by
 # kernel: csrc/cd.cu (K <= 32), and csrc/cd_wide.cu's FISTA and wide
@@ -512,3 +516,28 @@ def solve_elastic_net_cov(
         return launch_wide(*args, fista=False)
     w, its = launch_wide(*args, fista=True)
     return active_set_polish(XtX, Xty, *_strengths(n_valid, alpha, l1_ratio), w, positive), its
+
+
+def solve_elastic_net(
+    Xp: torch.Tensor,  # [G, R, K] padded groups (masked rows zeroed)
+    yp: torch.Tensor,  # [G, R]
+    n_valid: torch.Tensor,  # [G]
+    alpha: float,
+    l1_ratio: float = 0.5,
+    max_iter: int = 1000,
+    tol: float = 1e-5,
+    positive: bool = False,
+) -> torch.Tensor:
+    """Batched elastic-net fit of whole groups -> coefficients [G, K]: each
+    group's moments (one block a group, ops/moments.py: csrc/moments.cu on
+    the card), then ``solve_elastic_net_cov`` (csrc/cd.cu or cd_wide.cu)."""
+    G, R, K = Xp.shape
+    Z = torch.cat([yp.to(F64)[..., None], Xp.to(F64)], dim=2).contiguous()
+    wp = torch.ones((G, R), dtype=torch.bool, device=Xp.device)
+    offsets = torch.arange(G + 1, dtype=torch.int64, device=Xp.device)
+    M, _ = grouped_moments_blocks(Z, wp, offsets, G)
+    w, _ = solve_elastic_net_cov(
+        M[:, 1:, 1:].contiguous(), M[:, 1:, 0].contiguous(), n_valid.to(F64).contiguous(), alpha,
+        l1_ratio, max_iter, tol, positive,
+    )
+    return w

@@ -301,15 +301,23 @@ class StructSeries:
     ) -> None:
         self.name = name
         self.field_names: List[str] = list(field_names)
+        if not isinstance(values, torch.Tensor):
+            values = torch.as_tensor(np.asarray(values, dtype=np.float64), device=device())
         if values.dtype != F64 or values.dim() != 2 or values.shape[1] != len(self.field_names):
-            raise ValueError(
+            raise AssertionError(
                 f"struct values must be [N, {len(self.field_names)}] float64, "
                 f"got {values.dtype} {tuple(values.shape)}"
             )
-        if validity is not None and tuple(validity.shape) != tuple(values.shape):
-            raise ValueError(
-                f"struct validity must be {tuple(values.shape)}, got {tuple(validity.shape)}"
-            )
+        if validity is not None:
+            if not isinstance(validity, torch.Tensor):
+                validity = torch.as_tensor(np.asarray(validity, dtype=bool), device=values.device)
+            if validity.dim() == 1 and validity.shape[0] == values.shape[0]:
+                # a row validity: every field of a null row is null
+                validity = validity[:, None].expand(values.shape).contiguous()
+            if tuple(validity.shape) != tuple(values.shape):
+                raise AssertionError(
+                    f"struct validity must be {tuple(values.shape)} or [N], got {tuple(validity.shape)}"
+                )
         self.values = values
         self.validity = validity
         self.sources = sources
@@ -392,6 +400,10 @@ class StatisticsSeries:
         if self._row_index is not None:
             return int(self._row_index[-1].shape[0])
         return int(self._base["r2"].shape[0])
+
+    @property
+    def height(self) -> int:
+        return len(self)
 
     def _index(self) -> torch.Tensor:
         idx = self._row_index[-1]

@@ -1532,3 +1532,82 @@ def test_fused_select_on_card_matches_cpu(cuda_device, select, monkeypatch):
     if select == "mixed":
         assert moving.moving_kernel_launches >= 2 and cd.cd_kernel_launches >= 1
     assert moments.moments_kernel_launches >= 2
+
+
+def _sharded_data(n=20_000, k=3, g=37, seed=5):
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, k))
+    gids = rng.integers(g, size=n)
+    gids[: n // 2] = 0  # a heavy group whose rows span every shard
+    y = np.einsum("nk,nk->n", X, rng.normal(size=(g, k))[gids]) + rng.normal(size=n) * 0.1
+    w = rng.random(n) > 0.05
+    return X, y, w, gids, g
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("solve", ["chol", "qr", "lu", "cd", "statistics", "cd_statistics"])
+def test_sharded_moments_on_card_match_one_shard(cuda_device, solve, monkeypatch):
+    # fit_moments_sharded / statistics_moments_sharded over 4 virtual shards
+    # of the card against one shard of it: rtol 1e-8 / atol 1e-10, p-values
+    # rtol 1e-6 (the moments' partial sums are added in another order);
+    # one moment launch a shard
+    from polars_ols_tpu_torch.parallel import fit_moments_sharded, make_mesh, statistics_moments_sharded
+
+    monkeypatch.setattr(CONFIG, "device", "cuda")
+    monkeypatch.setattr(CONFIG, "virtual_devices", 4)
+    X, y, w, gids, g = _sharded_data()
+    args = [torch.as_tensor(a, device="cuda") for a in (X, y, w, gids)]
+    cd_params = (0.5, 1000, 1e-7, False) if "cd" in solve else None
+    out = {}
+    for shards in (1, 4):
+        mesh = make_mesh(shards)
+        before = moments.moments_kernel_launches
+        if solve.endswith("statistics"):
+            res = statistics_moments_sharded(mesh, *args, g, alpha=0.01 if cd_params else 0.0, cd_params=cd_params)
+        else:
+            beta, preds = fit_moments_sharded(
+                mesh, *args, g, alpha=0.01 if cd_params else 0.0, cd_params=cd_params,
+                force_refine=solve == "qr", lu=solve == "lu",
+            )
+            res = {"beta": beta, "preds": preds}
+        assert moments.moments_kernel_launches == before + shards
+        out[shards] = {key: v.cpu().numpy() for key, v in res.items()}
+    for key, v in out[4].items():
+        tol = dict(rtol=1e-6, atol=1e-12) if key == "p_values" else dict(rtol=1e-8, atol=1e-10)
+        np.testing.assert_allclose(v, out[1][key], err_msg=key, **tol)
+    if "cd" in solve:
+        assert cd.cd_kernel_launches >= 5
+    if solve.endswith("statistics"):
+        assert special.t_pvalue_kernel_launches >= 5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", ["rls", "rolling"])
+def test_sharded_moving_on_card_matches_one_shard(cuda_device, model, monkeypatch):
+    # solve_groups_sharded over 4 virtual shards of the card against the
+    # moving kernel on all groups at once (G = 37: the last shard's slice is
+    # padded with groups of no rows); the same bits where the windows agree
+    # (each group's rows are walked alone), NaN where the one-shard call
+    # has it
+    from polars_ols_tpu_torch.parallel import make_mesh, solve_groups_sharded
+
+    monkeypatch.setattr(CONFIG, "device", "cuda")
+    monkeypatch.setattr(CONFIG, "virtual_devices", 4)
+    rng = np.random.default_rng(6)
+    G, R, K = 37, 300, 3
+    counts = rng.integers(1, R + 1, size=G)
+    Zp = torch.as_tensor(rng.normal(size=(G, R, K + 1)), device="cuda")
+    vp = torch.as_tensor((np.arange(R)[None, :] < counts[:, None]) & (rng.random((G, R)) > 0.05), device="cuda")
+    rows = torch.as_tensor(counts, device="cuda")
+    if model == "rls":
+        fn, kw = moving.recursive_least_squares, dict(half_life=20.0, initial_state_covariance=10.0)
+    else:
+        fn, kw = moving.rolling_ols, dict(window=25, min_periods=None, alpha=0.0, positional=True)
+    one = fn(Zp, vp, rows, **kw)
+    before = moving.moving_kernel_launches
+    out = solve_groups_sharded(make_mesh(4), fn, [Zp, vp, rows], **kw)
+    assert moving.moving_kernel_launches > before
+    a, b = out.cpu().numpy(), one.cpu().numpy()
+    valid = np.arange(R)[None, :] < counts[:, None]
+    np.testing.assert_array_equal(np.isnan(a[valid]), np.isnan(b[valid]))
+    np.testing.assert_allclose(a[valid], b[valid], rtol=1e-8, atol=1e-10, equal_nan=True)
