@@ -61,7 +61,11 @@ form) and 16 and 32 (its shared form) on the main frame's groups, on a
 frame of lognormal group sizes, and at the shapes of the two wide
 configurations below (K = 40 and 100); its register form's outputs at
 K = 1 .. 8 are held bit for bit to digests recorded from it before the
-shared form took K > 8. The
+shared form took K > 8, and its shared form is timed stopped after its
+update, its LDL' and its back substitution (``_moving_phases``) at the
+main frame's K = 16 and at "grouped_largek". The moment kernel's wide
+form is checked to issue DMMA (mma.sync m8n8k4 f64) instructions in the
+built code (``cuobjdump -sass``). The
 p-value kernel also gets a latency bound (the dependent f64 operations of
 its longest thread times the measured time of one) and a breakdown of its
 time by stage. Last, the reference suite's two wide configurations run at
@@ -205,11 +209,14 @@ SKEW_CHECKED = 300
 SKEW_RANGE_SWEEP = (2_560, 4_000)  # rows a range timed beside the planner's on it
 # the moving kernels by name in a profile: the walk and the summary pass are
 # one template (its last argument says which), then the prefix and the
-# fill; the shared form's (K > 8) likewise
+# fill; the shared form's (K > 8) likewise, its third argument saying which
+# and its last whether the states sit in shared memory or the workspace
 MOVING_KERNEL_NAMES = {
     "walk": ("walk<", "true>("), "summary": ("walk<", "false>("), "prefix": ("prefix_",),
-    "fill": ("fill<",), "walk (shared form)": ("walk_shared<", "true>("),
-    "summary (shared form)": ("walk_shared<", "false>("), "fill (shared form)": ("fill_shared",),
+    "fill": ("fill<",), "walk (shared form)": ("walk_shared<", ", true, true>("),
+    "walk (shared form, workspace)": ("walk_shared<", ", true, false>("),
+    "summary (shared form)": ("walk_shared<", ", false, true>("),
+    "summary (shared form, workspace)": ("walk_shared<", ", false, false>("), "fill (shared form)": ("fill_shared",),
 }
 # the Householder kernel: launches a timing sample (~0.2 ms each; the plain
 # version and torch.linalg.qr take tens of ms), and the tolerance against its
@@ -604,6 +611,29 @@ def _ptxas(log):
         elif "ptxas info" in line and "Used" in line:
             out.append((entry, line.split(":", 1)[1].strip(), spill))
     return out
+
+
+def _dmma_counts(kernels):
+    """{function: DMMA instructions} of the moment kernel's wide forms in
+    the built sm_90a code (cuobjdump -sass of the library); raises where
+    the staged or direct form issues none."""
+    sass = subprocess.run(
+        [str(Path(kernels._nvcc()).with_name("cuobjdump")), "-sass", str(kernels.build("moments"))],
+        capture_output=True, text=True, check=True,
+    ).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = next((f for f in ("block_moments_wide", "block_moments_direct") if f in m.group(1)), None)
+            if fn:
+                fn += "<" + ",".join(re.findall(r"L[ib](\d+)E", m.group(1))) + ">"
+                counts[fn] = 0
+        elif fn and "DMMA" in line:
+            counts[fn] += 1
+    if len(counts) < 3 or not all(counts.values()):
+        raise AssertionError(f"the moment kernel's wide forms issue no DMMA: {counts}")
+    return counts
 
 
 def _householder_bound(Z, w, K):
@@ -1577,12 +1607,13 @@ def _check_moving(moving, recursive, rolling, torch):
     without forgetting and prior mean, rolling in both window semantics, at
     K = 5, 8 (the register form), 9, 16, 17, 32, 33, 40, 100 and 160 (the
     shared form; K = 33 where the JAX engine leaves exact moments, 160
-    where its state and factor sit in the device-memory workspace; there
-    the ridge windows of 5 rows, systems of condition ~1e4 whose rounding
-    in the plain version alone can pass the tolerance at a prediction near
-    zero, are held to each window solved in long double, ``_ridge_exact``,
-    and to the plain version's NaN pattern, with the plain version's own
-    distance from the long-double answer printed),
+    where its state and factor sit in the device-memory workspace; in the
+    shared form the ridge windows of 5 rows, fewer than the features, are
+    systems of condition ~1e4 whose rounding in the plain version alone
+    can pass the tolerance at a prediction near zero, so they are held to
+    each window solved in long double, ``_ridge_exact``, and to the plain
+    version's NaN pattern, with the plain version's own distance from the
+    long-double answer printed),
     coefficients and predictions, the rows a range chosen
     (one range a group) and forced to 32 rows (several ranges a group: the
     summary pass, the prefix and the fill) and to 2 rows (the prefix over a
@@ -1614,7 +1645,7 @@ def _check_moving(moving, recursive, rolling, torch):
                 for want in moving.WANTS:
                     ref = moving._from_coefs(coefs, Z, want)
                     exact = None
-                    if K == 160 and window == 5 and alpha > 0:
+                    if K > 8 and window == 5 and alpha > 0:
                         exact = torch.as_tensor(_ridge_exact(
                             Z.cpu().numpy(), vn, rows, window, min_periods, alpha, positional, want
                         ))
@@ -1639,7 +1670,7 @@ def _check_moving(moving, recursive, rolling, torch):
         f"max_abs_err={worst!r}; flagged rows re-solved by eigh: {moving.moving_flagged_rows}"
     )
     print(
-        "kernel moving, K = 160 ridge windows of 5 rows (workspace; condition ~1e4): the kernel within "
+        "kernel moving, the shared form's ridge windows of 5 rows (K = 9 .. 160; condition ~1e4): the kernel within "
         f"{MOVING_KERNEL_TOL} of each window solved in long double; max abs differences {json.dumps(short)} "
         "(the plain version's and the kernel's own rounding: neither pair is held to the tolerance "
         "against the other, which predictions near zero can pass)"
@@ -1668,10 +1699,11 @@ def _moving_shape(moving, Z, counts, rolling, dev):
     K = Z.shape[2] - 1
     T = moving.stretch_rows(K, rolling)
     resident = moving._resident_warps(dev, K, rolling, T, False)
-    plan = moving.plan_ranges(counts, T, resident)
+    plan = moving.plan_ranges(counts, moving.plan_unit(K, rolling, T), resident, None, moving.plan_waves(K))
     return {
         "stretch_rows": T, "range_rows": plan.L, "long_groups": len(plan.grp_seg) - 1,
         "ranges_of_long_groups": plan.M, "resident_warps": resident,
+        "walker_threads": moving.shared_layout(K, rolling, T)[2],
     }
 
 
@@ -1694,16 +1726,33 @@ def _skewed_counts(rng, n_rows, n_groups, sigma, cap):
     return counts
 
 
-def _moving_frame(label, counts, R, K, n_checked, moving, recursive, rolling, ff, torch, smi, seed,
-                  sweep=None):
-    """The moving kernel on a frame of random rows (made on the card from
-    ``seed``) in groups of ``counts`` rows padded to R: rls and rolling
-    against their plain versions on ``n_checked`` groups (all where that is
-    every group; else the longest half of them and the first others),
-    timed per launch beside the plain version's one call on those groups,
-    with the bound, and in turns with each shape of ``sweep`` (label ->
-    rows a range, rows a lane; None: the planner's). Returns the
-    kernels-line fields of each model."""
+def main_frame_counts():
+    """The main frame's group sizes: main()'s draws of seed 0 (x, y, then
+    the group of each row), without the frame."""
+    rng = np.random.default_rng(0)
+    rng.normal(size=(N_ROWS, N_FEATURES))
+    rng.normal(size=N_ROWS)
+    return np.bincount(rng.integers(N_GROUPS, size=N_ROWS), minlength=N_GROUPS).astype(np.int64)
+
+
+def largek_counts():
+    """The group sizes of "grouped_largek" (_suite_frame's draws of seed 0
+    at LARGEK_SHAPE), without the frame."""
+    n, k, groups = LARGEK_SHAPE
+    rng = np.random.default_rng(0)
+    rng.normal(size=(n, k))
+    rng.normal(size=n)
+    rng.normal(size=k)
+    rng.normal(size=n)
+    rng.random(n)
+    return np.bincount(rng.integers(groups, size=n), minlength=groups).astype(np.int64)
+
+
+def _moving_args(counts, R, K, rolling, ff, torch, seed):
+    """model -> the moving kernel's arguments (``ops/moving.py:_launch``'s
+    before ``want``) on a frame of random rows made on the card from
+    ``seed``, in groups of ``counts`` rows padded to R: rls (half-life
+    HALF_LIFE, prior variance 10) and rolling (WINDOW rows, positional)."""
     dev = torch.device("cuda")
     G = len(counts)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -1716,10 +1765,49 @@ def _moving_frame(label, counts, R, K, n_checked, moving, recursive, rolling, ff
     v = live.contiguous()
     idx = rolling.rolling_indices(v, WINDOW, K, True)
     zero = [0.0] * K
-    args = {
+    return {
         "rls": (Z, v, rows_t, v, None, False, ff, 0.1, zero),
         "rolling": (Z, v, rows_t, idx[1].contiguous(), idx[0].contiguous(), True, 1.0, 0.0, zero),
     }
+
+
+# the shared form's phases: its walk stopped after the update, the LDL'
+# and the back substitution, and the whole walk (``pols_moving``'s phase)
+MOVING_PHASES = {"update": 1, "ldl": 2, "back_substitution": 3, "all": 0}
+
+
+def _moving_phases(label, counts, args, moving, torch, smi):
+    """Device ms per launch of the shared form's predictions stopped after
+    each of MOVING_PHASES, in turns, for each model of ``args``
+    (``_moving_args``): the update, the factorisation and the back
+    substitution apart. Returns {model: {phase: ms}}."""
+    out = {}
+    for model, a in args.items():
+        times = _in_turns({
+            name: (lambda a=a, ph=ph: moving._launch_kernels(*a, "predictions", None, counts, None, ph))
+            for name, ph in MOVING_PHASES.items()
+        }, 1, torch)
+        out[model] = {name: t[0] for name, t in times.items()}
+        print(f"kernel moving phases, {model} on the {label} frame (K={len(a[8])}): ms per launch "
+              f"{json.dumps(out[model])} ({smi})")
+    return out
+
+
+def _moving_frame(label, counts, R, K, n_checked, moving, recursive, rolling, ff, torch, smi, seed,
+                  sweep=None, phases=False):
+    """The moving kernel on a frame of random rows (made on the card from
+    ``seed``) in groups of ``counts`` rows padded to R: rls and rolling
+    against their plain versions on ``n_checked`` groups (all where that is
+    every group; else the longest half of them and the first others),
+    timed per launch beside the plain version's one call on those groups,
+    with the bound, and in turns with each shape of ``sweep`` (label ->
+    rows a range, rows a lane; None: the planner's); with ``phases``
+    also the shared form's phases (``_moving_phases``). Returns the
+    kernels-line fields of each model."""
+    dev = torch.device("cuda")
+    G = len(counts)
+    args = _moving_args(counts, R, K, rolling, ff, torch, seed)
+    Z, v = args["rls"][:2]
     if n_checked >= G:
         sel = np.arange(G)
     else:
@@ -1733,6 +1821,7 @@ def _moving_frame(label, counts, R, K, n_checked, moving, recursive, rolling, ff
     }
     settled = {"rls": None, "rolling": _window_counts(vs.cpu().numpy(), WINDOW, True) >= K + SETTLED_EXTRA}
     n_launches = MOVING_LAUNCHES if K <= 8 else 1
+    phase_ms = _moving_phases(label, counts, args, moving, torch, smi) if phases else {}
     fields = {}
     for model, a in args.items():
         out = moving._launch(*a, "coefficients", None, counts)
@@ -1751,6 +1840,7 @@ def _moving_frame(label, counts, R, K, n_checked, moving, recursive, rolling, ff
         fields[model] = {
             "ms": t[0], "host_us": t[1], "plain_ms": plain_ms, "plain_groups": len(sel),
             **({"sweep_ms": {shape: times[shape][0] for shape in sweep}} if sweep else {}),
+            **({"phases_ms": phase_ms[model]} if phases else {}),
             "max_abs_err": err, **_moving_kernel_bound(a, counts, K, model, torch),
             **_moving_shape(moving, Z, counts, model == "rolling", dev),
         }
@@ -3015,12 +3105,22 @@ def _wide_kernels(pt, torch, smi, op_ms, mods, large, largek):
                                library=True)
         bound = _moment_bound(Zp, wp, layout.num_groups)
         print(f"kernel wide form, {key} blocks bound: {json.dumps(bound)} ({smi})")
-        res["grouped_moments"][key] = {"max_abs_err": err, **t, **bound, "S": Zp.shape[0], "R": Zp.shape[1],
-                                       "C": Zp.shape[2]}
+        S, R, C = Zp.shape
+        rows = moments.piece_rows(S, R, C, torch.cuda.get_device_properties(0).multi_processor_count)
+        res["grouped_moments"][key] = {"max_abs_err": err, **t, **bound, "S": S, "R": R, "C": C,
+                                       "piece_rows": rows, "pieces": moments.pieces(R, rows)}
     for label, n_blocks, R, C in (("C=34", rng.integers(1, 4, size=300), 512, 34),
                                   ("C=64", rng.integers(1, 4, size=100), 512, 64),
                                   ("C=1001 (test_fit_wide's ridge)", np.asarray([1]), 16, 1001)):
         _check_kernel(f"wide form, {label}", *_random_blocks(rng, n_blocks, R, C, torch, "cuda"), moments,
+                      torch, timed=False)
+    # the DMMA form's own edges, from a stream of their own (the draws below
+    # stay as they were)
+    rng_d = np.random.default_rng(17)
+    for label, n_blocks, R, C in (("C=48, R=3 (six tiles, a ragged k-step)", np.full(40, 2), 3, 48),
+                                  ("C=200 (the direct form)", np.full(10, 2), 300, 200),
+                                  ("C=101, one group of 3 blocks of 37 rows (a row split)", np.asarray([3]), 37, 101)):
+        _check_kernel(f"wide form, {label}", *_random_blocks(rng_d, n_blocks, R, C, torch, "cuda"), moments,
                       torch, timed=False)
     # NaN in masked slots and views at odd offsets (rows 8 bytes past 16)
     S, R, C = 120, 37, 65
@@ -3191,6 +3291,7 @@ def main() -> int:
     for name in sources:
         for entry, used, spill in _ptxas(kernels.build_log.get(name, "")):
             print(f"build {name} {entry}: {used}; {spill}")
+    print(f"build moments: DMMA (mma.sync m8n8k4 f64) instructions in the built code {json.dumps(_dmma_counts(kernels))}")
 
     # 3. the probe's own entry point (its path), then each kernel against
     # its plain version, at the main path's shapes first
@@ -3994,7 +4095,7 @@ def main() -> int:
         mv_wide[k_wide] = _moving_frame(
             f"K={k_wide}", counts_np, Zm.shape[1], k_wide, _plain_groups(len(counts_np), Zm.shape[1], k_wide),
             moving, recursive, rolling, ff, torch, smi, seed=10 + k_wide,
-            sweep={f"T={T}": (None, T) for T in WIDE_STRETCH_SWEEP.get(k_wide, ())},
+            sweep={f"T={T}": (None, T) for T in WIDE_STRETCH_SWEEP.get(k_wide, ())}, phases=k_wide == 16,
         )
     skew_counts = _skewed_counts(np.random.default_rng(5), N_ROWS, N_GROUPS, SKEW_SIGMA, SKEW_CAP)
     mv_skew = _moving_frame(
@@ -4172,6 +4273,7 @@ def main() -> int:
         "grouped_largek": _moving_frame(
             f"grouped_largek (K={largek['k']})", counts_b, R_b, largek["k"],
             _plain_groups(len(counts_b), R_b, largek["k"]), moving, recursive, rolling, ff, torch, smi, seed=40,
+            phases=True,
         ),
         "large": _moving_frame(
             f"large (K={large['k']})", np.asarray([LARGE_SHAPE[0]]), LARGE_SHAPE[0], large["k"], 1, moving,
@@ -4285,8 +4387,7 @@ def main() -> int:
             },
             **{key: mv_shared["grouped_largek"]["rls"][key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "bound_rank1_ms", "host_us",
-                "plain_groups",
-                "range_rows", "resident_warps")},
+                "plain_groups", "range_rows", "resident_warps", "walker_threads", "phases_ms")},
             "library_ms": None,
             "grouped_largek": mv_shared["grouped_largek"],
             "large": mv_shared["large"],

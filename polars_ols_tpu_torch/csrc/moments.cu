@@ -55,43 +55,60 @@
 //   the products below the diagonal, so at small C entries are faster.
 //   Above C = 8 chunks are smaller (~2 KB), so that more warps share an SM.
 //
-// - C > 33 (K > 32 features): the wide form, block_moments_wide. The forms
-//   above keep a tile of the C x C square in each lane's registers and
-//   already take 168 registers at C = 33, so they cannot grow. Here a CTA
-//   computes one T x T tile (ti <= tj) of the upper triangle over one row
-//   block, T = 8 MT picked from C so that the tiles cover C with little to
-//   spare: the fewest tiles of at most 32 columns, n = ceil(C / 32), each
-//   ceil(C / n) columns rounded up to 8 (C = 41 / 43: two tiles of 24, 3
-//   tile pairs and 1,728 products a row where 32 x 32 tiles take 3,072; C
-//   = 101: four of 32). Where the tiles are many (at least 4 an SM) the CTA
-//   is one part of 64 threads and stages 32 rows at a time; where they are
-//   few (one group of 10,000 rows: 20 blocks), four parts of 64 take turns
-//   at the block's stages of 16 rows (part p the stages p, p + 4, ...),
-//   four times the warps a tile. A part stages its rows of the tile's two
-//   T-column slabs in shared memory by plain coalesced loads (the mask
-//   selects a row there, as a zero row: it is never multiplied, so a NaN in
-//   a masked row stays out), and each of its threads sums an MT x MT
-//   micro-tile, rows i = ty + 8a and columns j = tx + 8b, so that a warp's
-//   loads of a row are 4 broadcast addresses and 8 consecutive doubles (no
-//   bank conflicts): 2 MT shared loads for MT^2 multiply-adds a row. At the
-//   end part 0 adds the other parts' sums in part order (through shared
-//   memory). The tile that holds entry (0, 0) also counts the block's
-//   valid rows (__syncthreads_count). No bulk copies, so none of the
-//   16-byte rules above apply to it. Work items (block, tile) go
-//   block-major over a grid-stride loop, so consecutive CTAs read one
-//   block's rows and the block's other tiles find them in L2. What bounds
-//   it: a row costs 8C + 1 bytes and C(C + 1) operations, so operations
-//   over the tensor cores' 67 TFLOP/s pass bytes over 3.35 TB/s near C =
-//   160 (at C = 41-101 bytes bound it); tiles read a block's row up to
-//   tiles times (from L2), and a diagonal or ragged tile computes entries
-//   it drops. The FP64 tensor-core product (DMMA) is the later redesign.
+// - C > 33 (K > 32 features): the wide form. The forms above keep a tile
+//   of the C x C square in each lane's registers and already take 168
+//   registers at C = 33, so they cannot grow. Here the products go to the
+//   FP64 tensor cores: mma.sync.aligned.m8n8k4.row.col.f64 (DMMA) adds an
+//   8 x 4 by 4 x 8 product to an 8 x 8 tile held as two doubles a lane.
+//   For a tile (ti, tj) of Z^T Z and four rows r_0..r_3, A(i, k) =
+//   Z[r_k, 8 ti + i] and B(k, j) = Z[r_k, 8 tj + j]: lane l holds A(l / 4,
+//   l % 4) and B(l % 4, l / 4), i.e. Z[r_{l % 4}, 8 t + l / 4] for t = ti and
+//   tj, the same load for either role. So a lane loads one double a column
+//   tile and k-step and feeds every tile pair from them; only tiles on or
+//   above the diagonal are accumulated. A masked row is selected as zeros
+//   (never multiplied, so a NaN in a masked slot stays out), as are the
+//   columns past C and the rows past a ragged end.
+//   * 34 <= C <= 128, the staged form (block_moments_wide): the square's
+//     8-column tiles are grouped in panels (one panel of all ceil(C / 8)
+//     <= 6 tiles up to C = 48; panels of 4 tiles above), and a CTA has one
+//     warp for each pair of panels (pi <= pj; 1 warp at C <= 48, 3 / 6 / 10
+//     up to C = 64 / 96 / 128), so that one CTA covers the whole
+//     triangle and reads each row once. Its rows arrive as the register
+//     forms' do: 16-row chunks by bulk copy on a ring of four stages and
+//     their mbarriers (the same 16-byte rules), thread 0 refilling a stage
+//     once every warp has passed the barrier after it. A stage keeps the
+//     rows' stride of C doubles, so the k-step's four rows are picked to
+//     keep the 8-byte loads off each other's banks: rows r + 4k for odd C,
+//     r + 2k for C = 2 mod 4, r + k for C = 4 mod 8 (their starts then lie
+//     4 banks apart; C = 0 mod 8 keeps 2- or 4-way conflicts). A work item
+//     is a block, or where the blocks are fewer than half the SMs a piece
+//     of one (rows_a_piece, chosen by the wrapper: a multiple of 16 rows),
+//     so that a single group of 20 blocks still fills the card; each piece
+//     writes its own partial. Warp 0 counts the valid rows.
+//   * C > 128, the direct form (block_moments_direct): the pairs of 4-tile
+//     panels are too many for a CTA, so each warp takes one (block, pair)
+//     and loads its fragments straight from device memory (eight lanes read
+//     64 contiguous bytes of one row), the block's rows read again from L2
+//     by each pair; no stage, so no row width is too large. Pair 0 counts.
+//   What bounds it: a row costs 8C + 1 bytes and C(C + 1) operations, so at
+//   the tensor cores' 67 TFLOP/s bytes bound it up to C ~ 160 (B: S = 1,280
+//   blocks of 512 x 41, 0.23 GB) and operations beyond; a diagonal or
+//   ragged tile computes entries it drops (21 tiles at C = 41 for 861
+//   entries).
 //
 // Two passes, no atomics, so results are identical run to run:
-//   1. block_moments / block_moments_wide: the block partials [S, C(C+1)/2
-//      + 1] as above.
-//   2. group_sums: one thread per (group, entry) adds its group's block
-//      partials in block order and writes both triangles of M (zeros for a
-//      group without blocks).
+//   1. block_moments / block_moments_wide / block_moments_direct: the
+//      partials [S pieces, C(C+1)/2 + 1], a block's pieces consecutive
+//      (one piece a block but in the staged form's row split).
+//   2. group_sums (C <= 33): one thread per (group, entry) adds its group's
+//      block partials in block order and writes both triangles of M (zeros
+//      for a group without blocks). Above, the partials of each entry are
+//      added in block and piece order and both triangles of M get the same
+//      bits: group_sums_tile (C <= 64) a CTA a group through shared memory;
+//      group_sums_wide one thread per (i, j) of M and group, and where the
+//      groups have 32 partials or more on average (the row split of few
+//      blocks) eight runs of them in parallel, the runs' sums added in run
+//      order.
 // Supports 1 <= C <= kMaxWideCols (entry indices are 32-bit): C <= 33 takes
 // the register forms, larger C the wide form.
 
@@ -108,12 +125,20 @@ constexpr int kStages = 4;
 constexpr int kRowChunkBytes = 8192;
 constexpr int kEntryChunkBytes = 2048;
 constexpr int kMaxCols = 33;
-// the wide form: a tile of 8 MT x 8 MT (MT = 3 or 4) a CTA of P parts of
-// 64 threads (P = 4 where the tiles are fewer than kFewTilesPerSm an SM,
-// else 1), a part's stage 32 rows at P = 1 and 16 at P = 4; C(C + 1) / 2 +
-// 1 entries must fit an int
-constexpr int kWidePart = 64;
-constexpr int kFewTilesPerSm = 4;
+// the wide form: 8 x 8 DMMA tiles; up to kOnePanelCols one panel of at most
+// 6 tiles and one warp, up to kStagedMaxCols panels of kPanel tiles, a warp
+// a pair of them (at most 10); stages of kWideChunk rows, kWideStages of
+// them; C(C + 1) / 2 + 1 entries must fit an int
+constexpr int kOnePanelCols = 48;
+constexpr int kStagedMaxCols = 128;
+constexpr int kPanel = 4;
+constexpr int kWideChunk = 16;
+constexpr int kWideStages = 4;
+constexpr int kWideMaxWarps = 10;
+// one-warp CTAs an SM must hold (registers capped at 204 a thread): as many
+// as its shared memory holds, so that "grouped_largek"'s 1,280 blocks are
+// all resident at once
+constexpr int kOneWarpCtas = 10;
 constexpr int64_t kMaxWideCols = 65534;
 // CTAs an SM must hold: caps the registers at 168 a thread, so that the
 // tiles of wide C fit three CTAs an SM
@@ -421,97 +446,206 @@ block_moments(const double* __restrict__ zp, const uint8_t* __restrict__ wp,
   }
 }
 
-// C > 33: work item q = (block q / n_tiles, tile q % n_tiles of the upper
-// triangle of tiles x tiles), a tile 8 MT columns wide. Part p of the CTA's
-// P takes the stages p, p + P, ... of the block's rows; its thread (ty, tx)
-// = (t / 8, t % 8) sums the tile's entries (ty + 8a, tx + 8b), a, b < MT,
-// over its rows in row order, and part 0 adds the other parts' sums in
-// part order.
-template <int MT, int P>
-__global__ void __launch_bounds__(kWidePart * P)
-block_moments_wide(const double* __restrict__ zp, const uint8_t* __restrict__ wp,
-                   int64_t S, int64_t R, int C, int tiles, int slots,
+// acc (d0, d1) += A B of one m8n8k4 f64 step (the fragments above)
+__device__ __forceinline__ void dmma(double& d0, double& d1, double a, double b) {
+  asm("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, {%0, %1};\n"
+      : "+d"(d0), "+d"(d1)
+      : "d"(a), "d"(b));
+}
+
+// rows between a k-step's four rows in a stage of stride C: their 8-byte
+// loads then start 4 banks apart (see the header)
+__host__ __device__ __forceinline__ int row_step(int C) {
+  return (C & 1) != 0 ? 4 : ((C & 3) == 2 ? 2 : 1);
+}
+
+// The tiles of one warp: panels pi <= pj of P tiles each (ni, nj of them
+// inside the square), accumulated over rows.
+template <int P>
+struct PanelPair {
+  double acc[P][P][2];
+  int ti0, tj0, ni, nj;
+  bool diag;
+
+  __device__ __forceinline__ PanelPair(int pi, int pj, int nt) {
+    ti0 = pi * P;
+    tj0 = pj * P;
+    ni = nt - ti0 < P ? nt - ti0 : P;
+    nj = nt - tj0 < P ? nt - tj0 : P;
+    diag = pi == pj;
+#pragma unroll
+    for (int a = 0; a < P; ++a) {
+#pragma unroll
+      for (int b = 0; b < P; ++b) acc[a][b][0] = acc[a][b][1] = 0.0;
+    }
+  }
+
+  // one k-step: zr points at column l / 4 of the lane's row, which is
+  // selected where ok (else zeros)
+  template <bool kDiagOnly>
+  __device__ __forceinline__ void step(const double* zr, bool ok, int lane, int C) {
+    double fa[P], fb[P];
+#pragma unroll
+    for (int t = 0; t < P; ++t) {
+      const int ca = (ti0 + t) * 8, cb = (tj0 + t) * 8;
+      fa[t] = ok && ca + lane / 4 < C ? zr[ca] : 0.0;
+      if (!kDiagOnly) fb[t] = ok && cb + lane / 4 < C ? zr[cb] : 0.0;
+    }
+    if (kDiagOnly) {
+      // every tile on or above the diagonal, with no branch before an mma
+      // (a tile past C multiplies zeros): the warp stays converged, so the
+      // compiler puts no warp barrier before each
+#pragma unroll
+      for (int a = 0; a < P; ++a) {
+#pragma unroll
+        for (int b = a; b < P; ++b) dmma(acc[a][b][0], acc[a][b][1], fa[a], fa[b]);
+      }
+    } else if (diag) {
+#pragma unroll
+      for (int a = 0; a < P; ++a) {
+#pragma unroll
+        for (int b = a; b < P; ++b) {
+          if (b < ni) dmma(acc[a][b][0], acc[a][b][1], fa[a], fa[b]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int a = 0; a < P; ++a) {
+#pragma unroll
+        for (int b = 0; b < P; ++b) {
+          if (a < ni && b < nj) dmma(acc[a][b][0], acc[a][b][1], fa[a], fb[b]);
+        }
+      }
+    }
+  }
+
+  // the tiles' entries with i <= j < C into out (row-major upper triangle)
+  __device__ __forceinline__ void write(double* __restrict__ out, int lane, int64_t C) const {
+#pragma unroll
+    for (int a = 0; a < P; ++a) {
+      const int64_t i = (ti0 + a) * 8 + lane / 4;
+#pragma unroll
+      for (int b = 0; b < P; ++b) {
+        if (a >= ni || b >= nj || (diag && b < a)) continue;
+#pragma unroll
+        for (int v = 0; v < 2; ++v) {
+          const int64_t j = (tj0 + b) * 8 + (lane % 4) * 2 + v;
+          if (i <= j && j < C) out[i * C - i * (i - 1) / 2 + (j - i)] = acc[a][b][v];
+        }
+      }
+    }
+  }
+};
+
+// 34 <= C <= 128, the staged form: work item q = piece q % pieces of block
+// q / pieces, rows [p piece_rows, (p + 1) piece_rows) of it, in chunks of
+// kWideChunk rows on the CTA's ring of stages; warp w takes the w-th pair
+// of panels (row-major over pi <= pj; the one panel where kOne).
+template <int P, bool kOne>
+__global__ void __launch_bounds__(kOne ? 32 : kWideMaxWarps * 32, kOne ? kOneWarpCtas : 1)
+block_moments_wide(const double* __restrict__ zp, const uint8_t* __restrict__ wp, int64_t S, int64_t R,
+                   int C, int piece_rows, int pieces, int stage_bytes, int z_bytes, int slots,
                    double* __restrict__ partial) {
-  constexpr int T = 8 * MT;
-  constexpr int Rows = P == 1 ? 32 : 16;  // a part's stage
-  // the parts' stages: the tile's two slabs (sa, sb); the parts' sums
-  // reuse them at the end
-  __shared__ double stage[2][P][Rows][T];
-  static_assert((P - 1) * kWidePart * MT * MT <= 2 * P * Rows * T, "the parts' sums fit the stages");
-  auto& sa = stage[0];
-  auto& sb = stage[1];
-  double* sums = &stage[0][0][0][0];
-  const int tid = static_cast<int>(threadIdx.x);
-  const int part = tid / kWidePart, t = tid % kWidePart;
-  const int tx = t % 8, ty = t / 8;
-  const int64_t n_tiles = static_cast<int64_t>(tiles) * (tiles + 1) / 2;
-  for (int64_t q = blockIdx.x; q < S * n_tiles; q += gridDim.x) {
-    const int64_t s = q / n_tiles;
-    int ti, tj;
-    entry_ij(static_cast<int>(q - s * n_tiles), tiles, &ti, &tj);
-    const int i0 = ti * T, j0 = tj * T;
-    const double* zb = zp + s * R * C;
-    const uint8_t* mb = wp + s * R;
-    double acc[MT][MT];
-#pragma unroll
-    for (int a = 0; a < MT; ++a) {
-#pragma unroll
-      for (int b = 0; b < MT; ++b) acc[a][b] = 0.0;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int warp = static_cast<int>(threadIdx.x) / 32, lane = static_cast<int>(threadIdx.x) % 32;
+  const int nt = (C + 7) / 8;
+  int pi = 0, pj = 0;
+  if (!kOne) entry_ij(warp, (nt + P - 1) / P, &pi, &pj);
+  const int d = row_step(C);
+  const uint32_t bars = shared_addr(smem);
+  unsigned char* ring = smem + 128;
+  const uint32_t ring_addr = shared_addr(ring);
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kWideStages; ++st) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(bars + 8u * st) : "memory");
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+  uint32_t used = 0;  // chunks the CTA has taken from its ring: chunk u is in stage u % kWideStages
+  for (int64_t q = blockIdx.x; q < S * pieces; q += gridDim.x) {
+    const int64_t s = q / pieces;
+    const int64_t r0 = (q - s * pieces) * piece_rows;
+    const int n = static_cast<int>(R - r0 < piece_rows ? R - r0 : piece_rows);
+    const int nch = (n + kWideChunk - 1) / kWideChunk;
+    auto chunk = [&](int c) {
+      const int rows = n - c * kWideChunk < kWideChunk ? n - c * kWideChunk : kWideChunk;
+      return chunk_at(zp, wp, s * R + r0 + static_cast<int64_t>(c) * kWideChunk, rows, C);
+    };
+    if (threadIdx.x == 0) {
+      for (int c = 0; c < kWideStages && c < nch; ++c) {
+        const uint32_t st = (used + c) % kWideStages;
+        issue(chunk(c), C, ring_addr + st * stage_bytes, z_bytes, bars + 8u * st);
+      }
+    }
+    PanelPair<P> tiles(pi, pj, nt);
     int cnt = 0;
-    for (int64_t r00 = 0; r00 < R; r00 += P * Rows) {
-      const int64_t r0 = r00 + part * Rows;
-      const int rows = static_cast<int>(R - r0 < 0 ? 0 : (R - r0 < Rows ? R - r0 : Rows));
-      for (int e = t; e < Rows * T; e += kWidePart) {
-        const int r = e / T, c = e % T;
-        const bool ok = r < rows && mb[r0 + r] != 0;  // selected, not multiplied
-        const double* row = zb + (r0 + r) * C;
-        sa[part][r][c] = ok && i0 + c < C ? row[i0 + c] : 0.0;
-        sb[part][r][c] = ok && j0 + c < C ? row[j0 + c] : 0.0;
+    for (int c = 0; c < nch; ++c, ++used) {
+      const uint32_t st = used % kWideStages;
+      wait_parity(bars + 8u * st, (used / kWideStages) & 1u);
+      const Chunk k = chunk(c);
+      const unsigned char* stage = ring + st * stage_bytes;
+      const double* zs = reinterpret_cast<const double*>(stage + k.z_shift);
+      const uint8_t* ms = stage + z_bytes + k.m_shift;
+      cnt += warp == 0 && lane < k.rows && ms[lane] != 0 ? 1 : 0;  // a select, not a branch
+#pragma unroll
+      for (int j = 0; j < kWideChunk / 4; ++j) {
+        const int row = j % d + j / d * 4 * d + d * (lane % 4);
+        const bool ok = row < k.rows && ms[row] != 0;  // selected, not multiplied
+        tiles.template step<kOne>(zs + row * C + lane / 4, ok, lane, C);
       }
-      // the barrier that publishes the stages counts their valid rows
-      cnt += __syncthreads_count(t < rows && mb[r0 + t] != 0);
-      for (int r = 0; r < rows; ++r) {
-        double x[MT], y[MT];
-#pragma unroll
-        for (int a = 0; a < MT; ++a) x[a] = sa[part][r][ty + 8 * a];
-#pragma unroll
-        for (int b = 0; b < MT; ++b) y[b] = sb[part][r][tx + 8 * b];
-#pragma unroll
-        for (int a = 0; a < MT; ++a) {
-#pragma unroll
-          for (int b = 0; b < MT; ++b) acc[a][b] = fma(x[a], y[b], acc[a][b]);
-        }
-      }
-      __syncthreads();  // the stages are read before the next ones land
-    }
-    if (P > 1 && part > 0) {
-#pragma unroll
-      for (int a = 0; a < MT; ++a) {
-#pragma unroll
-        for (int b = 0; b < MT; ++b) sums[((part - 1) * MT * MT + a * MT + b) * kWidePart + t] = acc[a][b];
+      __syncthreads();  // every warp has read the stage
+      if (threadIdx.x == 0 && c + kWideStages < nch) {
+        issue(chunk(c + kWideStages), C, ring_addr + st * stage_bytes, z_bytes, bars + 8u * st);
       }
     }
-    if (P > 1) __syncthreads();
-    if (part == 0) {
-      double* out = partial + s * slots;
-#pragma unroll
-      for (int a = 0; a < MT; ++a) {
-        const int i = i0 + ty + 8 * a;
-#pragma unroll
-        for (int b = 0; b < MT; ++b) {
-          const int j = j0 + tx + 8 * b;
-          double v = acc[a][b];
-          for (int k = 1; k < P; ++k) v += sums[((k - 1) * MT * MT + a * MT + b) * kWidePart + t];
-          if (i <= j && j < C) out[static_cast<int64_t>(i) * C - static_cast<int64_t>(i) * (i - 1) / 2 + (j - i)] = v;
-        }
-      }
-      if (ti == 0 && tj == 0 && t == 0) out[slots - 1] = static_cast<double>(cnt);
+    double* out = partial + q * slots;
+    tiles.write(out, lane, C);
+    if (warp == 0) {
+      cnt = __reduce_add_sync(kFull, cnt);
+      if (lane == 0) out[slots - 1] = static_cast<double>(cnt);
     }
-    if (P > 1) __syncthreads();  // the sums are read before the next item's stages land
   }
 }
 
+// C > 128, the direct form: warp item q = pair q % np (of panels of P
+// tiles) of block q / np, its fragments read from device memory.
+template <int P>
+__global__ void __launch_bounds__(kThreads)
+block_moments_direct(const double* __restrict__ zp, const uint8_t* __restrict__ wp, int64_t S, int64_t R,
+                     int C, int slots, double* __restrict__ partial) {
+  const int warp = static_cast<int>(threadIdx.x) / 32, lane = static_cast<int>(threadIdx.x) % 32;
+  const int nt = (C + 7) / 8, npan = (nt + P - 1) / P;
+  const int64_t np = static_cast<int64_t>(npan) * (npan + 1) / 2;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kWarps;
+  for (int64_t q = static_cast<int64_t>(blockIdx.x) * kWarps + warp; q < S * np; q += stride) {
+    const int64_t s = q / np;
+    const int pair = static_cast<int>(q - s * np);
+    int pi, pj;
+    entry_ij(pair, npan, &pi, &pj);
+    PanelPair<P> tiles(pi, pj, nt);
+    const double* zb = zp + s * R * C;
+    const uint8_t* mb = wp + s * R;
+    int cnt = 0;
+    for (int64_t r = 0; r < R; r += 4) {
+      const int64_t row = r + lane % 4;
+      const bool ok = row < R && mb[row] != 0;  // selected, not multiplied
+      cnt += ok && lane < 4 ? 1 : 0;
+      tiles.template step<false>(zb + row * C + lane / 4, ok, lane, C);
+    }
+    double* out = partial + s * slots;
+    tiles.write(out, lane, C);
+    if (pair == 0) {
+      cnt = __reduce_add_sync(kFull, cnt);
+      if (lane == 0) out[slots - 1] = static_cast<double>(cnt);
+    }
+  }
+}
+
+// C <= 33: one thread per (group, entry) adds its group's block partials
+// in block order and writes both triangles of M (zeros for a group without
+// blocks).
 __global__ void __launch_bounds__(256)
 group_sums(const double* __restrict__ partial,
            const int64_t* __restrict__ offsets, int64_t G, int C, int slots,
@@ -533,6 +667,98 @@ group_sums(const double* __restrict__ partial,
   double* Mg = M + g * C * C;
   Mg[static_cast<int64_t>(i) * C + j] = sum;
   Mg[static_cast<int64_t>(j) * C + i] = sum;
+}
+
+// 33 < C <= kSumTileCols: a CTA a group (groups blockIdx.x, + gridDim.x,
+// ...) adds its partials entry by entry, in block and piece order, into its
+// triangle in shared memory, then writes both triangles of M row by row (so
+// the stores coalesce) and the count.
+constexpr int kSumTileCols = 64;
+
+__global__ void __launch_bounds__(256)
+group_sums_tile(const double* __restrict__ partial, const int64_t* __restrict__ offsets, int64_t G, int C,
+                int slots, int pieces, double* __restrict__ M, double* __restrict__ counts) {
+  extern __shared__ double tri[];  // slots doubles: the upper triangle row-major, then the count
+  const int cc = C * C;
+  for (int64_t g = blockIdx.x; g < G; g += gridDim.x) {
+    const int64_t lo = offsets[g] * pieces, hi = offsets[g + 1] * pieces;
+    for (int e = threadIdx.x; e < slots; e += blockDim.x) {
+      double sum = 0.0;
+      for (int64_t b = lo; b < hi; ++b) sum += partial[b * slots + e];
+      tri[e] = sum;
+    }
+    __syncthreads();
+    for (int ij = threadIdx.x; ij < cc; ij += blockDim.x) {
+      const int i = ij / C, j = ij - i * C;
+      const int a = i < j ? i : j, b = i < j ? j : i;
+      M[g * cc + ij] = tri[a * C - a * (a - 1) / 2 + (b - a)];
+    }
+    if (threadIdx.x == 0) counts[g] = tri[slots - 1];
+    __syncthreads();  // the triangle is read before the next group's sums
+  }
+}
+
+// the partials of a group a wide group sum splits in kSumParts runs (the
+// row split of few blocks gives a group many); below that, one run
+constexpr int kSumParts = 8;
+constexpr int kSumSplitAt = 32;
+
+// C > 33: a block of 256 / kParts entries x kParts runs, over the groups
+// blockIdx.y, + gridDim.y, ...; entry (i, j) of M, j fastest (so the stores
+// coalesce), and the count last. Each run adds a contiguous run of the
+// group's partials (block by block, a block's pieces in order), four loads
+// in flight; the runs' sums are added in run order. One run: the partials
+// in order, as group_sums does. C <= 65,534, so C^2 + 1 fits 32 bits.
+template <int kParts>
+__global__ void __launch_bounds__(256)
+group_sums_wide(const double* __restrict__ partial, const int64_t* __restrict__ offsets, int64_t G, int C,
+                int slots, int pieces, double* __restrict__ M, double* __restrict__ counts) {
+  constexpr int kEntries = 256 / kParts;
+  __shared__ double runs[kParts > 1 ? 256 : 1];
+  const int lane_e = static_cast<int>(threadIdx.x) % kEntries, part = static_cast<int>(threadIdx.x) / kEntries;
+  const uint32_t uc = static_cast<uint32_t>(C), cc = uc * uc;
+  const uint32_t ij = blockIdx.x * kEntries + lane_e;
+  const bool live = ij <= cc;
+  int64_t e = slots - 1;  // ij == C^2: the count
+  if (ij < cc) {
+    const uint32_t i = ij / uc, j = ij - i * uc;
+    const int64_t a = i < j ? i : j, b = i < j ? j : i;
+    e = a * C - a * (a - 1) / 2 + (b - a);  // entry (a, b) of the row-major upper triangle
+  }
+  for (int64_t g = blockIdx.y; g < G; g += gridDim.y) {
+    const int64_t lo = offsets[g] * pieces, hi = offsets[g + 1] * pieces;
+    const int64_t per = (hi - lo + kParts - 1) / kParts;
+    const int64_t b0 = lo + part * per, b1 = b0 + per < hi ? b0 + per : hi;
+    double sum = 0.0;
+    if (live) {
+      for (int64_t b = b0; b < b1; b += 4) {
+        double v[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) v[u] = partial[(b + u < b1 ? b + u : b1 - 1) * slots + e];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (b + u < b1) sum += v[u];
+        }
+      }
+    }
+    if (kParts > 1) {
+      runs[threadIdx.x] = sum;
+      __syncthreads();
+      if (part == 0) {
+        sum = 0.0;
+#pragma unroll
+        for (int w = 0; w < kParts; ++w) sum += runs[w * kEntries + lane_e];
+      }
+      __syncthreads();
+    }
+    if (live && part == 0) {
+      if (ij == cc) {
+        counts[g] = sum;
+      } else {
+        M[g * cc + ij] = sum;
+      }
+    }
+  }
 }
 
 using MomentKernel = void (*)(const double*, const uint8_t*, int64_t, int64_t, int,
@@ -578,36 +804,54 @@ extern "C" {
 
 // Per-group moments M [G, C, C] and counts [G] of the blocks Zp [S, R, C]
 // (contiguous f64), wp [S, R] (bool bytes) and CSR block offsets [G+1]
-// (int64). `partial` is caller-allocated scratch of S * (C(C+1)/2 + 1)
-// doubles. C <= 33 takes the register forms, 33 < C <= 65,534 the wide
-// form. Launches on `stream` without synchronising; returns the CUDA error
-// code of the launches (0 on success).
+// (int64). A block is read in pieces of piece_rows rows, pieces =
+// ceil(R / piece_rows) of them: piece_rows >= R (one piece) except in the
+// wide form's staged path (34 <= C <= 128), where it may be a multiple of
+// 16 below R. `partial` is caller-allocated scratch of S * pieces *
+// (C(C+1)/2 + 1) doubles. C <= 33 takes the register forms, 33 < C <=
+// 65,534 the wide form. Launches on `stream` without synchronising;
+// returns the CUDA error code of the launches (0 on success).
 int pols_grouped_moments(const double* zp, const uint8_t* wp,
                          const int64_t* offsets, int64_t S, int64_t R,
-                         int64_t C, int64_t G, double* partial, double* M,
+                         int64_t C, int64_t G, int64_t piece_rows, double* partial, double* M,
                          double* counts, void* stream) {
-  if (C < 1 || C > kMaxWideCols || S < 0 || S > INT32_MAX || R < 1 || G < 0) {
+  if (C < 1 || C > kMaxWideCols || S < 0 || S > INT32_MAX || R < 1 || G < 0 || piece_rows < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const bool staged = C > kMaxCols && C <= kStagedMaxCols;
+  if (piece_rows < R && (!staged || piece_rows % kWideChunk != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t pieces = piece_rows < R ? (R + piece_rows - 1) / piece_rows : 1;
+  if (S * pieces > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int c = static_cast<int>(C);
   const int slots = static_cast<int>(C * (C + 1) / 2 + 1);
-  if (S > 0 && C > kMaxCols) {
-    // the fewest tiles of at most 32 columns, each a multiple of 8 wide
-    const int64_t n = (C + 31) / 32;
-    const int mt = static_cast<int>((C + 8 * n - 1) / (8 * n));
-    const int tiles = static_cast<int>((C + 8 * mt - 1) / (8 * mt));
-    const int64_t items = S * (static_cast<int64_t>(tiles) * (tiles + 1) / 2);
-    const int64_t cap = int64_t{1} << 20;  // the grid-stride loop takes the rest
-    const unsigned grid = static_cast<unsigned>(items < cap ? items : cap);
-    int dev = 0, sms = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int64_t cap = int64_t{1} << 20;  // a larger grid: the grid-stride loops take the rest
+  if (S > 0 && staged) {
+    const bool one = C <= kOnePanelCols;
+    const int nt = (c + 7) / 8, npan = one ? 1 : (nt + kPanel - 1) / kPanel;
+    const int warps = npan * (npan + 1) / 2;
+    // room for a chunk's bytes rounded out to 16-byte words
+    const int z_bytes = round16(kWideChunk * c * 8 + 8);
+    const int stage_bytes = z_bytes + round16(kWideChunk + 15);
+    const int smem = 128 + kWideStages * stage_bytes;
+    auto kernel = one ? block_moments_wide<6, true> : block_moments_wide<kPanel, false>;
+    // the largest carveout: as many CTAs an SM as its shared memory holds
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+    }
     if (err != cudaSuccess) return static_cast<int>(err);
-    const bool few = items < static_cast<int64_t>(kFewTilesPerSm) * sms;
-    auto kernel = mt == 3 ? (few ? block_moments_wide<3, 4> : block_moments_wide<3, 1>)
-                          : (few ? block_moments_wide<4, 4> : block_moments_wide<4, 1>);
-    kernel<<<grid, kWidePart * (few ? 4 : 1), 0, st>>>(zp, wp, S, R, c, tiles, slots, partial);
+    const int64_t items = S * pieces;
+    kernel<<<static_cast<unsigned>(items < cap ? items : cap), warps * 32, smem, st>>>(
+        zp, wp, S, R, c, static_cast<int>(piece_rows < R ? piece_rows : R), static_cast<int>(pieces),
+        stage_bytes, z_bytes, slots, partial);
+  } else if (S > 0 && C > kMaxCols) {
+    const int64_t npan = ((C + 7) / 8 + kPanel - 1) / kPanel;
+    const int64_t blocks = (S * (npan * (npan + 1) / 2) + kWarps - 1) / kWarps;
+    block_moments_direct<kPanel><<<static_cast<unsigned>(blocks < cap ? blocks : cap), kThreads, 0, st>>>(
+        zp, wp, S, R, c, slots, partial);
   } else if (S > 0) {
     const int rows = chunk_rows_for(R, c);
     // room for a chunk's bytes rounded out to 16-byte words
@@ -630,10 +874,27 @@ int pols_grouped_moments(const double* zp, const uint8_t* wp,
     fn<<<static_cast<unsigned>(want < fit ? want : fit), kThreads, smem, st>>>(
         zp, wp, S, R, c, rows, stage_bytes, z_bytes, slots, partial);
   }
-  if (G > 0) {
+  if (G > 0 && C <= kMaxCols) {
     const int64_t n = G * static_cast<int64_t>(slots);
     const unsigned blocks = static_cast<unsigned>((n + 255) / 256);
     group_sums<<<blocks, 256, 0, st>>>(partial, offsets, G, c, slots, M, counts);
+  } else if (G > 0) {
+    // runs of the partials where a group has many of them on average
+    const bool split = S * pieces >= kSumSplitAt * G;
+    const int per_block = split ? 256 / kSumParts : 256;
+    if (!split && C <= kSumTileCols) {
+      group_sums_tile<<<static_cast<unsigned>(G < 65535 ? G : 65535), 256, slots * sizeof(double), st>>>(
+          partial, offsets, G, c, slots, static_cast<int>(pieces), M, counts);
+      return static_cast<int>(cudaGetLastError());
+    }
+    const dim3 grid(static_cast<unsigned>((C * C + 1 + per_block - 1) / per_block),
+                    static_cast<unsigned>(G < 65535 ? G : 65535));
+    if (split) {
+      group_sums_wide<kSumParts><<<grid, 256, 0, st>>>(partial, offsets, G, c, slots, static_cast<int>(pieces), M,
+                                                       counts);
+    } else {
+      group_sums_wide<1><<<grid, 256, 0, st>>>(partial, offsets, G, c, slots, static_cast<int>(pieces), M, counts);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -68,35 +68,39 @@
 //
 // The shared form (K > 8). A lane's own K x K state does not fit its
 // registers past K = 8 (as local memory it ran 160x off its bound at
-// K = 16), so above 8 a walker is a block of 32 .. 256 threads that owns one
-// copy of its range's state (A packed, b) and one factor in shared memory
-// (in a device-memory workspace, through the same code, where they do not
-// fit: K > ~100) and walks the rows in order, its threads splitting each
-// row's work:
-//   - the update: each thread owns entries of A and b (the same ones every
-//     row, so the update needs no barrier) and applies the rank-1 (rolling:
-//     rank-2) change; at a refresh row it also writes A + reg I and the
-//     right-hand side into the factor's rows 0..K-1 and K (the augmented
-//     system [A b; b' .]);
-//   - the factorisation: LDL' by columns, right-looking, one barrier a
-//     column: the trailing entries of column j's update are split over the
-//     threads (each steps through the packed triangle from its own first
-//     entry), and thread 0, whose first entry is the next pivot, posts its
-//     reciprocal (an estimate and two Newton steps) before the barrier; the
-//     augmented row makes the forward substitution part of it (row K ends
-//     as y, U y = b);
-//   - the back substitution beta_i = (y_i - sum_{q>i} F_qi beta_q) / d_i
-//     by columns: up to K = 32 in the registers of one warp, beta_i passed
-//     by a shuffle; above, through shared memory, one barrier a column.
+// K = 16), so above 8 the register form's idea is lifted one level, lane
+// to warp. A walker is a block of NW warps (up to 4, as many as the
+// shared memory holds; one past K = 100) that walks its range in stretches
+// of NW runs of 32 T rows; warp w owns run w of a stretch, which arrives
+// in one bulk-copied stage (the register form's copies; the leaving rows
+// of a rolling stretch gathered beside it). A warp keeps a state (A
+// packed, b, the discount) in a ring of NW slots in shared memory and
+// updates it a row at a time, each lane its own entries. Per stretch:
+//   - each run but the last forms its summary from a zero start (the
+//     discounted rank-1 sums, for rolling entering minus leaving, and the
+//     total discount) in the slot after the carry's;
+//   - the summaries are composed in warp order onto the carry, in place,
+//     entry by entry (A = disc_s A + S, as compose_after), so that each
+//     slot holds the start state of the next run;
+//   - every warp walks its run from its start state and, at each refresh
+//     row, solves its own LDL' of the augmented system [A + reg I, b + reg
+//     mean] under __syncwarp only: up to K = 48 in registers (lane l holds
+//     rows l and l + 32 of the factor, a column broadcast through a
+//     shared-memory buffer; the right-hand side eliminated beside), above
+//     in the warp's shared-memory buffer, each lane its entries of the
+//     trailing update, lane 0 posting the next pivot's reciprocal; then the
+//     back substitution beta_i = (y_i - sum_{q>i} F_qi beta_q) / d_i;
+//   - the last run's end state is the new carry; a run's rows before its
+//     first refresh row take the last beta of the nearest earlier run that
+//     solved one, else the walker's carried beta.
 // The same pivot test flags a row (d_j not positive and finite), and the
 // same moments are solved, so the semantics do not change at K = 9 or 33.
-// Stretches arrive as in the register form (bulk copies into two stages,
-// in pieces of fewer rows where K is large), the leaving rows of a
-// rolling stretch are gathered beside them, and each stretch's start
-// state goes to sseed for moments_at. The ranges, the summary pass, the
-// prefix and the fill are the register form's; the grid is persistent
-// (one walker a block, the blocks the card holds), so that the workspace
-// is one slot a walker.
+// Each stretch's start state goes to sseed for moments_at. Past K = 100
+// the ring and the warp buffers sit in a device-memory workspace and a
+// stretch is one run, copied in pieces of fewer rows where its stage does
+// not fit. The ranges, the summary pass, the prefix and the fill are the
+// register form's; the grid is persistent (one walker a block, the blocks
+// the card holds), so that the workspace is one slot a walker.
 
 #include <climits>
 #include <cmath>
@@ -790,61 +794,97 @@ moments_at(Problem p, const double* __restrict__ mean, const double* __restrict_
 // ---------------------------------------------------------------------------
 // The shared form (K > 8): see the header.
 
-constexpr int kSharedMaxWarps = 8;
+constexpr int kSharedMaxWarps = 4;  // warps a walker
+constexpr int kSharedMaxK = 100;    // the state ring and warp buffers in shared memory up to here
+constexpr int kRegFactorMaxK = 48;  // the factor in registers (a lane rows l and l + 32) up to here
+constexpr int kColumn = 64;         // doubles of a column buffer of the register factor
+constexpr int kSharedPerSm = 228 * 1024;  // an SM's shared memory
+// entries of a row loaded together before their updates are stored: a
+// store to a warp's state or factor could alias a later load, so the
+// compiler keeps them in order unless they are batched by hand
+constexpr int kBatch = 8;
+// pairs of a column the register factor loads before it updates with them
+constexpr int kGroup = 4;
 
-// threads a walker: a warp up to K = 31, then a warp for each 16 features,
-// at most kSharedMaxWarps
-__host__ __device__ inline int shared_threads(int K) {
-  int w = K / 16;
-  w = w < 1 ? 1 : (w > kSharedMaxWarps ? kSharedMaxWarps : w);
-  return w * kWarp;
+// doubles of a state (A packed, b, disc) and of a warp's buffers: the
+// factor (A packed, then b's row), the reciprocal pivots, the beta it
+// last solved and two column buffers
+__host__ __device__ inline int state_doubles(int K) { return K * (K + 1) / 2 + K + 1; }
+__host__ __device__ inline int warp_doubles(int K) {
+  return (K * (K + 1) / 2 + K + 2 * K + (K > 2 * kColumn ? K : 2 * kColumn) + 3) & ~1;
 }
 
-// A walker's shared memory (byte offsets): two mbarriers, two stages of a
+// A walker's shared memory (byte offsets): two mbarriers, one stage of a
 // piece of `rows` rows (Z, v, refresh, leaving: the register form's stage),
-// the piece's leaving rows (rolling) and, where they fit, beta, the
-// reciprocal pivots, the state [A | b] and the factor (K (K + 1) / 2 + K
-// doubles each); else those four sit in a device-memory workspace of
-// work_doubles a walker.
+// the piece's leaving rows (rolling), the walker's carried beta and each
+// warp's flags, and, where they fit (`here`), the ring of `warps` states
+// and each warp's buffers; else those two sit in a device-memory workspace
+// of work_doubles a walker.
 struct SharedLayout {
-  int rows, z, m, lv, stage, gone, beta, rpiv, state, factor, total;
+  int warps, rows, z, m, lv, stage, gone, misc, ring, wbuf, total;
   bool here;
 };
 
-__host__ __device__ inline SharedLayout shared_layout(int K, int rows, bool rolling) {
-  const int C = K + 1, body = K * (K + 1) / 2 + K;
+__host__ __device__ inline SharedLayout shared_layout(int K, int warps, int rows, bool rolling, bool here) {
+  const int C = K + 1;
   SharedLayout l;
+  l.warps = warps;
   l.rows = rows;
+  l.here = here;
   l.z = round16(rows * C * 8) + 16;
   l.m = round16(rows) + 16;
   l.lv = rolling ? round16(rows * 4) + 16 : 0;
   l.stage = 32;
-  l.gone = l.stage + 2 * (l.z + 2 * l.m + l.lv);
-  l.beta = l.gone + (rolling ? round16(rows * C * 8) : 0);
-  l.rpiv = l.beta + round16(K * 8);
-  l.state = l.rpiv + round16(K * 8);
-  l.factor = l.state + round16(body * 8);
-  const int all = l.factor + round16(body * 8);
-  l.here = all <= kMaxShared;
-  l.total = l.here ? all : l.beta;
+  l.gone = l.stage + l.z + 2 * l.m + l.lv;
+  l.misc = l.gone + (rolling ? round16(rows * C * 8) : 0);
+  l.ring = l.misc + round16(K * 8) + 2 * 4 * kSharedMaxWarps;
+  l.wbuf = l.ring + (here ? round16(warps * state_doubles(K) * 8) : 0);
+  l.total = l.wbuf + (here ? warps * warp_doubles(K) * 8 : 0);
   return l;
 }
 
-// The layout for stretches of 32 T rows: pieces of the most rows that
-// divide a stretch and whose stages fit; rows 0 where not even one fits.
+// walkers of a layout an SM's shared memory holds (1 KB of it reserved a
+// block)
+__host__ __device__ inline int walkers_per_sm(const SharedLayout& l) {
+  return kSharedPerSm / (l.total + 1024);
+}
+
+// Up to kSharedMaxK: of walkers of w = 4 .. 1 warps, each staging its w
+// runs of 32 T rows at once (and, past kRegFactorMaxK, one warp staging
+// its run in pieces of a half or a quarter), the layout that fits the most
+// warps on an SM, the most warps a walker among equals. Above, or where
+// none fits: one warp, its ring and buffers in the workspace, on stages of
+// the most rows that divide 32 T and fit; rows 0 where none does.
 __host__ __device__ inline SharedLayout shared_layout_for(int K, int T, bool rolling) {
-  int rows = kWarp * T;
-  SharedLayout l = shared_layout(K, rows, rolling);
+  const int run = kWarp * T;
+  if (K <= kSharedMaxK) {
+    SharedLayout best = shared_layout(K, 1, run, rolling, true);
+    int most = 0;
+    for (int w = kSharedMaxWarps; w >= 1; --w) {
+      const int cuts = w == 1 && K > kRegFactorMaxK ? 3 : 1;
+      for (int c = 0, rows = w * run; c < cuts && rows >= 1; ++c, rows /= 2) {
+        const SharedLayout l = shared_layout(K, w, rows, rolling, true);
+        const int warps = w * walkers_per_sm(l);
+        if (l.total <= kMaxShared && warps > most) {
+          best = l;
+          most = warps;
+        }
+      }
+    }
+    if (most > 0) return best;
+  }
+  int rows = run;
+  SharedLayout l = shared_layout(K, 1, rows, rolling, false);
   while (l.total > kMaxShared && rows > 1) {
     rows = rows % 2 == 0 ? rows / 2 : 1;
-    l = shared_layout(K, rows, rolling);
+    l = shared_layout(K, 1, rows, rolling, false);
   }
   if (l.total > kMaxShared) l.rows = 0;
   return l;
 }
 
 __host__ __device__ inline int64_t work_doubles(int K, const SharedLayout& l) {
-  return l.here ? 0 : 2 * int64_t{K} + 2 * (int64_t{K} * (K + 1) / 2 + K);
+  return l.here ? 0 : int64_t{l.warps} * (state_doubles(K) + warp_doubles(K));
 }
 
 // (i, j <= i) of packed index e
@@ -870,24 +910,6 @@ __device__ __forceinline__ double recip(double d) {
   return fma(r, e, r);
 }
 
-// the walker's barrier: a warp's where the walker is one warp
-__device__ __forceinline__ void walker_sync(int nt) {
-  if (nt == kWarp) {
-    __syncwarp();
-  } else {
-    __syncthreads();
-  }
-}
-
-// (i, j) of packed index e + n after (i, j) of e (n > 0)
-__device__ __forceinline__ void untri_step(int& i, int& j, int n) {
-  j += n;
-  while (j > i) {
-    ++i;
-    j -= i;
-  }
-}
-
 // The rows of piece pc (of P rows) of a range in device memory.
 __device__ __forceinline__ Stretch piece_of(const Problem& p, const Range& rg, int pc, int P) {
   Stretch s;
@@ -897,55 +919,323 @@ __device__ __forceinline__ Stretch piece_of(const Problem& p, const Range& rg, i
   return s;
 }
 
-// A walker (a block) walks ranges in turn (a persistent grid): the walk
-// (kWalk) or the summary, with the arguments of the register form's walk;
-// work: the workspace, a slot a block, where the layout says so.
-template <bool kRolling, bool kWalk>
+// Lane l's rows of a triangle of k rows where the rows are many (KB = 0):
+// l and 63 - l of every 64, so that the lanes' rows hold about as many
+// entries each; f(r) for each.
+template <class F>
+__device__ __forceinline__ void for_rows(int k, int lane, F&& f) {
+  for (int base = 0; base < k; base += 2 * kWarp) {
+    if (base + lane < k) f(base + lane);
+    if (base + 2 * kWarp - 1 - lane < k) f(base + 2 * kWarp - 1 - lane);
+  }
+}
+
+// st (a warp's state: A packed, then b) += the row's change: lane l owns
+// rows l, l + 32 of A (row r's entries q <= r at r (r + 1) / 2 + q, a
+// permutation of the banks over each half-warp's rows) and their entries
+// of b (at kt + r); the row's values are broadcast. KB > 0: K <= KB, the
+// loops unrolled; 0: any K, the rows of for_rows. gz the leaving row's
+// values (null: none).
+template <int KB>
+__device__ __forceinline__ void update_state(double* __restrict__ st, const double* __restrict__ z,
+                                             const double* __restrict__ gz, bool valid, bool scale, double ff, int k,
+                                             int kt, int lane) {
+  auto entry = [&](double a, double xr, double gr, double zq, double gq) {
+    if (valid) {
+      if (scale) a *= ff;
+      a = fma(xr, zq, a);
+    }
+    if (gz != nullptr) a = fma(-gr, gq, a);
+    return a;
+  };
+  auto row_b = [&](int r, double xr, double gr) {
+    st[kt + r] = entry(st[kt + r], xr, gr, z[0], gz != nullptr ? gz[0] : 0.0);
+  };
+  if constexpr (KB > 0) {
+    constexpr int kRows = (KB + kWarp - 1) / kWarp;
+#pragma unroll
+    for (int h = 0; h < kRows; ++h) {
+      const int r = lane + h * kWarp;
+      if (r >= k) continue;
+      double* row = st + r * (r + 1) / 2;
+      const double xr = z[1 + r], gr = gz != nullptr ? gz[1 + r] : 0.0;
+#pragma unroll
+      for (int q0 = 0; q0 < KB && q0 < (h + 1) * kWarp; q0 += kBatch) {
+        if (q0 <= r) {
+          // the whole batch is loaded and updated (entries past the row's
+          // end lie in the state's later rows and are not stored), so only
+          // the stores wait on a lane's test
+          double a[kBatch], zq[kBatch], gq[kBatch];
+#pragma unroll
+          for (int u = 0; u < kBatch; ++u) {
+            a[u] = row[q0 + u];
+            zq[u] = z[1 + q0 + u];
+            gq[u] = gz != nullptr ? gz[1 + q0 + u] : 0.0;
+          }
+#pragma unroll
+          for (int u = 0; u < kBatch; ++u) a[u] = entry(a[u], xr, gr, zq[u], gq[u]);
+#pragma unroll
+          for (int u = 0; u < kBatch; ++u) {
+            if (q0 + u <= r) row[q0 + u] = a[u];
+          }
+        }
+      }
+      row_b(r, xr, gr);
+    }
+  } else {
+    for_rows(k, lane, [&](int r) {
+      double* row = st + r * (r + 1) / 2;
+      const double xr = z[1 + r], gr = gz != nullptr ? gz[1 + r] : 0.0;
+      int q = 0;
+      for (; q + kBatch <= r + 1; q += kBatch) {  // loads in flight together, then the stores
+        double a[kBatch], zq[kBatch], gq[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          a[u] = row[q + u];
+          zq[u] = z[1 + q + u];
+          gq[u] = gz != nullptr ? gz[1 + q + u] : 0.0;
+        }
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) row[q + u] = entry(a[u], xr, gr, zq[u], gq[u]);
+      }
+      for (; q <= r; ++q) row[q] = entry(row[q], xr, gr, z[1 + q], gz != nullptr ? gz[1 + q] : 0.0);
+      row_b(r, xr, gr);
+    });
+  }
+}
+
+// one row's output from beta (k doubles in shared memory): the coefficients
+// or the prediction x . beta (a warp's sum in a fixed order)
+__device__ __forceinline__ void emit_row(const double* __restrict__ z, const double* __restrict__ beta, int k,
+                                         int lane, int64_t at,
+                                         double* __restrict__ coef, double* __restrict__ pred) {
+  if (coef != nullptr) {
+    for (int i = lane; i < k; i += kWarp) coef[at * k + i] = beta[i];
+  } else {
+    double acc = 0.0;
+    for (int i = lane; i < k; i += kWarp) acc = fma(z[1 + i], beta[i], acc);
+    for (int o = kWarp / 2; o > 0; o >>= 1) acc += __shfl_xor_sync(kFull, acc, o);
+    if (lane == 0) pred[at] = acc;
+  }
+}
+
+// The LDL' solve of (A + reg I) beta = b + reg mean from the state st, by
+// one warp, K <= KB <= kRegFactorMaxK: lane l holds rows l and l + 32 of
+// the factor in registers (the second where KB > 32) and eliminates by
+// columns; column jc goes through a shared-memory buffer (two, used in
+// turns, so one __syncwarp a column) and into fac (packed lower triangle)
+// for the back substitution. The right-hand side is eliminated beside
+// (lane l keeps y_l, y_{l+32}). Returns whether every pivot was positive
+// and finite; beta into wbeta (NaN where not). phase 2 stops after the
+// factorisation.
+template <int KB>
+__device__ __forceinline__ bool solve_regs(const double* __restrict__ st, double reg, const double* __restrict__ mean,
+                                           int k, int lane, double* __restrict__ fac, double* __restrict__ colb,
+                                           double* __restrict__ wbeta, int phase) {
+  constexpr int KA = KB < kWarp ? KB : kWarp;
+  constexpr int KH = KB > kWarp ? KB : 1;
+  const int kt = k * (k + 1) / 2;
+  const int r1 = lane, r2 = lane + kWarp;
+  double Fa[KA], Fb[KH];
+  const int t1 = r1 * (r1 + 1) / 2, t2 = r2 * (r2 + 1) / 2;
+#pragma unroll
+  for (int q = 0; q < KA; ++q) Fa[q] = r1 < k && q <= r1 ? st[t1 + q] + (q == r1 ? reg : 0.0) : 0.0;
+#pragma unroll
+  for (int q = 0; q < KH; ++q) Fb[q] = KB > kWarp && r2 < k && q <= r2 ? st[t2 + q] + (q == r2 ? reg : 0.0) : 0.0;
+  double y1 = r1 < k ? fma(reg, mean[r1], st[kt + r1]) : 0.0;
+  double y2 = KB > kWarp && r2 < k ? fma(reg, mean[r2], st[kt + r2]) : 0.0;
+  double rd1 = 0.0, rd2 = 0.0;
+  bool ok = true;
+#pragma unroll
+  for (int jc = 0; jc < KB; ++jc) {
+    if (jc < k) {
+      const double c1 = jc < KA ? Fa[jc < KA ? jc : 0] : 0.0;  // F[r1][jc]
+      const double c2 = KB > kWarp ? Fb[jc < KH ? jc : 0] : 0.0;  // F[r2][jc]
+      const double dj = __shfl_sync(kFull, jc < kWarp ? c1 : c2, jc % kWarp);
+      ok = ok && dj > 0.0 && dj < INFINITY;
+      const double rd = recip(dj);
+      if (jc < kWarp) {
+        rd1 = lane == jc ? rd : rd1;
+      } else {
+        rd2 = lane == jc - kWarp ? rd : rd2;
+      }
+      double* cb = colb + (jc & 1) * kColumn;
+      cb[r1] = c1;
+      if (KB > kWarp) cb[r2] = c2;
+      if (r1 > jc && r1 < k) fac[t1 + jc] = c1;
+      if (KB > kWarp && r2 > jc && r2 < k) fac[t2 + jc] = c2;
+      __syncwarp();
+      const double s1 = c1 * rd, s2 = c2 * rd;
+      // the trailing columns q > jc (jc and q are constants here), two at a
+      // time from the buffer, kGroup pairs loaded before their updates so
+      // that the loads are in flight together; columns past K are updated
+      // too (their entries are never read), so no update waits on a test
+      const double2* cb2 = reinterpret_cast<const double2*>(cb);
+#pragma unroll
+      for (int q0 = (jc + 1) & ~1; q0 < KB; q0 += 2 * kGroup) {
+        double2 cq[kGroup];
+#pragma unroll
+        for (int g = 0; g < kGroup; ++g) {
+          if (q0 + 2 * g < KB) cq[g] = cb2[(q0 + 2 * g) / 2];
+        }
+#pragma unroll
+        for (int g = 0; g < kGroup; ++g) {
+          const int q = q0 + 2 * g;
+          if (q < KB && q > jc) {
+            if (q < KA) Fa[q < KA ? q : 0] = fma(-s1, cq[g].x, Fa[q < KA ? q : 0]);
+            if (KB > kWarp) Fb[q < KH ? q : 0] = fma(-s2, cq[g].x, Fb[q < KH ? q : 0]);
+          }
+          if (q + 1 < KB) {
+            if (q + 1 < KA) Fa[q + 1 < KA ? q + 1 : 0] = fma(-s1, cq[g].y, Fa[q + 1 < KA ? q + 1 : 0]);
+            if (KB > kWarp) Fb[q + 1 < KH ? q + 1 : 0] = fma(-s2, cq[g].y, Fb[q + 1 < KH ? q + 1 : 0]);
+          }
+        }
+      }
+      const double yj = __shfl_sync(kFull, jc < kWarp ? y1 : y2, jc % kWarp) * rd;
+      if (r1 > jc) y1 = fma(-yj, c1, y1);
+      if (KB > kWarp && r2 > jc) y2 = fma(-yj, c2, y2);
+    }
+  }
+  if (phase == 2) return ok;
+  // beta_i = (y_i - sum_{q > i} F_qi beta_q) / d_i, i from k - 1 down (ri
+  // a constant of the unrolled loop, so F_qi's loads need not wait); beta_i
+  // passed by a shuffle
+#pragma unroll
+  for (int ri = KB - 1; ri >= 0; --ri) {
+    if (ri < k) {
+      const double bi = __shfl_sync(kFull, ri < kWarp ? y1 * rd1 : y2 * rd2, ri % kWarp);
+      if (lane == ri % kWarp) wbeta[ri] = ok ? bi : NAN;
+      const int tr = ri * (ri + 1) / 2;
+      if (r1 < ri) y1 = fma(-fac[tr + r1], bi, y1);
+      if (KB > kWarp && r2 < ri) y2 = fma(-fac[tr + r2], bi, y2);
+    }
+  }
+  return ok;
+}
+
+// The same solve at any K in shared memory (or the workspace): the
+// augmented system [A + reg I; b' + reg mean'] in fac (packed, row K is
+// the right-hand side), LDL' by columns, right-looking, each lane updating
+// its rows (for_rows) from column jc, which is first copied to a
+// contiguous buffer (colb, K doubles); then the back substitution by
+// columns, each lane its entries of the right-hand side.
+__device__ __forceinline__ bool solve_shared(const double* __restrict__ st, double reg,
+                                             const double* __restrict__ mean, int k, int lane,
+                                             double* __restrict__ fac, double* __restrict__ rpiv,
+                                             double* __restrict__ colb, double* __restrict__ wbeta, int phase) {
+  const int kt = k * (k + 1) / 2;
+  for_rows(k, lane, [&](int r) {
+    const int t = r * (r + 1) / 2;
+    int q = 0;
+    for (; q + kBatch <= r; q += kBatch) {  // loads in flight together (the stores could alias them)
+      double v[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) v[u] = st[t + q + u];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) fac[t + q + u] = v[u];
+    }
+    for (; q < r; ++q) fac[t + q] = st[t + q];
+    fac[t + r] = st[t + r] + reg;
+    fac[kt + r] = fma(reg, mean[r], st[kt + r]);
+  });
+  __syncwarp();
+  bool ok = true;
+  // F_rq -= F_rj F_qj / d_j for j < q <= r, and y_r -= y_j F_rj / d_j
+  for (int jc = 0; jc < k; ++jc) {
+    const double dj = fac[jc * (jc + 1) / 2 + jc];
+    ok = ok && dj > 0.0 && dj < INFINITY;
+    const double rd = recip(dj);
+    if (lane == 0) rpiv[jc] = rd;
+    for (int q = jc + 1 + lane; q < k; q += kWarp) colb[q] = fac[q * (q + 1) / 2 + jc];
+    __syncwarp();
+    const double yj = fac[kt + jc] * rd;
+    for_rows(k, lane, [&](int r) {
+      if (r <= jc) return;
+      double* row = fac + r * (r + 1) / 2;
+      const double cr = colb[r], sr = cr * rd;
+      int q = jc + 1;
+      for (; q + kBatch <= r + 1; q += kBatch) {  // loads in flight together, then the stores
+        double a[kBatch], c[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          a[u] = row[q + u];
+          c[u] = colb[q + u];
+        }
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) row[q + u] = fma(-sr, c[u], a[u]);
+      }
+      for (; q <= r; ++q) row[q] = fma(-sr, colb[q], row[q]);
+      fac[kt + r] = fma(-yj, cr, fac[kt + r]);
+    });
+    __syncwarp();
+  }
+  if (phase == 2) return ok;
+  // beta_i = (y_i - sum_{q > i} F_qi beta_q) / d_i by columns
+  for (int ri = k - 1; ri >= 0; --ri) {
+    const double bi = fac[kt + ri] * rpiv[ri];
+    if (lane == 0) wbeta[ri] = ok ? bi : NAN;
+    const int ti = ri * (ri + 1) / 2;
+    for (int q = lane; q < ri; q += kWarp) fac[kt + q] = fma(-fac[ti + q], bi, fac[kt + q]);
+    __syncwarp();
+  }
+  return ok;
+}
+
+// A walker (a block of NW warps) walks ranges in turn (a persistent grid):
+// the walk (kWalk) or the summary, with the arguments of the register
+// form's walk; work: the workspace, a slot a block, where the layout says
+// so (kHere false); phase 1 / 2 / 3 stops each solve after the update, the
+// LDL' and the back substitution (no output), 0 runs it all. KB: the
+// register factor's width (0: the factor in shared memory).
+template <int KB, bool kRolling, bool kWalk, bool kHere>
 __global__ void __launch_bounds__(kSharedMaxWarps * kWarp)
 walk_shared(Problem p, const double* __restrict__ mean, SharedLayout lay, int64_t first, int64_t items,
             const double* __restrict__ seed, double* __restrict__ summ, double* __restrict__ sseed,
             int64_t nsmax, double* __restrict__ tail, uint8_t* __restrict__ has,
             double* __restrict__ coef, double* __restrict__ pred, uint8_t* __restrict__ flag,
-            int* __restrict__ nflag, double* __restrict__ work) {
+            int* __restrict__ nflag, double* __restrict__ work, int phase) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = static_cast<int>(threadIdx.x), nt = static_cast<int>(blockDim.x);
+  const int warp = tid / kWarp, lane = tid % kWarp, NW = lay.warps;
   const int k = p.K, C = k + 1, kt = k * (k + 1) / 2, body = kt + k, E = body + 1;
-  const int P = lay.rows, per = kWarp * p.T / P;  // rows a piece, pieces a stretch
-  int i0, j0;  // (row, column) of the thread's first packed entry, tid: row K is b
-  untri(tid, i0, j0);
-  const uint32_t bars = shared_addr(smem);
-  double* ws = lay.here ? nullptr : work + static_cast<int64_t>(blockIdx.x) * work_doubles(k, lay);
-  double* cbeta = lay.here ? reinterpret_cast<double*>(smem + lay.beta) : ws;
-  double* rpiv = lay.here ? reinterpret_cast<double*>(smem + lay.rpiv) : ws + k;
-  double* st = lay.here ? reinterpret_cast<double*>(smem + lay.state) : ws + 2 * k;
-  double* fac = lay.here ? reinterpret_cast<double*>(smem + lay.factor) : ws + 2 * k + body;
+  const int run = kWarp * p.T, P = lay.rows, stretch = NW * run;  // NW > 1: P == stretch
+  const uint32_t bar = shared_addr(smem);
+  // kHere (the layout's `here`, a template argument so that the compiler
+  // knows these are shared-memory addresses): the ring and the warps'
+  // buffers in shared memory, else in the block's workspace slot
+  double* ring = kHere ? reinterpret_cast<double*>(smem + lay.ring)
+                       : work + static_cast<int64_t>(blockIdx.x) * work_doubles(k, lay);
+  // warp w's buffers: its factor, reciprocal pivots, beta and column buffers
+  auto warp_buf = [&](int w) {
+    return (kHere ? reinterpret_cast<double*>(smem + lay.wbuf) : ring + NW * E) + w * warp_doubles(k);
+  };
+  double* wb = warp_buf(warp);
+  double* fac = wb;
+  double* rpiv = wb + body;
+  double* wbeta = rpiv + k;
+  double* colb = wbeta + k + ((body + 2 * k) & 1);  // 16-byte aligned
+  double* cbeta = reinterpret_cast<double*>(smem + lay.misc);
+  int* whas = reinterpret_cast<int*>(smem + lay.misc + round16(k * 8));
+  int* wlead = whas + kSharedMaxWarps;
   double* gone = reinterpret_cast<double*>(smem + lay.gone);
-  const int stage_bytes = lay.z + 2 * lay.m + lay.lv;
+  unsigned char* stage = smem + lay.stage;
   if (tid == 0) {
-    for (int b = 0; b < 2; ++b) {
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(bars + 8u * b) : "memory");
-    }
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(bar) : "memory");
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   }
   __syncthreads();
-  uint32_t used = 0;  // pieces this walker has taken from its stages: piece u is in stage u & 1
+  uint32_t used = 0;  // pieces this walker has taken from its stage
   for (int64_t item = first + blockIdx.x; item < first + items; item += gridDim.x) {
     const Range rg = range_of(p, item);
     if (rg.len <= 0) continue;  // the whole block moves on together
     const int npc = (rg.len + P - 1) / P;
     const bool in_table = item >= p.G;
-    if (tid == 0) {
-      for (int pc = 0; pc < 2 && pc < npc; ++pc) {
-        const uint32_t slot = (used + pc) & 1u;
-        issue_stretch<kRolling>(p, lay.z, lay.m, piece_of(p, rg, pc, P),
-                                shared_addr(smem + lay.stage + slot * stage_bytes), bars + 8u * slot);
-      }
-    }
-    // each thread owns the state entries e = tid + n nt, here and in every update
+    if (tid == 0) issue_stretch<kRolling>(p, lay.z, lay.m, piece_of(p, rg, 0, P), shared_addr(stage), bar);
+    // the carry: ring slot c
+    int c = 0;
     const double* s0 = in_table && seed != nullptr ? seed + (item - p.G) * E : nullptr;
-    for (int e = tid; e < body; e += nt) st[e] = s0 != nullptr ? s0[e] : 0.0;
-    double disc = s0 != nullptr ? s0[body] : 1.0;  // every thread keeps the discount
+    for (int e = tid; e < E; e += nt) ring[e] = s0 != nullptr ? s0[e] : (e == E - 1 ? 1.0 : 0.0);
     if (kWalk) {
       for (int i = tid; i < k; i += nt) cbeta[i] = kRolling ? NAN : mean[i];
     }
@@ -953,10 +1243,8 @@ walk_shared(Problem p, const double* __restrict__ mean, SharedLayout lay, int64_
     __syncthreads();
 
     for (int pc = 0; pc < npc; ++pc, ++used) {
-      const uint32_t slot = used & 1u;
-      wait_parity(bars + 8u * slot, (used >> 1) & 1u);
+      wait_parity(bar, used & 1u);
       const Stretch sx = piece_of(p, rg, pc, P);
-      const unsigned char* stage = smem + lay.stage + slot * stage_bytes;
       const double* zs = reinterpret_cast<const double*>(stage + shift16(p.Z + sx.row * C));
       const uint8_t* vs = stage + lay.z + shift16(p.v + sx.row);
       const uint8_t* rs = stage + lay.z + lay.m + shift16(p.refresh + sx.row);
@@ -969,119 +1257,131 @@ walk_shared(Problem p, const double* __restrict__ mean, SharedLayout lay, int64_
           const int32_t src = ls[r];
           if (src >= 0) gone[idx] = p.Z[(rg.g * p.R + src) * C + (idx - r * C)];
         }
-        walker_sync(nt);
       }
-      if (kWalk && sseed != nullptr && pc % per == 0) {  // a stretch's start state, for moments_at
-        double* ss = sseed + (item * nsmax + pc / per) * E;
-        for (int e = tid; e < E; e += nt) ss[e] = e < body ? st[e] : disc;
+      const int at = pc * P;  // the piece's first row in the range
+      if (kWalk && sseed != nullptr && at % stretch == 0) {  // a stretch's start state, for moments_at
+        double* ss = sseed + (item * nsmax + at / stretch) * E;
+        for (int e = tid; e < E; e += nt) ss[e] = ring[c * E + e];
       }
-      for (int r = 0; r < sx.n; ++r) {
-        const double* z = zs + r * C;
-        const bool valid = vs[r] != 0;
-        const bool ref = kWalk && rs[r] != 0;
-        const double* gz = kRolling && ls[r] >= 0 ? gone + r * C : nullptr;
-        const bool scale = !kRolling && valid && p.ff != 1.0;
-        if (scale) disc *= p.ff;
-        const double reg = kRolling ? p.reg0 : disc * p.reg0;
-        // the update, and at a refresh row the augmented system [A + reg I; b' + reg mean']
-        bool ok = true;  // the pivots' test: thread 0 keeps it
-        int i = i0, j = j0;
-        for (int e = tid; e < body; e += nt, untri_step(i, j, nt)) {
-          double a = st[e];
-          const int xi = i < k ? i : j, yj = i < k ? j : -1;  // b's entries pair x_j with z[0] = y
-          if (valid) {
-            if (scale) a *= p.ff;
-            a = fma(z[1 + xi], z[1 + yj], a);
-          }
-          if (gz != nullptr) a = fma(-gz[1 + xi], gz[1 + yj], a);
-          st[e] = a;
-          if (ref) {
-            const double f = i < k ? (i == j ? a + reg : a) : fma(reg, mean[j], a);
-            fac[e] = f;
-            if (e == 0) {
-              ok = f > 0.0 && f < INFINITY;
-              rpiv[0] = recip(f);
+      __syncthreads();
+      // the warps' runs: warp w rows [w run, (w + 1) run) of the piece (one
+      // warp: all of it)
+      const int nact = NW > 1 ? (sx.n + run - 1) / run : 1;
+      const int lo = NW > 1 ? warp * run : 0;
+      const int hi = NW > 1 ? (lo + run < sx.n ? lo + run : sx.n) : sx.n;
+      // 1. the summary of each run but the last from a zero start, into the
+      // slots after the carry
+      if (warp < nact - 1) {
+        double* st = ring + ((c + 1 + warp) % NW) * E;
+        for (int e = lane; e < body; e += kWarp) st[e] = 0.0;
+        double disc = 1.0;
+        __syncwarp();
+        for (int r = lo; r < hi; ++r) {
+          const bool valid = vs[r] != 0;
+          const bool scale = !kRolling && valid && p.ff != 1.0;
+          if (scale) disc *= p.ff;
+          update_state<KB>(st, zs + r * C, kRolling && ls[r] >= 0 ? gone + r * C : nullptr, valid, scale, p.ff, k,
+                           kt, lane);
+        }
+        if (lane == 0) st[body] = disc;
+      }
+      if (nact > 1) {
+        // 2. composed in warp order onto the carry, in place: slot c + 1 + w
+        // ends as the state after run w, the start of run w + 1
+        __syncthreads();
+        double dsc[kSharedMaxWarps];
+#pragma unroll
+        for (int w = 0; w < kSharedMaxWarps; ++w) dsc[w] = w < nact - 1 ? ring[((c + 1 + w) % NW) * E + body] : 1.0;
+        __syncthreads();
+        for (int e = tid; e < E; e += nt) {
+          double acc = ring[c * E + e];
+#pragma unroll
+          for (int w = 0; w < kSharedMaxWarps; ++w) {
+            if (w < nact - 1) {
+              double* sw = ring + ((c + 1 + w) % NW) * E;
+              acc = e == body ? acc * sw[e] : fma(dsc[w], acc, sw[e]);
+              sw[e] = acc;
             }
           }
         }
-        if (ref) {
-          walker_sync(nt);
-          // LDL' by columns: F_iq -= F_ij F_qj / d_j for j < q <= i <= K,
-          // (K, K) aside; thread 0 meets the next pivot first (u = 0) and
-          // posts its reciprocal before the barrier
-          for (int jc = 0; jc < k; ++jc) {
-            const double rd = rpiv[jc];
-            const int j1 = jc + 1, m = k - jc, cnt = m * (m + 1) / 2 - 1;
-            int a = i0, c = j0;
-            for (int u = tid; u < cnt; u += nt, untri_step(a, c, nt)) {
-              const int ri = j1 + a, q = j1 + c;
-              const int ti = ri * (ri + 1) / 2;
-              const double x = fma(-(fac[ti + jc] * rd), fac[q * (q + 1) / 2 + jc], fac[ti + q]);
-              fac[ti + q] = x;
-              if (u == 0 && j1 < k) {
-                ok = ok && x > 0.0 && x < INFINITY;
-                rpiv[j1] = recip(x);
-              }
+        __syncthreads();
+      }
+      // 3. each run walked from its start state in its slot (the summary:
+      // the last run only); the last run's end state is the new carry
+      if (warp < nact && (kWalk || warp == nact - 1)) {
+        double* st = ring + ((c + warp) % NW) * E;
+        double disc = st[body];
+        bool have = false;
+        int lead = hi - lo;  // rows before the run's first refresh row
+        for (int r = lo; r < hi; ++r) {
+          const double* z = zs + r * C;
+          const bool valid = vs[r] != 0;
+          const bool scale = !kRolling && valid && p.ff != 1.0;
+          if (scale) disc *= p.ff;
+          update_state<KB>(st, z, kRolling && ls[r] >= 0 ? gone + r * C : nullptr, valid, scale, p.ff, k, kt, lane);
+          if (!kWalk) continue;
+          if (rs[r] != 0 && phase != 1) {
+            __syncwarp();
+            const double reg = kRolling ? p.reg0 : disc * p.reg0;
+            bool ok;
+            if constexpr (KB > 0) {
+              ok = solve_regs<KB>(st, reg, mean, k, lane, fac, colb, wbeta, phase);
+            } else {
+              ok = solve_shared(st, reg, mean, k, lane, fac, rpiv, colb, wbeta, phase);
             }
-            walker_sync(nt);
-          }
-          // row K is y (U y = b); beta_i = (y_i - sum_{q > i} F_qi beta_q) / d_i by columns
-          if (k <= kWarp) {
-            if (tid < kWarp) {  // lane q keeps y_q and 1 / d_q; beta_i by a shuffle
-              ok = __shfl_sync(kFull, ok, 0);
-              double rq = tid < k ? fac[kt + tid] : 0.0;
-              const double pq = tid < k ? rpiv[tid] : 0.0;
-              for (int ri = k - 1; ri > 0; --ri) {
-                const double f = tid < ri ? fac[ri * (ri + 1) / 2 + tid] : 0.0;
-                const double bi = __shfl_sync(kFull, rq * pq, ri);
-                if (tid < ri) rq = fma(-f, bi, rq);
-              }
-              if (tid < k) cbeta[tid] = ok ? rq * pq : NAN;
+            if (!ok && lane == 0 && phase == 0) {
+              flag[sx.row + r] = 1;
+              atomicAdd(nflag, 1);
             }
-            walker_sync(nt);
-          } else {
-            for (int ri = k - 1; ri >= 0; --ri) {
-              const double bi = fac[kt + ri] * rpiv[ri];
-              if (tid == 0) cbeta[ri] = ok ? bi : NAN;
-              const int ti = ri * (ri + 1) / 2;
-              for (int q = tid; q < ri; q += nt) fac[kt + q] = fma(-fac[ti + q], bi, fac[kt + q]);
-              walker_sync(nt);
-            }
+            __syncwarp();
+            if (!have) lead = r - lo;
+            have = true;
           }
-          if (!ok && tid == 0) {
-            flag[sx.row + r] = 1;
-            atomicAdd(nflag, 1);
-          }
+          if (have && phase == 0) emit_row(z, wbeta, k, lane, sx.row + r, coef, pred);
+        }
+        if (lane == 0) {
+          st[body] = disc;
+          whas[warp] = have ? 1 : 0;
+          wlead[warp] = lead;
+        }
+      }
+      __syncthreads();
+      if (kWalk && warp < nact) {
+        // 4. a run's leading rows carry the last beta solved before it: of
+        // the nearest earlier run that solved one, else the walker's
+        int src = -1;
+        for (int w = warp - 1; w >= 0 && src < 0; --w) src = whas[w] != 0 ? w : -1;
+        const double* bin = src >= 0 ? warp_buf(src) + body + k : cbeta;
+        if ((src >= 0 || known) && phase == 0) {
+          for (int r = lo; r < lo + wlead[warp]; ++r) emit_row(zs + r * C, bin, k, lane, sx.row + r, coef, pred);
+        }
+      }
+      __syncthreads();
+      if (kWalk) {
+        int last = -1;
+        for (int w = 0; w < nact; ++w) last = whas[w] != 0 ? w : last;
+        if (last >= 0) {
+          const double* bl = warp_buf(last) + body + k;
+          for (int i = tid; i < k; i += nt) cbeta[i] = bl[i];
           known = true;
         }
-        if (kWalk && known) {
-          const int64_t at = sx.row + r;
-          if (coef != nullptr) {
-            for (int i = tid; i < k; i += nt) coef[at * k + i] = cbeta[i];
-          } else if (tid < kWarp) {
-            double acc = 0.0;
-            for (int i = tid; i < k; i += kWarp) acc = fma(z[1 + i], cbeta[i], acc);
-            for (int o = kWarp / 2; o > 0; o >>= 1) acc += __shfl_xor_sync(kFull, acc, o);
-            if (tid == 0) pred[at] = acc;
-          }
-        }
       }
-      __syncthreads();  // every thread is done with the stage and the leaving rows
-      if (tid == 0 && pc + 2 < npc) {
-        issue_stretch<kRolling>(p, lay.z, lay.m, piece_of(p, rg, pc + 2, P), shared_addr(stage),
-                                bars + 8u * slot);
+      c = (c + nact - 1) % NW;
+      __syncthreads();  // the stage, the leaving rows and the beta are read
+      if (tid == 0 && pc + 1 < npc) {
+        issue_stretch<kRolling>(p, lay.z, lay.m, piece_of(p, rg, pc + 1, P), shared_addr(stage), bar);
       }
     }
     if (in_table) {
       const int64_t m = item - p.G;
       if (!kWalk) {
-        for (int e = tid; e < E; e += nt) summ[m * E + e] = e < body ? st[e] : disc;
+        for (int e = tid; e < E; e += nt) summ[m * E + e] = ring[c * E + e];
       } else {
         for (int i = tid; i < k; i += nt) tail[m * k + i] = cbeta[i];
         if (tid == 0) has[m] = known ? 1 : 0;
       }
     }
-    __syncthreads();  // before the next range takes the state and beta
+    __syncthreads();  // before the next range takes the ring and beta
   }
 }
 
@@ -1253,39 +1553,91 @@ int run_occupancy(int K, int T, int ow, int* warps) {
 }
 
 // the shared form
+// the walker's shared memory, and the largest carveout, so that the blocks
+// the occupancy calculator counts an SM are resident at once (the grid is
+// persistent: a block beyond them would wait for a whole walker)
 template <class Kernel>
 int prepare_shared(Kernel kernel, const SharedLayout& lay) {
   if (lay.rows < 1) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.total));
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.total);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+  }
+  return static_cast<int>(err);
+}
+
+// the register factor's width at K features (0: the factor in shared
+// memory or the workspace)
+inline int factor_width(int K) {
+  return K <= 16 ? 16 : (K <= 32 ? 32 : (K <= 40 ? 40 : (K <= kRegFactorMaxK ? kRegFactorMaxK : 0)));
+}
+
+// the walk (kWalk) or summary kernel at a layout: the ring and warp
+// buffers in shared memory (every layout with the register factor) or in
+// the workspace
+template <int KB, bool kRolling, bool kWalk>
+auto walk_kernel(const SharedLayout& lay) {
+  if constexpr (KB > 0) {
+    return walk_shared<KB, kRolling, kWalk, true>;
+  } else {
+    return lay.here ? walk_shared<0, kRolling, kWalk, true> : walk_shared<0, kRolling, kWalk, false>;
+  }
+}
+
+template <int KB, bool kRolling>
+int run_walk_shared(const Problem& p, const double* mean, const SharedLayout& lay, int64_t walkers, double* work,
+                    const double* seed, double* sseed, int64_t nsmax, double* tail, uint8_t* has, double* coef,
+                    double* pred, uint8_t* flag, int* nflag, int phase, cudaStream_t st) {
+  if (KB > 0 && !lay.here) return static_cast<int>(cudaErrorInvalidValue);
+  auto walker = walk_kernel<KB, kRolling, true>(lay);
+  const int rc = prepare_shared(walker, lay);
+  if (rc != 0) return rc;
+  walker<<<static_cast<unsigned>(min64(p.G + p.M, walkers)), lay.warps * kWarp, lay.total, st>>>(
+      p, mean, lay, 0, p.G + p.M, seed, nullptr, sseed, nsmax, tail, has, coef, pred, flag, nflag, work, phase);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kRolling>
 int run_all_shared(const Problem& p, const double* mean, int64_t walkers, double* work,
                    const int64_t* seg_first, int64_t NS, const int64_t* grp_seg, int64_t NL, double* summ,
                    double* seed, double* segtot, double* segseed, double* sseed, int64_t nsmax, double* tail,
-                   uint8_t* has, double* coef, double* pred, uint8_t* flag, int* nflag, cudaStream_t st) {
+                   uint8_t* has, double* coef, double* pred, uint8_t* flag, int* nflag, int phase, cudaStream_t st) {
   const SharedLayout lay = shared_layout_for(p.K, p.T, kRolling);
   if (walkers < 1 || (!lay.here && work == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = shared_threads(p.K);
   int rc = 0;
   if (p.M > 0) {
-    auto summary = walk_shared<kRolling, false>;
+    auto summary = walk_kernel<0, kRolling, false>(lay);
     rc = prepare_shared(summary, lay);
     if (rc != 0) return rc;
-    summary<<<static_cast<unsigned>(min64(p.M, walkers)), threads, lay.total, st>>>(
+    summary<<<static_cast<unsigned>(min64(p.M, walkers)), lay.warps * kWarp, lay.total, st>>>(
         p, mean, lay, p.G, p.M, nullptr, summ, nullptr, 0, nullptr, nullptr, nullptr, nullptr, nullptr,
-        nullptr, work);
+        nullptr, work, 0);
     rc = static_cast<int>(cudaGetLastError());
     if (rc == 0) rc = run_prefix(p, seg_first, NS, grp_seg, NL, summ, seed, segtot, segseed, st);
     if (rc != 0) return rc;
   }
-  auto walker = walk_shared<kRolling, true>;
-  rc = prepare_shared(walker, lay);
-  if (rc != 0) return rc;
-  walker<<<static_cast<unsigned>(min64(p.G + p.M, walkers)), threads, lay.total, st>>>(
-      p, mean, lay, 0, p.G + p.M, seed, nullptr, sseed, nsmax, tail, has, coef, pred, flag, nflag, work);
-  rc = static_cast<int>(cudaGetLastError());
-  if (rc != 0 || p.M == 0) return rc;
+  switch (factor_width(p.K)) {
+    case 16:
+      rc = run_walk_shared<16, kRolling>(p, mean, lay, walkers, work, seed, sseed, nsmax, tail, has, coef, pred,
+                                         flag, nflag, phase, st);
+      break;
+    case 32:
+      rc = run_walk_shared<32, kRolling>(p, mean, lay, walkers, work, seed, sseed, nsmax, tail, has, coef, pred,
+                                         flag, nflag, phase, st);
+      break;
+    case 40:
+      rc = run_walk_shared<40, kRolling>(p, mean, lay, walkers, work, seed, sseed, nsmax, tail, has, coef, pred,
+                                         flag, nflag, phase, st);
+      break;
+    case kRegFactorMaxK:
+      rc = run_walk_shared<kRegFactorMaxK, kRolling>(p, mean, lay, walkers, work, seed, sseed, nsmax, tail, has,
+                                                     coef, pred, flag, nflag, phase, st);
+      break;
+    default:
+      rc = run_walk_shared<0, kRolling>(p, mean, lay, walkers, work, seed, sseed, nsmax, tail, has, coef, pred,
+                                        flag, nflag, phase, st);
+  }
+  if (rc != 0 || p.M == 0 || phase != 0) return rc;
   fill_shared<<<blocks_for(p.M, 128), 128, 0, st>>>(p, tail, has, coef, pred);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1299,17 +1651,28 @@ int run_moments_at_shared(const Problem& p, const double* mean, const double* ss
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kRolling>
-int run_occupancy_shared(int K, int T, int* walkers) {
-  const SharedLayout lay = shared_layout_for(K, T, kRolling);
-  auto kernel = walk_shared<kRolling, true>;
+template <int KB, bool kRolling>
+int occupancy_shared(const SharedLayout& lay, int* walkers) {
+  auto kernel = walk_kernel<KB, kRolling, true>(lay);
   int blocks = 0;
   int rc = prepare_shared(kernel, lay);
   if (rc != 0) return rc;
   rc = static_cast<int>(
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, shared_threads(K), lay.total));
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, lay.warps * kWarp, lay.total));
   *walkers = blocks;
   return rc;
+}
+
+template <bool kRolling>
+int run_occupancy_shared(int K, int T, int* walkers) {
+  const SharedLayout lay = shared_layout_for(K, T, kRolling);
+  switch (factor_width(K)) {
+    case 16: return occupancy_shared<16, kRolling>(lay, walkers);
+    case 32: return occupancy_shared<32, kRolling>(lay, walkers);
+    case 40: return occupancy_shared<40, kRolling>(lay, walkers);
+    case kRegFactorMaxK: return occupancy_shared<kRegFactorMaxK, kRolling>(lay, walkers);
+    default: return occupancy_shared<0, kRolling>(lay, walkers);
+  }
 }
 
 bool valid_sizes(int64_t G, int64_t R, int K, int T) {
@@ -1351,7 +1714,9 @@ extern "C" {
 // nflag [1] arrive zeroed and mark and count the rows whose Cholesky failed.
 // K > 8 (the shared form): walkers, the blocks of the persistent grid
 // (pols_moving_resident_warps times the SMs), and work, walkers times
-// pols_moving_workspace doubles (null where that is 0). Launches on
+// pols_moving_workspace doubles (null where that is 0); phase 1 / 2 / 3
+// stops its walk after the update, the LDL' and the back substitution
+// (no output: for timing the phases), 0 runs it all. Launches on
 // `stream` without synchronising; returns the CUDA error code of the first
 // launch that failed (0 on success).
 int pols_moving(const double* Z, const uint8_t* v, const int64_t* rows, const uint8_t* refresh,
@@ -1360,7 +1725,7 @@ int pols_moving(const double* Z, const uint8_t* v, const int64_t* rows, const ui
                 const int64_t* seg_first, int64_t NS, const int64_t* grp_seg, int64_t NL,
                 double* summ, double* seed, double* segtot, double* segseed, double* sseed,
                 int64_t nsmax, double* tail, uint8_t* has, double* coef, double* pred,
-                uint8_t* flag, int* nflag, int64_t walkers, double* work, void* stream) {
+                uint8_t* flag, int* nflag, int64_t walkers, double* work, int phase, void* stream) {
   const Problem p{Z, v, rows, refresh, leaving, ranges, G, R, L, M, K, T, ff, reg0};
   if (!valid_sizes(G, R, K, T) || L < 1 || M < 0 || mean0 == nullptr ||
       (coef == nullptr) == (pred == nullptr) || (rolling != 0) != (leaving != nullptr) ||
@@ -1376,7 +1741,7 @@ int pols_moving(const double* Z, const uint8_t* v, const int64_t* rows, const ui
                     tail, has, coef, pred, flag, nflag, st)
 #define POLS_RUN_SHARED(ROLL)                                                                        \
   run_all_shared<ROLL>(p, mean0, walkers, work, seg_first, NS, grp_seg, NL, summ, seed, segtot,       \
-                       segseed, sseed, nsmax, tail, has, coef, pred, flag, nflag, st)
+                       segseed, sseed, nsmax, tail, has, coef, pred, flag, nflag, phase, st)
   POLS_MOVING_DISPATCH(K, rolling != 0, POLS_RUN_ALL, POLS_RUN_SHARED)
 #undef POLS_RUN_ALL
 #undef POLS_RUN_SHARED
@@ -1438,7 +1803,7 @@ int pols_moving_shared_layout(int K, int rolling, int T, int64_t* doubles, int* 
   if (lay.rows < 1) return -1;
   *doubles = work_doubles(K, lay);
   *rows = lay.rows;
-  *threads = shared_threads(K);
+  *threads = lay.warps * kWarp;
   return 0;
 }
 

@@ -19,18 +19,20 @@ bulk-copied into shared memory behind the previous one's arithmetic:
    ``[G, R]``; the last solved beta passes on to later lanes and
    stretches, so rows that only carry it are written in the same pass.
 
-In the shared form (K > 8) a walker is a block of 32 .. 256 threads (a
-warp up to K = 31, a warp more for each 16 features, at most 8) that keeps
-one copy of the range's state and one factor in shared memory (in a
-device-memory workspace of ``shared_layout(K, ...)[0]`` doubles a walker
-past what fits, about K = 100) and walks the rows in order; its threads
-split each row's update, an LDL' factorisation of the augmented system
-(the forward substitution inside it) and the back substitution. The
-stretches arrive the same way (in pieces of fewer rows where a stretch's
-rows do not fit the stages), and the grid is persistent: one walker a
-block, as many blocks as the card holds. The moments, the pivot test and
-the eigh fallback are the register form's, so a query's results do not
-change formulation at any K.
+In the shared form (K > 8) a walker is a block of up to 4 warps (as
+many as its shared memory holds, ``shared_layout(K, ...)[2]`` threads;
+one warp past K = 100, with its states and factor in a device-memory
+workspace of ``shared_layout(K, ...)[0]`` doubles) that takes a stretch
+of one run of 32 x T rows a warp at a time. Each run but the last forms
+its summary from a zero start, the summaries are composed in warp order
+onto the walker's carry (each run's exact start state), and every warp
+walks its run and solves each refresh row with its own LDL'
+factorisation of the augmented system (the factor in registers up to
+K = 48, in shared memory above) under warp barriers only; a run's rows
+before its first solve take the last beta of an earlier run. The planner
+counts its stretches of warps x 32 T rows (``plan_unit``). The moments,
+the pivot test and the eigh fallback are the register form's, so a
+query's results do not change formulation at any K.
 
 A group of at most ``L`` rows (the planner's rows a range) is one range:
 it reads Z once and needs nothing else. A longer group is cut into ranges
@@ -88,8 +90,13 @@ MAX_K = 8192
 WANTS = ("coefficients", "predictions")
 LANES = 32
 # waves of resident walkers the planner's ranges fill: enough that groups of
-# unequal length even out at the end of the grid
+# unequal length even out at the end of the grid; the shared form's walkers
+# (blocks of warps, several runs at once) take half as many, so that
+# groups of about equal length (500 +- 25 rows at "grouped_largek") are
+# not cut into a range and a short rest that pays the summary pass, the
+# prefix and the fill
 WAVES = 4
+SHARED_WAVES = 2
 # ranges of a long group whose summaries one thread composes in turn
 SEGMENT_RANGES = 32
 
@@ -110,7 +117,7 @@ def _kernel():
         lib.pols_moving.argtypes = [
             vp, vp, vp, vp, vp, i64, i64, i32, i32, i64, i32, f64, f64, vp,
             vp, i64, vp, i64, vp, i64,
-            vp, vp, vp, vp, vp, i64, vp, vp, vp, vp, vp, vp, i64, vp, vp,
+            vp, vp, vp, vp, vp, i64, vp, vp, vp, vp, vp, vp, i64, vp, i32, vp,
         ]
         lib.pols_moving.restype = ctypes.c_int
         lib.pols_moving_moments_at.argtypes = [
@@ -141,7 +148,7 @@ def _sm_count(device) -> int:
 def _resident_warps(device, K: int, rolling: bool, T: int, coefs: bool) -> int:
     """Walkers of the walk the card holds at once (the occupancy of its
     shared memory and registers, times the SMs): warps in the register
-    form, blocks in the shared form (its persistent grid)."""
+    form, blocks of warps in the shared form (its persistent grid)."""
     key = (str(device), K, rolling, T, coefs)
     if key not in _RESIDENT:
         lib = _kernel()
@@ -154,10 +161,11 @@ def _resident_warps(device, K: int, rolling: bool, T: int, coefs: bool) -> int:
 
 
 def shared_layout(K: int, rolling: bool, T: int):
-    """(workspace doubles a walker, rows a piece of a stretch, threads a
-    walker) of the kernel at K features and stretches of 32 T rows, as its
-    C entry lays them out (builds the kernel); (0, 32 T, 32) in the register
-    form."""
+    """(workspace doubles a walker, rows a stage, threads a walker) of the
+    kernel at K features and runs of 32 T rows, as its C entry lays them
+    out (builds the kernel): in the shared form a walker of w warps stages
+    w runs at once, or, with one warp, a run in pieces of fewer rows where
+    the stage does not fit; (0, 32 T, 32) in the register form."""
     key = (K, bool(rolling), T)
     if key not in _LAYOUTS:
         doubles, rows, threads = ctypes.c_int64(0), ctypes.c_int(0), ctypes.c_int(0)
@@ -198,6 +206,34 @@ def stretch_rows(K: int, rolling: bool) -> int:
     return 5
 
 
+def stretch_runs(n: int, warps: int, T: int):
+    """The runs of a shared-form stretch of n rows (at most warps x 32 T)
+    as its warps walk them: warp w takes rows [w 32 T, (w + 1) 32 T), the
+    last run what is left; one warp takes all n rows (its stage may hold
+    them in pieces). [(first row, rows)] of the warps that have rows."""
+    if warps == 1:
+        return [(0, n)]
+    run = LANES * T
+    return [(lo, min(run, n - lo)) for lo in range(0, n, run)]
+
+
+def plan_unit(K: int, rolling: bool, T: int) -> int:
+    """The ``T`` that ``plan_ranges`` takes for the kernel at K features
+    and T rows a lane: T in the register form; in the shared form T times
+    the warps of a walker, which takes a stretch of one run of 32 T rows a
+    warp at once and keeps one start state a stretch for the flagged rows
+    (``shared_layout``, so it builds the kernel)."""
+    if K <= 8:
+        return T
+    return T * (shared_layout(K, rolling, T)[2] // LANES)
+
+
+def plan_waves(K: int) -> int:
+    """Waves of walkers the planner fills at K features: WAVES in the
+    register form, SHARED_WAVES in the shared form."""
+    return WAVES if K <= 8 else SHARED_WAVES
+
+
 @dataclass(frozen=True)
 class Plan:
     """How the kernel cuts the groups: ``L`` rows a range; the ``M``
@@ -221,13 +257,13 @@ class Plan:
         return int(self.ranges.shape[0])
 
 
-def plan_ranges(counts, T: int, resident_warps: int, chunk: Optional[int] = None) -> Plan:
+def plan_ranges(counts, T: int, resident_warps: int, chunk: Optional[int] = None, waves: int = WAVES) -> Plan:
     """The ranges of groups of ``counts`` rows (host int64 [G]) for
     stretches of ``LANES * T`` rows on a card that holds
-    ``resident_warps`` warps: ``chunk`` rows a range where given, else the
-    rows that make ``WAVES`` waves of warps out of all rows, a whole number
-    of stretches and at least one. A group of at most that many rows is one
-    range; a longer one is cut into ranges of that many rows."""
+    ``resident_warps`` walkers: ``chunk`` rows a range where given, else the
+    rows that make ``waves`` waves of walkers out of all rows, a whole
+    number of stretches and at least one. A group of at most that many rows
+    is one range; a longer one is cut into ranges of that many rows."""
     counts = np.asarray(counts, dtype=np.int64)
     stretch = LANES * T
     if chunk is not None:
@@ -235,7 +271,7 @@ def plan_ranges(counts, T: int, resident_warps: int, chunk: Optional[int] = None
         if L < 1:
             raise ValueError(f"chunk must be positive, got {L}")
     else:
-        want = -(-int(counts.sum()) // (WAVES * max(1, int(resident_warps))))
+        want = -(-int(counts.sum()) // (waves * max(1, int(resident_warps))))
         L = max(stretch, -(-want // stretch) * stretch)
     long_g = np.flatnonzero(counts > L)
     n_ranges = -(-counts[long_g] // L)
@@ -255,16 +291,16 @@ def plan_ranges(counts, T: int, resident_warps: int, chunk: Optional[int] = None
     return Plan(T, L, ranges, seg_first, grp_seg, range_off, nsmax)
 
 
-def _plan_for(counts, T: int, resident: int, chunk, dev):
+def _plan_for(counts, T: int, resident: int, chunk, dev, waves: int = WAVES):
     """(plan, its tables on the device: ranges, seg_first, grp_seg,
     range_off, or None without long groups), made and uploaded once per
-    (counts, T, card, chunk) and kept: the entry holds ``counts``, its key
-    uses the array's id."""
-    key = (id(counts), T, resident, chunk, str(dev))
+    (counts, T, card, chunk, waves) and kept: the entry holds ``counts``,
+    its key uses the array's id."""
+    key = (id(counts), T, resident, chunk, str(dev), waves)
     hit = _PLANS.get(key)
     if hit is not None and hit[0] is counts:
         return hit[1], hit[2]
-    plan = plan_ranges(counts, T, resident, chunk)
+    plan = plan_ranges(counts, T, resident, chunk, waves)
     tables = (None,) * 4
     if plan.M:
         flat = np.concatenate([plan.ranges.reshape(-1), plan.seg_first, plan.grp_seg, plan.range_off])
@@ -310,14 +346,16 @@ def _from_coefs(coefs, Zp, want: str):
 
 
 def _launch_kernels(Zp, vp, rows, refresh, leaving, rolling, ff, reg0, mean0, want, chunk,
-                    counts=None, stretch=None):
+                    counts=None, stretch=None, phase=0):
     """Queue the kernel family on CUDA tensors, without synchronising:
     (out, flag [G, R] uint8, nflag [1] int32, state) where ``state`` is
     what ``pols_moving_moments_at`` needs again. ``refresh`` [G, R] bool;
     ``leaving`` [G, R] int32 or None (no row ever leaves: the recursive
     model); ``counts`` the host copy of ``rows`` (read back where not
     given: a host sync); ``stretch`` rows a lane (default
-    ``stretch_rows``)."""
+    ``stretch_rows``); ``phase`` 1 / 2 / 3 stops the shared form's walk
+    after its update, its LDL' and its back substitution (the output is
+    then not written: for timing the phases), 0 runs it all."""
     global moving_kernel_launches
     G, R, C = Zp.shape
     K = C - 1
@@ -328,7 +366,7 @@ def _launch_kernels(Zp, vp, rows, refresh, leaving, rolling, ff, reg0, mean0, wa
         counts = rows.cpu().numpy()
     T = int(stretch) if stretch else stretch_rows(K, rolling)
     walkers = _resident_warps(dev, K, rolling, T, coefs)
-    plan, tables = _plan_for(counts, T, walkers, chunk, dev)
+    plan, tables = _plan_for(counts, plan_unit(K, rolling, T), walkers, chunk, dev, plan_waves(K))
     E = K * (K + 1) // 2 + K + 1
     M, NS, NL = plan.M, len(plan.seg_first) - 1, len(plan.grp_seg) - 1
     summ = seed = segtot = segseed = tail = has = None
@@ -360,7 +398,8 @@ def _launch_kernels(Zp, vp, rows, refresh, leaving, rolling, ff, reg0, mean0, wa
             ptr(tables[0]), M, ptr(tables[1]), NS, ptr(tables[2]), NL,
             ptr(summ), ptr(seed), ptr(segtot), ptr(segseed), sseed.data_ptr(), plan.nsmax,
             ptr(tail), ptr(has), out.data_ptr() if coefs else None, None if coefs else out.data_ptr(),
-            flag.data_ptr(), nflag.data_ptr(), walkers, ptr(work), torch.cuda.current_stream(dev).cuda_stream,
+            flag.data_ptr(), nflag.data_ptr(), walkers, ptr(work), int(phase),
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(rc, lib, "scan and solve")
     moving_kernel_launches += 1

@@ -515,7 +515,7 @@ def test_moving_kernel_rolling_matches_plain_on_card(
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("k", [3, 9, 40])
+@pytest.mark.parametrize("k", [3, 9, 16, 40, 100])
 def test_moving_kernel_flagged_rows_take_the_eigh_solve_on_card(cuda_device, k, monkeypatch):
     monkeypatch.setattr(moving, "moving_flagged_rows", 0)
     Z, v, rows_t, rows = _moving_batch(200 + k, k, cuda_device, r=90)
@@ -627,13 +627,15 @@ def _shared_batch(seed: int, k: int, device):
 @pytest.mark.parametrize("chunk", [None, 32], ids=["one_range", "ranges_of_32"])
 @pytest.mark.parametrize("want", moving.WANTS)
 @pytest.mark.parametrize("model", ["rls", "rolling", "rolling_ridge"])
-@pytest.mark.parametrize("k", [9, 12, 16, 24, 32, 33, 40, 64, 100, 160])
+@pytest.mark.parametrize("k", [9, 12, 16, 24, 32, 33, 40, 48, 49, 64, 100, 101, 160])
 def test_moving_shared_form_matches_plain_on_card(cuda_device, k, model, want, chunk):
-    # the shared form (K > 8: a block walks a range's rows in order, its
-    # state and factor in shared memory, in a device-memory workspace at
-    # K = 160) against the plain versions at MOVING_KERNEL_TOL, equal NaN
-    # patterns, the same bits from two launches; groups of one range, and
-    # cut into ranges of 32 rows (the summary pass, the prefix, the fill)
+    # the shared form (K > 8: a block of warps walks a range's stretches, a
+    # warp a run of rows from its start state, the factor in registers up
+    # to K = 48 and in shared memory from 49, the states and factor in a
+    # device-memory workspace from K = 101) against the plain versions at
+    # MOVING_KERNEL_TOL, equal NaN patterns, the same bits from two
+    # launches; groups of one range, and cut into ranges of 32 rows (the
+    # summary pass, the prefix, the fill)
     Z, v, rows_t, rows = _shared_batch(600 + k, k, cuda_device)
     assert (moving.shared_layout(k, model != "rls", 1)[0] > 0) == (k > 100)
     X, y = Z[..., 1:], Z[..., 0]
@@ -998,25 +1000,41 @@ MOMENT_WIDE = {
     # id: (blocks per group, R, C, element offset of Zp, byte offset of wp, NaN in masked slots)
     "c34": (np.full(40, 2), 512, 34, 0, 0, False),
     "c43_grouped": (np.full(300, 2), 512, 43, 0, 0, False),
+    "c48_six_tiles": (np.full(100, 2), 512, 48, 0, 0, False),
     "c64_views_at_odd_offsets": (np.full(50, 3), 37, 64, 1, 3, True),
     "c101_one_group": (np.asarray([20]), 512, 101, 0, 0, False),
+    "c101_one_group_nan_masked": (np.asarray([20]), 512, 101, 0, 0, True),
     "c101_nan_masked": (np.full(10, 2), 300, 101, 0, 0, True),
+    "c128_widest_staged": (np.full(20, 2), 100, 128, 0, 0, False),
+    "c129_direct": (np.full(20, 2), 100, 129, 0, 0, True),
+    "c200": (np.full(10, 2), 300, 200, 0, 0, False),
     "c1001_one_block": (np.asarray([1]), 16, 1001, 0, 0, False),
     "c65_empty_groups": (np.asarray([0, 3, 0, 2, 0]), 200, 65, 0, 0, False),
+    # a ragged last k-step (R % 4 != 0), and a row split into pieces of 16
+    # rows whose last is ragged, on views at odd offsets
+    "r1_c41": (np.full(50, 2), 1, 41, 0, 0, False),
+    "r3_c34": (np.full(50, 2), 3, 34, 0, 0, True),
+    "r37_c64_row_split": (np.asarray([3]), 37, 64, 1, 3, True),
 }
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", sorted(MOMENT_WIDE))
 def test_moment_wide_form_matches_plain_on_card(cuda_device, case):
-    # the wide form (C > 33): a CTA a tile of a block's square, 24 columns
-    # wide (C = 34 / 43 / 65) or 32 (C = 64 / 101 / 1,001), its rows staged
-    # in shared memory; the sums in another order than the
-    # plain version's, as the register forms': rtol 1e-12 / atol 1e-13 *
-    # max|M|, counts exact, the same bits from two launches
+    # the wide form (C > 33) on the FP64 tensor cores: up to C = 128 a CTA
+    # covers a block's triangle of 8 x 8 tiles from rows staged once (a
+    # block cut into pieces of rows where the blocks are few: one group of
+    # 20 or 3 blocks), above a warp a pair of 32-column panels read from
+    # device memory; the sums in another order than the plain version's, as
+    # the register forms': rtol 1e-12 / atol 1e-13 * max|M|, counts exact,
+    # the same bits from two launches
     n_blocks, R, C, z_off, w_off, nan_masked = MOMENT_WIDE[case]
     rng = np.random.default_rng(len(case) + C)
     S, G = int(n_blocks.sum()), len(n_blocks)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    split = moments.pieces(R, moments.piece_rows(S, R, C, sms)) > 1
+    if case in ("c101_one_group", "c101_one_group_nan_masked", "r37_c64_row_split"):
+        assert split  # a block cut into pieces of rows, each its own partial
     Z = rng.normal(size=(S, R, C)) * np.exp(rng.normal(size=(1, 1, C)) * 3)
     W = rng.random((S, R)) > 0.2
     if nan_masked:
