@@ -636,6 +636,36 @@ def _dmma_counts(kernels):
     return counts
 
 
+def _householder_sass(kernels):
+    """{instantiation: {DMMA, LDS, STS, LD, ST}} of the Householder kernel's
+    wide form in the built sm_90a code (cuobjdump -sass of the library;
+    LD / ST are generic loads and stores). Raises where an instantiation
+    issues no DMMA, or where the form whose panel sits in one CTA's shared
+    memory (householder_wide<true, false>) reaches memory through a generic
+    load or store."""
+    sass = subprocess.run(
+        [str(Path(kernels._nvcc()).with_name("cuobjdump")), "-sass", str(kernels.build("householder"))],
+        capture_output=True, text=True, check=True,
+    ).stdout
+    counts, fn = {}, None
+    names = {"ILb1ELb0E": "shared", "ILb1ELb1E": "cluster", "ILb0ELb0E": "device memory"}
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = next((v for k, v in names.items() if "householder_wide" in m.group(1) and k in m.group(1)), None)
+            if fn:
+                counts[fn] = dict.fromkeys(("DMMA", "LDS", "STS", "LD", "ST"), 0)
+        elif fn:
+            op = re.search(r"\b(DMMA|LDS|STS|LD|ST)(?=[.\s])", line)
+            if op:
+                counts[fn][op.group(1)] += 1
+    if len(counts) < 3 or not all(c["DMMA"] for c in counts.values()):
+        raise AssertionError(f"the Householder kernel's wide form issues no DMMA: {counts}")
+    if counts["shared"]["LD"] or counts["shared"]["ST"]:
+        raise AssertionError(f"the Householder wide form's shared path issues generic loads or stores: {counts}")
+    return counts
+
+
 def _householder_bound(Z, w, K):
     """Z and w read once, T [B, K, C] written once; ~4 (C - j) operations a
     valid row for reflection j (a dot product and an update of each column
@@ -684,11 +714,13 @@ def _check_householder(label, Z, w, K, householder, torch, timed=True):
         raise AssertionError(f"Householder kernel ({label}): rows below the block's last are not zero")
     if bool(torch.isfinite(torch.where(w[..., None], Z, 0.0)).all()) and not bool(torch.isfinite(T_k).all()):
         raise AssertionError(f"Householder kernel ({label}): a masked slot's NaN reached the factor")
+    ctas = householder.cluster_ctas(R, C) if Z.is_cuda else 0
+    form = householder.kernel_form(R, C) if Z.is_cuda else "plain"
     line = (
-        f"kernel householder {label}: B={S} R={R} C={C} K={K} max_abs_err R={err_r!r} "
-        f"Q^T Y={err_q!r} (within {REDUCTION_RTOL} of each column's norm), bit-equal launch to launch"
+        f"kernel householder {label}: B={S} R={R} C={C} K={K} ({form}, {ctas} CTAs a block) max_abs_err "
+        f"R={err_r!r} Q^T Y={err_q!r} (within {REDUCTION_RTOL} of each column's norm), bit-equal launch to launch"
     )
-    out = {"max_abs_err": max(err_r, err_q), "max_abs_err_r": err_r, "max_abs_err_qty": err_q}
+    out = {"max_abs_err": max(err_r, err_q), "max_abs_err_r": err_r, "max_abs_err_qty": err_q, "ctas": ctas}
     if not timed:
         print(line)
         return out
@@ -710,9 +742,10 @@ def _check_householder(label, Z, w, K, householder, torch, timed=True):
 
 def _householder_phases(label, Z, w, K, householder, torch, smi):
     """Device ms per launch of the Householder kernel stopped after the load
-    (0 reflections), after one reflection and after all K, in turns: the
-    load, the first reflection and the rest apart."""
-    steps = sorted({0, 1, K})
+    (0 reflections), after one reflection, after the wide form's first
+    panel (WY_PANEL reflections, where K has more) and after all K, in
+    turns: the load, the first reflection and panel, and the rest apart."""
+    steps = sorted({0, 1, min(householder.WY_PANEL, K), K})
     times = _in_turns({
         f"{r} reflections": (lambda r=r: householder._launch(Z, w, K, r)) for r in steps
     }, HOUSEHOLDER_LAUNCHES, torch)
@@ -892,8 +925,9 @@ def _check_jacobi(label, F, QtY, n_valid, jacobi, torch, op_ms, alpha=0.0, rcond
     plain_s = time.perf_counter() - t0
     G, K, M = QtY.shape
     form = jacobi.kernel_form(K, G)
+    ctas = jacobi.wide_ctas(K, G) if form[0] == "wide" and F.is_cuda else 1
     out = {"max_abs_err": _jacobi_err(label, b_k, b_p, torch), "form": form[0],
-           "threads_per_block": form[1], "groups_per_block": form[2]}
+           "threads_per_block": form[1], "groups_per_block": form[2], "ctas_per_group": ctas}
     nan = torch.isnan(b_p)
     b_l = _svd_route(F, QtY, n_valid, alpha, rcond, torch)
     finite = torch.isfinite(F).all(dim=-1).all(dim=-1) & torch.isfinite(QtY).all(dim=-1).all(dim=-1)
@@ -913,7 +947,8 @@ def _check_jacobi(label, F, QtY, n_valid, jacobi, torch, op_ms, alpha=0.0, rcond
     _, _, sweeps, rotated = jacobi.jacobi_ref(F)
     line = (
         f"kernel jacobi_svd {label}: G={G} K={K} M={M} alpha={alpha} rcond={rcond} {form[0]} form "
-        f"({form[1]} threads, {form[2]} groups a block) max_abs_err={out['max_abs_err']!r} vs plain "
+        f"({form[1]} threads, {form[2]} groups a block), {ctas} CTAs a group, max_abs_err={out['max_abs_err']!r} "
+        f"vs plain "
         f"(within {JACOBI_RTOL} of each group's largest |beta|), NaN where the plain version has it, "
         f"bit-equal launch to launch; {len(pick)} groups match torch.linalg.svd"
         f"{' and numpy lstsq' if alpha == 0.0 else ''} ({COEF_TOL}); sweeps median "
@@ -942,21 +977,26 @@ def _check_jacobi(label, F, QtY, n_valid, jacobi, torch, op_ms, alpha=0.0, rcond
     return {**out, **t, **bound}
 
 
-def _jacobi_phases(label, F, QtY, n_valid, jacobi, torch, smi):
+def _jacobi_phases(label, F, QtY, n_valid, jacobi, torch, smi, held=None):
     """Device ms per launch of the Jacobi SVD kernel stopped after 0 sweeps
     (the loads, the cutoff, the shrink and the stores), after 1 and after
-    all it needs (the cap MAX_SWEEPS), in turns; each capped launch first
-    held to the plain version under the same cap."""
+    all it needs (the cap MAX_SWEEPS), in turns; each capped launch of
+    ``held`` (default: all three) first held to the plain version under the
+    same cap. The wide forms' factors hold 0 and all sweeps: after one sweep
+    W is not yet orthogonal, and the two orders of sums round apart by up to
+    the factor's condition times eps in beta (4.1e-12 of a group's largest
+    |beta| at B's factors, against JACOBI_RTOL 1e-12, on an H100)."""
     steps = sorted({0, 1, jacobi.MAX_SWEEPS})
-    for n in steps:
+    for n in steps if held is None else held:
         b_p = jacobi.factor_lstsq_ref(F, QtY, n_valid, max_sweeps=n)
         _jacobi_err(f"{label}, {n} sweeps", jacobi.factor_lstsq(F, QtY, n_valid, max_sweeps=n), b_p, torch)
     times = _in_turns({
         f"{n} sweeps": (lambda n=n: jacobi.factor_lstsq(F, QtY, n_valid, max_sweeps=n)) for n in steps
     }, JACOBI_LAUNCHES, torch)
     ms = {name: t[0] for name, t in times.items()}
-    print(f"kernel jacobi_svd phases {label}: ms per launch {json.dumps(ms)}, each held to the "
-          f"plain version under its cap ({smi})")
+    held = "each" if held is None else " / ".join(str(n) for n in held) + " sweeps"
+    print(f"kernel jacobi_svd phases {label}: ms per launch {json.dumps(ms)}, {held} held to the plain "
+          f"version under its cap ({smi})")
     return ms
 
 
@@ -3055,6 +3095,89 @@ def _wide_blocks(fit, groups_mod, frame, k, grouped, m=1, targets=None):
     return layout, Zp, wp, layout.device_block_offsets(Zp.shape[1])
 
 
+def _householder_exact(Z, w, K):
+    """The reduction of the masked blocks Z [B, R, C] (numpy) in long double
+    (x86 80-bit): the plain version's reflections, each sum in long
+    double; [B, K, C] as float64."""
+    A = np.where(w[..., None], Z, 0.0).astype(np.longdouble)
+    B, R, C = A.shape
+    if R < K:
+        A = np.concatenate([A, np.zeros((B, K - R, C), dtype=np.longdouble)], axis=1)
+        R = K
+    M = C - K
+    rows = np.arange(R)
+    for j in range(K):
+        col = A[:, :, M + j] * (rows >= j)
+        sigma = (col * col).sum(axis=-1)
+        cj = A[:, j, M + j]
+        alpha = -np.where(cj >= 0, 1, -1) * np.sqrt(sigma)
+        v = col.copy()
+        v[:, j] = cj - alpha
+        denom = sigma - cj * alpha
+        beta = np.where(denom > 0, 1 / np.where(denom > 0, denom, 1), 0)
+        A = A - (beta[:, None] * v)[:, :, None] * np.einsum("br,brc->bc", v, A)[:, None, :]
+    return A[:, :K].astype(np.float64)
+
+
+def householder_shared_stream_edges():
+    """The three Householder edges of _wide_kernels (R = 60 < K = 100, a
+    zero feature column at K = 40, R = 2,000) as they were drawn when the
+    wide moment edges that come before them (C = 48 with R = 3, C = 200, a
+    C = 101 row split) still drew from the shared default_rng(7): [(label,
+    Z, w, K)], numpy. The first holds a block whose 46 valid rows leave its
+    46th pivot at 2.9e-5 of its column's norm, so the rows below it are
+    round-off amplified ~3e4 times."""
+    rng = np.random.default_rng(7)
+    draws = [rng.integers(1, 4, size=300), rng.integers(1, 4, size=100), np.asarray([1]),
+             np.full(40, 2), np.full(10, 2), np.asarray([3])]
+    for n_blocks, R, C in zip(draws, (512, 512, 16, 3, 300, 37), (34, 64, 1001, 48, 200, 101)):
+        S = int(n_blocks.sum())
+        rng.normal(size=(S, R, C))
+        rng.normal(size=(1, 1, C))
+        rng.random((S, R))
+    rng.normal(size=(120, 37, 65))
+    rng.random((120, 37))
+    out = []
+    for label, (B, R, C, k_h, zero_col) in (
+        ("R=60 < K=100", (40, 60, 101, 100, None)),
+        ("a zero feature column, K=40", (200, 512, 42, 40, 3)),
+        ("R=2000, C=41", (20, 2_000, 41, 40, None)),
+    ):
+        Zh = rng.normal(size=(B, R, C)) * np.exp(rng.normal(size=(1, 1, C)) * 3)
+        wh = rng.random((B, R)) > 0.2
+        Zh[~wh] = np.nan
+        if zero_col is not None:
+            Zh[..., C - k_h + zero_col] = 0.0
+        out.append((label, Zh, wh, k_h))
+    return out
+
+
+def _householder_shared_stream(householder, torch, smi):
+    """The kernel and the plain version at householder_shared_stream_edges,
+    each against the long-double reduction (_householder_exact): the
+    largest error of an entry over its column's norm, where it lies, and
+    the block's valid rows. A measurement: the check against the plain
+    version at REDUCTION_RTOL is the card test's
+    (test_householder_wide_form_at_the_shared_stream_edges_on_card)."""
+    res = {}
+    for label, Z, w, K in householder_shared_stream_edges():
+        Zt, wt = torch.as_tensor(Z, device="cuda"), torch.as_tensor(w, device="cuda")
+        T_k = householder.householder_blocks(Zt, wt, K).cpu().numpy()
+        T_p = householder.householder_blocks_ref(Zt, wt, K).cpu().numpy()
+        T_x = _householder_exact(Z, w, K)
+        norm = np.sqrt((np.where(w[..., None], Z, 0.0) ** 2).sum(axis=1, keepdims=True))
+        row = {}
+        for name, a, b in (("kernel_vs_plain", T_k, T_p), ("kernel_vs_exact", T_k, T_x), ("plain_vs_exact", T_p, T_x)):
+            rel = np.abs(a - b) / np.maximum(norm, 1e-300)
+            at = np.unravel_index(int(np.argmax(rel)), rel.shape)
+            row[name] = {"max": float(rel[at]), "block": int(at[0]), "row": int(at[1]), "column": int(at[2]),
+                         "valid_rows": int(w[at[0]].sum())}
+        res[label] = row
+        print(f"kernel householder wide form, edge drawn from the shared stream, {label}: errors over the "
+              f"column's norm {json.dumps(row)} (exact: the reduction in long double) ({smi})")
+    return res
+
+
 def _householder_past_4096(householder, torch, smi, n=4_200, K=4_100, R=512):
     """One group of n rows x K features in blocks of R rows through the
     Householder tree (its factors stack only the blocks' R rows: one level
@@ -3152,6 +3275,9 @@ def _wide_kernels(pt, torch, smi, op_ms, mods, large, largek):
                                  timed=key != "grouped_largek_multi_target")
         res["householder"][key] = {**out, "form": form, "S": Zb.shape[0], "R": Zb.shape[1], "C": Zb.shape[2],
                                    "K": k}
+        if key in ("grouped_largek", "large"):
+            res["householder"][key]["phases_ms"] = _householder_phases(
+                f"wide form, {key} blocks", Zb, wb, k, householder, torch, smi)
         del Zb, wb
     for label, (B, R, C, k_h, zero_col) in (
         ("R=60 < K=100 (zero rows below the last)", (40, 60, 101, 100, None)),
@@ -3165,6 +3291,24 @@ def _wide_kernels(pt, torch, smi, op_ms, mods, large, largek):
             Zh[..., C - k_h + zero_col] = 0.0
         _check_householder(f"wide form, {label}", torch.as_tensor(Zh, device="cuda"),
                            torch.as_tensor(wh, device="cuda"), k_h, householder, torch, timed=False)
+    # the blocked form's own edges, from a stream of their own (the draws
+    # above stay as they were): K not a multiple of the panel, fewer rows
+    # than a panel, a zero pivot column inside a panel
+    rng_h = np.random.default_rng(18)
+    for label, (B, R, C, k_h, zero_col) in (
+        ("K=33, C=35 (a panel of 1 after four of 8)", (200, 512, 35, 33, None)),
+        ("K=41, C=43", (200, 300, 43, 41, None)),
+        ("R=5 < a panel, C=41", (300, 5, 41, 40, None)),
+        ("a zero pivot column inside the second panel, K=40", (200, 512, 42, 40, 10)),
+    ):
+        Zh = rng_h.normal(size=(B, R, C)) * np.exp(rng_h.normal(size=(1, 1, C)) * 3)
+        wh = rng_h.random((B, R)) > 0.2
+        Zh[~wh] = np.nan
+        if zero_col is not None:
+            Zh[..., C - k_h + zero_col] = 0.0
+        _check_householder(f"wide form, {label}", torch.as_tensor(Zh, device="cuda"),
+                           torch.as_tensor(wh, device="cuda"), k_h, householder, torch, timed=False)
+    res["householder"]["shared_stream_edges"] = _householder_shared_stream(householder, torch, smi)
     res["householder"]["past_4096"] = _householder_past_4096(householder, torch, smi)
 
     # the Jacobi SVD: B's factors (headline, the svd query's), A's, the
@@ -3179,6 +3323,10 @@ def _wide_kernels(pt, torch, smi, op_ms, mods, large, largek):
         timed = ("plain", "kernel", "library") if key != "grouped_largek_multi_target" else ()
         res["jacobi_svd"][key] = _check_jacobi(f"wide form, {key} factors", T[..., m:], T[..., :m], nv, jacobi,
                                                torch, op_ms, timed=timed, plain_once=True)
+        if key in ("grouped_largek", "large"):
+            res["jacobi_svd"][key]["phases_ms"] = _jacobi_phases(
+                f"wide form, {key} factors", T[..., m:], T[..., :m], nv, jacobi, torch, smi,
+                held=(0, jacobi.MAX_SWEEPS))
         del Zb, wb, T
     for label, (G, k_j, m_j, alpha_j, rcond_j, kind) in (
         ("K=33", (300, 33, 2, 0.0, None, "factor")),
@@ -3187,6 +3335,17 @@ def _wide_kernels(pt, torch, smi, op_ms, mods, large, largek):
     ):
         _check_jacobi(f"wide form, {label}", *_jacobi_edge(rng, G, k_j, m_j, kind, torch), jacobi,
                       torch, op_ms, alpha_j, rcond_j)
+    # the redesigned form's edges, from a stream of their own: odd K, a pair's
+    # rows past a segment's registers, and the cluster (groups fewer than
+    # the SMs)
+    rng_w = np.random.default_rng(19)
+    for label, (G, k_j, m_j, kind) in (
+        ("K=41 (odd)", (300, 41, 2, "factor")),
+        ("K=64 rank-deficient", (200, 64, 1, "deficient")),
+        ("K=40, 20 groups (a cluster of 4 CTAs a group)", (20, 40, 2, "factor")),
+        ("K=100, 4 groups NaN lanes (a cluster of 8)", (4, 100, 1, "nan")),
+    ):
+        _check_jacobi(f"wide form, {label}", *_jacobi_edge(rng_w, G, k_j, m_j, kind, torch), jacobi, torch, op_ms)
     rows_mode = {}
     for K_r, n_r, G_r in ((1_000, 10, 100), (100, 20, 1_000)):
         X = rng.normal(size=(G_r, n_r, K_r))
@@ -3292,6 +3451,9 @@ def main() -> int:
         for entry, used, spill in _ptxas(kernels.build_log.get(name, "")):
             print(f"build {name} {entry}: {used}; {spill}")
     print(f"build moments: DMMA (mma.sync m8n8k4 f64) instructions in the built code {json.dumps(_dmma_counts(kernels))}")
+    hh_sass = _householder_sass(kernels)
+    print(f"build householder: the wide form's DMMA (mma.sync m16n8k16 / m16n8k8 f64), shared-memory (LDS / STS) and generic "
+          f"(LD / ST) instructions in the built code {json.dumps(hh_sass)}")
 
     # 3. the probe's own entry point (its path), then each kernel against
     # its plain version, at the main path's shapes first

@@ -24,11 +24,14 @@ The kernel has two forms, which its C entry picks by the block's shape
 (``kernel_form`` reads the choice back): up to ``MAX_COLS`` columns a
 thread holds its rows of the panel in registers (blocks of at most
 ``MAX_ROWS`` rows); above, the wide form (more than 32 features, or
-targets beside the features past 33 columns) gives a block of any number
-of rows to 1,024 threads, its panel in shared memory where it fits, else
-in a device-memory workspace that ``_launch`` allocates (its pivot
-column is read in place from the panel). ``reduce_groups`` cuts register
-form blocks longer than ``MAX_ROWS`` into pieces first.
+targets beside the features past 33 columns) reduces a block of any
+number of rows by blocked (compact WY) reflections, panels of eight
+columns whose trailing updates are FP64 tensor-core products; its panel
+lives in one CTA's shared memory where it fits, else in the shared memory
+of a cluster of 2, 4 or 8 CTAs (``cluster_ctas``), else in a device-memory
+workspace that ``_launch`` allocates. ``householder_blocks_wy`` is the
+plain torch form of that blocked arithmetic. ``reduce_groups`` cuts
+register form blocks longer than ``MAX_ROWS`` into pieces first.
 
 A group whose rows span several blocks is reduced as a tree:
 ``plan_reduction`` (host-side, from the blocks per group and their rows)
@@ -63,8 +66,11 @@ MAX_COLS = 33
 # 512 threads holds the panel in registers) and the split layout's default
 # cap; the wide form takes any number
 MAX_ROWS = 512
+# reflections a panel of the wide form's blocked (compact WY) arithmetic
+WY_PANEL = 8
 # the kernel's forms, as pols_householder_form numbers them
-FORMS = ("register", "wide (panel in shared memory)", "wide (panel in device memory)")
+FORMS = ("register", "wide (panel in shared memory)", "wide (panel in device memory)",
+         "wide (panel in a cluster's shared memory)")
 
 _BOUND = None
 
@@ -78,6 +84,8 @@ def _kernel():
         lib.pols_householder_blocks.restype = ctypes.c_int
         lib.pols_householder_form.argtypes = [i64, i64]
         lib.pols_householder_form.restype = ctypes.c_int
+        lib.pols_householder_ctas.argtypes = [i64, i64]
+        lib.pols_householder_ctas.restype = ctypes.c_int
         lib.pols_cuda_error_string.argtypes = [ctypes.c_int]
         lib.pols_cuda_error_string.restype = ctypes.c_char_p
         _BOUND = lib
@@ -91,6 +99,13 @@ def kernel_form(R: int, C: int) -> str:
     if form < 0:
         raise ValueError(f"the Householder kernel has no form for blocks of R={R}, C={C}")
     return FORMS[form]
+
+
+def cluster_ctas(R: int, C: int) -> int:
+    """CTAs the wide form gives a block of R rows and C columns (builds the
+    kernel): 1, or the 2, 4 or 8 of a cluster whose CTAs' shared memory
+    holds the panel (0: the register form)."""
+    return _kernel().pols_householder_ctas(R, C)
 
 
 def _check(Z, w, K: int) -> None:
@@ -120,6 +135,68 @@ def householder_blocks_ref(Z: torch.Tensor, w: torch.Tensor, K: int) -> torch.Te
     M = C - K
     Rf, QtY = _householder_reduce(Zs[..., M:], Zs[..., :M])
     return torch.cat([QtY, Rf], dim=-1)
+
+
+def householder_blocks_wy(Z: torch.Tensor, w: torch.Tensor, K: int, reflections: Optional[int] = None,
+                          nb: int = WY_PANEL) -> torch.Tensor:
+    """The wide form's blocked arithmetic in torch ops (the kernel's own
+    plain form; ``householder_blocks_ref`` stays the contract's plain
+    version). Panels of ``nb`` feature columns: each panel's reflections
+    are ``_householder_reduce``'s, over the panel's columns only, with
+    ``v^T a_c = g_c - alpha a_jc`` from ``g_c = sum_{r >= j} a_rj a_rc``
+    (for the panel's earlier columns that is ``v_c^T v_j``); the pivot
+    column keeps v below the diagonal and alpha on it; then the targets and
+    the later features take the panel at once, ``A -= V (T^T (V^T A))``,
+    with T the upper triangle of the compact WY form (LAPACK's dlarft,
+    forward, columnwise). The first ``reflections`` (default K) only;
+    reflected columns are zero below the diagonal, rows below a block's
+    last are zero."""
+    _check(Z, w, K)
+    B, R, C = Z.shape
+    M = C - K
+    A = torch.where(w[..., None], Z, torch.zeros((), dtype=F64, device=Z.device)).clone()
+    steps = min(K, R, K if reflections is None else int(reflections))
+    rows = torch.arange(R, device=Z.device)
+    for j0 in range(0, steps, nb):
+        pw, nbp, pc = min(nb, K - j0), min(nb, steps - j0), M + j0
+        P = A[..., pc:pc + pw].clone()
+        beta, vdiag = A.new_zeros((nb, B)), A.new_zeros((nb, B))
+        wvv = A.new_zeros((B, nb, nb))
+        for ii in range(nbp):
+            j = j0 + ii
+            act = rows >= j
+            g = (torch.where(act[None, :, None], P[..., ii:ii + 1] * P, 0.0)).sum(dim=1)  # [B, pw]
+            rj = P[:, j, :]
+            sigma, piv = g[:, ii], rj[:, ii]
+            alpha = -torch.where(piv >= 0, 1.0, -1.0).to(F64) * torch.sqrt(sigma)
+            denom = sigma - piv * alpha
+            beta[ii] = torch.where(denom > 0, 1.0 / torch.where(denom > 0, denom, 1.0), 0.0)
+            vdiag[ii] = piv - alpha
+            d = g - alpha[:, None] * rj
+            wvv[:, :ii, ii] = d[:, :ii]
+            v = torch.where(rows == j, vdiag[ii][:, None], P[..., ii]) * act
+            upd = P[..., ii + 1:] - (beta[ii][:, None] * v)[..., None] * d[:, None, ii + 1:]
+            P[..., ii + 1:] = torch.where(act[None, :, None], upd, P[..., ii + 1:])
+            P[:, j, ii] = alpha
+        A[..., pc:pc + pw] = P
+        V = A.new_zeros((B, R, nb))
+        T = A.new_zeros((B, nb, nb))
+        for i in range(nbp):
+            p = j0 + i
+            V[:, :, i] = torch.where(rows > p, A[..., pc + i], 0.0)
+            V[:, p, i] = vdiag[i]
+            T[:, i, i] = beta[i]
+            if i:
+                T[:, :i, i] = -beta[i][:, None] * (T[:, :i, :i] @ wvv[:, :i, i:i + 1])[..., 0]
+        trail = list(range(M)) + list(range(pc + pw, C))
+        At = A[..., trail]
+        A[..., trail] = At - V @ (T.mT @ (V.mT @ At))
+    out = A.new_zeros((B, K, C))
+    top = min(R, K)
+    out[:, :top] = A[:, :top]
+    r, c = torch.meshgrid(torch.arange(K, device=Z.device), torch.arange(C, device=Z.device), indexing="ij")
+    below = (c >= M) & (c - M < steps) & (r > c - M)
+    return torch.where(below, 0.0, out)
 
 
 def householder_blocks(Z: torch.Tensor, w: torch.Tensor, K: int) -> torch.Tensor:

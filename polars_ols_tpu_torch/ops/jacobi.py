@@ -40,13 +40,15 @@ torch ops (the kernel's angle takes its divisions and roots as Newton steps
 from the hardware's estimates, within an ulp); nothing falls back from one
 to the other. The kernel has three forms, which its C entry picks by K
 (one thread a group, W and V in its registers, up to K = 8; a segment of
-16 / 32 lanes a group up to ``MAX_K`` = 32; above, the wide form: a block
-of several warps a group, W and V in shared memory where they fit, else in
-a device-memory workspace that ``_launch`` allocates): ``kernel_form``
-reads the choice back. The wide form takes a sweep's pairs in the parallel
-order of the circle method (``sweep_rounds``: rounds of pairs that share
-no column, one round a barrier), not the cyclic order; its plain version
-takes the same order, a round at a time. ``max_sweeps`` below
+16 / 32 lanes a group up to ``MAX_K`` = 32; above, the wide form: a CTA of
+several warps a group, or a cluster of 2-8 CTAs that split its columns
+where the groups are fewer than the SMs (``wide_ctas``), W and V in shared
+memory where they fit, else in a device-memory workspace that ``_launch``
+allocates): ``kernel_form`` reads the choice back. The wide form takes a
+sweep's pairs in the parallel order of the circle method (``sweep_rounds``:
+rounds of pairs that share no column, one round a barrier), not the cyclic
+order, each pair's angle once (on one lane); its plain version takes the
+same order, a round at a time. ``max_sweeps`` below
 ``MAX_SWEEPS`` stops the rotations early (both versions), which times the
 kernel's phases.
 
@@ -98,8 +100,10 @@ def _kernel():
             vp, i64, i64, i64, vp, i64, i64, i64, vp, i64, i64, i64, i64, f64, f64, i32, i32, vp, vp, vp,
         ]
         lib.pols_rows_lstsq.restype = ctypes.c_int
-        lib.pols_wide_workspace.argtypes = [i64, i64]
+        lib.pols_wide_workspace.argtypes = [i64, i64, i64]
         lib.pols_wide_workspace.restype = ctypes.c_int64
+        lib.pols_wide_ctas.argtypes = [i64, i64, i64]
+        lib.pols_wide_ctas.restype = ctypes.c_int
         ip = ctypes.POINTER(ctypes.c_int)
         lib.pols_factor_lstsq_form.argtypes = [i64, i64, ip, ip]
         lib.pols_factor_lstsq_form.restype = ctypes.c_int
@@ -120,6 +124,17 @@ def kernel_form(K: int, G: int = 1):
     if form < 0:
         raise RuntimeError(f"the Jacobi SVD kernel has no form at K={K}, G={G}")
     return FORMS[form], threads.value, groups.value
+
+
+def wide_ctas(K: int, G: int = 1, n: int | None = None) -> int:
+    """CTAs the wide form gives each of G problems of K x K (``n``: the
+    rows mode's K x n), as its C entry picks them (builds the kernel): a
+    cluster of 2, 4 or 8 that splits W's and V's columns where the problems
+    are fewer than the SMs, else 1."""
+    ctas = _kernel().pols_wide_ctas(G, K, K if n is None else n)
+    if ctas < 1:
+        raise RuntimeError(f"the Jacobi SVD kernel's wide form has no layout at K={K}, n={n}, G={G}")
+    return ctas
 
 
 def sweep_rounds(K: int, wide: bool):
@@ -314,7 +329,9 @@ def _launch(F, QtY, n_valid, alpha, rcond, max_sweeps: int, rows_mode: bool = Fa
     beta = torch.empty((G, K, M), dtype=F64, device=F.device)
     n_valid = n_valid.contiguous()
     lib = _kernel()
-    per = lib.pols_wide_workspace(K, n) if rows_mode or K > MAX_K else 0
+    per = lib.pols_wide_workspace(G, K, n) if rows_mode or K > MAX_K else 0
+    if per < 0:
+        raise RuntimeError("Jacobi SVD kernel: no CUDA device for the wide form's layout")
     work = torch.empty((G * per,), dtype=F64, device=F.device) if per else None
     head = (F.data_ptr(), *F.stride(), QtY.data_ptr(), *QtY.stride(), n_valid.data_ptr(), G, K)
     tail = (float(alpha), -1.0 if rcond is None else float(rcond), int(rcond is None), max_sweeps,

@@ -1067,6 +1067,22 @@ HOUSEHOLDER_WIDE = {
     "m1_k40_r2000_panel_in_device_memory": (10, 2_000, 41, 40, None, False),
     # a block of more rows than the tree's levels stack
     "m1_k40_r9000_panel_in_device_memory": (2, 9_000, 41, 40, None, False),
+    # the blocked form's panels of 8: K not a multiple of 8, fewer rows than
+    # a panel, a zero pivot column inside the second panel
+    "m2_k33": (200, 512, 35, 33, None, False),
+    "m2_k41": (200, 300, 43, 41, None, True),
+    "m1_k40_r5": (300, 5, 41, 40, None, True),
+    "m2_k40_zero_pivot_in_a_panel": (200, 512, 42, 40, 10, False),
+}
+
+# the form each case takes (householder.FORMS; the rest: one CTA's shared
+# memory) and the CTAs a block: A's 512 x 101 blocks and 2,000 rows at C =
+# 41 hold their panel in the shared memory of a cluster of 4 CTAs (the ids
+# name where the panel lived before the blocked form)
+HOUSEHOLDER_WIDE_FORMS = {
+    "m1_k100_panel_in_device_memory": ("wide (panel in a cluster's shared memory)", 4),
+    "m1_k40_r2000_panel_in_device_memory": ("wide (panel in a cluster's shared memory)", 4),
+    "m1_k40_r9000_panel_in_device_memory": ("wide (panel in device memory)", 1),
 }
 
 
@@ -1074,9 +1090,11 @@ HOUSEHOLDER_WIDE = {
 @pytest.mark.parametrize("case", sorted(HOUSEHOLDER_WIDE))
 def test_householder_wide_form_matches_plain_on_card(cuda_device, case):
     # the wide form takes C > 33 and any R; the reflections are the plain
-    # version's, the sums in another order: _assert_reduction's 1e-12 of
-    # each column's norm, NaN where the plain version has it, zero rows
-    # below a block's last, the same bits from two launches
+    # version's, blocked in panels of 8 with the sums in another order:
+    # _assert_reduction's 1e-12 of each column's norm, NaN where the plain
+    # version has it, zero rows below a block's last, the same bits from two
+    # launches; and the form (one CTA, a cluster, device memory) is the one
+    # the case names
     B, R, C, K, zero_col, nan_masked = HOUSEHOLDER_WIDE[case]
     rng = np.random.default_rng(len(case) + C)
     Z = rng.normal(size=(B, R, C)) * np.exp(rng.normal(size=(1, 1, C)) * 3)
@@ -1086,8 +1104,8 @@ def test_householder_wide_form_matches_plain_on_card(cuda_device, case):
     if nan_masked:
         Z[~W] = np.nan
     Zt, wt = torch.as_tensor(Z, device=cuda_device), torch.as_tensor(W, device=cuda_device)
-    want = "device memory" if case.endswith("panel_in_device_memory") else "shared memory"
-    assert want in householder.kernel_form(R, C)
+    form, ctas = HOUSEHOLDER_WIDE_FORMS.get(case, ("wide (panel in shared memory)", 1))
+    assert householder.kernel_form(R, C) == form and householder.cluster_ctas(R, C) == ctas
     T_k = householder.householder_blocks(Zt, wt, K)
     T_k2 = householder.householder_blocks(Zt, wt, K)
     torch.cuda.synchronize()
@@ -1096,6 +1114,41 @@ def test_householder_wide_form_matches_plain_on_card(cuda_device, case):
     assert bool(torch.isfinite(T_k).all())
     if R < K:
         assert bool((T_k[:, R:] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("edge", [0, 1, 2])
+def test_householder_wide_form_at_the_shared_stream_edges_on_card(cuda_device, edge):
+    # chip_smoke's three Householder edges as they were drawn when the wide
+    # moment edges before them took the shared stream
+    # (chip_smoke.householder_shared_stream_edges): the kernel against the
+    # plain version at _assert_reduction's 1e-12 of each column's norm
+    _, Z, W, K = cs.householder_shared_stream_edges()[edge]
+    Zt, wt = torch.as_tensor(Z, device=cuda_device), torch.as_tensor(W, device=cuda_device)
+    T_k = householder.householder_blocks(Zt, wt, K)
+    _assert_reduction(T_k, householder.householder_blocks_ref(Zt, wt, K), Zt, wt)
+    assert bool(torch.isfinite(T_k).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("reflections", [0, 1, 7, 9, 40])
+def test_householder_wide_phases_stop_after_their_reflections(cuda_device, reflections):
+    # the wide form's phase entry stops after any number of reflections, in
+    # the middle of a panel of 8 too (1, 7, 9): rows 0 .. r - 1 are then
+    # final; after none the masked panel's first K rows come back as they were
+    rng = np.random.default_rng(40 + reflections)
+    B, R, C, K = 100, 300, 42, 40
+    Z = torch.as_tensor(rng.normal(size=(B, R, C)), device=cuda_device)
+    w = torch.as_tensor(rng.random((B, R)) > 0.2, device=cuda_device)
+    T = householder._launch(Z, w, K, reflections)
+    torch.cuda.synchronize()
+    if reflections == 0:
+        assert torch.equal(T, torch.where(w[:, :K, None], Z[:, :K], 0.0))
+    else:
+        T_p = householder.householder_blocks_ref(Z, w, K)
+        _assert_reduction(T[:, :reflections], T_p[:, :reflections], Z, w)
+        T_w = householder.householder_blocks_wy(Z, w, K, reflections)
+        _assert_reduction(T, T_w, Z, w)
 
 
 @pytest.mark.gpu
@@ -1159,15 +1212,36 @@ JACOBI_WIDE = {
     "k40_m40": (50, 40, 40, 0.0, None, "factor"),
     "k100": (4, 100, 2, 0.0, None, "factor"),
     "k125_workspace": (2, 125, 1, 0.0, None, "factor"),
+    # the redesigned form: odd K, a pair's rows in 8 or 16 lanes, either side
+    # of one CTA's shared memory (K = 119 / 120 at more groups than SMs),
+    # and the cluster (fewer groups than SMs: one group, and 20)
+    "k41_odd": (300, 41, 2, 0.0, None, "factor"),
+    "k48": (300, 48, 1, 0.0, None, "deficient"),
+    "k64": (300, 64, 2, 0.0, None, "factor"),
+    "k119_one_cta_shared": (300, 119, 1, 0.0, None, "factor"),
+    "k120_one_cta_workspace": (300, 120, 1, 0.0, None, "factor"),
+    "k100_one_group_cluster": (1, 100, 1, 0.0, None, "factor"),
+    "k40_20_groups_cluster": (20, 40, 2, 0.0, None, "deficient"),
+    "k41_14_groups_cluster_nan": (14, 41, 2, 0.0, None, "nan"),
+}
+
+# CTAs a group of each case on a card of 132 SMs (the H100's): a cluster
+# where the groups are fewer than the SMs (8 at one group of K = 100, 4 at
+# 20 or 14 groups), else 1
+JACOBI_WIDE_CTAS = {
+    "k100": 8, "k125_workspace": 8, "k40_m40": 2, "k100_one_group_cluster": 8, "k40_20_groups_cluster": 4,
+    "k41_14_groups_cluster_nan": 4,
 }
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", sorted(JACOBI_WIDE))
 def test_jacobi_wide_form_matches_plain_on_card(cuda_device, case):
-    # the wide form (K > 32): a block of warps a group, W and V in shared
-    # memory (in device memory at K = 125); the plain version's rotations
-    # (the same rounds of the circle method) with the
+    # the wide form (K > 32): a CTA of warps a group, W and V in shared
+    # memory (in device memory at K = 120 on one CTA), or a cluster of CTAs
+    # that hold its columns by position on the circle where the groups are
+    # fewer than the SMs; the plain version's rotations (the same rounds of
+    # the circle method) with the
     # sums in another order: _conditioned_err (1e-12 of a group's largest
     # |beta|, more where the factor is ill-conditioned), NaN where the plain
     # version has it, the same bits from two launches
@@ -1175,6 +1249,8 @@ def test_jacobi_wide_form_matches_plain_on_card(cuda_device, case):
     F, Y, n_valid = cs._jacobi_edge(np.random.default_rng(K + M), G, K, M, kind, torch, cuda_device)
     F, Y = _tree_views(F, Y)
     assert jacobi.kernel_form(K, G)[0] == "wide"
+    if torch.cuda.get_device_properties(cuda_device).multi_processor_count == 132:
+        assert jacobi.wide_ctas(K, G) == JACOBI_WIDE_CTAS.get(case, 1)
     b_k = jacobi.factor_lstsq(F, Y, n_valid, alpha, rcond)
     b_k2 = jacobi.factor_lstsq(F, Y, n_valid, alpha, rcond)
     torch.cuda.synchronize()
@@ -1279,17 +1355,21 @@ def test_wide_slices_on_card_match_cpu(cuda_device, query, monkeypatch):
 @pytest.mark.gpu
 @pytest.mark.parametrize("K", [33, 100])
 def test_kernel_form_above_32(cuda_device, K):
-    # the Jacobi kernel's C entry takes the wide form above K = 32: one
-    # group a block of at most 32 warps where the groups are fewer than the
-    # SMs, else 8; a pair of a round (K / 2 rounded up) a warp, or a
-    # half-warp where the round has more pairs than the cap has warps
+    # the Jacobi kernel's C entry takes the wide form above K = 32: a pair a
+    # segment of 8 lanes up to 64 rows, 16 up to 128 (so that its rows fill
+    # its lanes), 32 above; a warp a segment of pairs of the CTA's share of
+    # a round, at most 16 warps where the groups are fewer than the SMs,
+    # else 8; where they are fewer, a cluster of CTAs shares a group's pairs,
+    # a warp a pair
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
-    for G, cap in ((1, 32), (sms, 8)):
-        pairs = (K + 1) // 2
-        per_warp = 2 if pairs > cap else 1
+    for G, cap in ((1, 16), (sms, 8)):
+        ctas = jacobi.wide_ctas(K, G)
+        per_warp = 1 if ctas > 1 else 32 // (8 if K <= 64 else 16)  # a cluster: a warp a pair
+        pairs = -(-((K + 1) // 2) // ctas)
         warps = min(cap, -(-pairs // per_warp))
         assert jacobi.kernel_form(K, G) == ("wide", 32 * warps, 1)
-    assert jacobi.kernel_form(K) == ("wide", 32 * (17 if K == 33 else 25), 1)
+    assert jacobi.wide_ctas(K, sms) == 1
+    assert jacobi.kernel_form(K) == ("wide", 32 * (5 if K == 33 else 7), 1)
 
 
 # --------------------------------------------------------------------------- #
