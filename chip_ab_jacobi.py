@@ -8,7 +8,8 @@ from OTHER_CHECKOUT (each builds its kernel from its own sources into its
 own ``_build/``). At K = 5, 6, 7 and 8 (10,000 factors: the main path's
 groups), K = 16 and 32 (2,000: the smoke's edge batches) and the wide
 form's shapes (B "grouped_largek": 1,000 factors of K = 40, M = 1 and its
-multi-target M = 2; A "large": one of K = 100) it makes the smoke's
+multi-target M = 2; 1,000 of K = 48 and 64, either side of the segment
+width's step; A "large": one of K = 100) it makes the smoke's
 triangular factors (``chip_smoke._jacobi_edge``, kind "factor", seed K),
 holds each checkout's ``factor_lstsq`` to this checkout's plain version
 (``chip_smoke._jacobi_err``: within JACOBI_RTOL of each group's largest
@@ -37,7 +38,7 @@ import chip_smoke as cs
 # (K, groups, targets, label)
 SHAPES = ((5, 10_000, 2, None), (6, 10_000, 2, None), (7, 10_000, 2, None), (8, 10_000, 2, None),
           (16, 2_000, 2, None), (32, 2_000, 2, None), (40, 1_000, 1, "B"), (40, 1_000, 2, "B multi-target"),
-          (100, 1, 1, "A"))
+          (48, 1_000, 1, None), (64, 1_000, 1, None), (100, 1, 1, "A"))
 PHASED = ("B", "A")
 # (K, n, problems) of the rows mode
 ROWS = ((1_000, 10, 100), (100, 20, 1_000))

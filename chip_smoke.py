@@ -3167,11 +3167,15 @@ def _householder_shared_stream(householder, torch, smi):
         T_x = _householder_exact(Z, w, K)
         norm = np.sqrt((np.where(w[..., None], Z, 0.0) ** 2).sum(axis=1, keepdims=True))
         row = {}
+        M = Z.shape[-1] - K
         for name, a, b in (("kernel_vs_plain", T_k, T_p), ("kernel_vs_exact", T_k, T_x), ("plain_vs_exact", T_p, T_x)):
             rel = np.abs(a - b) / np.maximum(norm, 1e-300)
             at = np.unravel_index(int(np.argmax(rel)), rel.shape)
+            # the pivot above the worst row, |R_jj| over its column's norm
+            j = max(int(at[1]) - 1, 0)
             row[name] = {"max": float(rel[at]), "block": int(at[0]), "row": int(at[1]), "column": int(at[2]),
-                         "valid_rows": int(w[at[0]].sum())}
+                         "valid_rows": int(w[at[0]].sum()),
+                         "pivot_above_over_norm": float(abs(T_x[at[0], j, M + j]) / max(norm[at[0], 0, M + j], 1e-300))}
         res[label] = row
         print(f"kernel householder wide form, edge drawn from the shared stream, {label}: errors over the "
               f"column's norm {json.dumps(row)} (exact: the reduction in long double) ({smi})")

@@ -109,7 +109,7 @@
 //   three are separate instantiations, so the shared paths address the
 //   panel with shared-memory instructions. One CTA unrolls a panel's eight
 //   reflections; a cluster, whose reflections wait on its barriers, keeps
-//   one copy (a kernel a fifth faster at A for it).
+//   one copy (the smaller code is the faster there, the unrolled at B).
 // The arithmetic of the reflections is the register form's (the same
 // sigma, alpha, beta, the zero-pivot identity, the sign rule); the order of
 // the sums and the blocked update differ from the plain version's, so they

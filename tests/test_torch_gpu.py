@@ -1356,7 +1356,7 @@ def test_wide_slices_on_card_match_cpu(cuda_device, query, monkeypatch):
 @pytest.mark.parametrize("K", [33, 100])
 def test_kernel_form_above_32(cuda_device, K):
     # the Jacobi kernel's C entry takes the wide form above K = 32: a pair a
-    # segment of 8 lanes up to 64 rows, 16 up to 128 (so that its rows fill
+    # segment of 8 lanes up to 48 rows, 16 up to 128 (so that its rows fill
     # its lanes), 32 above; a warp a segment of pairs of the CTA's share of
     # a round, at most 16 warps where the groups are fewer than the SMs,
     # else 8; where they are fewer, a cluster of CTAs shares a group's pairs,
@@ -1364,7 +1364,7 @@ def test_kernel_form_above_32(cuda_device, K):
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
     for G, cap in ((1, 16), (sms, 8)):
         ctas = jacobi.wide_ctas(K, G)
-        per_warp = 1 if ctas > 1 else 32 // (8 if K <= 64 else 16)  # a cluster: a warp a pair
+        per_warp = 1 if ctas > 1 else 32 // (8 if K <= 48 else 16)  # a cluster: a warp a pair
         pairs = -(-((K + 1) // 2) // ctas)
         warps = min(cap, -(-pairs // per_warp))
         assert jacobi.kernel_form(K, G) == ("wide", 32 * warps, 1)
