@@ -1296,15 +1296,33 @@ def _wide_cd_moments(seed, G, K, rows, torch):
     return XtX, Xty, torch.full((G,), float(rows), dtype=torch.float64, device="cuda")
 
 
-def _check_cd_wide(label, XtX, Xty, counts, kw, cd, torch, op_ms, smi, timed=True):
+def _cd_wide_phases(label, args, fista, cd, torch, smi):
+    """Device ms per launch of a wide coordinate-descent kernel stopped
+    early, in turns with the whole launch: FISTA at max_iter = 0 (its cap is
+    4 max_iter, so the power steps alone), the cyclic form at max_iter = 1
+    (one sweep)."""
+    early = "power steps" if fista else "1 sweep"
+    part = (*args[:5], 0 if fista else 1, *args[6:])
+    times = _in_turns({
+        early: lambda: cd.launch_wide(*part, not fista, fista=fista),
+        "all": lambda: cd.launch_wide(*args, not fista, fista=fista),
+    }, CD_LAUNCHES, torch)
+    ms = {name: t[0] for name, t in times.items()}
+    print(f"kernel cd_{'fista' if fista else 'cyclic_wide'} phases {label}: ms per launch {json.dumps(ms)} ({smi})")
+    return ms
+
+
+def _check_cd_wide(label, XtX, Xty, counts, kw, cd, torch, op_ms, smi, timed=True, phases=False):
     """A wide coordinate-descent kernel (FISTA, or the cyclic form where
     ``kw`` asks for active_set) against its plain version on the same CUDA
     moments: the same sums in the same tree order, so the same iteration or
     sweep counts and the same values (the kernel's w before the polish;
     then the whole solve, the polish being the same torch code); timed (the
     kernel alone, ``_wide_cd_ms``) beside its bound, the plain version's
-    time its one checked call. No PyTorch call computes either function.
-    Returns the kernels-line fields."""
+    time its one checked call, and with ``phases`` stopped early
+    (``_cd_wide_phases``). The plan (form, warps a CTA, CTAs a group) is
+    the C entry's, on CUDA tensors. No PyTorch call computes either
+    function. Returns the kernels-line fields."""
     fista = not kw.get("active_set", False)
     args = (XtX, Xty, counts, kw["alpha"], kw.get("l1_ratio", 0.5), kw.get("max_iter", 1000),
             kw.get("tol", 1e-5), kw.get("positive", False))
@@ -1324,12 +1342,15 @@ def _check_cd_wide(label, XtX, Xty, counts, kw, cd, torch, op_ms, smi, timed=Tru
         s_p = cd.active_set_polish(XtX, Xty, *cd._strengths(counts, args[3], args[4]), w_p, args[7])
     np.testing.assert_array_equal(s_k.cpu().numpy(), s_p.cpu().numpy(), err_msg=f"{label}: the whole solve")
     G, K = w_k.shape
-    xtx_shared, work = cd.wide_layout(K, fista)
+    plan = cd.wide_plan(G, K, fista)._asdict() if XtX.is_cuda else {"xtx_shared": True, "work": 0}
     name = "fista" if fista else "cyclic_wide"
     out = {"max_abs_err": err, "plain_ms": plain_ms, "library_ms": None, "G": G, "K": K,
-           "settings": {k: v for k, v in kw.items()}, "xtx_in": "shared memory" if xtx_shared else "device memory",
-           "workspace_doubles": work, "zero_share": float((s_k == 0).double().mean())}
-    line = (f"kernel cd_{name} {label}: G={G} K={K} {kw} XtX in {out['xtx_in']}: the same "
+           "settings": {k: v for k, v in kw.items()},
+           **{key: plan[key] for key in ("form", "warps", "ctas") if key in plan},
+           "xtx_in": "shared memory" if plan["xtx_shared"] else "device memory",
+           "workspace_doubles": plan["work"], "zero_share": float((s_k == 0).double().mean())}
+    shape = f" form {out['form']} ({out['warps']} warps x {out['ctas']} CTAs a group)" if "form" in out else ""
+    line = (f"kernel cd_{name} {label}: G={G} K={K} {kw}{shape} XtX in {out['xtx_in']}: the same "
             f"{'iterations' if fista else 'sweeps'} (median {float(np.median(c_k))!r}, max {int(c_k.max())}) "
             f"and values as the plain version (w and the whole solve); zero coefficients "
             f"{out['zero_share']!r}; plain_ms={plain_ms!r} (one call)")
@@ -1341,6 +1362,8 @@ def _check_cd_wide(label, XtX, Xty, counts, kw, cd, torch, op_ms, smi, timed=Tru
     out.update({"ms": ms, "host_us": host_us, **bound})
     print(f"{line}; kernel_ms={ms!r} per launch, host_us={host_us!r}; bound {json.dumps(bound)}; "
           f"no library call computes it ({smi})")
+    if phases:
+        out["phases_ms"] = _cd_wide_phases(label, args, fista, cd, torch, smi)
     return out
 
 
@@ -2787,7 +2810,7 @@ WIDE_CD = {
 WIDE_CD_CHECK_GROUPS = 20
 # the wide kernels against their plain versions beyond the configurations'
 # moments: (K, G, rows a group, settings) on moments drawn on the card;
-# FISTA with XtX in shared memory up to K = 167, in device memory at 200
+# FISTA with XtX in shared memory up to K = 161, in device memory at 200
 FISTA_CHECKS = (
     (33, 10_000, 66, dict(alpha=0.05, l1_ratio=0.5, max_iter=200)),
     (40, 10_000, 80, dict(alpha=0.05, l1_ratio=1.0, positive=True, max_iter=1000)),
@@ -3387,11 +3410,11 @@ def _wide_cd_kernels(torch, smi, op_ms, cd, fit, groups_mod, large, largek):
         XtX, Xty = XtX.contiguous(), Xty.contiguous()
         res["cd_fista"][key] = _check_cd_wide(
             f"{key} moments, the suite's elastic net", XtX, Xty, counts,
-            dict(alpha=WIDE_ALPHA, l1_ratio=0.5, max_iter=200), cd, torch, op_ms, smi,
+            dict(alpha=WIDE_ALPHA, l1_ratio=0.5, max_iter=200), cd, torch, op_ms, smi, phases=True,
         )
         res["cd_cyclic_wide"][key] = _check_cd_wide(
             f"{key} moments, lasso cd_active_set", XtX, Xty, counts,
-            dict(alpha=WIDE_ALPHA, l1_ratio=1.0, active_set=True), cd, torch, op_ms, smi,
+            dict(alpha=WIDE_ALPHA, l1_ratio=1.0, active_set=True), cd, torch, op_ms, smi, phases=True,
         )
         del Zp, wp, XtX, Xty
     for name, checks in (("cd_fista", FISTA_CHECKS), ("cd_cyclic_wide", CYCLIC_WIDE_CHECKS)):

@@ -18,14 +18,17 @@ width of XtX, intercept included. Three routes, as in the JAX function:
   run in k-order.
 - K > 32 with ``active_set``: the same cyclic iteration, with each
   ``(XtX w)_j`` and the step norm summed in the tree order below. Kernel
-  ``csrc/cd_wide.cu:cd_cyclic_wide`` (a warp a group), counted in
+  ``csrc/cd_wide.cu:cd_cyclic_wide`` (a warp a group; of a coordinate's
+  dot only the leaf changed last waits on the chain), counted in
   ``cyclic_wide_kernel_launches``.
 - K > 32 otherwise: FISTA with adaptive restart (``_cd_cov_single_fista``:
   24 power steps for the step 1/L, then proximal-gradient iterations
   until ``||w_new - w||_2 < 0.05 tol`` or ``4 max_iter`` of them), then
   the active-set polish (``_active_set_polish``, torch ops on
   ``ops/linalg.py:solve_psd``). Kernel ``csrc/cd_wide.cu:cd_fista`` (a
-  block a group), counted in ``fista_kernel_launches``.
+  row of XtX z four lanes'; a group one CTA of 2-16 warps, or a cluster of
+  8 CTAs where the groups are few and wide: ``wide_plan``), counted in
+  ``fista_kernel_launches``.
 
 The wide kernels take K <= ``MAX_WIDE_K`` (8,192) and raise past it.
 
@@ -33,10 +36,10 @@ The tree order of the wide routes: a sum over k of K > 32 separately
 rounded terms, zero-padded to W = the least power of two >= K, is added
 pairwise by halving, k with k + W/2, then k + W/4, .. down to k + 1
 (``_tree_sum``: log2 W whole-tensor adds, so a matrix-vector product is
-one multiply and log2 W adds). In the kernels lane l of a warp holds the
-terms k = l + 32 t, adds them as the same tree over t, streamed in
-bit-reversed t (a stack of log2 W - 4 partial sums), and the lanes finish
-with an xor butterfly (16, 8, .. 1), the tree's last five levels. So
+one multiply and log2 W adds). The kernels split it over threads: P
+threads (a power of two) hold the terms k = r + P j, each adds its own as
+the same tree over j, and log2 P levels of an xor butterfly finish it
+(tests/test_torch_cd_order.py emulates each split). So
 kernel and plain version give the same bits (up to the sign of an exact
 zero), the same restarts and the same iteration counts: the wide cyclic
 form's plain version always, FISTA's with ``kernel_order=True`` (the card
@@ -57,7 +60,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -119,24 +122,51 @@ def _wide_kernel():
             vp, vp, vp, i64, i64, f64, f64, f64, i32, f64, i32, i32, vp, vp, vp, vp,
         ]
         lib.pols_cd_cyclic_wide.restype = ctypes.c_int
-        lib.pols_cd_wide_layout.argtypes = [i64, i32, ctypes.POINTER(i32), ctypes.POINTER(i64)]
-        lib.pols_cd_wide_layout.restype = ctypes.c_int
+        ip = ctypes.POINTER(i32)
+        lib.pols_cd_wide_plan.argtypes = [i64, i64, i32, ip, ip, ip, ip, ctypes.POINTER(i64)]
+        lib.pols_cd_wide_plan.restype = ctypes.c_int
         _error_string(lib)
         _BOUND["cd_wide"] = lib
     return _BOUND["cd_wide"]
 
 
+# the wide kernels' forms, by the number pols_cd_wide_plan reports
+WIDE_FORMS = {0: "team", 1: "lone", 2: "cluster", 3: "warp"}
+
+
+class WidePlan(NamedTuple):
+    form: str  # WIDE_FORMS: FISTA's team / lone / cluster, the cyclic form's warp
+    warps: int  # a CTA
+    ctas: int  # a group
+    xtx_shared: bool  # XtX (a CTA's rows) in shared memory, else read from device memory
+    work: int  # workspace doubles a group (0: the vectors sit in shared memory)
+
+
+def wide_plan(G: int, K: int, fista: bool) -> WidePlan:
+    """What a launch of the wide kernel takes at G groups of K on the
+    current device, as its C entry picks it (builds the kernel). FISTA: a
+    team, one CTA a group of 2 warps at W = 64 (W the tree width), 4 at
+    128, 16 at 256 and 512, 8 above, where the groups are at least the SMs;
+    lone, one CTA of 8 or 16 warps, where they are fewer and W <= 256; a
+    cluster of 8 CTAs of 16 warps where they are at most an eighth of the
+    SMs and 257 <= K <= 4,096. The cyclic form: a
+    warp a group. XtX sits in shared memory while it fits beside the
+    vectors; the vectors take a device-memory workspace only where they
+    alone do not fit."""
+    out = [ctypes.c_int(0) for _ in range(4)]
+    work = ctypes.c_int64(0)
+    rc = _wide_kernel().pols_cd_wide_plan(int(G), int(K), int(bool(fista)), *map(ctypes.byref, out), ctypes.byref(work))
+    if rc != 0:
+        raise ValueError(f"no wide coordinate-descent plan at G={G}, K={K}")
+    form, warps, ctas, shared = (v.value for v in out)
+    return WidePlan(WIDE_FORMS[form], warps, ctas, bool(shared), int(work.value))
+
+
 def wide_layout(K: int, fista: bool) -> Tuple[bool, int]:
     """(XtX in shared memory, workspace doubles a group) of the wide
-    kernel at K, as its C entry picks them (builds the kernel): XtX sits in
-    shared memory while it fits beside the vectors, else it is read from
-    device memory; the vectors take a device-memory workspace only where
-    they alone do not fit."""
-    shared, work = ctypes.c_int(0), ctypes.c_int64(0)
-    rc = _wide_kernel().pols_cd_wide_layout(int(K), int(bool(fista)), ctypes.byref(shared), ctypes.byref(work))
-    if rc != 0:
-        raise ValueError(f"no wide coordinate-descent layout at K={K}")
-    return bool(shared.value), int(work.value)
+    kernel at K where the groups are at least the SMs (``wide_plan``)."""
+    plan = wide_plan(1 << 30, K, fista)
+    return plan.xtx_shared, plan.work
 
 
 def _check(XtX, Xty, n_valid) -> None:
@@ -466,13 +496,13 @@ def launch_wide(XtX, Xty, n_valid, alpha, l1_ratio, max_iter, tol, positive, act
     w = torch.empty((G, K), dtype=F64, device=XtX.device)
     counts = torch.empty(G, dtype=torch.int32, device=XtX.device)
     lib = _wide_kernel()
-    per = wide_layout(K, fista)[1]
-    work = torch.empty((G * per,), dtype=F64, device=XtX.device) if per else None
     head = (XtX.data_ptr(), Xty.data_ptr(), n_valid.data_ptr(), G, K,
             float(alpha), float(l1_ratio), 1.0 - float(l1_ratio), int(max_iter), float(tol),
             int(bool(positive)))
-    tail = (None if work is None else work.data_ptr(), w.data_ptr(), counts.data_ptr())
     with torch.cuda.device(XtX.device):
+        per = wide_plan(G, K, fista).work
+        work = torch.empty((G * per,), dtype=F64, device=XtX.device) if per else None
+        tail = (None if work is None else work.data_ptr(), w.data_ptr(), counts.data_ptr())
         stream = torch.cuda.current_stream(XtX.device).cuda_stream
         if fista:
             rc = lib.pols_cd_fista(*head, *tail, stream)

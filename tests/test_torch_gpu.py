@@ -1394,15 +1394,45 @@ def _wide_cd_moments(seed: int, G: int, K: int, device, rows=None, edges: bool =
     return tuple(torch.as_tensor(a, device=device) for a in (XtX, Xty, nv))
 
 
+def _groups(G, device) -> int:
+    """A case's group count: a number, or "sms-1" / "sms+1" / "sms/8" /
+    "sms/8+1" of the card's SMs (the edges of the wide kernels' plans)."""
+    if isinstance(G, int):
+        return G
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    base, _, extra = G.partition("+") if "+" in G else G.partition("-")
+    n = sms // 8 if base == "sms/8" else sms
+    return n + int(extra) if "+" in G else n - int(extra or 0)
+
+
 FISTA_CASES = {
-    # id: (G, K, rows a group or None, settings)
-    "k33_enet": (300, 33, None, dict(alpha=0.05, l1_ratio=0.5)),
-    "k40_lasso_positive": (200, 40, None, dict(alpha=0.05, l1_ratio=1.0, positive=True)),
-    "k64_l1_0": (100, 64, None, dict(alpha=0.05, l1_ratio=0.0)),
-    "k100_max_iter": (50, 100, None, dict(alpha=0.01, l1_ratio=1.0, max_iter=5)),
-    "k160_shared": (6, 160, None, dict(alpha=0.05, l1_ratio=0.5)),
-    "k200_device_memory": (4, 200, None, dict(alpha=0.05, l1_ratio=0.7, positive=True)),
-    "k1000_ten_rows": (1, 1_000, 10, dict(alpha=1e-6, l1_ratio=1.0, max_iter=3_000, tol=1e-8)),
+    # id: (G, K, rows a group or None, settings, plan: (form, warps a CTA, CTAs a group))
+    "k33_enet": (300, 33, None, dict(alpha=0.05, l1_ratio=0.5), ("team", 2, 1)),
+    "k40_lasso_positive": (200, 40, None, dict(alpha=0.05, l1_ratio=1.0, positive=True), ("team", 2, 1)),
+    "k64_l1_0": (100, 64, None, dict(alpha=0.05, l1_ratio=0.0), ("lone", 8, 1)),
+    "k100_max_iter": (50, 100, None, dict(alpha=0.01, l1_ratio=1.0, max_iter=5), ("lone", 8, 1)),
+    "k160_shared": (6, 160, None, dict(alpha=0.05, l1_ratio=0.5), ("lone", 16, 1)),
+    "k200_device_memory": (4, 200, None, dict(alpha=0.05, l1_ratio=0.7, positive=True), ("lone", 16, 1)),
+    "k1000_ten_rows": (1, 1_000, 10, dict(alpha=1e-6, l1_ratio=1.0, max_iter=3_000, tol=1e-8), ("cluster", 16, 8)),
+    # where a team's warps change (K = 64 / 65, 128 / 129) and its XtX leaves
+    # shared memory (K = 256 / 257: device memory on both sides)
+    "k64_team": (300, 64, None, dict(alpha=0.05, l1_ratio=0.5), ("team", 2, 1)),
+    "k65_team": (300, 65, None, dict(alpha=0.05, l1_ratio=0.5), ("team", 4, 1)),
+    "k128_team": (200, 128, None, dict(alpha=0.05, l1_ratio=1.0, max_iter=200), ("team", 4, 1)),
+    "k129_team": (200, 129, None, dict(alpha=0.05, l1_ratio=1.0, max_iter=200), ("team", 16, 1)),
+    "k256_team": (150, 256, None, dict(alpha=0.05, l1_ratio=0.5, max_iter=50), ("team", 16, 1)),
+    "k257_team": (150, 257, None, dict(alpha=0.05, l1_ratio=0.5, max_iter=50), ("team", 16, 1)),
+    # group counts just below and above the SMs, and an eighth of them
+    "k40_one_below_the_sms": ("sms-1", 40, None, dict(alpha=0.05, l1_ratio=0.5), ("lone", 8, 1)),
+    "k40_one_above_the_sms": ("sms+1", 40, None, dict(alpha=0.05, l1_ratio=0.5), ("team", 2, 1)),
+    "k129_lone": (3, 129, None, dict(alpha=0.05, l1_ratio=0.5), ("lone", 16, 1)),
+    "k300_clusters": ("sms/8", 300, None, dict(alpha=0.05, l1_ratio=1.0, max_iter=100), ("cluster", 16, 8)),
+    "k300_one_past_the_clusters": ("sms/8+1", 300, None, dict(alpha=0.05, l1_ratio=1.0, max_iter=100),
+                                   ("team", 16, 1)),
+    # lone groups: A's shape, and K = 1,000 with its zero and NaN groups
+    "k100_one_group": (1, 100, 200, dict(alpha=0.05, l1_ratio=0.5), ("lone", 8, 1)),
+    "k1000_cluster_edges": (3, 1_000, None, dict(alpha=0.05, l1_ratio=0.5, max_iter=20), ("cluster", 16, 8)),
+    "k8192_once": (1, 8_192, 10, dict(alpha=0.05, l1_ratio=1.0, max_iter=2), ("team", 8, 1)),
 }
 
 
@@ -1413,8 +1443,10 @@ def test_fista_kernel_matches_plain_on_card(cuda_device, case):
     # order: the same iteration counts and the same values, before the
     # polish and after it (the same torch code on the same iterate); the
     # group without rows stays at zero, the NaN group stops after one
-    # iteration with NaN coefficients
-    G, K, rows, kw = FISTA_CASES[case]
+    # iteration with NaN coefficients; each case takes the plan it names
+    G, K, rows, kw, plan = FISTA_CASES[case]
+    G = _groups(G, cuda_device)
+    assert cd.wide_plan(G, K, True)[:3] == plan
     XtX, Xty, n = _wide_cd_moments(K + G, G, K, cuda_device, rows, edges=G > 2)
     args = (XtX, Xty, n, kw["alpha"], kw["l1_ratio"], kw.get("max_iter", 1000), kw.get("tol", 1e-5),
             kw.get("positive", False))
@@ -1438,11 +1470,26 @@ def test_fista_kernel_matches_plain_on_card(cuda_device, case):
 
 
 CYCLIC_WIDE_CASES = {
+    # id: (G, K, settings[, rows a group]); a warp a group at every K
     "k33_active_set": (300, 33, dict(alpha=0.05, l1_ratio=1.0, active_set=True)),
     "k40_active_set_positive": (200, 40, dict(alpha=0.02, l1_ratio=0.6, positive=True, active_set=True)),
     "k100_active_set": (40, 100, dict(alpha=0.05, l1_ratio=1.0, active_set=True)),
     "k40_cyclic_no_active_set": (100, 40, dict(alpha=0.05, l1_ratio=0.5)),
     "k200_device_memory": (3, 200, dict(alpha=0.05, l1_ratio=1.0, active_set=True, max_iter=30)),
+    # where a lane's leaves change (K = 64 / 65, 128 / 129) and XtX leaves
+    # shared memory (K = 167 / 168)
+    "k64_active_set": (100, 64, dict(alpha=0.05, l1_ratio=1.0, active_set=True)),
+    "k65_active_set": (100, 65, dict(alpha=0.05, l1_ratio=1.0, active_set=True)),
+    "k129_active_set": (30, 129, dict(alpha=0.05, l1_ratio=1.0, active_set=True, max_iter=50)),
+    "k167_shared": (10, 167, dict(alpha=0.05, l1_ratio=1.0, active_set=True, max_iter=30)),
+    "k168_device_memory": (10, 168, dict(alpha=0.05, l1_ratio=1.0, active_set=True, max_iter=30)),
+    # group counts just below and above the SMs, a lone group (A's shape),
+    # K = 1,000 with its zero and NaN groups, and the largest K once
+    "k40_one_below_the_sms": ("sms-1", 40, dict(alpha=0.05, l1_ratio=1.0, active_set=True)),
+    "k40_one_above_the_sms": ("sms+1", 40, dict(alpha=0.05, l1_ratio=1.0, active_set=True)),
+    "k100_one_group": (1, 100, dict(alpha=0.05, l1_ratio=1.0, active_set=True), 200),
+    "k1000_edges": (3, 1_000, dict(alpha=0.05, l1_ratio=1.0, active_set=True, max_iter=5)),
+    "k8192_once": (1, 8_192, dict(alpha=0.05, l1_ratio=1.0, active_set=True, max_iter=2), 10),
 }
 
 
@@ -1450,9 +1497,13 @@ CYCLIC_WIDE_CASES = {
 @pytest.mark.parametrize("case", sorted(CYCLIC_WIDE_CASES))
 def test_cyclic_wide_kernel_matches_plain_on_card(cuda_device, case):
     # the wide cyclic kernel against its plain version: the same sweep
-    # counts and values (active-set freezing is a threshold on them)
-    G, K, kw = CYCLIC_WIDE_CASES[case]
-    XtX, Xty, n = _wide_cd_moments(2 * K + G, G, K, cuda_device)
+    # counts and values (active-set freezing is a threshold on them); the
+    # group without rows stays at zero after one sweep, the NaN group stops
+    # after one
+    G, K, kw, *rows = CYCLIC_WIDE_CASES[case]
+    G = _groups(G, cuda_device)
+    assert cd.wide_plan(G, K, False)[:3] == ("warp", 1, 1)
+    XtX, Xty, n = _wide_cd_moments(2 * K + G, G, K, cuda_device, *rows, edges=G > 2)
     args = (XtX, Xty, n, kw["alpha"], kw["l1_ratio"], kw.get("max_iter", 1000), 1e-5,
             kw.get("positive", False), kw.get("active_set", False))
     w_k, s_k = cd.launch_wide(*args, fista=False)
@@ -1461,8 +1512,9 @@ def test_cyclic_wide_kernel_matches_plain_on_card(cuda_device, case):
     w_p, s_p = cd._cyclic_wide_ref(*args)
     np.testing.assert_array_equal(s_k.cpu().numpy(), s_p.cpu().numpy())
     np.testing.assert_array_equal(w_k.cpu().numpy(), w_p.cpu().numpy())
-    assert float(w_k[0].abs().max()) == 0.0 and int(s_k[0]) == 1
-    assert bool(torch.isnan(w_k[1]).any()) and int(s_k[1]) == 1
+    if G > 2:
+        assert float(w_k[0].abs().max()) == 0.0 and int(s_k[0]) == 1
+        assert bool(torch.isnan(w_k[1]).any()) and int(s_k[1]) == 1
     if kw.get("active_set"):
         w_api, _ = cd.solve_elastic_net_cov(XtX, Xty, n, **kw)
         assert torch.equal(torch.nan_to_num(w_api), torch.nan_to_num(w_k))
@@ -1470,13 +1522,14 @@ def test_cyclic_wide_kernel_matches_plain_on_card(cuda_device, case):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("K,fista,want", [
-    (33, True, (True, 0)), (167, True, (True, 0)), (168, True, (False, 0)),
-    (5_811, True, (False, 0)), (5_812, True, (False, 5 * 5_812)),
-    (168, False, (True, 0)), (169, False, (False, 0)), (8_192, False, (False, 0)),
+    (33, True, (True, 0)), (161, True, (True, 0)), (162, True, (False, 0)),
+    (4_096, True, (False, 0)), (4_097, True, (False, 4 * 4_097)),
+    (167, False, (True, 0)), (168, False, (False, 0)), (4_096, False, (False, 0)),
+    (4_097, False, (False, 5 * 4_097 + 513)), (8_192, False, (False, 5 * 8_192 + 1_024)),
 ])
 def test_wide_cd_layout_by_k(cuda_device, K, fista, want):
     # XtX in shared memory while it fits beside the vectors; the vectors in
-    # a device-memory workspace only where they alone do not fit
+    # a device-memory workspace from K = 4,097 (the widest instantiation)
     assert cd.wide_layout(K, fista) == want
 
 
