@@ -1,0 +1,8 @@
+"""The share of its roofline that the kernels of ``rooflines/householder_wide.py``
+reach over the profiled stretch, in %."""
+
+from portbench.rooflines import share
+
+
+def read(ctx):
+    return share(ctx, "householder_wide")
